@@ -1,0 +1,54 @@
+"""Flow configurations the port serves.
+
+``FlowConfig`` and ``GLOW_SCANNED`` are the reference's
+(``repro/configs/flows.py``); the port keeps its own copy.  The other kinds
+of the reference are not ported yet, and ``build_flow`` names where each
+waits in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class FlowConfig:
+    name: str
+    kind: str  # realnvp | glow | glow_scanned | chint | hyperbolic
+    depth: int = 8
+    hidden: int = 64
+    n_scales: int = 3
+    k_steps: int = 8
+    grad_mode: str = "invertible"
+
+
+# the production path of the reference: scanned homogeneous flow-step stacks
+# through the fused flow-step kernel, 3 scales x 8 steps, hidden 64
+GLOW_SCANNED = FlowConfig(
+    name="glow-scanned", kind="glow_scanned", n_scales=3, k_steps=8, hidden=64,
+    grad_mode="coupled",
+)
+
+_NOT_PORTED = {
+    "glow": "ROADMAP.md queue 1, item 4 (core/glow.py::build_glow)",
+    "realnvp": "ROADMAP.md queue 1, item 8 (core/realnvp.py)",
+    "chint": "ROADMAP.md queue 1, item 8 (core/conditional.py::build_chint)",
+    "hyperbolic": "ROADMAP.md queue 1, item 8 (core/hyperbolic.py)",
+}
+
+
+def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, channels: int = 3,
+               generator: torch.Generator | None = None, device=None):
+    from repro_torch.core.glow_scan import build_glow_scanned
+
+    if cfg.kind == "glow_scanned":
+        return build_glow_scanned(
+            n_scales=cfg.n_scales, k_steps=cfg.k_steps, hidden=cfg.hidden,
+            grad_mode=grad_mode or cfg.grad_mode, channels=channels,
+            generator=generator, device=device,
+        )
+    if cfg.kind in _NOT_PORTED:
+        raise NotImplementedError(f"flow kind {cfg.kind!r} is not ported yet: {_NOT_PORTED[cfg.kind]}")
+    raise ValueError(cfg.kind)

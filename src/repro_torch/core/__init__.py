@@ -1,0 +1,18 @@
+from repro_torch.core.actnorm import ActNorm
+from repro_torch.core.chain import InvertibleChain, OnFirst, Pack, Split
+from repro_torch.core.conv1x1 import Conv1x1
+from repro_torch.core.distributions import (
+    derive_key,
+    flatten_state,
+    std_normal_logpdf,
+    std_normal_sample,
+)
+from repro_torch.core.glow_scan import GlowStepStack, build_glow_scanned
+from repro_torch.core.haar import HaarSqueeze, Squeeze
+from repro_torch.core.types import Invertible
+
+__all__ = [
+    "ActNorm", "Conv1x1", "GlowStepStack", "HaarSqueeze", "Invertible",
+    "InvertibleChain", "OnFirst", "Pack", "Split", "Squeeze", "build_glow_scanned",
+    "derive_key", "flatten_state", "std_normal_logpdf", "std_normal_sample",
+]

@@ -1,0 +1,92 @@
+"""GLOW invertible 1x1 convolution, LU-parameterised.
+
+``W = P @ L @ (U + diag(sign_s * exp(log_s)))`` with ``P`` a fixed
+permutation, ``L`` unit-lower-triangular and ``U`` strictly-upper-triangular.
+``log|det W| = sum(log_s)`` is free and the inverse is two triangular solves.
+
+The permutation is stored as ``inv_perm`` under the reference's convention:
+``W = (L @ U)[inv_perm]`` (a row permutation).  It and the diagonal signs are
+integer buffers, so optimizers never touch them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.core.types import Invertible, resolve_device
+
+
+def conv1x1_init(generator: torch.Generator, c: int) -> dict:
+    """LU parameters of a random rotation, on the CPU.
+
+    ``torch.linalg.lu`` gives ``Q = P @ L @ U``, so ``(L @ U) = Q[perm]`` with
+    ``perm[r]`` the row of the 1 in column ``r`` of ``P``; then
+    ``inv_perm = argsort(perm)`` and ``(L @ U)[inv_perm] = Q``, the reference's
+    convention (``lax.linalg.lu`` returns ``perm`` directly).
+    """
+    q, _ = torch.linalg.qr(torch.randn((c, c), generator=generator))
+    p, lower, upper = torch.linalg.lu(q)
+    perm = torch.argmax(p, dim=0)
+    s = torch.diagonal(upper)
+    return {
+        "inv_perm": torch.argsort(perm).to(torch.int32),
+        "l": torch.tril(lower, -1),
+        "u": torch.triu(upper, 1),
+        "sign_s": torch.sign(s).to(torch.int8),
+        "log_s": torch.log(torch.abs(s) + 1e-12),
+    }
+
+
+def lu_factors(lu):
+    """Full ``(L, U)`` from the LU parameters (one step's, unstacked)."""
+    c = lu["l"].shape[-1]
+    eye = torch.eye(c, dtype=lu["l"].dtype, device=lu["l"].device)
+    l_full = torch.tril(lu["l"], -1) + eye
+    u_full = torch.triu(lu["u"], 1) + torch.diag(
+        lu["sign_s"].to(lu["log_s"].dtype) * torch.exp(lu["log_s"])
+    )
+    return l_full, u_full
+
+
+def lu_weight(lu) -> torch.Tensor:
+    """``W = (L @ U)[inv_perm]``."""
+    l_full, u_full = lu_factors(lu)
+    return (l_full @ u_full)[lu["inv_perm"].long()]
+
+
+def lu_weight_inv(lu) -> torch.Tensor:
+    """``W^-1 = U^-1 L^-1 P^T``: with ``B = U^-1 L^-1``, ``W^-1 = B[:, inv_perm]``."""
+    l_full, u_full = lu_factors(lu)
+    eye = torch.eye(l_full.shape[0], dtype=l_full.dtype, device=l_full.device)
+    linv = torch.linalg.solve_triangular(l_full, eye, upper=False)
+    b = torch.linalg.solve_triangular(u_full, linv, upper=True)
+    return b[:, lu["inv_perm"].long()]
+
+
+class Conv1x1(Invertible):
+    def __init__(self, c: int, *, generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        p = conv1x1_init(gen, c)
+        self.register_buffer("inv_perm", p["inv_perm"].to(dev))
+        self.l = nn.Parameter(p["l"].to(dev))
+        self.u = nn.Parameter(p["u"].to(dev))
+        self.register_buffer("sign_s", p["sign_s"].to(dev))
+        self.log_s = nn.Parameter(p["log_s"].to(dev))
+
+    def _lu(self) -> dict:
+        return {"inv_perm": self.inv_perm, "l": self.l, "u": self.u,
+                "sign_s": self.sign_s, "log_s": self.log_s}
+
+    def forward(self, x, cond=None):
+        y = x @ lu_weight(self._lu()).to(x.dtype)
+        spatial = math.prod(x.shape[1:-1]) if x.ndim > 2 else 1
+        ld = spatial * torch.sum(self.log_s).float()
+        return y, ld.expand(x.shape[0])
+
+    def inverse(self, y, cond=None):
+        return y @ lu_weight_inv(self._lu()).to(y.dtype)

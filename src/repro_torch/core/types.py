@@ -1,0 +1,89 @@
+"""The ``Invertible`` protocol, parameter trees and device resolution.
+
+A layer is invertible by design: ``forward(x, cond=None)`` returns the output
+together with the per-sample log-determinant of its Jacobian (shape ``(B,)``,
+float32), and ``inverse(y, cond=None)`` undoes it.  ``x``/``y`` are a tensor
+or, for multiscale networks, a tuple of tensors in the reference's leaf order.
+Layers that do not use ``cond`` accept and ignore it.
+
+Parameters live on the modules (``nn.Parameter``); integer leaves of the
+reference (permutations, signs) are registered buffers, which optimizers never
+see.  ``ParamTree`` turns a nested dict of tensors (the reference's parameter
+pytree) into modules, so ``state_dict()`` keys read like its tree paths.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+from torch import nn
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Without a card and without an explicit device this raises;
+    the port never carries on quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+class Invertible(nn.Module):
+    """Base class for invertible layers and networks."""
+
+    def forward(self, x, cond=None):
+        raise NotImplementedError
+
+    def inverse(self, y, cond=None):
+        raise NotImplementedError
+
+
+def zero_logdet(x) -> torch.Tensor:
+    lead = x[0] if isinstance(x, tuple) else x
+    return torch.zeros(lead.shape[0], dtype=torch.float32, device=lead.device)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as modules: dicts become child ``ParamTree``s,
+    floating tensors parameters, integer tensors buffers.  Children are read
+    by attribute or by ``tree["key"]``."""
+
+    def __init__(self, tree: Mapping[str, object]):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                self.add_module(key, ParamTree(value))
+            elif value.is_floating_point():
+                self.register_parameter(key, nn.Parameter(value))
+            else:
+                self.register_buffer(key, value)
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def tree_index(tree, i: int) -> dict:
+    """Slice ``i`` of every leaf of a stacked ``ParamTree`` (the counterpart
+    of the reference's per-step scan slice), as a nested dict."""
+    out = {name: tree_index(child, i) for name, child in tree.named_children()}
+    for name, p in tree.named_parameters(recurse=False):
+        out[name] = p[i]
+    for name, b in tree.named_buffers(recurse=False):
+        out[name] = b[i]
+    return out
+
+
+def stack_trees(trees: list[dict]) -> dict:
+    """Stack a list of identically-structured nested dicts leaf-wise."""
+    first = trees[0]
+    return {
+        k: stack_trees([t[k] for t in trees])
+        if isinstance(first[k], Mapping)
+        else torch.stack([t[k] for t in trees])
+        for k in first
+    }

@@ -1,0 +1,243 @@
+// Fused GLOW flow step for Hopper (sm_90a): actnorm -> 1x1 conv -> affine
+// coupling, forward and inverse, on the (B, M, C) view.
+//
+// flowstep_fwd_kernel replaces the Pallas kernel
+//   src/repro/kernels/flowstep/flowstep.py::flowstep_fwd (_fwd_kernel)
+// flowstep_inv_kernel replaces
+//   src/repro/kernels/flowstep/flowstep.py::flowstep_inv (_inv_kernel)
+//
+// What bounds them: memory.  A step reads x (or y), raw and t and writes y
+// (or x): with ca = C/2 that is 3*B*M*C elements, 12*B*M*C bytes in f32
+// (about 18.9 MB at (8, 16384, 12), about 5.6 us at 3.35 TB/s), against
+// 2*C flops per element for the C x C product, about 0.6 us at 67 TFLOP/s
+// f32.  So the design moves each byte once: a block stages its tile of rows
+// in shared memory, applies the elementwise part there, and does the C x C
+// product out of shared memory on the CUDA cores with f32 accumulation (at
+// C <= 48 no tensor core is needed).  W (or W^-1) sits in shared memory for
+// the block's life; at C <= 48 in f32 that is at most 9 KB.  At the two
+// smaller scales of the served model, (8, 4096, 24) and (8, 1024, 48), a step
+// moves 9.4 MB and 4.7 MB, 2.8 us and 1.4 us at full bandwidth, so launch
+// latency (a few us) will likely dominate there.
+//
+// Grid: (tiles of block_m rows, B); the kernel masks the ragged last tile
+// itself, so any M works.  raw and t may be strided views (the two halves of
+// the conditioner output): element (b, m, j) sits at b*h_sb + m*h_sm + j.
+//
+// The coupling log-determinant ld[b] = sum over (m, j < ca) of log_s is a sum
+// across tiles.  The TPU kernel adds into a revisited output block, which is
+// right only because the TPU grid runs in order.  Here each block writes its
+// tile's partial sum, reduced in a fixed order, into partial[b, tile], and a
+// second small kernel sums each row of partial in a fixed order.  No atomics:
+// repeated runs are bitwise equal.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float load_f(const float* p, long long i) { return p[i]; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store_f(float* p, long long i, float v) { p[i] = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, long long i, float v) {
+  p[i] = __float2bfloat16(v);
+}
+
+// Sum of v over the block in a fixed order; the result is valid in thread 0.
+__device__ float block_sum(float v, float* warp_buf) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_buf[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kWarps; ++w) s += warp_buf[w];
+  return s;
+}
+
+// Shared memory: W (C*C) | exp(an_log_s) (C) | an_b (C) | tile (block_m*C) | warp sums
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flowstep_fwd_kernel(const T* __restrict__ x, const float* __restrict__ an_ls,
+                    const float* __restrict__ an_b, const float* __restrict__ w,
+                    const T* __restrict__ raw, const T* __restrict__ t,
+                    long long h_sb, long long h_sm, T* __restrict__ y,
+                    float* __restrict__ partial, int M, int C, int ca, int block_m,
+                    float clamp) {
+  extern __shared__ float smem[];
+  float* ws = smem;
+  float* es = ws + C * C;
+  float* bs = es + C;
+  float* x1s = bs + C;
+  float* warp_buf = x1s + block_m * C;
+
+  const int b = blockIdx.y;
+  const int tile = blockIdx.x;
+  const long long m0 = (long long)tile * block_m;
+  const int rows = min((long long)block_m, (long long)M - m0);
+  const int n = rows * C;
+  const long long base = ((long long)b * M + m0) * C;
+
+  for (int k = threadIdx.x; k < C * C; k += kThreads) ws[k] = w[k];
+  for (int k = threadIdx.x; k < C; k += kThreads) {
+    es[k] = expf(an_ls[k]);
+    bs[k] = an_b[k];
+  }
+  __syncthreads();
+  // actnorm, tile rows contiguous in memory: coalesced
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int c = k % C;
+    x1s[k] = load_f(x, base + k) * es[c] + bs[c];
+  }
+  __syncthreads();
+
+  float ld = 0.f;
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int r = k / C;
+    const int j = k - r * C;
+    const float* xr = x1s + r * C;
+    float acc = 0.f;
+    for (int i = 0; i < C; ++i) acc = fmaf(xr[i], ws[i * C + j], acc);
+    if (j < ca) {
+      const long long hi = (long long)b * h_sb + (m0 + r) * h_sm + j;
+      const float ls = clamp * tanhf(load_f(raw, hi) / clamp);
+      acc = acc * expf(ls) + load_f(t, hi);
+      ld += ls;
+    }
+    store_f(y, base + k, acc);
+  }
+  const float s = block_sum(ld, warp_buf);
+  if (threadIdx.x == 0) partial[(long long)b * gridDim.x + tile] = s;
+}
+
+// ld[b] = sum_tile partial[b, tile], one warp per batch row, fixed order.
+__global__ void ld_reduce_kernel(const float* __restrict__ partial, float* __restrict__ ld,
+                                 int n_tiles) {
+  const int b = blockIdx.x;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n_tiles; i += 32) s += partial[(long long)b * n_tiles + i];
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+  if (threadIdx.x == 0) ld[b] = s;
+}
+
+// Shared memory: W^-1 (C*C) | exp(-an_log_s) (C) | an_b (C) | tile (block_m*C)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flowstep_inv_kernel(const T* __restrict__ y, const float* __restrict__ an_ls,
+                    const float* __restrict__ an_b, const float* __restrict__ w_inv,
+                    const T* __restrict__ raw, const T* __restrict__ t,
+                    long long h_sb, long long h_sm, T* __restrict__ x, int M, int C,
+                    int ca, int block_m, float clamp) {
+  extern __shared__ float smem[];
+  float* ws = smem;
+  float* es = ws + C * C;
+  float* bs = es + C;
+  float* x2s = bs + C;
+
+  const int b = blockIdx.y;
+  const long long m0 = (long long)blockIdx.x * block_m;
+  const int rows = min((long long)block_m, (long long)M - m0);
+  const int n = rows * C;
+  const long long base = ((long long)b * M + m0) * C;
+
+  for (int k = threadIdx.x; k < C * C; k += kThreads) ws[k] = w_inv[k];
+  for (int k = threadIdx.x; k < C; k += kThreads) {
+    es[k] = expf(-an_ls[k]);
+    bs[k] = an_b[k];
+  }
+  // uncouple the first ca channels; the rest pass through
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int r = k / C;
+    const int j = k - r * C;
+    float v = load_f(y, base + k);
+    if (j < ca) {
+      const long long hi = (long long)b * h_sb + (m0 + r) * h_sm + j;
+      const float ls = clamp * tanhf(load_f(raw, hi) / clamp);
+      v = (v - load_f(t, hi)) * expf(-ls);
+    }
+    x2s[k] = v;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const int r = k / C;
+    const int j = k - r * C;
+    const float* xr = x2s + r * C;
+    float acc = 0.f;
+    for (int i = 0; i < C; ++i) acc = fmaf(xr[i], ws[i * C + j], acc);
+    store_f(x, base + k, (acc - bs[j]) * es[j]);
+  }
+}
+
+// kept equal to smem_bytes() in kernels/flowstep/flowstep.py, which checks it
+size_t smem_bytes(int C, int block_m) {
+  return sizeof(float) * ((size_t)C * C + 2 * C + (size_t)block_m * C + kWarps);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (x, raw, t, y).  an_ls, an_b, w: float32.
+// partial: (B, ceil(M / block_m)) float32 scratch; ld: (B,) float32.
+// device: the CUDA device of every pointer (this library's runtime keeps its
+// own current device); stream: a cudaStream_t on that device.
+// Returns the cudaError_t of the launches (0 on success).
+int flowstep_fwd(int dtype, const void* x, const float* an_ls, const float* an_b,
+                 const float* w, const void* raw, const void* t, long long h_sb,
+                 long long h_sm, void* y, float* partial, float* ld, int B, int M,
+                 int C, int ca, int block_m, float clamp, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (M + block_m - 1) / block_m;
+  const dim3 grid(n_tiles, B);
+  const size_t smem = smem_bytes(C, block_m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    flowstep_fwd_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(x), an_ls, an_b, w, static_cast<const float*>(raw),
+        static_cast<const float*>(t), h_sb, h_sm, static_cast<float*>(y), partial, M, C,
+        ca, block_m, clamp);
+  } else if (dtype == 1) {
+    flowstep_fwd_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), an_ls, an_b, w,
+        static_cast<const __nv_bfloat16*>(raw), static_cast<const __nv_bfloat16*>(t), h_sb,
+        h_sm, static_cast<__nv_bfloat16*>(y), partial, M, C, ca, block_m, clamp);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ld_reduce_kernel<<<B, 32, 0, s>>>(partial, ld, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int flowstep_inv(int dtype, const void* y, const float* an_ls, const float* an_b,
+                 const float* w_inv, const void* raw, const void* t, long long h_sb,
+                 long long h_sm, void* x, int B, int M, int C, int ca, int block_m,
+                 float clamp, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + block_m - 1) / block_m, B);
+  const size_t smem = smem_bytes(C, block_m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    flowstep_inv_kernel<float><<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(y), an_ls, an_b, w_inv, static_cast<const float*>(raw),
+        static_cast<const float*>(t), h_sb, h_sm, static_cast<float*>(x), M, C, ca,
+        block_m, clamp);
+  } else if (dtype == 1) {
+    flowstep_inv_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(y), an_ls, an_b, w_inv,
+        static_cast<const __nv_bfloat16*>(raw), static_cast<const __nv_bfloat16*>(t), h_sb,
+        h_sm, static_cast<__nv_bfloat16*>(x), M, C, ca, block_m, clamp);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,116 @@
+"""Shared kernel utilities: the (B, M, C) view, dispatch by tensor device, and
+the build of the hand-written CUDA kernels.
+
+Dispatch has one rule and no switch: a wrapper given CPU tensors runs its
+kernel's plain PyTorch version; given CUDA tensors it launches the kernel, or
+raises.  Nothing falls back from the card to the plain version.
+
+Build: each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, at first use, into
+``build/kernels/`` at the root of the checkout, and loaded with ``ctypes``.
+The library's name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: kernel library name -> its source under ``csrc/``
+SOURCES = {"flowstep": "flowstep.cu"}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def spatial_size(shape) -> int:
+    """Flattened spatial extent M of a (B, ..., C) shape."""
+    m = 1
+    for d in shape[1:-1]:
+        m *= d
+    return max(m, 1)
+
+
+def flatten_bmc(v: torch.Tensor) -> torch.Tensor:
+    """Collapse a (B, ..., C) tensor to the kernels' (B, M, C) view."""
+    return v.reshape(v.shape[0], spatial_size(v.shape), v.shape[-1])
+
+
+def use_plain(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (run the plain version), False
+    when every tensor lies on one CUDA device (launch the kernel); raises on
+    anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel inputs on several devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named kernel libraries (all by default) that are not built
+    yet, one ``nvcc`` process per source, all started together.  Returns each
+    library's path; ``nvcc``'s report (registers, shared memory, spills) is
+    kept beside it as ``<library>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _lib_path(name) for name in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        paths[name].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(str(build([name])[name]))
+    return _libs[name]

@@ -1,0 +1,36 @@
+"""Plain PyTorch versions of the fused flow step (actnorm -> conv1x1 ->
+coupling).  They are the CPU path of ``ops.py``, the oracle the CUDA kernels
+are held against on the card, and the port of the reference's
+``kernels/flowstep/ref.py`` (held to <=1e-4 in f32).
+
+Layout: the (B, M, C) view; ``ca = raw.shape[-1]`` channels are transformed
+by the coupling given the conditioner outputs ``raw``/``t`` (B, M, ca).  The
+emitted logdet is the coupling's only; the actnorm and 1x1-conv logdets are
+per-batch constants the caller adds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def flowstep_fwd_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0):
+    """(y, ld_coupling): actnorm -> x @ W -> affine-couple the first half."""
+    ca = raw.shape[-1]
+    x1 = x.float() * torch.exp(an_log_s.float()) + an_b.float()
+    x2 = x1 @ w.float()
+    log_s = clamp * torch.tanh(raw.float() / clamp)
+    ya = x2[..., :ca] * torch.exp(log_s) + t.float()
+    y = torch.cat([ya, x2[..., ca:]], dim=-1)
+    return y.to(x.dtype), torch.sum(log_s, dim=(1, 2))
+
+
+def flowstep_inv_ref(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
+    """Exact inverse of :func:`flowstep_fwd_ref` given ``W^-1``."""
+    ca = raw.shape[-1]
+    log_s = clamp * torch.tanh(raw.float() / clamp)
+    xa = (y[..., :ca].float() - t.float()) * torch.exp(-log_s)
+    x2 = torch.cat([xa, y[..., ca:].float()], dim=-1)
+    x1 = x2 @ w_inv.float()
+    x = (x1 - an_b.float()) * torch.exp(-an_log_s.float())
+    return x.to(y.dtype)

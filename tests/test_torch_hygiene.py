@@ -1,0 +1,56 @@
+"""The port stands alone: it never loads JAX, imports nothing of the JAX
+package, and refuses to run quietly on the CPU when no device was named."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+torch.set_num_threads(2)
+
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_runs_without_loading_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.configs.flows import GLOW_SCANNED, build_flow\n"
+        "from repro_torch.serve.engine import FlowServeEngine\n"
+        "flow = build_flow(GLOW_SCANNED, device='cpu')\n"
+        "lp = FlowServeEngine(flow, device='cpu').log_prob(torch.randn(1, 8, 8, 3))\n"
+        "assert lp.shape == (1,) and bool(torch.isfinite(lp).all())\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+repro(\.|\s|$)", text, re.M)
+
+
+def test_engine_without_device_raises_on_a_host_without_a_card():
+    from repro_torch.configs.flows import GLOW_SCANNED, build_flow
+    from repro_torch.serve.engine import FlowServeEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is cuda")
+    flow = build_flow(GLOW_SCANNED, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlowServeEngine(flow)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flow(GLOW_SCANNED)
