@@ -11,6 +11,11 @@
 * integer leaves land in integer buffers and keep their dtype;
 * it raises on a leaf left unmapped on either side, on a shape mismatch and on
   a float/integer mismatch.
+
+``tree_to_numpy(module, like=tree, values=None)`` is the way back: the
+module's leaves (or ``values``, such as the ``{name: grad}`` dict of
+``core/autodiff.py::value_and_grad_nll``) in the layout of the reference's
+tree ``like``, every leaf a numpy array.
 """
 
 from __future__ import annotations
@@ -23,27 +28,50 @@ import torch
 from repro_torch.core.chain import OnFirst
 
 
-def tree_paths(module, tree) -> dict[str, np.ndarray]:
-    """``{state_dict key: leaf}`` for every leaf of ``tree`` laid over ``module``."""
-    out: dict[str, np.ndarray] = {}
-
+def _map_tree(module, tree, fn):
+    """``tree`` with each leaf replaced by ``fn(state_dict key, leaf)``."""
     def walk(mod, sub, prefix):
         while isinstance(mod, OnFirst):
             mod, prefix = mod.layer, prefix + "layer."
         if isinstance(sub, (tuple, list)):
-            for i, leaf in enumerate(sub):
-                walk(mod.layers[i], leaf, f"{prefix}layers.{i}.")
-        elif isinstance(sub, Mapping):
+            return type(sub)(walk(mod.layers[i], leaf, f"{prefix}layers.{i}.")
+                             for i, leaf in enumerate(sub))
+        if isinstance(sub, Mapping):
+            out = {}
             for key, leaf in sub.items():
                 child = getattr(mod, key, None) if isinstance(leaf, Mapping) else mod
                 if child is None:
                     raise KeyError(f"no submodule {prefix}{key} for the tree's {key!r}")
-                walk(child, leaf, f"{prefix}{key}." if isinstance(leaf, Mapping) else prefix + key)
-        else:
-            out[prefix] = np.asarray(sub)
+                out[key] = walk(child, leaf,
+                                f"{prefix}{key}." if isinstance(leaf, Mapping) else prefix + key)
+            return out
+        return fn(prefix, sub)
 
-    walk(module, tree, "")
+    return walk(module, tree, "")
+
+
+def tree_paths(module, tree) -> dict[str, np.ndarray]:
+    """``{state_dict key: leaf}`` for every leaf of ``tree`` laid over ``module``."""
+    out: dict[str, np.ndarray] = {}
+    _map_tree(module, tree, lambda key, leaf: out.__setitem__(key, np.asarray(leaf)))
     return out
+
+
+def tree_to_numpy(module: torch.nn.Module, like, values=None):
+    """``module``'s leaves, or ``values[key]`` for each state-dict key, as a
+    tree shaped like the reference's ``like``, with numpy leaves.  Keys that
+    ``values`` lacks (integer buffers have no gradient) come back as zeros of
+    the leaf's shape and dtype in ``like``."""
+    state = module.state_dict(keep_vars=True) if values is None else values
+
+    def leaf(key, ref):
+        v = state.get(key)
+        if v is None:
+            ref = np.asarray(ref)
+            return np.zeros(ref.shape, ref.dtype)
+        return v.detach().cpu().numpy()
+
+    return _map_tree(module, like, leaf)
 
 
 def params_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:

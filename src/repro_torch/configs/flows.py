@@ -39,14 +39,14 @@ _NOT_PORTED = {
 }
 
 
-def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, channels: int = 3,
-               generator: torch.Generator | None = None, device=None):
+def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: str = "auto",
+               channels: int = 3, generator: torch.Generator | None = None, device=None):
     from repro_torch.core.glow_scan import build_glow_scanned
 
     if cfg.kind == "glow_scanned":
         return build_glow_scanned(
             n_scales=cfg.n_scales, k_steps=cfg.k_steps, hidden=cfg.hidden,
-            grad_mode=grad_mode or cfg.grad_mode, channels=channels,
+            grad_mode=grad_mode or cfg.grad_mode, coupled_bwd=coupled_bwd, channels=channels,
             generator=generator, device=device,
         )
     if cfg.kind in _NOT_PORTED:

@@ -1,46 +1,62 @@
-"""Containers composing ``Invertible`` layers.
+"""Containers composing ``Invertible`` layers, with memory-frugal gradients.
 
-``InvertibleChain`` is itself an ``Invertible``, so chains nest.  Forward and
-inverse are the plain composition, which is what every ``grad_mode`` of the
-reference computes going forward; the memory-frugal gradient engines
-(``invertible``, ``coupled``) come with the training slice.
+``InvertibleChain`` is itself an ``Invertible``, so chains nest; its forward
+goes through ``core/autodiff.py::make_chain_apply`` for its ``grad_mode``.
+The ``fused_bwd`` hooks here serve the ``coupled`` engine: a nested chain
+reuses :func:`chain_backward`, ``OnFirst`` lifts its layer's hook onto the
+tuple state, and ``Split``/``Pack`` reshuffle the cotangents as they
+reshuffle the state.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
 from torch import nn
 
+from repro_torch.core.autodiff import GRAD_MODES, chain_backward, make_chain_apply
 from repro_torch.core.types import Invertible, zero_logdet
-
-GRAD_MODES = ("invertible", "coupled", "autodiff")
 
 
 class InvertibleChain(Invertible):
-    def __init__(self, layers: Sequence[Invertible], grad_mode: str = "invertible"):
+    """``grad_mode`` is the engine asked for; ``engine`` the one that runs,
+    when it differs (``"autodiff"`` for a ``coupled`` flow whose backward
+    strategy is ``"stored"``, see ``core/glow_scan.py``)."""
+
+    def __init__(self, layers: Sequence[Invertible], grad_mode: str = "invertible",
+                 engine: str | None = None):
         super().__init__()
-        if grad_mode not in GRAD_MODES:
-            raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {grad_mode}")
+        for mode in (grad_mode, engine or grad_mode):
+            if mode not in GRAD_MODES:
+                raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {mode}")
         self.layers = nn.ModuleList(layers)
         self.grad_mode = grad_mode
+        self.engine = engine or grad_mode
 
     def forward(self, x, cond=None):
-        logdet = zero_logdet(x)
-        for layer in self.layers:
-            x, ld = layer(x, cond)
-            logdet = logdet + ld.to(logdet.dtype)
-        return x, logdet
+        return make_chain_apply(self.layers, self.engine)(x, cond)
 
     def inverse(self, y, cond=None):
         for layer in reversed(self.layers):
             y = layer.inverse(y, cond)
         return y
 
+    def fused_bwd(self, y, gy, gld, cond=None):
+        """A nested chain inside a coupled chain: the same reverse walk, so
+        every inner layer's own hook engages."""
+        x, gx, gparams, gcond = chain_backward(self.layers, y, gy, gld, cond, use_fused=True)
+        return x, gx, {f"layers.{k}.{n}": g for k, gp in enumerate(gparams)
+                       for n, g in gp.items()}, gcond
+
 
 class OnFirst(Invertible):
-    """Lift an array-level layer to act on element 0 of a tuple state."""
+    """Lift an array-level layer to act on element 0 of a tuple state.  It
+    offers its layer's ``fused_bwd`` / ``invertible_bwd`` hooks, and only
+    those its layer has."""
+
+    _HOOKS = ("fused_bwd", "invertible_bwd")
 
     def __init__(self, layer: Invertible):
         super().__init__()
@@ -52,6 +68,16 @@ class OnFirst(Invertible):
 
     def inverse(self, state, cond=None):
         return (self.layer.inverse(state[0], cond),) + tuple(state[1:])
+
+    def __getattr__(self, name):
+        if name in OnFirst._HOOKS and hasattr(self._modules.get("layer"), name):
+            return partial(self._lifted, name)
+        return super().__getattr__(name)
+
+    def _lifted(self, hook, state, gstate, gld, cond=None):
+        x0, gx0, gp, gc = getattr(self.layer, hook)(state[0], gstate[0], gld, cond)
+        return ((x0,) + tuple(state[1:]), (gx0,) + tuple(gstate[1:]),
+                {f"layer.{n}": g for n, g in gp.items()}, gc)
 
 
 class Split(Invertible):
@@ -67,6 +93,12 @@ class Split(Invertible):
         x = torch.cat([state[0], state[-1]], dim=-1)
         return (x,) + tuple(state[1:-1])
 
+    def fused_bwd(self, state, gstate, gld, cond=None):
+        """A reshuffle of the state, so the backward reshuffles the cotangents."""
+        x = self.inverse(state, cond)
+        gx = torch.cat([gstate[0].to(x[0].dtype), gstate[-1].to(x[0].dtype)], dim=-1)
+        return x, (gx,) + tuple(gstate[1:-1]), {}, None
+
 
 class Pack(Invertible):
     """Wrap an array into the 1-tuple state used by multiscale chains."""
@@ -77,3 +109,7 @@ class Pack(Invertible):
     def inverse(self, state, cond=None):
         (x,) = state
         return x
+
+    def fused_bwd(self, state, gstate, gld, cond=None):
+        (x,), (gx,) = state, gstate
+        return x, gx, {}, None

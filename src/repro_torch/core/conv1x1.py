@@ -51,19 +51,39 @@ def lu_factors(lu):
     return l_full, u_full
 
 
-def lu_weight(lu) -> torch.Tensor:
-    """``W = (L @ U)[inv_perm]``."""
-    l_full, u_full = lu_factors(lu)
+def lu_weight(lu, factors=None) -> torch.Tensor:
+    """``W = (L @ U)[inv_perm]``; ``factors`` is ``lu_factors(lu)`` when the
+    caller has it already."""
+    l_full, u_full = factors if factors is not None else lu_factors(lu)
     return (l_full @ u_full)[lu["inv_perm"].long()]
 
 
-def lu_weight_inv(lu) -> torch.Tensor:
+def lu_weight_inv(lu, factors=None) -> torch.Tensor:
     """``W^-1 = U^-1 L^-1 P^T``: with ``B = U^-1 L^-1``, ``W^-1 = B[:, inv_perm]``."""
-    l_full, u_full = lu_factors(lu)
+    l_full, u_full = factors if factors is not None else lu_factors(lu)
     eye = torch.eye(l_full.shape[0], dtype=l_full.dtype, device=l_full.device)
     linv = torch.linalg.solve_triangular(l_full, eye, upper=False)
     b = torch.linalg.solve_triangular(u_full, linv, upper=True)
     return b[:, lu["inv_perm"].long()]
+
+
+def lu_pullback(lu, factors, gw) -> dict:
+    """Map a cotangent ``gW`` of ``W = (L @ U)[inv_perm]`` onto the LU
+    parameters: ``gA[inv_perm] = gW`` for ``A = L @ U``, then
+    ``gL = gA @ U^T`` and ``gU = L^T @ gA`` masked to their free triangles,
+    and ``g_log_s = diag(gU) * sign_s * exp(log_s)``.  Returns ``{"l", "u",
+    "log_s"}`` (the logdet's own cotangent on ``log_s`` is the caller's)."""
+    l_full, u_full = factors
+    ga = torch.zeros_like(l_full)
+    ga[lu["inv_perm"].long()] = gw.to(l_full.dtype)
+    gl_full = ga @ u_full.T
+    gu_full = l_full.T @ ga
+    sign = lu["sign_s"].to(lu["log_s"].dtype)
+    return {
+        "l": torch.tril(gl_full, -1),
+        "u": torch.triu(gu_full, 1),
+        "log_s": torch.diagonal(gu_full) * sign * torch.exp(lu["log_s"]),
+    }
 
 
 class Conv1x1(Invertible):

@@ -4,9 +4,16 @@
 steps (actnorm -> LU-parameterised 1x1 conv -> affine coupling with a
 ``CouplingCNN`` conditioner) stacked along a leading ``k`` axis, as the
 reference does for ``lax.scan``.  PyTorch runs eagerly, so the scan is a
-Python loop over ``k``.  Each step is one fused flow-step launch given the
-conditioner's raw/t (``kernels/flowstep``); the conditioner's convolutions
-stay with cuDNN.
+Python loop over ``k`` (``core/autodiff.py::make_scan_apply``).  Each step is
+one fused flow-step launch given the conditioner's raw/t
+(``kernels/flowstep``); the conditioner's convolutions stay with cuDNN.
+
+The ``grad_mode="coupled"`` backward of a step (``_step_bwd``) is the two
+backward kernels on either side of the conditioner's VJP: ``coupling_bwd``
+rebuilds the transformed half and emits graw/gt, autograd maps those through
+the conditioner, and ``spine_bwd`` walks back through the 1x1 conv and
+actnorm.  The stack offers the whole reverse walk as its ``fused_bwd`` hook,
+so it keeps that backward inside a coupled multiscale chain.
 """
 
 from __future__ import annotations
@@ -15,8 +22,19 @@ import math
 
 import torch
 
+from repro_torch.core.autodiff import (
+    invertible_step_bwd,
+    make_scan_apply,
+    scan_backward,
+)
 from repro_torch.core.chain import InvertibleChain, OnFirst, Pack, Split
-from repro_torch.core.conv1x1 import conv1x1_init, lu_weight, lu_weight_inv
+from repro_torch.core.conv1x1 import (
+    conv1x1_init,
+    lu_factors,
+    lu_pullback,
+    lu_weight,
+    lu_weight_inv,
+)
 from repro_torch.core.haar import HaarSqueeze, Squeeze
 from repro_torch.core.types import (
     Invertible,
@@ -24,10 +42,38 @@ from repro_torch.core.types import (
     resolve_device,
     stack_trees,
     tree_index,
+    tree_leaves,
 )
 from repro_torch.kernels.common import flatten_bmc
-from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
+from repro_torch.kernels.flowstep.ops import (
+    fused_coupling_half_bwd,
+    fused_flowstep_fwd,
+    fused_flowstep_inv,
+    fused_spine_bwd,
+)
 from repro_torch.nn.nets import coupling_cnn_apply, coupling_cnn_init
+
+COUPLED_BWD = ("auto", "reversible", "stored")
+
+
+def resolve_coupled_bwd(choice: str = "auto", device=None) -> str:
+    """The backward strategy of ``grad_mode="coupled"`` for a flow on
+    ``device``:
+
+    * ``"reversible"`` - output-only residuals and the fused reverse walk:
+      activation memory flat in depth, the choice where device memory binds
+      (a CUDA card);
+    * ``"stored"`` - the same forward differentiated by plain autograd,
+      which keeps the activations and skips the backward's extra conditioner
+      evaluation: the choice on the CPU, where memory is ample.
+
+    ``"auto"`` picks by the device's type, the reference's per-backend rule.
+    """
+    if choice not in COUPLED_BWD:
+        raise ValueError(f"coupled_bwd must be one of {COUPLED_BWD}, got {choice}")
+    if choice != "auto":
+        return choice
+    return "reversible" if torch.device(device).type == "cuda" else "stored"
 
 
 class GlowStepStack(Invertible):
@@ -35,9 +81,15 @@ class GlowStepStack(Invertible):
     in ``OnFirst`` for the multiscale tuple state).  Parameters: ``an``
     (log_s, b: (k, C)), ``lu`` (l, u: (k, C, C); log_s: (k, C); integer
     buffers inv_perm, sign_s: (k, C)) and ``net`` (the conditioner's conv1-3,
-    each w: (k, kh, kw, c_in, c_out), b: (k, c_out))."""
+    each w: (k, kh, kw, c_in, c_out), b: (k, c_out)).
 
-    def __init__(self, c: int, k_steps: int, hidden: int = 64, clamp: float = 2.0, *,
+    ``grad_mode`` picks the engine of :meth:`forward`; with ``"coupled"``,
+    ``coupled_bwd`` (:func:`resolve_coupled_bwd`, on the stack's device)
+    picks the fused reverse walk or plain autograd.  The ``fused_bwd`` hook,
+    which an outer coupled chain takes, is the fused walk in every mode."""
+
+    def __init__(self, c: int, k_steps: int, hidden: int = 64, clamp: float = 2.0,
+                 grad_mode: str = "invertible", coupled_bwd: str = "auto", *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         ca = c // 2
@@ -47,6 +99,9 @@ class GlowStepStack(Invertible):
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.k_steps = k_steps
         self.clamp = clamp
+        self.grad_mode = grad_mode
+        self.coupled_bwd = resolve_coupled_bwd(coupled_bwd, dev) if grad_mode == "coupled" else None
+        self.engine = "autodiff" if self.coupled_bwd == "stored" else grad_mode
         steps = [
             {
                 "an": {"log_s": torch.zeros(c), "b": torch.zeros(c)},
@@ -61,55 +116,113 @@ class GlowStepStack(Invertible):
         self.net = ParamTree(stacked["net"])
         self.to(dev)
 
-    # -- per-step pieces ----------------------------------------------------
+    # -- per-step pieces (p: one step's parameters, as tree_index gives) ----
 
-    def _w(self, i: int) -> torch.Tensor:
-        return lu_weight(tree_index(self.lu, i)).float()
+    @staticmethod
+    def _spatial(x) -> int:
+        return math.prod(x.shape[1:-1]) if x.ndim > 2 else 1
 
-    def _w_inv(self, i: int) -> torch.Tensor:
-        return lu_weight_inv(tree_index(self.lu, i)).float()
-
-    def _ld_const(self, i: int, x) -> torch.Tensor:
+    def _ld_const(self, p, x) -> torch.Tensor:
         """Per-batch-constant logdet: actnorm + conv1x1 (spatial * sum log_s)."""
-        spatial = math.prod(x.shape[1:-1]) if x.ndim > 2 else 1
-        return spatial * (torch.sum(self.an.log_s[i]) + torch.sum(self.lu.log_s[i])).float()
+        return self._spatial(x) * (torch.sum(p["an"]["log_s"]) + torch.sum(p["lu"]["log_s"])).float()
 
-    def _step_fwd(self, i: int, x, cond):
+    def _step_fwd(self, p, x, cond):
         ca = x.shape[-1] // 2
-        an_ls, an_b = self.an.log_s[i], self.an.b[i]
-        w = self._w(i)
+        an_ls, an_b = p["an"]["log_s"], p["an"]["b"]
+        w = lu_weight(p["lu"]).float()
         # the conditioner input is the untransformed half after actnorm and
         # the 1x1 conv: a half-width product outside the kernel
         xb = (x.float() * torch.exp(an_ls) + an_b) @ w[:, ca:]
-        h = coupling_cnn_apply(tree_index(self.net, i), xb.to(x.dtype), cond)
+        h = coupling_cnn_apply(p["net"], xb.to(x.dtype), cond)
         y, ld_c = fused_flowstep_fwd(
             flatten_bmc(x.contiguous()), an_ls, an_b, w,
             flatten_bmc(h[..., :ca]), flatten_bmc(h[..., ca:]), clamp=self.clamp,
         )
-        return y.reshape(x.shape), ld_c + self._ld_const(i, x)
+        return y.reshape(x.shape), ld_c + self._ld_const(p, x)
 
-    def _step_inv(self, i: int, y, cond):
+    def _step_inv(self, p, y, cond):
         ca = y.shape[-1] // 2
-        h = coupling_cnn_apply(tree_index(self.net, i), y[..., ca:], cond)
+        h = coupling_cnn_apply(p["net"], y[..., ca:], cond)
         x = fused_flowstep_inv(
-            flatten_bmc(y.contiguous()), self.an.log_s[i], self.an.b[i], self._w_inv(i),
+            flatten_bmc(y.contiguous()), p["an"]["log_s"], p["an"]["b"],
+            lu_weight_inv(p["lu"]).float(),
             flatten_bmc(h[..., :ca]), flatten_bmc(h[..., ca:]), clamp=self.clamp,
         )
         return x.reshape(y.shape)
 
+    def _step_bwd(self, i, y, gy, gld, cond):
+        """The fused reversible backward of step ``i`` from its output side:
+        ``coupling_bwd``, the conditioner's VJP, ``spine_bwd``.  Returns
+        ``(x, gx, {name: grad of step i's slice}, gcond)``."""
+        ca = y.shape[-1] // 2
+        y, gy = y.contiguous(), gy.contiguous()
+        p = tree_index(self, i, detach=True)
+        an_ls, an_b, lu = p["an"]["log_s"], p["an"]["b"], p["lu"]
+        factors = lu_factors(lu)  # shared by W, W^-1 and the LU pullback
+        w = lu_weight(lu, factors).float()
+        w_inv = lu_weight_inv(lu, factors).float()
+
+        net = tree_leaves(p["net"], "net.")
+        yb = y[..., ca:]
+        with torch.enable_grad():
+            yb_ = yb.detach().requires_grad_()
+            c_ = cond.detach().requires_grad_() if cond is not None and cond.is_floating_point() else None
+            h = coupling_cnn_apply(p["net"], yb_, cond if c_ is None else c_)
+        half = y[..., :ca].shape
+
+        # stage 1: the coupling half, rebuilt and differentiated in one pass
+        xa, gxa, graw, gt = fused_coupling_half_bwd(
+            flatten_bmc(y[..., :ca]), flatten_bmc(h[..., :ca].detach()),
+            flatten_bmc(h[..., ca:].detach()), flatten_bmc(gy[..., :ca]), gld, clamp=self.clamp,
+        )
+        gh = torch.cat([graw.reshape(half), gt.reshape(half)], dim=-1).to(h.dtype)
+        inputs = [v for _, v in net] + [yb_] + ([c_] if c_ is not None else [])
+        grads = torch.autograd.grad(h, inputs, gh, allow_unused=True)
+        g_net, gxb = grads[: len(net)], grads[len(net)]
+        gcond = grads[-1] if c_ is not None else None
+
+        # stage 2: conv1x1 + actnorm from the conv output side
+        x2 = torch.cat([xa.reshape(half), yb], dim=-1)
+        gx2 = torch.cat([gxa.reshape(half), gy[..., ca:] + gxb.to(gy.dtype)], dim=-1)
+        x, gx, gw, g_an_ls, g_an_b = fused_spine_bwd(
+            flatten_bmc(x2), flatten_bmc(gx2), w, w_inv, an_ls, an_b)
+
+        # the per-batch-constant logdets put their cotangent on the log-scales
+        s_gld = self._spatial(y) * torch.sum(gld.float())
+        g_lu = lu_pullback(lu, factors, gw)
+        gp = {
+            "an.log_s": g_an_ls + s_gld,
+            "an.b": g_an_b,
+            "lu.l": g_lu["l"],
+            "lu.u": g_lu["u"],
+            "lu.log_s": g_lu["log_s"] + s_gld,
+            **{name: g for (name, _), g in zip(net, g_net)},
+        }
+        return x.reshape(y.shape), gx.reshape(y.shape), gp, gcond
+
     # -- Invertible surface -------------------------------------------------
 
     def forward(self, x, cond=None):
-        ld = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
-        for i in range(self.k_steps):
-            x, ld_i = self._step_fwd(i, x, cond)
-            ld = ld + ld_i
-        return x, ld
+        step_bwd = self._step_bwd if self.engine == "coupled" else None
+        return make_scan_apply(self, self._step_fwd, self._step_inv, self.engine,
+                               step_bwd=step_bwd)(x, cond)
 
     def inverse(self, y, cond=None):
         for i in reversed(range(self.k_steps)):
-            y = self._step_inv(i, y, cond)
+            y = self._step_inv(tree_index(self, i), y, cond)
         return y
+
+    # -- reverse walks the chain engine takes -------------------------------
+
+    def fused_bwd(self, y, gy, gld, cond=None):
+        """The fused reversible backward of the whole stack (the ``coupled``
+        hook)."""
+        return scan_backward(self._step_bwd, dict(self.named_parameters()), y, gy, gld, cond)
+
+    def invertible_bwd(self, y, gy, gld, cond=None):
+        """Step by step invert-then-VJP (the ``invertible`` engine's walk)."""
+        step_bwd = invertible_step_bwd(self, self._step_fwd, self._step_inv)
+        return scan_backward(step_bwd, dict(self.named_parameters()), y, gy, gld, cond)
 
 
 def build_glow_scanned(
@@ -119,6 +232,7 @@ def build_glow_scanned(
     grad_mode: str = "invertible",
     haar: bool = True,
     clamp: float = 2.0,
+    coupled_bwd: str = "auto",
     *,
     channels: int = 3,
     generator: torch.Generator | None = None,
@@ -129,18 +243,27 @@ def build_glow_scanned(
     steps -> split (but after the last scale).  The layer list, and so the
     parameter tree, is the reference's ``build_glow_scanned``.  Parameters
     are drawn from ``generator`` on the CPU, in layer order, then moved to
-    ``device``."""
+    ``device``.
+
+    ``coupled_bwd`` is the ``grad_mode="coupled"`` backward strategy
+    (:func:`resolve_coupled_bwd`); with ``"stored"`` the whole chain
+    differentiates by plain autograd, as in the reference (the chain's
+    output-only residuals would drop the stored activations)."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     squeeze = HaarSqueeze if haar else Squeeze
+    engine = None
+    if grad_mode == "coupled" and resolve_coupled_bwd(coupled_bwd, dev) == "stored":
+        engine = "autodiff"
     layers: list[Invertible] = [Pack()]
     c = channels
     for scale in range(n_scales):
         c *= 4
         layers.append(OnFirst(squeeze()))
         layers.append(OnFirst(GlowStepStack(c, k_steps, hidden=hidden, clamp=clamp,
+                                            grad_mode=grad_mode, coupled_bwd=coupled_bwd,
                                             generator=gen, device=dev)))
         if scale != n_scales - 1:
             layers.append(Split())
             c //= 2
-    return InvertibleChain(layers, grad_mode=grad_mode)
+    return InvertibleChain(layers, grad_mode=grad_mode, engine=engine)

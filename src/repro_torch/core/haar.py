@@ -33,7 +33,17 @@ def _check_even(name, x):
         raise ValueError(f"{name} needs even H, W; got {tuple(x.shape)}")
 
 
-class HaarSqueeze(Invertible):
+class _OrthonormalSqueeze(Invertible):
+    """The ``grad_mode="coupled"`` hook both squeezes share.  Each is a
+    linear map ``y = A x`` with ``A`` orthogonal (Haar: the orthonormal 2x2
+    wavelet basis; plain squeeze: a permutation), so the transpose the VJP
+    needs is the inverse: ``x = inverse(y)``, ``gx = inverse(gy)``."""
+
+    def fused_bwd(self, y, gy, gld, cond=None):
+        return self.inverse(y), self.inverse(gy.to(y.dtype)), {}, None
+
+
+class HaarSqueeze(_OrthonormalSqueeze):
     """Orthonormal Haar squeeze; an involution on the block basis."""
 
     def forward(self, x, cond=None):
@@ -55,7 +65,7 @@ class HaarSqueeze(Invertible):
         )
 
 
-class Squeeze(Invertible):
+class Squeeze(_OrthonormalSqueeze):
     """Plain space-to-depth squeeze (RealNVP); logdet = 0."""
 
     def forward(self, x, cond=None):

@@ -67,14 +67,29 @@ class ParamTree(nn.Module):
         return getattr(self, key)
 
 
-def tree_index(tree, i: int) -> dict:
-    """Slice ``i`` of every leaf of a stacked ``ParamTree`` (the counterpart
-    of the reference's per-step scan slice), as a nested dict."""
-    out = {name: tree_index(child, i) for name, child in tree.named_children()}
+def tree_index(tree, i: int, detach: bool = False) -> dict:
+    """Slice ``i`` of every leaf of a stacked module tree (the counterpart
+    of the reference's per-step scan slice), as a nested dict.  With
+    ``detach`` each parameter slice is a detached leaf that requires grad, so
+    a step's VJP reaches it without a gradient the size of the whole stack."""
+    out = {name: tree_index(child, i, detach) for name, child in tree.named_children()}
     for name, p in tree.named_parameters(recurse=False):
-        out[name] = p[i]
+        out[name] = p[i].detach().requires_grad_() if detach else p[i]
     for name, b in tree.named_buffers(recurse=False):
         out[name] = b[i]
+    return out
+
+
+def tree_leaves(tree: Mapping, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """``(dotted name, tensor)`` of every floating leaf of a nested dict, in
+    order; the names are those of ``named_parameters()`` on the module the
+    dict was sliced from."""
+    out = []
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out += tree_leaves(value, f"{prefix}{key}.")
+        elif value.is_floating_point():
+            out.append((prefix + key, value))
     return out
 
 

@@ -32,7 +32,9 @@ NVCC_FLAGS = (
 )
 
 #: kernel library name -> its source under ``csrc/``
-SOURCES = {"flowstep": "flowstep.cu"}
+SOURCES = {"flowstep": "flowstep.cu", "coupling": "coupling.cu"}
+#: storage types the kernels take, as the code each C entry point reads
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -114,3 +116,30 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(str(build([name])[name]))
     return _libs[name]
+
+
+def bind(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """Entry point ``name`` of kernel library ``lib`` with its C signature."""
+    f = getattr(library(lib), name)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def raise_on(err: int, name: str):
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronise would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+class Kernel:
+    """A CUDA entry point with its count of launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"<kernel {self.name}: {self.launches} launches>"

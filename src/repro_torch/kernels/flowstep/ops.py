@@ -1,10 +1,13 @@
 """Public wrappers of the fused flow step, dispatched by tensor device.
 
-CPU tensors take the plain versions in ``ref.py``.  CUDA tensors take the
-hand-written kernels in ``flowstep.py``, wrapped in an
-``autograd.Function`` whose backward raises: the backward kernels
-(``coupling_bwd``, ``spine_bwd``) come with the training slice, and until
-then a gradient through the kernel fails loudly instead of coming back empty.
+CPU tensors take the plain versions in ``ref.py`` (and
+``kernels/coupling/ref.py``), which autograd differentiates directly.  CUDA
+tensors take the hand-written kernels.  ``fused_flowstep_fwd`` is then an
+``autograd.Function`` whose backward is :func:`flowstep_fwd_vjp`: the two
+backward kernels (``coupling_bwd``, ``spine_bwd``) from the output side, as
+the reference's ``_fwd_pallas_bwd``.  It saves the output, raw/t and the
+step's parameters, never the intermediates.  ``fused_flowstep_inv`` has no
+gradient on the card, as the reference's ``flowstep_inv`` has no VJP.
 """
 
 from __future__ import annotations
@@ -12,20 +15,39 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import use_plain
+from repro_torch.kernels.coupling import coupling as _ck
+from repro_torch.kernels.coupling.ref import coupling_bwd_ref
 from repro_torch.kernels.flowstep import flowstep as _k
-from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref
+from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
 
-_NO_BACKWARD = "training kernels: ROADMAP queue 2"
+
+def flowstep_fwd_vjp(y, raw, t, an_log_s, an_b, w, gy, gld, clamp: float = 2.0):
+    """Cotangents of ``fused_flowstep_fwd``'s inputs from its output side:
+    ``coupling_bwd`` on the transformed half, then ``W^-1``, then
+    ``spine_bwd``.  Returns ``(gx, g_an_log_s, g_an_b, gW, graw, gt)``."""
+    ca = raw.shape[-1]
+    xa, gxa, graw, gt = fused_coupling_half_bwd(y[..., :ca], raw, t, gy[..., :ca], gld,
+                                                clamp=clamp)
+    x2 = torch.cat([xa, y[..., ca:]], dim=-1)
+    gx2 = torch.cat([gxa, gy[..., ca:].to(gxa.dtype)], dim=-1)
+    w_inv = torch.linalg.inv(w.float())
+    _x, gx, gw, g_ls, g_b = fused_spine_bwd(x2, gx2, w, w_inv, an_log_s, an_b)
+    return gx, g_ls.to(an_log_s.dtype), g_b.to(an_b.dtype), gw.to(w.dtype), graw, gt
 
 
 class _FwdFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, an_log_s, an_b, w, raw, t, clamp):
-        return _k.flowstep_fwd(x, an_log_s, an_b, w, raw, t, clamp)
+        y, ld = _k.flowstep_fwd(x, an_log_s, an_b, w, raw, t, clamp)
+        ctx.save_for_backward(y, raw, t, an_log_s, an_b, w)
+        ctx.clamp = clamp
+        return y, ld
 
     @staticmethod
     def backward(ctx, gy, gld):
-        raise NotImplementedError(_NO_BACKWARD)
+        y, raw, t, an_log_s, an_b, w = ctx.saved_tensors
+        return (*flowstep_fwd_vjp(y, raw, t, an_log_s, an_b, w, gy.contiguous(), gld,
+                                  ctx.clamp), None)
 
 
 class _InvFn(torch.autograd.Function):
@@ -35,7 +57,9 @@ class _InvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx):
-        raise NotImplementedError(_NO_BACKWARD)
+        raise NotImplementedError(
+            "flowstep_inv has no gradient, as in the reference; "
+            "differentiate the forward instead")
 
 
 def fused_flowstep_fwd(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0):
@@ -51,3 +75,19 @@ def fused_flowstep_inv(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
     if use_plain(y, an_log_s, an_b, w_inv, raw, t):
         return flowstep_inv_ref(y, an_log_s, an_b, w_inv, raw, t, clamp=clamp)
     return _InvFn.apply(y, an_log_s, an_b, w_inv, raw, t, clamp)
+
+
+def fused_coupling_half_bwd(ya, raw, t, gya, gld, clamp: float = 2.0):
+    """Stage 1 of the flow-step backward, the coupling half: ``(xa, gxa,
+    graw, gt)`` from the output side; graw/gt feed the conditioner's VJP."""
+    if use_plain(ya, raw, t, gya, gld):
+        return coupling_bwd_ref(ya, raw, t, gya, gld, clamp=clamp)
+    return _ck.coupling_bwd(ya, raw, t, gya, gld, clamp)
+
+
+def fused_spine_bwd(x2, gx2, w, w_inv, an_log_s, an_b):
+    """Stage 2 of the flow-step backward, conv1x1 + actnorm from the conv
+    output side: ``(x, gx, gW, g_log_s, g_b)``."""
+    if use_plain(x2, gx2, w, w_inv, an_log_s, an_b):
+        return spine_bwd_ref(x2, gx2, w, w_inv, an_log_s, an_b)
+    return _k.spine_bwd(x2.contiguous(), gx2.contiguous(), w, w_inv, an_log_s, an_b)

@@ -34,3 +34,32 @@ def flowstep_inv_ref(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
     x1 = x2 @ w_inv.float()
     x = (x1 - an_b.float()) * torch.exp(-an_log_s.float())
     return x.to(y.dtype)
+
+
+def spine_bwd_ref(x2, gx2, w, w_inv, an_log_s, an_b):
+    """Reversible backward of actnorm -> 1x1 conv from the conv output side.
+
+    Given the conv output ``x2`` and its cotangent ``gx2`` (which already
+    carries the conditioner's contribution on the untransformed channels)::
+
+        x1     = x2 @ W^-1                  (conv input, rebuilt)
+        x      = (x1 - b) * exp(-log_s)     (step input, rebuilt)
+        gx1    = gx2 @ W^T
+        gx     = gx1 * exp(log_s)
+        gW     = sum_{b,m} x1^T gx2         (f32)
+        g_b    = sum_{b,m} gx1
+        g_logs = sum_{b,m} gx1 * (x1 - b)
+
+    Returns ``(x, gx, gW, g_log_s, g_b)``; the logdet cotangents are the
+    caller's to add.
+    """
+    ls32, b32 = an_log_s.float(), an_b.float()
+    x2_32, gx2_32 = x2.float(), gx2.float()
+    x1 = x2_32 @ w_inv.float()
+    x = (x1 - b32) * torch.exp(-ls32)
+    gx1 = gx2_32 @ w.float().T
+    gx = gx1 * torch.exp(ls32)
+    gw = torch.einsum("bmi,bmj->ij", x1, gx2_32)
+    g_b = torch.sum(gx1, dim=(0, 1))
+    g_log_s = torch.sum(gx1 * (x1 - b32), dim=(0, 1))
+    return x.to(x2.dtype), gx.to(x2.dtype), gw, g_log_s, g_b

@@ -1,0 +1,54 @@
+"""AdamW with the reference's arithmetic (``repro/optim/adamw.py``), which
+differs from ``torch.optim.AdamW`` in detail: the global-norm clip divides
+by ``norm + 1e-9`` and is folded into the update, weight decay sits inside
+the step (``delta = mhat / (sqrt(vhat) + eps) + wd * p``, then
+``p -= lr * delta``), and the moments are float32 whatever the parameter's
+type.  Integer leaves get no moments and no update.
+
+Parameters and gradients are ``{name: tensor}`` dicts (``named_parameters()``
+and the gradients of ``core/autodiff.py::value_and_grad_nll``).  Unlike the
+reference, which returns new arrays, the update writes the parameters in
+place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import TrainConfig
+
+
+def _trainable(v: torch.Tensor) -> bool:
+    return v.is_floating_point()
+
+
+def adamw_init(params: dict) -> dict:
+    """Zero f32 moments for every floating parameter, and step 0."""
+    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.items() if _trainable(p)}
+    return {"mu": zeros, "nu": {n: z.clone() for n, z in zeros.items()}, "step": 0}
+
+
+@torch.no_grad()
+def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig, lr: float):
+    """One AdamW step: updates ``params`` in place; returns ``(opt_state,
+    metrics)`` with the gradient's global norm and the clip scale."""
+    step = opt_state["step"] + 1
+    gs = [grads[n].float() for n, p in params.items() if _trainable(p)]
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+    scale = (cfg.grad_clip / (gnorm + 1e-9) if cfg.grad_clip > 0 and gnorm > cfg.grad_clip
+             else torch.ones_like(gnorm))
+    b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
+    steps = torch.tensor(float(step), dtype=torch.float32)
+    c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** steps).item()
+    c2 = (1.0 - torch.tensor(b2, dtype=torch.float32) ** steps).item()
+    mu, nu = opt_state["mu"], opt_state["nu"]
+    for n, p in params.items():
+        if not _trainable(p):
+            continue
+        g = grads[n].float() * scale
+        mu[n].mul_(b1).add_((1 - b1) * g)
+        nu[n].mul_(b2).add_((1 - b2) * torch.square(g))
+        delta = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps) + wd * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+    return {"mu": mu, "nu": nu, "step": step}, {"grad_norm": gnorm, "clip_scale": scale}

@@ -5,17 +5,23 @@ They import no JAX, so they run on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: y / x in f32 at 1e-4 absolute per element (the reference's
-kernel bound); bf16 compared as f32-upcast values at rtol = atol = 2e-2; ld
-at rtol 1e-5 with atol 1e-4 (a sum of B*M*ca terms in another order).
+Tolerances: y / x and every per-element backward output in f32 at 1e-4
+absolute (the reference's kernel bound); bf16 compared as f32-upcast values
+at rtol = atol = 2e-2; ld at rtol 1e-5 with atol 1e-4 (a sum of B*M*ca terms
+in another order); the backward's sums over (b, m) (gW, g_log_s, g_b) at
+1e-4 in f32 and 5e-2 in bf16 of each tensor's largest entry: sums of up to
+131,072 terms, where an entry that cancels to near zero keeps the round-off
+of the large partial sums (as ``chip_smoke.py`` holds them).
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels.coupling import coupling as ckern
+from repro_torch.kernels.coupling.ref import coupling_bwd_ref
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
-from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref
+from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -62,9 +68,60 @@ def test_kernels_match_plain_versions(dev, shape, dtype):
     assert torch.equal(ld, ld2)  # no atomics: bitwise repeatable
 
 
-def test_gradient_through_the_kernel_raises(dev):
-    x, ls, ab, w, raw, t = _inputs(2, 64, 12, torch.float32, dev)
-    x.requires_grad_(True)
-    y, ld = fused_flowstep_fwd(x, ls, ab, w, raw, t)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        (y.sum() + ld.sum()).backward()
+def test_gradient_through_the_kernel_matches_the_plain_path(dev):
+    """The fused step's backward on the card (``coupling_bwd`` then
+    ``spine_bwd``) gives the gradient that autograd takes through the plain
+    version on the same inputs."""
+    x, ls, ab, w, raw, t = _inputs(2, 300, 12, torch.float32, dev)
+    g = torch.Generator().manual_seed(1)
+    gy = torch.randn(x.shape, generator=g).to(dev)
+    gld = torch.randn(2, generator=g).to(dev)
+
+    def grads(fn):
+        leaves = [v.detach().clone().requires_grad_() for v in (x, ls, ab, w, raw, t)]
+        y, ld = fn(*leaves)
+        return torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), leaves)
+
+    before = (kern.spine_bwd.launches, ckern.coupling_bwd.launches)
+    got, ref = grads(fused_flowstep_fwd), grads(flowstep_fwd_ref)
+    torch.cuda.synchronize()
+    assert (kern.spine_bwd.launches, ckern.coupling_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, r in zip(("x", "an_log_s", "an_b", "w", "raw", "t"), got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+BWD_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_spine_bwd_matches_plain_version(dev, shape, dtype):
+    x2, ls, ab, w, _, _ = _inputs(*shape, dtype, dev)
+    gx2 = torch.randn(shape, generator=torch.Generator().manual_seed(2)).to(dev, dtype)
+    w_inv = torch.linalg.inv(w)
+    got = kern.spine_bwd(x2, gx2, w, w_inv, ls, ab)
+    ref = spine_bwd_ref(x2, gx2, w, w_inv, ls, ab)
+    again = kern.spine_bwd(x2, gx2, w, w_inv, ls, ab)
+    torch.cuda.synchronize()
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r in zip(got[:2], ref[:2]):
+        _close(a, r, dtype)
+    for name, a, r, b in zip(("gW", "g_log_s", "g_b"), got[2:], ref[2:], again[2:]):
+        err = (a - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (name, err)
+        assert torch.equal(a, b), f"{name} not bitwise repeatable"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_coupling_bwd_matches_plain_version(dev, shape, dtype):
+    """On strided halves, as the flow step's backward passes them."""
+    y, _, _, _, raw, t = _inputs(*shape, dtype, dev)
+    ca = shape[-1] // 2
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(dev, dtype)
+    gld = torch.randn(shape[0], generator=torch.Generator().manual_seed(4)).to(dev)
+    got = ckern.coupling_bwd(y[..., :ca], raw, t, gy[..., :ca], gld)
+    ref = coupling_bwd_ref(y[..., :ca], raw, t, gy[..., :ca], gld)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        _close(a, r, dtype)

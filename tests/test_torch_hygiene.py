@@ -1,5 +1,6 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
-package, and refuses to run quietly on the CPU when no device was named."""
+package (serving and one ``coupled`` train step), and refuses to run quietly
+on the CPU when no device was named."""
 
 import os
 import re
@@ -25,6 +26,11 @@ def test_port_runs_without_loading_jax():
         "flow = build_flow(GLOW_SCANNED, device='cpu')\n"
         "lp = FlowServeEngine(flow, device='cpu').log_prob(torch.randn(1, 8, 8, 3))\n"
         "assert lp.shape == (1,) and bool(torch.isfinite(lp).all())\n"
+        "from repro_torch.config import TrainConfig\n"
+        "from repro_torch.data.synthetic import SyntheticImages\n"
+        "from repro_torch.train.loop import train_flow\n"
+        "res = train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1), device='cpu')\n"
+        "assert flow.grad_mode == 'coupled' and len(res.losses) == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
@@ -54,3 +60,16 @@ def test_engine_without_device_raises_on_a_host_without_a_card():
         FlowServeEngine(flow)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_flow(GLOW_SCANNED)
+
+
+def test_train_flow_without_device_raises_on_a_host_without_a_card():
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs.flows import GLOW_SCANNED, build_flow
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.train.loop import train_flow
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is cuda")
+    flow = build_flow(GLOW_SCANNED, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1))

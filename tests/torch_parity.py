@@ -1,6 +1,7 @@
-"""Shared helpers of the scanned-GLOW parity tests (``test_torch_glow*.py``):
-one perturbed parameter tree of the JAX reference, loaded into both
-packages."""
+"""Shared helpers of the scanned-GLOW parity tests (``test_torch_glow*.py``,
+``test_torch_engines*.py``): one perturbed parameter tree of the JAX
+reference, loaded into both packages, and the per-leaf gradient
+comparison."""
 
 import jax
 import jax.numpy as jnp
@@ -8,7 +9,7 @@ import numpy as np
 import torch
 
 from repro.core.glow_scan import build_glow_scanned as j_build_glow_scanned
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, tree_paths, tree_to_numpy
 from repro_torch.core import build_glow_scanned
 
 SEED = 20261017
@@ -48,3 +49,12 @@ def make_pair(cfg: dict, x_shape, seed=SEED):
     tree = perturbed(tree, np.random.default_rng(seed))
     flow = build_glow_scanned(**cfg, grad_mode="coupled", channels=x_shape[-1], device="cpu")
     return jflow, to_jax(tree), params_from_numpy(flow, tree), tree
+
+
+def grad_errors(flow, tree, grads, jgrads) -> dict:
+    """Max absolute difference of each float gradient leaf of the port
+    (``{name: grad}``) and the reference (a tree like ``tree``), by state key."""
+    port = tree_paths(flow, tree_to_numpy(flow, like=tree, values=grads))
+    ref = tree_paths(flow, jgrads)
+    return {k: float(np.abs(port[k] - np.asarray(ref[k], np.float32)).max())
+            for k, v in port.items() if np.issubdtype(v.dtype, np.floating)}
