@@ -3,37 +3,51 @@
 
     python3 chip_smoke.py
 
-It serves and trains scanned GLOW (``GLOW_SCANNED``: 3 scales x 8 steps,
-hidden 64, Haar squeeze) at full width on 256x256x3 images, batch 8, with
-random weights from a seed, and holds every hand-written kernel on those
+It serves and trains GLOW (3 scales x 8 steps, hidden 64, Haar squeeze) at
+full width on 256x256x3 images, batch 8, with random weights from a seed, in
+both of the port's builds: scanned (``GLOW_SCANNED``, the fused flow-step
+kernels) and unrolled (``GLOW_COUPLED``, the fused coupling kernels with the
+ActNorm and Conv1x1 hooks).  It holds every hand-written kernel on those
 paths against its plain PyTorch version.  Phases, one line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together);
 2. kernels - each kernel against its plain version at the model's shapes and
-             a ragged one, in f32 and bf16; the logdet and the backward's sums
-             over (b, m) are bitwise repeatable;
-3. serve   - ``FlowServeEngine`` on cuda: ``log_prob`` against the same model
-             on the CPU, ``sample`` then ``log_prob`` of the samples, the round
-             trip ``forward(inverse(z)) == z``, and 24 + 24 kernel launches;
-4. train   - ``grad_mode="coupled"`` with ``coupled_bwd="auto"`` (which must
-             resolve to the reversible backward on cuda): one
+             a ragged one, in f32 and bf16, on strided views where the path
+             passes them; the logdets and the sums over (b, m) are bitwise
+             repeatable; ``invertible_conv1x1``'s gradient against autograd
+             through the plain version;
+3. serve   - ``FlowServeEngine`` on cuda, scanned then unrolled: ``log_prob``
+             against the same model on the CPU, ``sample`` (the unrolled
+             model through its ``kernel_inverse=True`` twin) then
+             ``log_prob`` of the samples, the round trip
+             ``forward(inverse(z)) == z``, and the launches of each call;
+4. train   - ``grad_mode="coupled"``, scanned then unrolled: one
              ``value_and_grad_nll`` against the same model on the CPU and
-             against the ``stored`` backward on the card, 24 launches each of
-             ``flowstep_fwd``, ``coupling_bwd`` and ``spine_bwd`` and none of
-             ``flowstep_inv`` per train step, then ``train_flow`` for 5 steps;
-5. memory  - peak device memory of one train step at 4 and 8 steps a scale,
-             ``coupled`` (reversible) and ``autodiff``: the coupled peak must
-             grow by less than a quarter of the autodiff peak's growth;
-6. times   - each kernel's device time (profiler) and per-call wall time (CUDA
-             events) beside its bound and its plain version's; end-to-end
-             ``log_prob``, ``sample`` and the train step; one profiled call of
-             each, with device time by op and the device's idle share (tables
-             written to ``chiprun_out/chip_smoke/``).
+             against another backward on the card (scanned: ``stored``;
+             unrolled: ``autodiff``), the launches per train step, then
+             ``train_flow`` for a few steps;
+5. memory  - peak device memory of one scanned train step at 4 and 8 steps a
+             scale, ``coupled`` (reversible) and ``autodiff``: the coupled
+             peak must grow by less than a quarter of the autodiff peak's
+             growth;
+6. op      - ``invertible_conv1x1`` forward and backward at the unrolled
+             model's three widths, the path of ``conv1x1_mm``/``conv1x1_gw``
+             (the model's ``Conv1x1`` layer computes its product with
+             ``torch.matmul``, as the reference's does with XLA);
+7. times   - each kernel's device time (profiler) and per-call wall time
+             (CUDA events) beside its bound, its plain version's and, where
+             one PyTorch call computes the same function, that call's;
+             end-to-end ``log_prob``, ``sample`` and the train step of both
+             models; one profiled call of each, with device time by op and
+             the device's idle share (tables written to
+             ``chiprun_out/chip_smoke/``).
 
-Any failure exits non-zero.  Without a CUDA device it exits 2 and prints no
-result.  The last lines are the card's name and power limit, one JSON object
-of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+Each path's launch counts are set to 0 just before it runs and read just
+after; a kernel of the path that did not launch fails the run.  Any failure
+exits non-zero.  Without a CUDA device it exits 2 and prints no result.  The
+last lines are the card's name and power limit, one JSON object of
+per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +66,11 @@ SEED = 20261017
 BATCH, HW = 8, 256
 # the served shapes of flowstep_fwd / flowstep_inv, (B, M, C), plus a ragged M
 SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]
+# coupling_fwd / coupling_inv on the unrolled model's transformed halves
+# (B, M, ca), plus a ragged M; conv1x1_mm / conv1x1_gw at the model's (B, M, C),
+# the widest C the reference's tests take, and a ragged M
+COUPLING_SHAPES = [(8, 16384, 6), (8, 4096, 12), (8, 1024, 24), (8, 300, 6)]
+CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8)]
 #: one NVIDIA H100 SXM (data sheet): HBM bytes/s and non-tensor-core f32 FLOP/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
@@ -59,7 +78,10 @@ H100_F32_FLOPS = 67e12
 # tolerances, with their reasons
 TOL_F32 = 1e-4        # per element in f32: the reference's own kernel bound
 TOL_BF16 = 2e-2       # rtol = atol on f32-upcast bf16 values (one bf16 ulp apart)
-TOL_LD_REL = 1e-5     # ld sums B*M*ca terms in another order
+# ld sums M*ca terms in another order, relative to max(|ld|, 1) for the flow
+# step and to sum |log_s| for coupling_fwd, whose random test raw makes the
+# terms cancel (each term's tanh may also land one ulp from PyTorch's)
+TOL_LD_REL = 1e-5
 TOL_LOG_PROB = 1e-5   # relative: log_prob scales with D = 196,608
 TOL_ROUND_TRIP = 1e-4  # per element in f32, as TOL_F32
 # the backward's sums over (b, m) (gW, g_log_s, g_b): max |a - r| <= TOL_SUM *
@@ -91,17 +113,19 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def perturb(module, seed: int, scale: float = 0.05):
+def perturb(module, seed: int, scale: float = 0.05, stacked: bool = True):
     """Add noise of std ``scale / sqrt(fan_in)`` to every float parameter of
-    the stacked flow (as ``tests/test_torch_glow.py`` does): ``init`` zeroes
-    actnorm and each conditioner's last conv, which would make every coupling
-    the identity."""
+    the flow (as ``tests/test_torch_glow*.py`` do), ``fan_in`` the product of
+    the axes before the output axis, after the leading k axis of a stacked
+    flow: ``init`` zeroes actnorm and each conditioner's last conv, which
+    would make every coupling the identity."""
     import torch
 
+    lead = 1 if stacked else 0
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in module.parameters():
-            std = scale / math.sqrt(math.prod(p.shape[1:-1]))
+            std = scale / math.sqrt(math.prod(p.shape[lead:-1]))
             p.add_(std * torch.randn(p.shape, generator=g).to(p.device))
 
 
@@ -125,7 +149,8 @@ def cost(name: str, shape, dtype):
     input read once, each output written once; a C-long product at 2 flops a
     term, the elementwise work at one flop per operation (tanh and exp
     counted as one).  ``coupling_bwd`` works on the C/2 transformed
-    channels."""
+    channels; ``coupling_fwd``/``coupling_inv`` take the (B, M, ca) of the
+    transformed half itself."""
     import torch
 
     b, m, c = shape
@@ -139,6 +164,14 @@ def cost(name: str, shape, dtype):
     if name == "coupling_bwd":
         # y, raw, t, gy in; x, gx, graw, gt out; gld in
         return 8 * es * b * m * ca + 4 * b, 15 * b * m * ca
+    if name in ("coupling_fwd", "coupling_inv"):
+        # on the transformed half (B, M, ca) = shape: x|y, raw, t in, y|x out
+        # (ld out); tanh, divide, scale, exp, multiply, add (+ the ld sum)
+        return 4 * es * b * m * c + 4 * b, (7 if name == "coupling_fwd" else 6) * b * m * c
+    if name == "conv1x1_mm":
+        return es * (2 * b * m * c + c * c), 2 * b * m * c * c  # x, W in; y out
+    if name == "conv1x1_gw":
+        return 2 * es * b * m * c + 4 * c * c, 2 * b * m * c * c  # x, gy in; gW out
     big = es * (b * m * c + 2 * b * m * ca + b * m * c)  # x|y, raw, t, y|x
     small = 4 * (c * c + 2 * c)                           # W, an_log_s, an_b
     if name == "flowstep_fwd":
@@ -177,12 +210,15 @@ def _is_device_event(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
+def device_ms(fn, reps: int = 20, attempts: int = 10) -> float:
     """Device time of one call: the summed durations of every kernel the call
     launches, from the profiler (host work and gaps between launches are not
     counted).  The profiler now and then returns a window of a few-µs
-    kernels with no device events at all; such a window is taken again, up
-    to ``attempts`` times, and the run fails if none has any."""
+    kernels with no device events at all, or with fewer kernels than the
+    ``reps`` calls launched (one such window read 0.095 µs for a 19 µs
+    kernel, and such windows can come several in a row); such a window is
+    taken again, up to ``attempts`` times, and the run fails if none is
+    whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -193,10 +229,26 @@ def device_ms(fn, reps: int = 20, attempts: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time_total for e in prof.key_averages() if _is_device_event(e))
-        if total_us > 0:
+        kernels = [e for e in prof.key_averages() if _is_device_event(e)]
+        total_us = sum(e.device_time_total for e in kernels)
+        if total_us > 0 and sum(e.count for e in kernels) >= reps:
             return total_us / reps / 1e3
-    raise SystemExit("chip_smoke: FAILED: the profiler recorded no device time")
+    raise SystemExit("chip_smoke: FAILED: the profiler recorded no whole window of device time")
+
+
+def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None) -> dict:
+    """One ``[times]`` line: the kernel's, its plain version's and (where one
+    PyTorch call computes the same function) that call's device time, beside
+    the bound, at ``shape``."""
+    ms = device_ms(k_fn)
+    nbytes, flops = cost(name, shape, dtype)
+    row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+           "ms": ms, "plain_ms": device_ms(p_fn), "bound_ms": bound_ms(name, shape, dtype),
+           "library_ms": device_ms(lib_fn) if lib_fn is not None else None,
+           "call_ms": call_ms(k_fn), "plain_call_ms": call_ms(p_fn),
+           "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
+    line("times", kernel=name, **row)
+    return row
 
 
 def check_bwd_kernels(dev) -> dict:
@@ -298,8 +350,8 @@ def train_phase(dev, card) -> dict:
     loss, grads = value_and_grad_nll(flow, x)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
-    check(launches == {"flowstep_fwd": 24, "flowstep_inv": 0, "spine_bwd": 24, "coupling_bwd": 24},
-          f"train-step launches: {launches}")
+    check(launches == {"flowstep_fwd": 24, "flowstep_inv": 0, "spine_bwd": 24, "coupling_fwd": 0,
+                       "coupling_inv": 0, "coupling_bwd": 24}, f"train-step launches: {launches}")
 
     t0 = time.perf_counter()
     flow_cpu = make("cpu")
@@ -372,6 +424,307 @@ def memory_phase(dev, card) -> dict:
     return peaks
 
 
+def coupling_inputs(shape, dtype, dev, seed):
+    """x, raw, t of one unrolled coupling at its transformed half's (B, M,
+    ca): x the first ca channels of a (B, M, 2*ca) tensor, raw and t the two
+    halves of one conditioner output, as the path passes them."""
+    import torch
+
+    b, m, ca = shape
+    g = torch.Generator().manual_seed(seed)
+    xx = torch.randn(b, m, 2 * ca, generator=g).to(dev, dtype)
+    h = torch.randn(b, m, 2 * ca, generator=g).to(dev, dtype)
+    return xx[..., :ca], h[..., :ca], h[..., ca:]
+
+
+def conv1x1_inputs(shape, dtype, dev, seed):
+    """x, gy (B, M, C) in ``dtype`` and an f32 W (C, C) of unit scale."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    gy = torch.randn(shape, generator=g).to(dev, dtype)
+    w = torch.randn(shape[-1], shape[-1], generator=g) / math.sqrt(shape[-1])
+    return x, gy, w.to(dev)
+
+
+def _elem_check(name, a, r, dtype, shape) -> float:
+    import torch
+
+    d = (a.float() - r.float()).abs()
+    if dtype == torch.float32:
+        check(d.max().item() <= TOL_F32, f"{name} f32 {shape}: {d.max().item()}")
+    else:
+        bad = d > TOL_BF16 + TOL_BF16 * r.float().abs()
+        check(not bad.any().item(), f"{name} bf16 {shape}")
+    return d.max().item()
+
+
+def check_unrolled_kernels(dev) -> dict:
+    """Phase 2, the unrolled model's kernels: ``coupling_fwd`` /
+    ``coupling_inv`` and ``conv1x1_mm`` / ``conv1x1_gw`` against their plain
+    versions, f32 and bf16; ``ld`` and ``gW`` bitwise repeatable; then
+    ``invertible_conv1x1``'s gradient through autograd against the plain
+    version's.  Returns each kernel's largest per-element f32 error."""
+    import torch
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
+    from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.coupling.ref import coupling_fwd_ref, coupling_inv_ref
+
+    max_err = dict.fromkeys(("coupling_fwd", "coupling_inv", "conv1x1_mm", "conv1x1_gw"), 0.0)
+    for shape in COUPLING_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x, raw, t = coupling_inputs(shape, dtype, dev, SEED + 9)
+            y, ld = ck.coupling_fwd(x, raw, t)
+            _, ld_again = ck.coupling_fwd(x, raw, t)
+            back = ck.coupling_inv(x, raw, t)
+            y_r, ld_r = coupling_fwd_ref(x, raw, t)
+            torch.cuda.synchronize()
+            errs = {"coupling_fwd": _elem_check("coupling_fwd", y, y_r, dtype, shape),
+                    "coupling_inv": _elem_check("coupling_inv", back,
+                                                coupling_inv_ref(x, raw, t), dtype, shape)}
+            # a sum of M*ca terms that cancel for random raw: its round-off
+            # (and each term's tanh, one ulp apart) scales with sum |log_s|
+            ld_scale = (2.0 * torch.tanh(raw.float() / 2.0)).abs().sum(dim=(1, 2))
+            err_ld = ((ld - ld_r).abs() / ld_scale.clamp_min(1.0)).max().item()
+            check(err_ld <= TOL_LD_REL, f"coupling_fwd ld {shape} {dname}: {err_ld}")
+            check(torch.equal(ld, ld_again), f"coupling_fwd ld not bitwise repeatable at {shape}")
+            if dtype == torch.float32:
+                for name, e in errs.items():
+                    max_err[name] = max(max_err[name], e)
+            line("kernels", shape=list(shape), dtype=dname, coupling_fwd_max_abs_err=errs["coupling_fwd"],
+                 coupling_inv_max_abs_err=errs["coupling_inv"], ld_max_rel_err=err_ld,
+                 ld_bitwise_repeatable=True)
+    for shape in CONV1X1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x, gy, w = conv1x1_inputs(shape, dtype, dev, SEED + 10)
+            y = c1k.conv1x1_mm(x, w)
+            gx = c1k.conv1x1_mm(gy, w.T)
+            gw, gw_again = c1k.conv1x1_gw(x, gy), c1k.conv1x1_gw(x, gy)
+            gw_r = conv1x1_gw_ref(x, gy)
+            torch.cuda.synchronize()
+            err_mm = max(_elem_check("conv1x1_mm", y, conv1x1_mm_ref(x, w), dtype, shape),
+                         _elem_check("conv1x1_mm (W^T)", gx, conv1x1_mm_ref(gy, w.T), dtype, shape))
+            err_gw = (gw - gw_r).abs().max().item()
+            rel = err_gw / max(gw_r.abs().max().item(), 1e-30)
+            check(rel <= TOL_SUM[dname], f"conv1x1_gw {shape} {dname}: {rel} of its scale")
+            check(torch.equal(gw, gw_again), f"conv1x1_gw not bitwise repeatable at {shape} {dname}")
+            if dtype == torch.float32:
+                max_err["conv1x1_mm"] = max(max_err["conv1x1_mm"], err_mm)
+                max_err["conv1x1_gw"] = max(max_err["conv1x1_gw"], err_gw)
+            line("kernels", shape=list(shape), dtype=dname, conv1x1_mm_max_abs_err=err_mm,
+                 conv1x1_gw_max_rel_err=rel, gw_bitwise_repeatable=True)
+    # the op's gradient: conv1x1_mm (W^T) and conv1x1_gw inside autograd
+    for shape in CONV1X1_SHAPES[:3]:
+        x, gy, w = conv1x1_inputs(shape, torch.float32, dev, SEED + 11)
+
+        def grads(fn):
+            x_, w_ = x.clone().requires_grad_(), w.clone().requires_grad_()
+            return torch.autograd.grad((fn(x_, w_) * gy).sum(), (x_, w_))
+
+        (gx, gw), (gx_r, gw_r) = grads(invertible_conv1x1), grads(conv1x1_mm_ref)
+        torch.cuda.synchronize()
+        err_gx = (gx - gx_r).abs().max().item()
+        rel_gw = (gw - gw_r).abs().max().item() / gw_r.abs().max().item()
+        check(err_gx <= TOL_F32 and rel_gw <= TOL_SUM["float32"],
+              f"invertible_conv1x1 gradient {shape}: gx {err_gx}, gW {rel_gw}")
+        line("kernels", op="invertible_conv1x1", shape=list(shape), dtype="float32",
+             gx_max_abs_err=err_gx, gw_max_rel_err=rel_gw)
+    return max_err
+
+
+def build_coupled(device, kernel_inverse=False, grad_mode=None):
+    """``GLOW_COUPLED`` from the seed, perturbed so every coupling is live;
+    the same parameters whatever ``kernel_inverse`` and ``grad_mode``."""
+    import torch
+    from repro_torch.configs.flows import GLOW_COUPLED
+    from repro_torch.core import build_glow
+
+    cfg = GLOW_COUPLED
+    flow = build_glow(n_scales=cfg.n_scales, k_steps=cfg.k_steps, hidden=cfg.hidden,
+                      grad_mode=grad_mode or cfg.grad_mode, kernel_inverse=kernel_inverse,
+                      channels=3,
+                      generator=torch.Generator().manual_seed(SEED), device=device)
+    perturb(flow, SEED + 1, stacked=False)
+    return flow
+
+
+def reset(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def coupled_serve_phase(dev, card, x_cpu) -> dict:
+    """Phase 3, unrolled: ``GLOW_COUPLED`` served on the card, ``sample``
+    through the ``kernel_inverse=True`` twin that shares its parameters."""
+    import torch
+    from repro_torch.core import derive_key, share_parameters, std_normal_sample
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.flowstep import flowstep as fk
+    from repro_torch.serve.engine import FlowServeEngine
+
+    kernels = (*fk.KERNELS, *ck.KERNELS)
+    flow = build_coupled(dev)
+    twin = share_parameters(build_coupled(dev, kernel_inverse=True), flow)
+    engine = FlowServeEngine(flow, device=dev, sample_flow=twin)
+    x = x_cpu.to(dev)
+    reset(kernels)
+    lp = engine.log_prob(x)
+    torch.cuda.synchronize()
+    lp_launches = {k.name: k.launches for k in kernels if k.launches}
+    check(lp_launches == {"coupling_fwd": 24}, f"unrolled log_prob launches: {lp_launches}")
+
+    lp_cpu = FlowServeEngine(build_coupled("cpu"), device="cpu").log_prob(x_cpu)
+    rel = ((lp.cpu() - lp_cpu).abs() / lp_cpu.abs()).max().item()
+    check(torch.isfinite(lp).all().item() and rel <= TOL_LOG_PROB, f"unrolled log_prob vs cpu: {rel}")
+
+    with torch.inference_mode():
+        z_data, _ = engine.flow(x)
+    like = tuple(torch.empty_like(v, device="meta") for v in z_data)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    reset(kernels)
+    samples = engine.sample(gen, like)
+    torch.cuda.synchronize()
+    s_launches = {k.name: k.launches for k in kernels if k.launches}
+    check(s_launches == {"coupling_inv": 24}, f"unrolled sample launches: {s_launches}")
+    lp_s = engine.log_prob(samples)
+    z = std_normal_sample(derive_key(gen, 0, dev), like)
+    with torch.inference_mode():
+        z_back, _ = engine.flow(samples)
+    rt = max((a - b).abs().max().item() for a, b in zip(z_back, z))
+    check(torch.isfinite(samples).all().item() and torch.isfinite(lp_s).all().item(),
+          "unrolled samples or their log_prob not finite")
+    check(rt <= TOL_ROUND_TRIP, f"unrolled forward(inverse(z)) vs z: {rt}")
+    line("serve", model="GLOW_COUPLED", image=[BATCH, HW, HW, 3], log_prob_mean=lp.mean().item(),
+         log_prob_rel_err_vs_cpu=rel, sample_shape=list(samples.shape),
+         sample_log_prob_mean=lp_s.mean().item(), round_trip_max_abs_err=rt,
+         twin_shares_parameters=all(a is b for a, b in zip(flow.parameters(), twin.parameters())),
+         launches={"log_prob": lp_launches, "sample": s_launches}, card=card)
+    return {"engine": engine, "x": x, "like": like,
+            "launches": {"coupling_fwd": lp_launches.get("coupling_fwd", 0),
+                         "coupling_inv": s_launches.get("coupling_inv", 0)}}
+
+
+def coupled_train_phase(dev, card) -> dict:
+    """Phase 4, unrolled: one ``GLOW_COUPLED`` train step on the card (the
+    fused coupling kernels, the ActNorm and Conv1x1 hooks) against the CPU
+    and against ``autodiff`` on the card, then ``train_flow``."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import value_and_grad_nll
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.flowstep import flowstep as fk
+    from repro_torch.train.loop import train_flow
+
+    kernels = (*fk.KERNELS, *ck.KERNELS, *c1k.KERNELS)
+    data = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED)
+    x_cpu = data.batch_at(0)
+    x = x_cpu.to(dev)
+    flow = build_coupled(dev)
+    check(flow.engine == "coupled", f"GLOW_COUPLED engine: {flow.engine}")
+    reset(kernels)
+    loss, grads = value_and_grad_nll(flow, x)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    check(launches == {"coupling_fwd": 24, "coupling_bwd": 24},
+          f"unrolled train-step launches: {launches}")
+
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = value_and_grad_nll(build_coupled("cpu"), x_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    grad_rel, grad_worst = max_rel_leaf_err(grads, grads_cpu)
+    check(torch.isfinite(loss).item() and loss_rel <= TOL_LOSS_REL,
+          f"unrolled train loss vs cpu: {loss_rel}")
+    check(all(torch.isfinite(g).all().item() for g in grads.values()), "unrolled gradients not finite")
+    check(grad_rel <= TOL_GRAD_REL, f"unrolled gradient vs cpu: {grad_rel} at {grad_worst}")
+    oracle = float64_oracle(dev, x_cpu, grads, grads_cpu)
+    del grads_cpu
+
+    flow_ad = build_coupled(dev, grad_mode="autodiff")  # plain autograd, no kernel
+    loss_ad, grads_ad = value_and_grad_nll(flow_ad, x)
+    ad_rel, ad_worst = max_rel_leaf_err(grads, grads_ad)
+    ad_loss_rel = abs(loss.item() - loss_ad.item()) / abs(loss_ad.item())
+    check(ad_loss_rel <= TOL_LOSS_REL and ad_rel <= TOL_GRAD_REL,
+          f"coupled vs autodiff on the card: loss {ad_loss_rel}, grad {ad_rel} at {ad_worst}")
+    del flow_ad, grads_ad
+
+    res = train_flow(build_coupled(dev), data, TrainConfig(steps=TRAIN_STEPS), device=dev)
+    first_rel = abs(res.losses[0] - loss.item()) / abs(loss.item())
+    check(len(res.losses) == TRAIN_STEPS and all(math.isfinite(v) for v in res.losses),
+          f"unrolled train_flow losses: {res.losses}")
+    check(first_rel <= 1e-6, f"unrolled train_flow step 0 loss {res.losses[0]} vs {loss.item()}")
+    line("train", model="GLOW_COUPLED", image=[BATCH, HW, HW, 3], loss=loss.item(),
+         loss_rel_err_vs_cpu=loss_rel, grad_max_rel_err_vs_cpu=grad_rel,
+         grad_worst_leaf_vs_cpu=grad_worst, cpu_reference_s=cpu_s,
+         loss_rel_err_vs_autodiff=ad_loss_rel, grad_max_rel_err_vs_autodiff=ad_rel,
+         **oracle, launches_per_train_step=launches, train_flow_losses=res.losses,
+         n_params=sum(p.numel() for p in flow.parameters()), card=card)
+    return {"launches": launches, "flow": flow, "x": x}
+
+
+def float64_oracle(dev, x_cpu, grads, grads_cpu) -> dict:
+    """How far the unrolled model's f32 gradients sit from the truth: each
+    leaf against plain autograd of the same model in float64 on the CPU, for
+    the card's and the CPU's ``coupled`` gradients, and for the card's with
+    the reference's two-solve ``W^-1`` in every 1x1-conv reconstruction in
+    place of ``lu_weight_inv``; with ``max |W W^-1 - I|`` of both inverses
+    over the model's 24 1x1 convs.  Reported, not gated."""
+    import torch
+    from repro_torch.core import conv1x1 as c1
+    from repro_torch.core import value_and_grad_nll
+
+    _, g64 = value_and_grad_nll(build_coupled("cpu", grad_mode="autodiff").double(),
+                                x_cpu.double())
+    newton = c1.lu_weight_inv
+    c1.lu_weight_inv = c1.lu_weight_inv_solves
+    try:
+        _, g_solves = value_and_grad_nll(build_coupled(dev), x_cpu.to(dev))
+    finally:
+        c1.lu_weight_inv = newton
+    resid = {"lu_weight_inv": 0.0, "two_solves": 0.0}
+    for layer in build_coupled("cpu").modules():
+        if isinstance(layer, c1.Conv1x1):
+            lu = {k: v.detach() for k, v in layer._lu().items()}
+            w = c1.lu_weight(lu).double()
+            eye = torch.eye(w.shape[0], dtype=torch.float64)
+            for name, fn in (("lu_weight_inv", c1.lu_weight_inv), ("two_solves", c1.lu_weight_inv_solves)):
+                resid[name] = max(resid[name], (w @ fn(lu).double() - eye).abs().max().item())
+    return {"grad_max_rel_err_vs_float64": max_rel_leaf_err(grads, g64),
+            "cpu_grad_max_rel_err_vs_float64": max_rel_leaf_err(grads_cpu, g64),
+            "two_solve_inverse_grad_max_rel_err_vs_float64": max_rel_leaf_err(g_solves, g64),
+            "w_winv_residual": resid}
+
+
+def conv1x1_op_phase(dev, card) -> dict:
+    """Phase 6: ``invertible_conv1x1`` forward and backward at the unrolled
+    model's three (B, M, C), the path of the two 1x1-conv kernels: two
+    ``conv1x1_mm`` and one ``conv1x1_gw`` per width."""
+    import torch
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
+
+    inputs = [conv1x1_inputs(shape, torch.float32, dev, SEED + 12) for shape in CONV1X1_SHAPES[:3]]
+    reset(c1k.KERNELS)
+    for x, gy, w in inputs:
+        x_, w_ = x.requires_grad_(), w.requires_grad_()
+        gx, gw = torch.autograd.grad((invertible_conv1x1(x_, w_) * gy).sum(), (x_, w_))
+        check(torch.isfinite(gx).all().item() and torch.isfinite(gw).all().item(),
+              "invertible_conv1x1 gradient not finite")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in c1k.KERNELS}
+    check(launches == {"conv1x1_mm": 6, "conv1x1_gw": 3}, f"invertible_conv1x1 launches: {launches}")
+    line("op", op="invertible_conv1x1", shapes=[list(s) for s in CONV1X1_SHAPES[:3]],
+         launches=launches, card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -383,8 +736,10 @@ def main() -> int:
     from repro_torch.configs.flows import GLOW_SCANNED, build_flow
     from repro_torch.core import derive_key, std_normal_sample, value_and_grad_nll
     from repro_torch.kernels import common
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
+    from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
     from repro_torch.kernels.coupling import coupling as ckern
-    from repro_torch.kernels.coupling.ref import coupling_bwd_ref
+    from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
     from repro_torch.kernels.flowstep import flowstep as kern
     from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
     from repro_torch.optim import adamw_init, adamw_update
@@ -437,6 +792,7 @@ def main() -> int:
                  fwd_max_abs_err=err_y, inv_max_abs_err=err_x, ld_max_rel_err=err_ld,
                  ld_bitwise_repeatable=True)
     max_err.update(check_bwd_kernels(dev))
+    max_err.update(check_unrolled_kernels(dev))
 
     # 3. serve the model on the card ------------------------------------------
     flow_cpu = build_flow(GLOW_SCANNED, channels=3, generator=torch.Generator().manual_seed(SEED),
@@ -484,12 +840,17 @@ def main() -> int:
          launches={"log_prob": {"flowstep_fwd": launches["flowstep_fwd"]},
                    "sample": {"flowstep_inv": launches["flowstep_inv"]}})
 
-    # 4. train and 5. memory ---------------------------------------------------
+    coupled = coupled_serve_phase(dev, card, x_cpu)
+    launches.update(coupled["launches"])
+
+    # 4. train, 5. memory and 6. the 1x1-conv op --------------------------------
     train = train_phase(dev, card)
     launches.update({k: train["launches"][k] for k in ("spine_bwd", "coupling_bwd")})
     memory_phase(dev, card)
+    coupled_train = coupled_train_phase(dev, card)
+    launches.update(conv1x1_op_phase(dev, card))
 
-    # 6. times -----------------------------------------------------------------
+    # 7. times -----------------------------------------------------------------
     per_shape = {"flowstep_fwd": [], "flowstep_inv": [], "spine_bwd": [], "coupling_bwd": []}
     for shape in SHAPES[:3]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -510,16 +871,32 @@ def main() -> int:
                                  lambda: coupling_bwd_ref(y_[..., :ca], raw, t, g_[..., :ca], gld)),
             }
             for name, (k_fn, p_fn) in runs.items():
-                ms = device_ms(k_fn)
-                nbytes, flops = cost(name, shape, dtype)
-                row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-                       "ms": ms, "plain_ms": device_ms(p_fn),
-                       "bound_ms": bound_ms(name, shape, dtype),
-                       "call_ms": call_ms(k_fn), "plain_call_ms": call_ms(p_fn),
-                       "bytes": nbytes, "flops": flops,
-                       "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
-                per_shape[name].append(row)
-                line("times", kernel=name, **row)
+                per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn))
+    # the unrolled model's kernels; one PyTorch call computes each 1x1-conv
+    # function (TF32 off), none computes the coupling's
+    for name in ("coupling_fwd", "coupling_inv", "conv1x1_mm", "conv1x1_gw"):
+        per_shape[name] = []
+    for i in range(3):
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = COUPLING_SHAPES[i]
+            xc, rc, tc = coupling_inputs(shape, dtype, dev, SEED + 13)
+            per_shape["coupling_fwd"].append(time_kernel(
+                "coupling_fwd", shape, dtype, lambda: ckern.coupling_fwd(xc, rc, tc),
+                lambda: coupling_fwd_ref(xc, rc, tc)))
+            per_shape["coupling_inv"].append(time_kernel(
+                "coupling_inv", shape, dtype, lambda: ckern.coupling_inv(xc, rc, tc),
+                lambda: coupling_inv_ref(xc, rc, tc)))
+            shape = CONV1X1_SHAPES[i]
+            xm, gm, wm = conv1x1_inputs(shape, dtype, dev, SEED + 14)
+            wd = wm.to(dtype)
+            c = shape[-1]
+            per_shape["conv1x1_mm"].append(time_kernel(
+                "conv1x1_mm", shape, dtype, lambda: c1kern.conv1x1_mm(xm, wm),
+                lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd)))
+            per_shape["conv1x1_gw"].append(time_kernel(
+                "conv1x1_gw", shape, dtype, lambda: c1kern.conv1x1_gw(xm, gm),
+                lambda: conv1x1_gw_ref(xm, gm),
+                lambda: xm.reshape(-1, c).T @ gm.reshape(-1, c)))
 
     def wall_ms(fn, reps=15):
         for _ in range(2):
@@ -536,20 +913,29 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(SEED + 4)
-    t_params = dict(train["flow"].named_parameters())
-    t_opt = adamw_init(t_params)
 
-    def train_step():
-        loss, grads = value_and_grad_nll(train["flow"], train["x"])
-        adamw_update(t_params, grads, t_opt, TrainConfig(), 1e-5)
-        return loss
+    def train_step_of(run):
+        params = dict(run["flow"].named_parameters())
+        opt = adamw_init(params)
 
-    for what, fn in (("log_prob", lambda: engine.log_prob(x)),
-                     ("sample", lambda: engine.sample(gen, like)),
-                     ("train_step", train_step)):
+        def train_step():
+            loss, grads = value_and_grad_nll(run["flow"], run["x"])
+            adamw_update(params, grads, opt, TrainConfig(), 1e-5)
+            return loss
+
+        return train_step
+
+    c_engine = coupled["engine"]
+    for model, what, fn in (
+            ("GLOW_SCANNED", "log_prob", lambda: engine.log_prob(x)),
+            ("GLOW_SCANNED", "sample", lambda: engine.sample(gen, like)),
+            ("GLOW_SCANNED", "train_step", train_step_of(train)),
+            ("GLOW_COUPLED", "log_prob", lambda: c_engine.log_prob(coupled["x"])),
+            ("GLOW_COUPLED", "sample", lambda: c_engine.sample(gen, coupled["like"])),
+            ("GLOW_COUPLED", "train_step", train_step_of(coupled_train))):
         median, runs_ms = wall_ms(fn)
         q = sorted(runs_ms)
-        line("times", e2e=what, batch=BATCH, median_ms=median, q1_ms=q[len(q) // 4],
+        line("times", model=model, e2e=what, batch=BATCH, median_ms=median, q1_ms=q[len(q) // 4],
              q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms,
              images_per_s=BATCH / (median * 1e-3), card=card)
         # one profiled call: device time by the PyTorch op (or kernel wrapper)
@@ -559,13 +945,13 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        (OUT / f"profile_{what}.txt").write_text(
+        (OUT / f"profile_{model.lower()}_{what}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
         busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
         by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
                         if not _is_device_event(e) and e.self_device_time_total > 0),
                        key=lambda r: -r[1])
-        line("profile", call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
+        line("profile", model=model, call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
              device_idle_share=max(0.0, 1 - busy_ms / median),
              device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
@@ -575,15 +961,19 @@ def main() -> int:
         "flowstep_inv": ("flowstep.cu", "src/repro/kernels/flowstep/flowstep.py:150"),
         "spine_bwd": ("flowstep.cu", "src/repro/kernels/flowstep/flowstep.py:171"),
         "coupling_bwd": ("coupling.cu", "src/repro/kernels/coupling/coupling.py:120"),
+        "coupling_fwd": ("coupling.cu", "src/repro/kernels/coupling/coupling.py:95"),
+        "coupling_inv": ("coupling.cu", "src/repro/kernels/coupling/coupling.py:151"),
+        "conv1x1_mm": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:70"),
+        "conv1x1_gw": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:46"),
     }
     for name, (source, replaces) in sources.items():
-        main = per_shape[name][0]  # (8, 16384, 12) float32: the model's largest shape
+        main = per_shape[name][0]  # the model's largest shape in float32
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": max_err[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": bound_by(name, tuple(main["shape"]), torch.float32), "library_ms": None,
-            "shape": main["shape"], "dtype": main["dtype"],
+            "bound_by": bound_by(name, tuple(main["shape"]), torch.float32),
+            "library_ms": main.get("library_ms"), "shape": main["shape"], "dtype": main["dtype"],
         })
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Flow configurations the port serves.
 
-``FlowConfig`` and ``GLOW_SCANNED`` are the reference's
+``FlowConfig`` and the GLOW configurations are the reference's
 (``repro/configs/flows.py``); the port keeps its own copy.  The other kinds
 of the reference are not ported yet, and ``build_flow`` names where each
 waits in ROADMAP.md.
@@ -24,6 +24,15 @@ class FlowConfig:
     grad_mode: str = "invertible"
 
 
+GLOW_PAPER = FlowConfig(name="glow-paper", kind="glow", n_scales=3, k_steps=8, hidden=64)
+# the exact setting of the paper's Fig. 1/2: RGB images, batch 8
+GLOW_FIG1 = FlowConfig(name="glow-fig1", kind="glow", n_scales=3, k_steps=8, hidden=64)
+# the Fig. 1 net, unrolled layer by layer, on the fused coupling kernels and
+# the coupled backward: the same density model as GLOW_SCANNED
+GLOW_COUPLED = FlowConfig(
+    name="glow-coupled", kind="glow", n_scales=3, k_steps=8, hidden=64,
+    grad_mode="coupled",
+)
 # the production path of the reference: scanned homogeneous flow-step stacks
 # through the fused flow-step kernel, 3 scales x 8 steps, hidden 64
 GLOW_SCANNED = FlowConfig(
@@ -32,7 +41,6 @@ GLOW_SCANNED = FlowConfig(
 )
 
 _NOT_PORTED = {
-    "glow": "ROADMAP.md queue 1, item 4 (core/glow.py::build_glow)",
     "realnvp": "ROADMAP.md queue 1, item 8 (core/realnvp.py)",
     "chint": "ROADMAP.md queue 1, item 8 (core/conditional.py::build_chint)",
     "hyperbolic": "ROADMAP.md queue 1, item 8 (core/hyperbolic.py)",
@@ -41,8 +49,19 @@ _NOT_PORTED = {
 
 def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: str = "auto",
                channels: int = 3, generator: torch.Generator | None = None, device=None):
+    """The flow ``cfg`` describes, on ``device`` (``cuda`` unless named).
+    ``coupled_bwd`` is the scanned stacks' backward strategy
+    (``core/glow_scan.py::resolve_coupled_bwd``); the unrolled GLOW always
+    takes the fused reverse walk, as in the reference."""
+    from repro_torch.core.glow import build_glow
     from repro_torch.core.glow_scan import build_glow_scanned
 
+    if cfg.kind == "glow":
+        return build_glow(
+            n_scales=cfg.n_scales, k_steps=cfg.k_steps, hidden=cfg.hidden,
+            grad_mode=grad_mode or cfg.grad_mode, channels=channels, generator=generator,
+            device=device,
+        )
     if cfg.kind == "glow_scanned":
         return build_glow_scanned(
             n_scales=cfg.n_scales, k_steps=cfg.k_steps, hidden=cfg.hidden,

@@ -35,6 +35,24 @@ class ActNorm(Invertible):
     def inverse(self, y, cond=None):
         return (y - self.b.to(y.dtype)) * torch.exp(-self.log_s.to(y.dtype))
 
+    def fused_bwd(self, y, gy, gld, cond=None):
+        """The ``grad_mode="coupled"`` hook: ``(x, gx, {name: grad}, None)``
+        from the output side.  ``x`` is rebuilt by the inverse affine and the
+        cotangents are closed-form, summed in f32; the logdet's cotangent
+        lands on ``log_s`` scaled by the spatial size (every channel adds
+        ``spatial * log_s`` to each sample's logdet)."""
+        log_s = self.log_s.detach()
+        e_s = torch.exp(log_s.to(y.dtype))
+        x = (y - self.b.detach().to(y.dtype)) * torch.exp(-log_s.to(y.dtype))
+        gy = gy.to(y.dtype)
+        axes = tuple(range(y.ndim - 1))
+        gy32 = gy.float()
+        g_log_s = (torch.sum(gy32 * x.float() * e_s.float(), dim=axes)
+                   + _spatial(y) * torch.sum(gld.float()))
+        grads = {"log_s": g_log_s.to(self.log_s.dtype),
+                 "b": torch.sum(gy32, dim=axes).to(self.b.dtype)}
+        return x, gy * e_s, grads, None
+
     @staticmethod
     def ddi(x: torch.Tensor, eps: float = 1e-6) -> dict:
         """Data-dependent init: post-layer activations have zero mean and

@@ -2,7 +2,8 @@
 
 ``W = P @ L @ (U + diag(sign_s * exp(log_s)))`` with ``P`` a fixed
 permutation, ``L`` unit-lower-triangular and ``U`` strictly-upper-triangular.
-``log|det W| = sum(log_s)`` is free and the inverse is two triangular solves.
+``log|det W| = sum(log_s)`` is free; the inverse is that of the rounded W
+the forward applies (:func:`lu_weight_inv`).
 
 The permutation is stored as ``inv_perm`` under the reference's convention:
 ``W = (L @ U)[inv_perm]`` (a row permutation).  It and the diagonal signs are
@@ -58,13 +59,31 @@ def lu_weight(lu, factors=None) -> torch.Tensor:
     return (l_full @ u_full)[lu["inv_perm"].long()]
 
 
-def lu_weight_inv(lu, factors=None) -> torch.Tensor:
-    """``W^-1 = U^-1 L^-1 P^T``: with ``B = U^-1 L^-1``, ``W^-1 = B[:, inv_perm]``."""
+def lu_weight_inv_solves(lu, factors=None) -> torch.Tensor:
+    """The reference's ``W^-1 = U^-1 L^-1 P^T`` by two triangular solves:
+    with ``B = U^-1 L^-1``, ``W^-1 = B[:, inv_perm]``.  It inverts the exact
+    ``L U``, not the rounded product :func:`lu_weight` returns."""
     l_full, u_full = factors if factors is not None else lu_factors(lu)
     eye = torch.eye(l_full.shape[0], dtype=l_full.dtype, device=l_full.device)
     linv = torch.linalg.solve_triangular(l_full, eye, upper=False)
-    b = torch.linalg.solve_triangular(u_full, linv, upper=True)
-    return b[:, lu["inv_perm"].long()]
+    return torch.linalg.solve_triangular(u_full, linv, upper=True)[:, lu["inv_perm"].long()]
+
+
+def lu_weight_inv(lu, factors=None) -> torch.Tensor:
+    """``W^-1`` of the W that the forward applies (:func:`lu_weight`,
+    rounded to its dtype).
+
+    :func:`lu_weight_inv_solves` misses the rounded W by O(C eps) in
+    ``W W^-1 - I``, and every reconstruction of the reversible backward
+    inherits that; at full depth it dominates the gradient's error
+    (``chip_smoke.py`` measures both inverses and the gradients they give
+    against a float64 oracle).  One Newton step in float64 against the
+    forward's own W, ``X + X (I - W X)``, leaves only the final rounding."""
+    factors = factors if factors is not None else lu_factors(lu)
+    x = lu_weight_inv_solves(lu, factors).double()
+    w = lu_weight(lu, factors).double()
+    eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+    return (x + x @ (eye - w @ x)).to(factors[0].dtype)
 
 
 def lu_pullback(lu, factors, gw) -> dict:
@@ -110,3 +129,20 @@ class Conv1x1(Invertible):
 
     def inverse(self, y, cond=None):
         return y @ lu_weight_inv(self._lu()).to(y.dtype)
+
+    def fused_bwd(self, y, gy, gld, cond=None):
+        """The ``grad_mode="coupled"`` hook: ``(x, gx, {name: grad}, None)``
+        from the output side, without the generic step's re-forward:
+        ``x = y @ W^-1`` (:func:`lu_weight_inv`), ``gx = gy @ W^T``,
+        ``gW = sum x^T gy`` in f32, mapped onto (l, u, log_s) by
+        :func:`lu_pullback`; the logdet's cotangent lands on ``log_s``."""
+        lu = {k: v.detach() for k, v in self._lu().items()}
+        factors = lu_factors(lu)
+        x = y @ lu_weight_inv(lu, factors).to(y.dtype)
+        gx = (gy @ lu_weight(lu, factors).T.to(gy.dtype)).to(y.dtype)
+        c = y.shape[-1]
+        gw = x.reshape(-1, c).float().T @ gy.reshape(-1, c).float()
+        grads = lu_pullback(lu, factors, gw)
+        spatial = math.prod(y.shape[1:-1]) if y.ndim > 2 else 1
+        grads["log_s"] = grads["log_s"] + spatial * torch.sum(gld.to(lu["log_s"].dtype))
+        return x, gx, grads, None

@@ -45,8 +45,8 @@ from repro_torch.core.types import (
     tree_leaves,
 )
 from repro_torch.kernels.common import flatten_bmc
+from repro_torch.kernels.coupling.ops import fused_coupling_bwd
 from repro_torch.kernels.flowstep.ops import (
-    fused_coupling_half_bwd,
     fused_flowstep_fwd,
     fused_flowstep_inv,
     fused_spine_bwd,
@@ -171,7 +171,7 @@ class GlowStepStack(Invertible):
         half = y[..., :ca].shape
 
         # stage 1: the coupling half, rebuilt and differentiated in one pass
-        xa, gxa, graw, gt = fused_coupling_half_bwd(
+        xa, gxa, graw, gt = fused_coupling_bwd(
             flatten_bmc(y[..., :ca]), flatten_bmc(h[..., :ca].detach()),
             flatten_bmc(h[..., ca:].detach()), flatten_bmc(gy[..., :ca]), gld, clamp=self.clamp,
         )

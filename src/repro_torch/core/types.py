@@ -67,6 +67,27 @@ class ParamTree(nn.Module):
         return getattr(self, key)
 
 
+def share_parameters(dst: nn.Module, src: nn.Module) -> nn.Module:
+    """Make ``dst`` hold ``src``'s own parameter and buffer tensors: two
+    builds of one network (a serving twin with other kernel options, say)
+    with one parameter set, so training or moving ``src`` is seen by
+    ``dst``.  Raises unless the two have the same parameters and buffers
+    by name and shape.  Returns ``dst``."""
+    s_state, d_state = src.state_dict(keep_vars=True), dst.state_dict(keep_vars=True)
+    if s_state.keys() != d_state.keys() or any(
+            s_state[k].shape != d_state[k].shape for k in s_state):
+        raise ValueError("share_parameters: the two modules differ in their parameters")
+    for name, mod in dst.named_modules():
+        prefix = f"{name}." if name else ""
+        for key in list(mod._parameters):
+            if mod._parameters[key] is not None:
+                mod._parameters[key] = s_state[prefix + key]
+        for key in list(mod._buffers):
+            if mod._buffers[key] is not None and prefix + key in s_state:
+                mod._buffers[key] = s_state[prefix + key]
+    return dst
+
+
 def tree_index(tree, i: int, detach: bool = False) -> dict:
     """Slice ``i`` of every leaf of a stacked module tree (the counterpart
     of the reference's per-step scan slice), as a nested dict.  With

@@ -8,8 +8,9 @@ raises.  Nothing falls back from the card to the plain version.
 Build: each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and loaded with ``ctypes``.
-The library's name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+The library's name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
 )
 
 #: kernel library name -> its source under ``csrc/``
-SOURCES = {"flowstep": "flowstep.cu", "coupling": "coupling.cu"}
+SOURCES = {"flowstep": "flowstep.cu", "coupling": "coupling.cu", "conv1x1": "conv1x1.cu"}
 #: storage types the kernels take, as the code each C entry point reads
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -75,8 +76,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, the shared headers
+    and the flags."""
+    text = b"".join(p.read_bytes() for p in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}.so"
 
 
@@ -125,6 +128,11 @@ def bind(lib: str, name: str, argtypes) -> ctypes._CFuncPtr:
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     return f
+
+
+def stream(v: torch.Tensor) -> int:
+    """PyTorch's current stream on ``v``'s device, as the C entry points take it."""
+    return torch.cuda.current_stream(v.device).cuda_stream
 
 
 def raise_on(err: int, name: str):

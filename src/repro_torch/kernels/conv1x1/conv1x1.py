@@ -1,0 +1,123 @@
+"""Bindings of the hand-written CUDA 1x1-convolution kernels
+(``csrc/conv1x1.cu``).
+
+``conv1x1_mm`` and ``conv1x1_gw`` replace the Pallas kernels of the same
+names in ``repro/kernels/conv1x1/conv1x1.py``.  Both are memory-bound at the
+widths GLOW uses (12 bytes an element in f32 for the product, 8 for the
+weight cotangent); the source note in ``conv1x1.cu`` gives the design.  Each
+wrapper checks what the kernel takes, allocates the outputs and scratch,
+launches on PyTorch's current stream, raises if the launch was refused, and
+adds one to its ``launches`` count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, stream
+
+#: shared memory a block may take without opting in to more
+SMEM_LIMIT = 48 * 1024
+#: x elements a ``conv1x1_mm`` block (and a ``conv1x1_gw`` slab) stages
+TILE_ELEMS = 2048
+#: W elements a ``conv1x1_mm`` block stages: a panel of PANEL_ELEMS // C columns
+PANEL_ELEMS = 8192
+#: threads of a block, and the gW entries each ``conv1x1_gw`` thread keeps
+THREADS, GW_TILE_ENTRIES = 256, 16
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "conv1x1_mm": [_I, _P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P],
+    "conv1x1_gw": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
+}
+
+
+def _fn(name: str):
+    return bind("conv1x1", name, _SIGNATURES[name])
+
+
+def mm_smem_bytes(c: int, block_m: int, panel: int) -> int:
+    """Shared memory of one ``conv1x1_mm`` block: a (C, panel) panel of W and
+    a (block_m, C) tile of x, in f32 (``mm_smem_bytes`` in ``conv1x1.cu``)."""
+    return 4 * (c * panel + block_m * c)
+
+
+def gw_smem_bytes(c: int, stage_rows: int) -> int:
+    """Shared memory of one ``conv1x1_gw`` block: slabs of x and gy and the
+    row groups' sums, in f32 (``gw_smem_bytes`` in ``conv1x1.cu``)."""
+    return 4 * (2 * stage_rows * c + THREADS * GW_TILE_ENTRIES)
+
+
+def gw_chunks(n_rows: int, c: int, elem_size: int, n_sm: int) -> int:
+    """The row chunks ``conv1x1_gw`` sums separately: two per SM, but no more
+    than keeps the chunks' (C, C) f32 partials under a quarter of the inputs'
+    bytes (``n * C*C*4 <= n_rows * 2*C*elem_size / 4``), so the partials and
+    their reduce stay small next to the pass over x and gy."""
+    cap = (n_rows * elem_size) // (8 * c)
+    return max(1, min(2 * n_sm, cap, n_rows))
+
+
+def _check(name, x, other, what):
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 3 or x.numel() == 0 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a non-empty contiguous (B, M, C) tensor, "
+                         f"got {tuple(x.shape)}")
+    if other is not None and (other.dtype != x.dtype or other.shape != x.shape
+                              or not other.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous {tuple(x.shape)} {x.dtype} tensor")
+    return x.shape
+
+
+class _Conv1x1Mm(Kernel):
+    def __call__(self, x, w):
+        """x: (B, M, C); w: (C, C), any strides and float dtype (rounded to
+        x's dtype first) -> y: (B, M, C) in x's dtype."""
+        b, m, c = _check(self.name, x, None, "")
+        if tuple(w.shape) != (c, c) or w.device != x.device:
+            raise ValueError(f"{self.name}: W must be ({c}, {c}) on {x.device}")
+        w = w.to(x.dtype)
+        n = b * m
+        block_m = max(1, min(n, TILE_ELEMS // c))
+        panel = max(1, min(c, PANEL_ELEMS // c))
+        if mm_smem_bytes(c, block_m, panel) > SMEM_LIMIT:
+            raise ValueError(f"{self.name}: C={c} does not fit in {SMEM_LIMIT} bytes of "
+                             "shared memory")
+        y = torch.empty_like(x)
+        err = _fn(self.name)(
+            KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+            y.data_ptr(), n, c, block_m, panel, x.device.index, stream(x),
+        )
+        raise_on(err, self.name)
+        self.launches += 1
+        return y
+
+
+class _Conv1x1Gw(Kernel):
+    def __call__(self, x, gy):
+        """x, gy: (B, M, C) -> gW: (C, C) f32, ``sum_{b,m} x^T gy``."""
+        b, m, c = _check(self.name, x, gy, "gy")
+        n = b * m
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        chunk_rows = -(-n // gw_chunks(n, c, x.element_size(), n_sm))
+        n_chunks = -(-n // chunk_rows)
+        stage_rows = max(1, min(chunk_rows, TILE_ELEMS // c))
+        if gw_smem_bytes(c, stage_rows) > SMEM_LIMIT:
+            raise ValueError(f"{self.name}: C={c} does not fit in {SMEM_LIMIT} bytes of "
+                             "shared memory")
+        partial = torch.empty((n_chunks, c * c), dtype=torch.float32, device=x.device)
+        gw = torch.empty((c, c), dtype=torch.float32, device=x.device)
+        err = _fn(self.name)(
+            KERNEL_DTYPES[x.dtype], x.data_ptr(), gy.data_ptr(), partial.data_ptr(),
+            gw.data_ptr(), n, c, chunk_rows, stage_rows, x.device.index, stream(x),
+        )
+        raise_on(err, self.name)
+        self.launches += 1
+        return gw
+
+
+conv1x1_mm = _Conv1x1Mm("conv1x1_mm")
+conv1x1_gw = _Conv1x1Gw("conv1x1_gw")
+KERNELS = (conv1x1_mm, conv1x1_gw)

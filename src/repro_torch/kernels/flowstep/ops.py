@@ -1,7 +1,7 @@
 """Public wrappers of the fused flow step, dispatched by tensor device.
 
-CPU tensors take the plain versions in ``ref.py`` (and
-``kernels/coupling/ref.py``), which autograd differentiates directly.  CUDA
+CPU tensors take the plain versions in ``ref.py`` (and the coupling half's
+in ``kernels/coupling/ops.py``), which autograd differentiates directly.  CUDA
 tensors take the hand-written kernels.  ``fused_flowstep_fwd`` is then an
 ``autograd.Function`` whose backward is :func:`flowstep_fwd_vjp`: the two
 backward kernels (``coupling_bwd``, ``spine_bwd``) from the output side, as
@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import use_plain
-from repro_torch.kernels.coupling import coupling as _ck
-from repro_torch.kernels.coupling.ref import coupling_bwd_ref
+from repro_torch.kernels.coupling.ops import fused_coupling_bwd
 from repro_torch.kernels.flowstep import flowstep as _k
 from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
 
@@ -26,8 +25,7 @@ def flowstep_fwd_vjp(y, raw, t, an_log_s, an_b, w, gy, gld, clamp: float = 2.0):
     ``coupling_bwd`` on the transformed half, then ``W^-1``, then
     ``spine_bwd``.  Returns ``(gx, g_an_log_s, g_an_b, gW, graw, gt)``."""
     ca = raw.shape[-1]
-    xa, gxa, graw, gt = fused_coupling_half_bwd(y[..., :ca], raw, t, gy[..., :ca], gld,
-                                                clamp=clamp)
+    xa, gxa, graw, gt = fused_coupling_bwd(y[..., :ca], raw, t, gy[..., :ca], gld, clamp=clamp)
     x2 = torch.cat([xa, y[..., ca:]], dim=-1)
     gx2 = torch.cat([gxa, gy[..., ca:].to(gxa.dtype)], dim=-1)
     w_inv = torch.linalg.inv(w.float())
@@ -77,17 +75,9 @@ def fused_flowstep_inv(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
     return _InvFn.apply(y, an_log_s, an_b, w_inv, raw, t, clamp)
 
 
-def fused_coupling_half_bwd(ya, raw, t, gya, gld, clamp: float = 2.0):
-    """Stage 1 of the flow-step backward, the coupling half: ``(xa, gxa,
-    graw, gt)`` from the output side; graw/gt feed the conditioner's VJP."""
-    if use_plain(ya, raw, t, gya, gld):
-        return coupling_bwd_ref(ya, raw, t, gya, gld, clamp=clamp)
-    return _ck.coupling_bwd(ya, raw, t, gya, gld, clamp)
-
-
 def fused_spine_bwd(x2, gx2, w, w_inv, an_log_s, an_b):
-    """Stage 2 of the flow-step backward, conv1x1 + actnorm from the conv
-    output side: ``(x, gx, gW, g_log_s, g_b)``."""
+    """The flow-step backward after the coupling half, conv1x1 + actnorm from
+    the conv output side: ``(x, gx, gW, g_log_s, g_b)``."""
     if use_plain(x2, gx2, w, w_inv, an_log_s, an_b):
         return spine_bwd_ref(x2, gx2, w, w_inv, an_log_s, an_b)
     return _k.spine_bwd(x2.contiguous(), gx2.contiguous(), w, w_inv, an_log_s, an_b)

@@ -16,14 +16,23 @@ from repro_torch.core.types import resolve_device
 
 class FlowServeEngine:
     """Serve ``flow`` (an ``Invertible`` module) on ``device`` (``cuda``
-    unless named; raises without a card)."""
+    unless named; raises without a card).
+
+    ``sample_flow``: an optional twin that ``sample`` inverts in place of
+    ``flow``, as in the reference: a second build of the same network with
+    other kernel options (``build_glow(..., kernel_inverse=True)``) that
+    holds ``flow``'s own parameters, made with
+    ``core.types.share_parameters(twin, flow)``.  One parameter set, two
+    builds: whatever trains or moves ``flow`` is seen by the twin.  Without
+    it, ``flow`` serves both calls."""
 
     # the sampling stream's tag, as in the reference
     _TAG_SAMPLE = 0
 
-    def __init__(self, flow, device=None):
+    def __init__(self, flow, device=None, sample_flow=None):
         self.device = resolve_device(device)
         self.flow = flow.to(self.device).eval()
+        self.sample_flow = self.flow if sample_flow is None else sample_flow.to(self.device).eval()
 
     def _put(self, v):
         if v is None:
@@ -46,4 +55,4 @@ class FlowServeEngine:
         gen = derive_key(generator, self._TAG_SAMPLE, device=self.device)
         with torch.inference_mode():
             z = std_normal_sample(gen, like)
-            return self.flow.inverse(z, self._put(cond))
+            return self.sample_flow.inverse(z, self._put(cond))

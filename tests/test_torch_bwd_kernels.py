@@ -30,13 +30,10 @@ from repro.kernels.flowstep.flowstep import spine_bwd as j_spine_bwd
 from repro.kernels.flowstep.ops import _fwd_pallas
 from repro_torch.kernels import common
 from repro_torch.kernels.coupling import coupling as ckern
+from repro_torch.kernels.coupling.ops import fused_coupling_bwd
 from repro_torch.kernels.coupling.ref import coupling_bwd_ref
 from repro_torch.kernels.flowstep import flowstep as kern
-from repro_torch.kernels.flowstep.ops import (
-    flowstep_fwd_vjp,
-    fused_coupling_half_bwd,
-    fused_spine_bwd,
-)
+from repro_torch.kernels.flowstep.ops import flowstep_fwd_vjp, fused_spine_bwd
 from repro_torch.kernels.flowstep.ref import spine_bwd_ref
 
 torch.set_num_threads(2)
@@ -94,8 +91,8 @@ def test_plain_coupling_bwd_matches_reference_kernel(m, c, dtype):
     (jy, ty), (jgy, tgy), (jh, th) = (_both(a, dtype) for a in (y, gy, h))
     ref = j_coupling_bwd(jy[..., :ca], jh[..., :ca], jh[..., ca:], jgy[..., :ca],
                          jnp.asarray(gld), block_m=pick_block_m(m), interpret=True)
-    got = fused_coupling_half_bwd(ty[..., :ca], th[..., :ca], th[..., ca:], tgy[..., :ca],
-                                  torch.from_numpy(gld))
+    got = fused_coupling_bwd(ty[..., :ca], th[..., :ca], th[..., ca:], tgy[..., :ca],
+                             torch.from_numpy(gld))
     for name, a, r in zip(("x", "gx", "graw", "gt"), got, ref):
         assert a.dtype == ty.dtype and tuple(a.shape) == (2, m, ca)
         np.testing.assert_allclose(_f32(a), _f32(r), **TILE_TOL[dtype], err_msg=name)
@@ -133,7 +130,7 @@ def test_cpu_tensors_take_the_plain_backward_and_launch_nothing():
     got = fused_spine_bwd(x2, gx2, w, wi, ls, b)
     assert all(torch.equal(a, r) for a, r in zip(got, spine_bwd_ref(x2, gx2, w, wi, ls, b)))
     gld = torch.ones(2)
-    got = fused_coupling_half_bwd(x2[..., :6], gx2[..., :6], gx2[..., 6:], x2[..., 6:], gld)
+    got = fused_coupling_bwd(x2[..., :6], gx2[..., :6], gx2[..., 6:], x2[..., 6:], gld)
     ref = coupling_bwd_ref(x2[..., :6], gx2[..., :6], gx2[..., 6:], x2[..., 6:], gld)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
     assert kern.spine_bwd.launches == ckern.coupling_bwd.launches == 0

@@ -8,17 +8,25 @@ They import no JAX, so they run on a machine that has only PyTorch:
 Tolerances: y / x and every per-element backward output in f32 at 1e-4
 absolute (the reference's kernel bound); bf16 compared as f32-upcast values
 at rtol = atol = 2e-2; ld at rtol 1e-5 with atol 1e-4 (a sum of B*M*ca terms
-in another order); the backward's sums over (b, m) (gW, g_log_s, g_b) at
-1e-4 in f32 and 5e-2 in bf16 of each tensor's largest entry: sums of up to
-131,072 terms, where an entry that cancels to near zero keeps the round-off
-of the large partial sums (as ``chip_smoke.py`` holds them).
+in another order; for ``coupling_fwd``, whose random raw makes the terms
+cancel, 1e-5 of sum |log_s| plus 1e-4); the backward's sums over (b, m) (gW,
+g_log_s, g_b, and ``conv1x1_gw``'s gW) at 1e-4 in f32 and 5e-2 in bf16 of
+each tensor's largest entry: sums of up to 131,072 terms, where an entry that
+cancels to near zero keeps the round-off of the large partial sums (as
+``chip_smoke.py`` holds them); gradients through ``fused_coupling_fwd`` and
+``invertible_conv1x1`` at rtol = atol = 1e-4 against autograd through the
+plain versions.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
+from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
+from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
 from repro_torch.kernels.coupling import coupling as ckern
-from repro_torch.kernels.coupling.ref import coupling_bwd_ref
+from repro_torch.kernels.coupling.ops import fused_coupling_fwd
+from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
 from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
@@ -125,3 +133,96 @@ def test_coupling_bwd_matches_plain_version(dev, shape, dtype):
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
         _close(a, r, dtype)
+
+
+COUPLING_SHAPES = [(8, 16384, 6), (8, 4096, 12), (8, 1024, 24), (8, 300, 6), (2, 28, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", COUPLING_SHAPES)
+def test_coupling_fwd_and_inv_match_plain_versions(dev, shape, dtype):
+    """On strided halves (x the first ca channels of a (B, M, 2*ca) tensor,
+    raw/t the halves of another), as the unrolled GLOW passes them."""
+    b, m, ca = shape
+    g = torch.Generator().manual_seed(5)
+    xx = torch.randn(b, m, 2 * ca, generator=g).to(dev, dtype)
+    h = torch.randn(b, m, 2 * ca, generator=g).to(dev, dtype)
+    x, raw, t = xx[..., :ca], h[..., :ca], h[..., ca:]
+    before = (ckern.coupling_fwd.launches, ckern.coupling_inv.launches)
+    y, ld = ckern.coupling_fwd(x, raw, t)
+    y_r, ld_r = coupling_fwd_ref(x, raw, t)
+    back = ckern.coupling_inv(x, raw, t)
+    _, ld2 = ckern.coupling_fwd(x, raw, t)
+    torch.cuda.synchronize()
+    _close(y, y_r, dtype)
+    # the terms cancel for random raw: the sum's error scales with sum |log_s|
+    scale = (2.0 * torch.tanh(raw.float() / 2.0)).abs().sum(dim=(1, 2))
+    assert ((ld - ld_r).abs() <= 1e-5 * scale + 1e-4).all()
+    assert torch.equal(ld, ld2)  # no atomics: bitwise repeatable
+    _close(back, coupling_inv_ref(x, raw, t), dtype)
+    assert (ckern.coupling_fwd.launches, ckern.coupling_inv.launches) == (before[0] + 2,
+                                                                            before[1] + 1)
+
+
+def test_fused_coupling_fwd_gradient_on_the_card_matches_the_plain_path(dev):
+    """``fused_coupling_fwd``'s backward on the card (``coupling_bwd`` from
+    the output side) gives the gradient autograd takes through the plain
+    version."""
+    g = torch.Generator().manual_seed(6)
+    h = torch.randn(2, 300, 12, generator=g).to(dev)
+    x = torch.randn(2, 300, 12, generator=g).to(dev)[..., :6]
+    gy = torch.randn(2, 300, 6, generator=g).to(dev)
+    gld = torch.randn(2, generator=g).to(dev)
+
+    def grads(fn):
+        leaves = [v.detach().clone().requires_grad_() for v in (x, h[..., :6], h[..., 6:])]
+        y, ld = fn(*leaves)
+        return torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), leaves)
+
+    before = ckern.coupling_bwd.launches
+    got, ref = grads(fused_coupling_fwd), grads(coupling_fwd_ref)
+    torch.cuda.synchronize()
+    assert ckern.coupling_bwd.launches == before + 1
+    for name, a, r in zip(("x", "raw", "t"), got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV1X1_SHAPES)
+def test_conv1x1_kernels_match_plain_versions(dev, shape, dtype):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=g).to(dev, dtype)
+    gy = torch.randn(shape, generator=g).to(dev, dtype)
+    w = (torch.randn(shape[-1], shape[-1], generator=g) / shape[-1] ** 0.5).to(dev)
+    y = c1kern.conv1x1_mm(x, w)
+    gx = c1kern.conv1x1_mm(gy, w.T)
+    gw, gw2 = c1kern.conv1x1_gw(x, gy), c1kern.conv1x1_gw(x, gy)
+    torch.cuda.synchronize()
+    _close(y, conv1x1_mm_ref(x, w), dtype)
+    _close(gx, conv1x1_mm_ref(gy, w.T), dtype)
+    ref = conv1x1_gw_ref(x, gy)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (gw - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(gw, gw2)  # no atomics: bitwise repeatable
+
+
+def test_invertible_conv1x1_gradient_on_the_card_matches_the_plain_path(dev):
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 300, 12, generator=g).to(dev)
+    w = torch.randn(12, 12, generator=g).to(dev)
+    gy = torch.randn(2, 300, 12, generator=g).to(dev)
+
+    def grads(fn):
+        x_, w_ = x.clone().requires_grad_(), w.clone().requires_grad_()
+        return torch.autograd.grad((fn(x_, w_) * gy).sum(), (x_, w_))
+
+    before = (c1kern.conv1x1_mm.launches, c1kern.conv1x1_gw.launches)
+    got, ref = grads(invertible_conv1x1), grads(conv1x1_mm_ref)
+    torch.cuda.synchronize()
+    assert (c1kern.conv1x1_mm.launches, c1kern.conv1x1_gw.launches) == (before[0] + 2,
+                                                                         before[1] + 1)
+    for name, a, r in zip(("x", "w"), got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)

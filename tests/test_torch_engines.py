@@ -35,6 +35,7 @@ from repro_torch.core.chain import OnFirst, Split
 from repro_torch.core.glow_scan import build_glow_scanned, resolve_coupled_bwd
 from repro_torch.core.haar import HaarSqueeze
 from repro_torch.core.actnorm import ActNorm
+from repro_torch.core.types import Invertible
 from repro_torch.core.objectives import nll_bits_per_dim, nll_loss
 from torch_parity import close, grad_errors, make_pair
 
@@ -103,7 +104,8 @@ def test_coupled_bwd_resolution():
 def test_on_first_offers_only_the_hooks_of_its_layer():
     assert hasattr(OnFirst(HaarSqueeze()), "fused_bwd")
     assert not hasattr(OnFirst(HaarSqueeze()), "invertible_bwd")
-    assert not hasattr(OnFirst(ActNorm(4, device="cpu")), "fused_bwd")
+    assert hasattr(OnFirst(ActNorm(4, device="cpu")), "fused_bwd")
+    assert not hasattr(OnFirst(Invertible()), "fused_bwd")
     stack = build_glow_scanned(**SMALL, device="cpu").layers[2]
     assert hasattr(stack, "fused_bwd") and hasattr(stack, "invertible_bwd")
     assert hasattr(Split(), "fused_bwd")
@@ -127,8 +129,8 @@ def test_conditioner_evaluations_per_train_step(mode, coupled_bwd, per_step, fus
 
     monkeypatch.setattr(glow_scan, "coupling_cnn_apply",
                         counting("net", glow_scan.coupling_cnn_apply))
-    monkeypatch.setattr(glow_scan, "fused_coupling_half_bwd",
-                        counting("coupling_bwd", glow_scan.fused_coupling_half_bwd))
+    monkeypatch.setattr(glow_scan, "fused_coupling_bwd",
+                        counting("coupling_bwd", glow_scan.fused_coupling_bwd))
     flow = build_glow_scanned(**SMALL, grad_mode=mode, coupled_bwd=coupled_bwd, device="cpu")
     value_and_grad_nll(flow, torch.randn(SHAPE))
     steps = SMALL["n_scales"] * SMALL["k_steps"]

@@ -162,6 +162,8 @@ def test_bridge_raises_on_unmapped_leaves(small):
 def test_build_flow_ports_only_glow_scanned():
     flow = build_flow(GLOW_SCANNED, device="cpu")
     assert flow.grad_mode == "coupled" and len(flow.layers) == 1 + 3 * 2 + 2
-    for kind in ("glow", "realnvp", "chint", "hyperbolic"):
+    # the unrolled GLOW is ported too (tests/test_torch_glow_coupled.py)
+    assert build_flow(FlowConfig(name="glow", kind="glow"), device="cpu").grad_mode == "invertible"
+    for kind in ("realnvp", "chint", "hyperbolic"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             build_flow(FlowConfig(name=kind, kind=kind), device="cpu")

@@ -1,5 +1,6 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
-package (serving and one ``coupled`` train step), and refuses to run quietly
+package (serving and one ``coupled`` train step of the scanned and the
+unrolled GLOW), and refuses to run quietly
 on the CPU when no device was named."""
 
 import os
@@ -31,6 +32,11 @@ def test_port_runs_without_loading_jax():
         "from repro_torch.train.loop import train_flow\n"
         "res = train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1), device='cpu')\n"
         "assert flow.grad_mode == 'coupled' and len(res.losses) == 1\n"
+        "from repro_torch.configs.flows import GLOW_COUPLED\n"
+        "flow = build_flow(GLOW_COUPLED, device='cpu')\n"
+        "lp = FlowServeEngine(flow, device='cpu').log_prob(torch.randn(1, 8, 8, 3))\n"
+        "res = train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1), device='cpu')\n"
+        "assert bool(torch.isfinite(lp).all()) and len(res.losses) == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
@@ -50,7 +56,7 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_engine_without_device_raises_on_a_host_without_a_card():
-    from repro_torch.configs.flows import GLOW_SCANNED, build_flow
+    from repro_torch.configs.flows import GLOW_COUPLED, GLOW_SCANNED, build_flow
     from repro_torch.serve.engine import FlowServeEngine
 
     if torch.cuda.is_available():
@@ -60,6 +66,8 @@ def test_engine_without_device_raises_on_a_host_without_a_card():
         FlowServeEngine(flow)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_flow(GLOW_SCANNED)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flow(GLOW_COUPLED)
 
 
 def test_train_flow_without_device_raises_on_a_host_without_a_card():

@@ -1,4 +1,4 @@
-"""Shared helpers of the scanned-GLOW parity tests (``test_torch_glow*.py``,
+"""Shared helpers of the GLOW parity tests (``test_torch_glow*.py``,
 ``test_torch_engines*.py``): one perturbed parameter tree of the JAX
 reference, loaded into both packages, and the per-leaf gradient
 comparison."""
@@ -15,14 +15,17 @@ from repro_torch.core import build_glow_scanned
 SEED = 20261017
 
 
-def perturbed(tree, rng, scale=0.05):
-    """Every float leaf of a stacked (k, ...) tree plus noise of standard
-    deviation ``scale / sqrt(fan_in)``, ``fan_in`` the product of the axes
-    between the leading k and the output axis (1 for per-channel vectors)."""
+def perturbed(tree, rng, scale=0.05, stacked=True):
+    """Every float leaf of a tree plus noise of standard deviation
+    ``scale / sqrt(fan_in)``, ``fan_in`` the product of the axes before the
+    output axis (1 for per-channel vectors), after the leading k axis of a
+    stacked (k, ...) tree."""
+    lead = 1 if stacked else 0
+
     def bump(a):
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.floating):
-            std = scale / np.sqrt(np.prod(a.shape[1:-1]))
+            std = scale / np.sqrt(np.prod(a.shape[lead:-1]))
             return (a + std * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
 
