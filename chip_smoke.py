@@ -7,8 +7,12 @@ It serves and trains GLOW (3 scales x 8 steps, hidden 64, Haar squeeze) at
 full width on 256x256x3 images, batch 8, with random weights from a seed, in
 both of the port's builds: scanned (``GLOW_SCANNED``, the fused flow-step
 kernels) and unrolled (``GLOW_COUPLED``, the fused coupling kernels with the
-ActNorm and Conv1x1 hooks).  It holds every hand-written kernel on those
-paths against its plain PyTorch version.  Phases, one line each:
+ActNorm and Conv1x1 hooks).  Then it serves the language model yi-6b (32
+layers, d_model 4096, reversible, bf16 activations, f32 weights from a seed)
+through ``ServeEngine.generate``, and drives the flash-attention kernel
+through ``attn_apply(impl="flash")`` at yi-6b's width.  It holds every
+hand-written kernel against its plain PyTorch version.  Phases, one line
+each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together);
@@ -41,7 +45,21 @@ paths against its plain PyTorch version.  Phases, one line each:
              end-to-end ``log_prob``, ``sample`` and the train step of both
              models; one profiled call of each, with device time by op and
              the device's idle share (tables written to
-             ``chiprun_out/chip_smoke/``).
+             ``chiprun_out/chip_smoke/``);
+8. LM      - ``[op]``: ``attn_apply(impl="flash")`` against ``impl="xla"`` at
+             yi-6b's width (batch 8 x 2048), one ``flash_attention`` launch a
+             call; ``[serve]``: yi-6b at full width and depth 2 in f32 on the
+             card against the same weights on the CPU (prefill logits, 8
+             greedy tokens), then at full width and depth in bf16, batch 8,
+             a 2048-token prompt and 32 new tokens (``flash_attention``
+             launches per ``generate``: 0, as in the reference, whose model
+             never asks for the kernel); ``[times]``/``[profile]``: the
+             kernel at yi-6b's prefill shape and a smaller one, prefill and
+             decode-step medians, tokens/s, device idle share, peak memory.
+
+The flash-attention checks of phase 2 (``flash_attention`` against
+``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
+bf16, causal or not, bitwise repeatable) run with the other kernels.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that did not launch fails the run.  Any failure
@@ -71,9 +89,20 @@ SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]
 # the widest C the reference's tests take, and a ragged M
 COUPLING_SHAPES = [(8, 16384, 6), (8, 4096, 12), (8, 1024, 24), (8, 300, 6)]
 CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8)]
-#: one NVIDIA H100 SXM (data sheet): HBM bytes/s and non-tensor-core f32 FLOP/s
+#: one NVIDIA H100 SXM (data sheet): HBM bytes/s, non-tensor-core f32 FLOP/s
+#: and dense bf16 tensor-core FLOP/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_BF16_FLOPS = 989.4e12
+# flash_attention (B, Hq, Hkv, S, D): the reference's kernel-test shapes
+# (tests/test_kernels.py:277-279) and yi-6b's prefill, batch 8 x 2048
+ATTN_SHAPES = [(1, 4, 4, 256, 32), (2, 8, 2, 256, 64), (1, 6, 1, 512, 64), (8, 32, 4, 2048, 128)]
+# the reference's kernel tolerance (tests/test_kernels.py:43), rtol = atol
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_ATTN_OP = 2e-4     # attn_apply flash vs einsum in f32 (tests/test_kernels.py:413-416)
+TOL_LM_LOGITS = 1e-4   # yi-6b prefill logits, card vs CPU, of the largest logit
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
+LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_NEW = 2, 64, 8
 
 # tolerances, with their reasons
 TOL_F32 = 1e-4        # per element in f32: the reference's own kernel bound
@@ -153,9 +182,14 @@ def cost(name: str, shape, dtype):
     transformed half itself."""
     import torch
 
+    es = torch.tensor([], dtype=dtype).element_size()
+    if name == "flash_attention":
+        # (B, Hq, Hkv, S, D), causal: q, k, v read and o written once; two
+        # D-long products for each visible (query, key) pair, S(S+1)/2 a head
+        b, hq, hkv, s, d = shape
+        return es * 2 * d * s * (b * hq + b * hkv), 4 * b * hq * d * (s * (s + 1) // 2)
     b, m, c = shape
     ca = c // 2
-    es = torch.tensor([], dtype=dtype).element_size()
     if name == "spine_bwd":
         # x2, gx2 in; x, gx out; W, W^-1, an_log_s, an_b in; gW, g_ls, g_b out
         nbytes = 4 * es * b * m * c + 4 * (2 * c * c + 2 * c) + 4 * (c * c + 2 * c)
@@ -179,14 +213,23 @@ def cost(name: str, shape, dtype):
     return big + small, b * m * c * (2 * c + 2) + b * m * ca * 6
 
 
+def peak_flops(name, dtype) -> float:
+    """The card's rate for the function's products: bf16 tensor cores for
+    flash attention's bf16 inputs, the f32 rate (TF32 off) otherwise; the
+    flow kernels compute in f32 whatever their storage type."""
+    import torch
+
+    return H100_BF16_FLOPS if name == "flash_attention" and dtype == torch.bfloat16 else H100_F32_FLOPS
+
+
 def bound_ms(name, shape, dtype) -> float:
     nbytes, flops = cost(name, shape, dtype)
-    return 1e3 * max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS)
+    return 1e3 * max(nbytes / H100_BYTES_PER_S, flops / peak_flops(name, dtype))
 
 
 def bound_by(name, shape, dtype) -> str:
     nbytes, flops = cost(name, shape, dtype)
-    return "bytes" if nbytes / H100_BYTES_PER_S >= flops / H100_F32_FLOPS else "operations"
+    return "bytes" if nbytes / H100_BYTES_PER_S >= flops / peak_flops(name, dtype) else "operations"
 
 
 def call_ms(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -210,15 +253,18 @@ def _is_device_event(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 10) -> float:
-    """Device time of one call: the summed durations of every kernel the call
-    launches, from the profiler (host work and gaps between launches are not
-    counted).  The profiler now and then returns a window of a few-µs
-    kernels with no device events at all, or with fewer kernels than the
-    ``reps`` calls launched (one such window read 0.095 µs for a 19 µs
-    kernel, and such windows can come several in a row); such a window is
-    taken again, up to ``attempts`` times, and the run fails if none is
-    whole."""
+def device_ms(fn, reps: int = 20, attempts: int = 10) -> tuple[float, str]:
+    """Device time of one call and where it came from.
+
+    First choice, ``"profiler"``: the summed durations of every kernel the
+    call launches (host work and gaps between launches are not counted).
+    The profiler now and then returns a window with no device events, or
+    with fewer kernels than the ``reps`` calls launched (one such window
+    read 0.095 µs for a 19 µs kernel).  Such a window is taken again, up to
+    ``attempts`` times.  Late in a long run the profiler can lose some
+    kernels of every window of a call that launches one kernel; then the
+    time is ``queued_ms``'s, ``"queued_events"``, which also counts the
+    device's gaps between kernels (about 1 µs a launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,19 +278,48 @@ def device_ms(fn, reps: int = 20, attempts: int = 10) -> float:
         kernels = [e for e in prof.key_averages() if _is_device_event(e)]
         total_us = sum(e.device_time_total for e in kernels)
         if total_us > 0 and sum(e.count for e in kernels) >= reps:
-            return total_us / reps / 1e3
-    raise SystemExit("chip_smoke: FAILED: the profiler recorded no whole window of device time")
+            return total_us / reps / 1e3, "profiler"
+    return queued_ms(fn, reps), "queued_events"
+
+
+def queued_ms(fn, reps: int = 20, spin_cycles: int = 20_000_000) -> float:
+    """Device time of one call without the profiler: ``reps`` calls queued
+    behind a spin kernel that keeps the card busy while the host enqueues
+    them, so they run back to back and CUDA events around them time the
+    device (the gaps between kernels included, the host's work not).  The
+    spin is doubled and the window retaken while the host took longer to
+    enqueue the calls than the spin lasted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(8):
+        ev[0].record()
+        torch.cuda._sleep(spin_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        spin_cycles *= 2
+    raise SystemExit("chip_smoke: FAILED: the host could not queue the calls ahead of the card")
 
 
 def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None) -> dict:
     """One ``[times]`` line: the kernel's, its plain version's and (where one
     PyTorch call computes the same function) that call's device time, beside
-    the bound, at ``shape``."""
-    ms = device_ms(k_fn)
+    the bound, at ``shape``; ``ms_from`` names each time's source."""
+    (ms, k_src), (plain_ms, p_src) = device_ms(k_fn), device_ms(p_fn)
+    lib_ms, l_src = device_ms(lib_fn) if lib_fn is not None else (None, None)
     nbytes, flops = cost(name, shape, dtype)
     row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-           "ms": ms, "plain_ms": device_ms(p_fn), "bound_ms": bound_ms(name, shape, dtype),
-           "library_ms": device_ms(lib_fn) if lib_fn is not None else None,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(name, shape, dtype),
+           "library_ms": lib_ms, "ms_from": {"ms": k_src, "plain_ms": p_src, "library_ms": l_src},
            "call_ms": call_ms(k_fn), "plain_call_ms": call_ms(p_fn),
            "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
     line("times", kernel=name, **row)
@@ -725,6 +800,281 @@ def conv1x1_op_phase(dev, card) -> dict:
     return launches
 
 
+def attention_inputs(shape, dtype, dev, seed):
+    """q (B, Hq, S, D) and k, v (B, Hkv, S, D), standard normal."""
+    import torch
+
+    b, hq, hkv, s, d = shape
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, h, s, d, generator=g).to(dev, dtype) for h in (hq, hkv, hkv))
+
+
+def check_attention_kernel(dev) -> dict:
+    """Phase 2, ``flash_attention`` against ``attention_ref`` at
+    ``ATTN_SHAPES``, f32 and bf16, causal or not: within the reference's
+    ``_tol`` and bitwise repeatable.  Returns the largest abs error at each
+    (shape, dtype)."""
+    import torch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    errs = {}
+    for shape in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            q, k, v = attention_inputs(shape, dtype, dev, SEED + 15)
+            for causal in (True, False):
+                o, o_again = ak.flash_attention(q, k, v, causal), ak.flash_attention(q, k, v, causal)
+                r = attention_ref(q, k, v, causal).float()
+                torch.cuda.synchronize()
+                d = (o.float() - r).abs()
+                tol = TOL_ATTN[dname]
+                bad = int((d > tol + tol * r.abs()).sum().item())
+                err = d.max().item()
+                del r, d
+                errs[(shape, dname)] = max(errs.get((shape, dname), 0.0), err)
+                check(bad == 0, f"flash_attention {shape} {dname} causal={causal}: {bad} entries "
+                                f"off, max {err}")
+                check(torch.equal(o, o_again), f"flash_attention not bitwise repeatable at {shape}")
+                line("kernels", kernel="flash_attention", shape=list(shape), dtype=dname,
+                     causal=causal, max_abs_err=err, tol=tol, bitwise_repeatable=True)
+            del q, k, v
+    torch.cuda.empty_cache()
+    return errs
+
+
+def attention_op_phase(dev, card) -> dict:
+    """Phase 8, ``[op]``: ``attn_apply(impl="flash")`` against
+    ``impl="xla"`` at yi-6b's width, batch 8 x 2048.  f32: within
+    ``TOL_ATTN_OP``.  bf16: both paths against the f32 op on the same
+    (bf16-rounded) inputs; the flash path, whose scores stay f32, may err no
+    more than the einsum path, which rounds them to bf16 (mean absolute
+    error; the maximum is reported).  One ``flash_attention`` launch a call;
+    the einsum path launches none."""
+    import torch
+    from repro_torch.configs.yi_6b import CONFIG
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.nn.attention import attn_apply, attn_init
+
+    acfg = CONFIG.attention
+    params = attn_init(torch.Generator(dev).manual_seed(SEED + 16), CONFIG.d_model, acfg)
+    x = torch.randn(LM_BATCH, LM_PROMPT, CONFIG.d_model, generator=torch.Generator(dev).manual_seed(
+        SEED + 17), device=dev)
+    pos = torch.arange(LM_PROMPT, device=dev)
+    reset(ak.KERNELS)
+    out_flash, _ = attn_apply(params, x, acfg, pos, impl="flash")
+    torch.cuda.synchronize()
+    launches = ak.flash_attention.launches
+    check(launches == 1, f"attn_apply(impl='flash') launched flash_attention {launches} times")
+    reset(ak.KERNELS)
+    out_xla, _ = attn_apply(params, x, acfg, pos, impl="xla")
+    torch.cuda.synchronize()
+    check(ak.flash_attention.launches == 0, "attn_apply(impl='xla') launched the kernel")
+    f32_err = (out_flash - out_xla).abs().max().item()
+    bad = int(((out_flash - out_xla).abs() > TOL_ATTN_OP + TOL_ATTN_OP * out_xla.abs()).sum().item())
+    check(bad == 0, f"attn_apply flash vs xla f32: {bad} entries off, max {f32_err}")
+    del out_flash, out_xla
+
+    xb = x.to(torch.bfloat16)
+    exact, _ = attn_apply(params, xb.float(), acfg, pos, impl="xla")
+    errs = {}
+    for impl in ("flash", "xla"):
+        out, _ = attn_apply(params, xb, acfg, pos, impl=impl)
+        d = (out.float() - exact).abs()
+        errs[impl] = {"mean_abs_err": d.mean().item(), "max_abs_err": d.max().item()}
+        del out, d
+    check(errs["flash"]["mean_abs_err"] <= errs["xla"]["mean_abs_err"],
+          f"attn_apply bf16: flash path errs more than the einsum path: {errs}")
+    line("op", op="attn_apply", impl="flash", d_model=CONFIG.d_model, batch=LM_BATCH,
+         seq=LM_PROMPT, heads=[acfg.n_heads, acfg.n_kv_heads, acfg.head_dim],
+         f32_flash_vs_xla_max_abs_err=f32_err, bf16_vs_f32_op=errs,
+         launches_per_call=launches, card=card)
+    del exact, x, params
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
+
+
+def lm_serve_phase(dev, card) -> dict:
+    """Phase 8, ``[serve]`` yi-6b: (a) full width, depth 2, f32, the card
+    against the CPU with the same weights; (b) full width and depth, bf16
+    activations, weights drawn on the card, batch 8, a 2048-token prompt, 32
+    new tokens.  Returns the served model, engine and prompt."""
+    import torch
+    from repro_torch.configs.yi_6b import CONFIG
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    # (a) depth 2, f32: the card against the CPU
+    cfg2 = CONFIG.replace(n_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    model_cpu = Model(cfg2, generator=torch.Generator().manual_seed(SEED + 18), device="cpu")
+    init_s = time.perf_counter() - t0
+    model_card = copy.deepcopy(model_cpu).to(dev)
+    tokens = torch.randint(0, CONFIG.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(SEED + 19))
+    max_len = LM_CPU_PROMPT + LM_CPU_NEW
+    logits, _ = model_card.prefill({"tokens": tokens.to(dev)}, model_card.make_caches(LM_CPU_BATCH, max_len))
+    t0 = time.perf_counter()
+    logits_cpu, _ = model_cpu.prefill({"tokens": tokens}, model_cpu.make_caches(LM_CPU_BATCH, max_len))
+    tok_cpu, _ = ServeEngine(model_cpu, max_len, device="cpu").generate({"tokens": tokens}, LM_CPU_NEW)
+    cpu_s = time.perf_counter() - t0
+    tok, _ = ServeEngine(model_card, max_len, device=dev).generate({"tokens": tokens}, LM_CPU_NEW)
+    rel = (logits.cpu() - logits_cpu).abs().max().item() / logits_cpu.abs().max().item()
+    check(torch.isfinite(logits).all().item() and rel <= TOL_LM_LOGITS,
+          f"yi-6b depth-2 f32 prefill logits vs cpu: {rel} of the largest")
+    check(torch.equal(tok.cpu(), tok_cpu), f"yi-6b depth-2 greedy tokens differ: {tok} vs {tok_cpu}")
+    line("serve", model="yi-6b", depth=2, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
+         new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel, greedy_tokens_equal=True,
+         cpu_init_s=init_s, cpu_reference_s=cpu_s, card=card)
+    del model_cpu, model_card, logits
+    torch.cuda.empty_cache()
+
+    # (b) full depth, bf16 activations, weights drawn on the card
+    t0 = time.perf_counter()
+    model = Model(CONFIG, generator=torch.Generator(dev).manual_seed(SEED + 20), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, LM_PROMPT + LM_NEW, device=dev)
+    prompt = torch.randint(0, CONFIG.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(SEED + 21), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset(ak.KERNELS)
+    t0 = time.perf_counter()
+    out, last = engine.generate({"tokens": prompt}, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = ak.flash_attention.launches
+    check(out.shape == (LM_BATCH, LM_NEW) and torch.isfinite(last).all().item(),
+          f"yi-6b generate: tokens {tuple(out.shape)}, logits finite {torch.isfinite(last).all().item()}")
+    check(int(out.min()) >= 0 and int(out.max()) < CONFIG.vocab_size, "yi-6b tokens outside the vocabulary")
+    line("serve", model="yi-6b", depth=CONFIG.n_layers, dtype=CONFIG.dtype, batch=LM_BATCH,
+         prompt=LM_PROMPT, new_tokens=LM_NEW, n_params=sum(p.numel() for p in model.parameters()),
+         init_on_card_s=init_s, generate_s=gen_s, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         flash_attention_launches_per_generate=launches,
+         why_zero="the reference's attention unit never passes impl='flash' (models/blocks.py:106-115)",
+         first_tokens=out[:, :4].tolist(), distinct_tokens=int(out.unique().numel()), card=card)
+    return {"model": model, "engine": engine, "prompt": prompt}
+
+
+def lm_times(served, card, wall_ms) -> None:
+    """Phase 8, ``[times]``/``[profile]``: prefill (batch 8 x 2048) and one
+    decode step of yi-6b, medians and quartiles, tokens/s, one profiled call
+    of each with the device's idle share and its top ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, prompt = served["model"], served["prompt"]
+    caches = model.make_caches(LM_BATCH, LM_PROMPT + LM_NEW)
+    tok = prompt[:, -1:]
+    calls = {"prefill": (lambda: model.prefill({"tokens": prompt}, caches), 5, LM_BATCH * LM_PROMPT),
+             "decode_step": (lambda: model.decode_step(tok, caches, LM_PROMPT), 20, LM_BATCH)}
+    for what, (fn, reps, n_tokens) in calls.items():
+        median, runs_ms = wall_ms(fn, reps)
+        q = sorted(runs_ms)
+        line("times", model="yi-6b", e2e=what, batch=LM_BATCH, median_ms=median, q1_ms=q[len(q) // 4],
+             q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms, tokens_per_s=n_tokens / (median * 1e-3),
+             card=card)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        (OUT / f"profile_yi6b_{what}.txt").write_text(
+            events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
+        busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
+        by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+                        if not _is_device_event(e) and e.self_device_time_total > 0),
+                       key=lambda r: -r[1])
+        line("profile", model="yi-6b", call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
+             device_idle_share=max(0.0, 1 - busy_ms / median),
+             device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
+
+
+def time_attention(dev) -> list:
+    """``[times]`` of ``flash_attention`` (causal, as prefill runs it) at
+    yi-6b's prefill shape and the reference's (2, 8, 2, 256, 64), bf16 then
+    f32; the library call is ``F.scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)``, timed only (top-left causal, as the
+    kernel's when Sq == Skv)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.kernels.attention.ref import attention_ref
+
+    rows = []
+    for shape in (ATTN_SHAPES[3], ATTN_SHAPES[1]):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(shape, dtype, dev, SEED + 22)
+            rows.append(time_kernel(
+                "flash_attention", shape, dtype, lambda: ak.flash_attention(q, k, v),
+                lambda: attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)))
+            del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_flow_kernels(dev) -> dict:
+    """Phase 7, ``[times]`` of the eight flow kernels: the scanned model's
+    at its three (B, M, C), the unrolled model's at its transformed halves
+    and widths, f32 and bf16.  One PyTorch call computes each 1x1-conv
+    function (TF32 off); none computes the flow step's or the coupling's."""
+    import torch
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
+    from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
+    from repro_torch.kernels.coupling import coupling as ckern
+    from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
+    from repro_torch.kernels.flowstep import flowstep as kern
+    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
+
+    per_shape = {"flowstep_fwd": [], "flowstep_inv": [], "spine_bwd": [], "coupling_bwd": []}
+    for shape in SHAPES[:3]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x_, ls, ab, w, raw, t = step_inputs(shape, dtype, dev, SEED)
+            y_ = flowstep_fwd_ref(x_, ls, ab, w, raw, t)[0]
+            w_inv = torch.linalg.inv(w)
+            g_ = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 7)).to(dev, dtype)
+            gld = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
+            ca = shape[-1] // 2
+            runs = {
+                "flowstep_fwd": (lambda: kern.flowstep_fwd(x_, ls, ab, w, raw, t),
+                                 lambda: flowstep_fwd_ref(x_, ls, ab, w, raw, t)),
+                "flowstep_inv": (lambda: kern.flowstep_inv(y_, ls, ab, w_inv, raw, t),
+                                 lambda: flowstep_inv_ref(y_, ls, ab, w_inv, raw, t)),
+                "spine_bwd": (lambda: kern.spine_bwd(x_, g_, w, w_inv, ls, ab),
+                              lambda: spine_bwd_ref(x_, g_, w, w_inv, ls, ab)),
+                "coupling_bwd": (lambda: ckern.coupling_bwd(y_[..., :ca], raw, t, g_[..., :ca], gld),
+                                 lambda: coupling_bwd_ref(y_[..., :ca], raw, t, g_[..., :ca], gld)),
+            }
+            for name, (k_fn, p_fn) in runs.items():
+                per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn))
+    for name in ("coupling_fwd", "coupling_inv", "conv1x1_mm", "conv1x1_gw"):
+        per_shape[name] = []
+    for i in range(3):
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = COUPLING_SHAPES[i]
+            xc, rc, tc = coupling_inputs(shape, dtype, dev, SEED + 13)
+            per_shape["coupling_fwd"].append(time_kernel(
+                "coupling_fwd", shape, dtype, lambda: ckern.coupling_fwd(xc, rc, tc),
+                lambda: coupling_fwd_ref(xc, rc, tc)))
+            per_shape["coupling_inv"].append(time_kernel(
+                "coupling_inv", shape, dtype, lambda: ckern.coupling_inv(xc, rc, tc),
+                lambda: coupling_inv_ref(xc, rc, tc)))
+            shape = CONV1X1_SHAPES[i]
+            xm, gm, wm = conv1x1_inputs(shape, dtype, dev, SEED + 14)
+            wd = wm.to(dtype)
+            c = shape[-1]
+            per_shape["conv1x1_mm"].append(time_kernel(
+                "conv1x1_mm", shape, dtype, lambda: c1kern.conv1x1_mm(xm, wm),
+                lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd)))
+            per_shape["conv1x1_gw"].append(time_kernel(
+                "conv1x1_gw", shape, dtype, lambda: c1kern.conv1x1_gw(xm, gm),
+                lambda: conv1x1_gw_ref(xm, gm),
+                lambda: xm.reshape(-1, c).T @ gm.reshape(-1, c)))
+    return per_shape
+
+
 def main() -> int:
     import torch
 
@@ -736,12 +1086,8 @@ def main() -> int:
     from repro_torch.configs.flows import GLOW_SCANNED, build_flow
     from repro_torch.core import derive_key, std_normal_sample, value_and_grad_nll
     from repro_torch.kernels import common
-    from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
-    from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
-    from repro_torch.kernels.coupling import coupling as ckern
-    from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
     from repro_torch.kernels.flowstep import flowstep as kern
-    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
+    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.serve.engine import FlowServeEngine
 
@@ -793,6 +1139,9 @@ def main() -> int:
                  ld_bitwise_repeatable=True)
     max_err.update(check_bwd_kernels(dev))
     max_err.update(check_unrolled_kernels(dev))
+    attn_errs = check_attention_kernel(dev)
+    max_err["flash_attention"] = attn_errs[(ATTN_SHAPES[3], "bfloat16")]
+    attn_times = time_attention(dev)
 
     # 3. serve the model on the card ------------------------------------------
     flow_cpu = build_flow(GLOW_SCANNED, channels=3, generator=torch.Generator().manual_seed(SEED),
@@ -851,52 +1200,7 @@ def main() -> int:
     launches.update(conv1x1_op_phase(dev, card))
 
     # 7. times -----------------------------------------------------------------
-    per_shape = {"flowstep_fwd": [], "flowstep_inv": [], "spine_bwd": [], "coupling_bwd": []}
-    for shape in SHAPES[:3]:
-        for dtype in (torch.float32, torch.bfloat16):
-            x_, ls, ab, w, raw, t = step_inputs(shape, dtype, dev, SEED)
-            y_ = flowstep_fwd_ref(x_, ls, ab, w, raw, t)[0]
-            w_inv = torch.linalg.inv(w)
-            g_ = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 7)).to(dev, dtype)
-            gld = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 8)).to(dev)
-            ca = shape[-1] // 2
-            runs = {
-                "flowstep_fwd": (lambda: kern.flowstep_fwd(x_, ls, ab, w, raw, t),
-                                 lambda: flowstep_fwd_ref(x_, ls, ab, w, raw, t)),
-                "flowstep_inv": (lambda: kern.flowstep_inv(y_, ls, ab, w_inv, raw, t),
-                                 lambda: flowstep_inv_ref(y_, ls, ab, w_inv, raw, t)),
-                "spine_bwd": (lambda: kern.spine_bwd(x_, g_, w, w_inv, ls, ab),
-                              lambda: spine_bwd_ref(x_, g_, w, w_inv, ls, ab)),
-                "coupling_bwd": (lambda: ckern.coupling_bwd(y_[..., :ca], raw, t, g_[..., :ca], gld),
-                                 lambda: coupling_bwd_ref(y_[..., :ca], raw, t, g_[..., :ca], gld)),
-            }
-            for name, (k_fn, p_fn) in runs.items():
-                per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn))
-    # the unrolled model's kernels; one PyTorch call computes each 1x1-conv
-    # function (TF32 off), none computes the coupling's
-    for name in ("coupling_fwd", "coupling_inv", "conv1x1_mm", "conv1x1_gw"):
-        per_shape[name] = []
-    for i in range(3):
-        for dtype in (torch.float32, torch.bfloat16):
-            shape = COUPLING_SHAPES[i]
-            xc, rc, tc = coupling_inputs(shape, dtype, dev, SEED + 13)
-            per_shape["coupling_fwd"].append(time_kernel(
-                "coupling_fwd", shape, dtype, lambda: ckern.coupling_fwd(xc, rc, tc),
-                lambda: coupling_fwd_ref(xc, rc, tc)))
-            per_shape["coupling_inv"].append(time_kernel(
-                "coupling_inv", shape, dtype, lambda: ckern.coupling_inv(xc, rc, tc),
-                lambda: coupling_inv_ref(xc, rc, tc)))
-            shape = CONV1X1_SHAPES[i]
-            xm, gm, wm = conv1x1_inputs(shape, dtype, dev, SEED + 14)
-            wd = wm.to(dtype)
-            c = shape[-1]
-            per_shape["conv1x1_mm"].append(time_kernel(
-                "conv1x1_mm", shape, dtype, lambda: c1kern.conv1x1_mm(xm, wm),
-                lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd)))
-            per_shape["conv1x1_gw"].append(time_kernel(
-                "conv1x1_gw", shape, dtype, lambda: c1kern.conv1x1_gw(xm, gm),
-                lambda: conv1x1_gw_ref(xm, gm),
-                lambda: xm.reshape(-1, c).T @ gm.reshape(-1, c)))
+    per_shape = time_flow_kernels(dev)
 
     def wall_ms(fn, reps=15):
         for _ in range(2):
@@ -955,6 +1259,11 @@ def main() -> int:
              device_idle_share=max(0.0, 1 - busy_ms / median),
              device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
+    # 8. the language model: the flash kernel's op, yi-6b served, their times
+    launches.update(attention_op_phase(dev, card))
+    per_shape["flash_attention"] = attn_times
+    lm_times(lm_serve_phase(dev, card), card, wall_ms)
+
     kernels = []
     sources = {
         "flowstep_fwd": ("flowstep.cu", "src/repro/kernels/flowstep/flowstep.py:121"),
@@ -965,15 +1274,19 @@ def main() -> int:
         "coupling_inv": ("coupling.cu", "src/repro/kernels/coupling/coupling.py:151"),
         "conv1x1_mm": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:70"),
         "conv1x1_gw": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:46"),
+        "flash_attention": ("attention.cu", "src/repro/kernels/attention/attention.py:80"),
     }
     for name, (source, replaces) in sources.items():
-        main = per_shape[name][0]  # the model's largest shape in float32
+        # the model's largest shape, in float32 (flash_attention: yi-6b's
+        # prefill in bf16, the dtype the model serves in)
+        main = per_shape[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": max_err[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": bound_by(name, tuple(main["shape"]), torch.float32),
+            "bound_by": bound_by(name, tuple(main["shape"]), getattr(torch, main["dtype"])),
             "library_ms": main.get("library_ms"), "shape": main["shape"], "dtype": main["dtype"],
+            "ms_from": main["ms_from"]["ms"],
         })
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,25 @@
-"""Run configuration of single-device flow training: the fields of the
-reference's ``repro/config.py::TrainConfig`` that the port's ``train_flow``
-reads, with the reference's defaults.  There is no ``seed``: the flow
-arrives initialised, from the generator its builder was given."""
+"""Configurations of the port: single-device flow training
+(``TrainConfig``) and the language models (``AttentionConfig``,
+``ModelConfig``, the architecture registry), copied from the reference's
+``repro/config.py`` with its fields and defaults.
+
+``TrainConfig`` holds the fields the port's ``train_flow`` reads.  There is
+no ``seed``: the flow arrives initialised, from the generator its builder was
+given.
+
+``ModelConfig`` keeps every field of the reference so a configuration reads
+the same in both packages.  Its ``moe``, ``ssm`` and ``frontend`` sub-configs
+come with the slices that port those families (``ROADMAP.md`` queue 1); until
+then they stay ``None``, and ``models/blocks.py::decoder_layout`` refuses a
+family it cannot build.  Architectures register themselves from
+``repro_torch.configs``; only ported ones are registered.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -18,3 +32,158 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.95
     eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    causal: bool = True
+    qkv_bias: bool = False
+    # sliding-window size (0 = full attention)
+    window: int = 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[object] = None
+    ssm: Optional[object] = None
+    frontend: Optional[object] = None
+
+    # hybrid (zamba2): apply the shared attention block every k SSM blocks
+    hybrid_attn_every: int = 0
+    # encoder-decoder (whisper): encoder depth; n_layers is the decoder depth
+    encoder_layers: int = 0
+    # the layer stack as an additive coupling over two residual streams
+    reversible: bool = True
+
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"     # master parameter dtype
+    residual_dtype: str = "float32"  # reversible residual stream dtype
+
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    ffn_kind: str = "swiglu"  # swiglu | gelu_mlp
+    logit_softcap: float = 0.0
+    # sequence-parallel attention (distribution slice)
+    attn_seq_shard: bool = False
+
+    @property
+    def is_enc_dec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.ssm is not None and self.hybrid_attn_every == 0 and self.attention is None
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def _attn_params(self) -> int:
+        a = self.attention
+        if a is None:
+            return 0
+        return self.d_model * (a.q_dim + 2 * a.kv_dim) + a.q_dim * self.d_model
+
+    def _ffn_params(self, d_ff: int) -> int:
+        mult = 3 if self.ffn_kind == "swiglu" else 2
+        return mult * self.d_model * d_ff
+
+    def _ssm_params(self) -> int:
+        s = self.ssm
+        if s is None:
+            return 0
+        d_in = s.d_inner(self.d_model)
+        if s.kind == "mamba2":
+            n_heads = s.n_heads(self.d_model)
+            in_proj = self.d_model * (2 * d_in + 2 * s.d_state + n_heads)
+            return in_proj + d_in * s.d_conv + d_in * self.d_model + 2 * n_heads
+        return 5 * self.d_model * d_in + d_in * self.d_model
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Approximate parameter count, as the reference counts it;
+        ``active_only`` counts the MoE experts a token uses."""
+        n = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        for i in range(self.n_layers + self.encoder_layers):
+            if self.family == "hybrid":
+                n += self._ssm_params()
+                continue
+            if self.ssm is not None and self.family == "ssm":
+                n += self._ssm_params()
+                if self.ssm.kind == "rwkv6":
+                    n += 2 * self.d_model * self.d_ff
+                    continue
+            else:
+                n += self._attn_params()
+            if self.moe is not None and (i % self.moe.interleave == self.moe.interleave - 1):
+                k = self.moe.top_k if active_only else self.moe.n_experts
+                n += k * self._ffn_params(self.moe.d_ff_expert)
+                if self.moe.shared_expert:
+                    n += self._ffn_params(self.moe.d_ff_expert)
+                n += self.d_model * self.moe.n_experts
+            else:
+                n += self._ffn_params(self.d_ff)
+        if self.hybrid_attn_every and self.attention is not None:
+            n += self._attn_params() + self._ffn_params(self.d_ff)
+        return n
+
+
+_REGISTRY: dict[str, "ArchSpec"] = {}
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """A registered architecture: full config + reduced smoke-test config."""
+
+    config: ModelConfig
+    reduced: ModelConfig
+    notes: str = ""
+    source: str = ""
+
+
+def register_arch(spec: ArchSpec) -> ArchSpec:
+    name = spec.config.name
+    if name in _REGISTRY and _REGISTRY[name] is not spec:
+        raise ValueError(f"duplicate architecture registration: {name}")
+    _REGISTRY[name] = spec
+    return spec
+
+
+def get_arch(name: str) -> ArchSpec:
+    """The registered architecture ``name``.  An architecture of the
+    reference that the port does not build yet raises, naming its place in
+    ``ROADMAP.md``."""
+    from repro_torch.configs import UNPORTED_ARCHS
+
+    if name not in _REGISTRY:
+        if name in UNPORTED_ARCHS:
+            raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
+                           f"item 12); ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_REGISTRY)

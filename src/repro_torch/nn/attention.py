@@ -1,0 +1,135 @@
+"""Grouped-query attention with RoPE and KV-cache support, the port of the
+reference's ``nn/attention.py``.
+
+Projections are stored separately (``wq``/``wk``/``wv``/``wo``, plus
+``bq``/``bk``/``bv`` with ``qkv_bias``), f32, and cast to the activations'
+dtype at each use.  The attention core is the einsum path ``_sdpa``, or the
+hand-written flash kernel (``kernels/attention``) when the caller asks for
+``impl="flash"`` under the reference's own conditions.  The model never asks
+(``models/blocks.py``), as in the reference.
+
+One departure, for memory: a cache is written in place (the reference's
+``dynamic_update_slice`` returns a new array), and ``attn_apply`` returns
+the same cache dict it was given.  A write that would run past the cache's
+end raises, where the reference would clamp the write offset.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import AttentionConfig
+from repro_torch.nn.rotary import apply_rope
+
+NEG_INF = -1e30
+
+
+def attn_init(generator: torch.Generator, d_model: int, cfg: AttentionConfig) -> dict:
+    dev = generator.device
+    std = d_model**-0.5
+
+    def normal(shape):
+        return std * torch.randn(shape, generator=generator, device=dev)
+
+    p = {"wq": normal((d_model, cfg.q_dim)), "wk": normal((d_model, cfg.kv_dim)),
+         "wv": normal((d_model, cfg.kv_dim)), "wo": normal((cfg.q_dim, d_model))}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(cfg.q_dim, device=dev)
+        p["bk"] = torch.zeros(cfg.kv_dim, device=dev)
+        p["bv"] = torch.zeros(cfg.kv_dim, device=dev)
+    return p
+
+
+def _project_qkv(params, x, cfg: AttentionConfig, positions):
+    b, s, _ = x.shape
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
+
+
+def _sdpa(q, k, v, cfg: AttentionConfig, q_positions, kv_positions):
+    """Grouped-query scaled-dot-product attention, the einsum path.
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh).  Causality compares
+    absolute positions, so one code serves prefill and decode with a cache.
+    The reference's rounding: the scores are formed in the inputs' dtype and
+    then widened to f32; the softmax runs in f32; the probabilities are cast
+    to v's dtype for the second product."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float().mul_(dh**-0.5)
+    mask = None
+    if cfg.causal:
+        mask = q_positions[:, None] >= kv_positions[None, :]  # (Sq, Skv)
+    if cfg.window:
+        w_ok = q_positions[:, None] - kv_positions[None, :] < cfg.window
+        mask = w_ok if mask is None else (mask & w_ok)
+    if mask is not None:
+        scores.masked_fill_(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, hq, dh)
+
+
+def attn_apply(
+    params,
+    x: torch.Tensor,
+    cfg: AttentionConfig,
+    positions: torch.Tensor,
+    cache: Optional[dict] = None,
+    cache_pos: Optional[int] = None,
+    impl: str = "xla",
+    seq_shard: bool = False,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """The full attention op.
+
+    Without ``cache``: self-attention over ``x`` (prefill without reuse);
+    ``impl="flash"`` takes the flash kernel when, as in the reference, the
+    sequence is longer than one token, a multiple of 128, and the window is
+    off; otherwise the einsum path.  With ``cache``: write this call's K/V at
+    ``cache_pos`` (an int) and attend over the whole cache.  ``impl`` names
+    the reference's choices, ``"xla"`` being its einsum path."""
+    if seq_shard:
+        raise NotImplementedError("sequence-parallel attention comes with the distribution "
+                                  "slice (ROADMAP.md queue 1, item 11)")
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    pos1d = positions[0] if positions.ndim > 1 else positions
+    if cache is None:
+        if impl == "flash" and s > 1 and cfg.window == 0 and s % 128 == 0:
+            from repro_torch.kernels.attention.ops import flash_sdpa
+
+            of = flash_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=cfg.causal)
+            out = of.transpose(1, 2)
+        else:
+            out = _sdpa(q, k, v, cfg, pos1d, pos1d)
+    else:
+        end = cache_pos + s
+        if end > cache["k"].shape[1]:
+            raise ValueError(f"cache write [{cache_pos}, {end}) runs past its length "
+                             f"{cache['k'].shape[1]}")
+        cache["k"][:, cache_pos:end] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_pos:end] = v.to(cache["v"].dtype)
+        kv_pos = torch.arange(cache["k"].shape[1], device=x.device)
+        out = _sdpa(q, cache["k"], cache["v"], cfg, pos1d, kv_pos)
+    return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
+
+
+def make_cache(cfg: AttentionConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,8 +1,9 @@
-"""Flow serving: batched ``log_prob`` and ``sample`` of a normalizing flow.
-
-The port of the reference's ``serve/engine.py::FlowServeEngine`` on one
-device; batch sharding over a mesh comes with the distribution slice.
-Requests run under ``torch.inference_mode``.
+"""Serving engines, the port of the reference's ``serve/engine.py`` on one
+device: ``ServeEngine`` (an LM's prefill, then cached greedy or temperature
+decode steps) and ``FlowServeEngine`` (batched ``log_prob`` and ``sample``
+of a normalizing flow).  Sharding over a mesh comes with the distribution
+slice.  Requests run under ``torch.inference_mode``; the reference jits
+prefill and decode, the port runs them eagerly.
 """
 
 from __future__ import annotations
@@ -12,6 +13,59 @@ import torch
 
 from repro_torch.core.distributions import derive_key, std_normal_logpdf, std_normal_sample
 from repro_torch.core.types import resolve_device
+
+
+class ServeEngine:
+    """Serve ``model`` (``models.lm.Model``) on ``device`` (``cuda`` unless
+    named; raises without a card) with caches of ``max_len`` positions.
+    ``temperature`` 0 decodes greedily."""
+
+    def __init__(self, model, max_len: int, temperature: float = 0.0, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.max_len = max_len
+        self.temperature = temperature
+
+    def _sample(self, logits, generator):
+        if self.temperature == 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)  # the first maximum, as jnp.argmax
+        probs = torch.softmax(logits / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator).squeeze(-1).to(torch.int32)
+
+    def generate(self, batch: dict, max_new: int, generator: torch.Generator | None = None,
+                 eos_id: int | None = None):
+        """batch: ``{"tokens": (B, S)}`` prompt ids.  Returns (generated
+        tokens (B, n) int32, n <= max_new, and the last step's logits).  After
+        ``eos_id`` a sequence keeps emitting ``eos_id``; decoding stops when
+        every sequence has.  ``generator`` (on the engine's device; seed 0 by
+        default) feeds temperature sampling."""
+        gen = generator if generator is not None else torch.Generator(self.device).manual_seed(0)
+        with torch.inference_mode():
+            tokens = _to_device(batch["tokens"], self.device)
+            bsz, prompt_len = tokens.shape
+            caches = self.model.make_caches(bsz, self.max_len)
+            logits, caches = self.model.prefill({"tokens": tokens}, caches)
+            out_tokens = []
+            done = torch.zeros(bsz, dtype=torch.bool, device=self.device)
+            for i in range(max_new):
+                tok = self._sample(logits, gen)
+                if eos_id is not None:
+                    done = done | (tok == eos_id)
+                    tok = torch.where(done, eos_id, tok)
+                out_tokens.append(tok)
+                if eos_id is not None and bool(done.all()):
+                    break
+                logits, caches = self.model.decode_step(tok[:, None], caches, prompt_len + i)
+            return torch.stack(out_tokens, dim=1), logits
+
+
+def _to_device(v, device):
+    """A tensor or numpy array on ``device``; None stays None."""
+    if v is None:
+        return None
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(v)
+    return v.to(device)
 
 
 class FlowServeEngine:
@@ -34,17 +88,10 @@ class FlowServeEngine:
         self.flow = flow.to(self.device).eval()
         self.sample_flow = self.flow if sample_flow is None else sample_flow.to(self.device).eval()
 
-    def _put(self, v):
-        if v is None:
-            return None
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(v)
-        return v.to(self.device)
-
     def log_prob(self, x, cond=None) -> torch.Tensor:
         """Per-example log density ``log N(z; 0, I) + logdet`` of a batch."""
         with torch.inference_mode():
-            z, logdet = self.flow(self._put(x), self._put(cond))
+            z, logdet = self.flow(_to_device(x, self.device), _to_device(cond, self.device))
             return std_normal_logpdf(z) + logdet
 
     def sample(self, generator: torch.Generator, like, cond=None):
@@ -55,4 +102,4 @@ class FlowServeEngine:
         gen = derive_key(generator, self._TAG_SAMPLE, device=self.device)
         with torch.inference_mode():
             z = std_normal_sample(gen, like)
-            return self.sample_flow.inverse(z, self._put(cond))
+            return self.sample_flow.inverse(z, _to_device(cond, self.device))

@@ -15,12 +15,18 @@ each tensor's largest entry: sums of up to 131,072 terms, where an entry that
 cancels to near zero keeps the round-off of the large partial sums (as
 ``chip_smoke.py`` holds them); gradients through ``fused_coupling_fwd`` and
 ``invertible_conv1x1`` at rtol = atol = 1e-4 against autograd through the
-plain versions.
+plain versions; ``flash_attention`` at the reference's ``_tol``
+(``tests/test_kernels.py:43``: 2e-5 in f32, 2e-2 in bf16) against
+``attention_ref``, and ``attn_apply(impl="flash")`` within 2e-4 of the
+einsum path, as the reference pins it.
 """
 
 import pytest
 import torch
 
+from repro_torch.config import AttentionConfig
+from repro_torch.kernels.attention import attention as akern
+from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
 from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
 from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
@@ -30,6 +36,7 @@ from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref,
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
 from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
+from repro_torch.nn.attention import attn_apply, attn_init
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +233,65 @@ def test_invertible_conv1x1_gradient_on_the_card_matches_the_plain_path(dev):
                                                                          before[1] + 1)
     for name, a, r in zip(("x", "w"), got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# (B, Hq, Hkv, Sq, Skv, D): the reference's kernel tests, every head_dim of
+# src/repro/configs, a top-left causal Sq != Skv, ragged lengths the kernel
+# masks, and yi-6b's prefill shape
+FLASH_SHAPES = [
+    (1, 4, 4, 256, 256, 32), (2, 8, 2, 256, 256, 64), (1, 6, 1, 512, 512, 64),
+    (2, 4, 2, 128, 128, 16), (1, 4, 1, 128, 128, 112), (1, 8, 2, 128, 128, 128),
+    (1, 4, 2, 128, 256, 32), (2, 4, 2, 100, 77, 64), (8, 32, 4, 2048, 2048, 128),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_attention_matches_plain_version(dev, shape, dtype, causal):
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn(b, hq, sq, d, generator=g).to(dev, dtype)
+    k = torch.randn(b, hkv, skv, d, generator=g).to(dev, dtype)
+    v = torch.randn(b, hkv, skv, d, generator=g).to(dev, dtype)
+    before = akern.flash_attention.launches
+    o = akern.flash_attention(q, k, v, causal=causal)
+    o2 = akern.flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert akern.flash_attention.launches == before + 2
+    tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(o.float(), ref.float(), **tol)
+    assert torch.equal(o, o2)  # no atomics: bitwise repeatable
+
+
+def test_flash_attention_takes_strided_heads(dev):
+    """(B, S, H, D) tensors viewed as (B, H, S, D), as attn_apply passes
+    them: the same result as on copies, and the output in the same layout."""
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=g).to(dev) for h in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    o = akern.flash_attention(*views)
+    torch.testing.assert_close(o, akern.flash_attention(*(t.contiguous() for t in views)),
+                               rtol=0, atol=0)
+    assert o.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("d", [6, 130])
+def test_flash_attention_refuses_an_unsupported_head_dim(dev, d):
+    q = torch.zeros(1, 4, 128, d, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        akern.flash_attention(q, q[:, :2], q[:, :2])
+
+
+def test_flash_impl_of_attn_apply_on_the_card(dev):
+    cfg = AttentionConfig(n_heads=4, n_kv_heads=2, head_dim=32)
+    params = attn_init(torch.Generator(dev).manual_seed(0), 64, cfg)
+    x = torch.randn(2, 128, 64, generator=torch.Generator(dev).manual_seed(1), device=dev)
+    pos = torch.arange(128, device=dev)
+    before = akern.flash_attention.launches
+    out_flash, _ = attn_apply(params, x, cfg, pos, impl="flash")
+    out_xla, _ = attn_apply(params, x, cfg, pos, impl="xla")
+    torch.cuda.synchronize()
+    assert akern.flash_attention.launches == before + 1
+    torch.testing.assert_close(out_flash, out_xla, rtol=2e-4, atol=2e-4)

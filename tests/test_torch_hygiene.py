@@ -1,7 +1,8 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
-unrolled GLOW), and refuses to run quietly
-on the CPU when no device was named."""
+unrolled GLOW; yi-6b ``REDUCED`` prefill and decode through
+``ServeEngine.generate``), and refuses to run quietly on the CPU when no
+device was named."""
 
 import os
 import re
@@ -48,6 +49,28 @@ def test_port_runs_without_loading_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_lm_serving_runs_without_loading_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.config import get_arch\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.serve.engine import ServeEngine\n"
+        "model, cfg = build_model(get_arch('yi-6b').reduced, device='cpu')\n"
+        "tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
+        "    {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
+        "assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()
@@ -81,3 +104,19 @@ def test_train_flow_without_device_raises_on_a_host_without_a_card():
     flow = build_flow(GLOW_SCANNED, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1))
+
+
+def test_lm_entry_points_without_device_raise_on_a_host_without_a_card():
+    from repro_torch.config import get_arch
+    from repro_torch.models import Model, build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is cuda")
+    cfg = get_arch("yi-6b").reduced
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(Model(cfg, device="cpu"), 8)
