@@ -7,12 +7,14 @@ It serves and trains GLOW (3 scales x 8 steps, hidden 64, Haar squeeze) at
 full width on 256x256x3 images, batch 8, with random weights from a seed, in
 both of the port's builds: scanned (``GLOW_SCANNED``, the fused flow-step
 kernels) and unrolled (``GLOW_COUPLED``, the fused coupling kernels with the
-ActNorm and Conv1x1 hooks).  Then it serves the language model yi-6b (32
-layers, d_model 4096, reversible, bf16 activations, f32 weights from a seed)
-through ``ServeEngine.generate``, and drives the flash-attention kernel
-through ``attn_apply(impl="flash")`` at yi-6b's width.  It holds every
-hand-written kernel against its plain PyTorch version.  Phases, one line
-each:
+ActNorm and Conv1x1 hooks).  Then it serves the language models yi-6b (32
+layers, d_model 4096), rwkv6-7b (32 RWKV6 layers, d_model 4096; the
+``wkv_scan`` kernel) and zamba2-7b (81 Mamba2 layers and a shared attention
+block, d_model 3584; the ``ssd_scan`` kernel), reversible, bf16
+activations, f32 weights from a seed, through ``ServeEngine.generate``, one
+model at a time, and drives the flash-attention kernel through
+``attn_apply(impl="flash")`` at yi-6b's width.  It holds every hand-written
+kernel against its plain PyTorch version.  Phases, one line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together);
@@ -55,11 +57,29 @@ each:
              launches per ``generate``: 0, as in the reference, whose model
              never asks for the kernel); ``[times]``/``[profile]``: the
              kernel at yi-6b's prefill shape and a smaller one, prefill and
-             decode-step medians, tokens/s, device idle share, peak memory.
+             decode-step medians, tokens/s, device idle share, peak memory;
+9. SSM LMs - ``[serve]`` rwkv6-7b and then zamba2-7b, each freed before the
+             next: full width at depth 2 (rwkv6) or 7 (zamba2: one
+             superblock of six Mamba2 blocks with the shared attention and
+             FFN, then a one-block tail) in f32 on the card against the
+             same weights on the CPU (prefill logits, 8 greedy tokens); then
+             full width and depth in bf16, batch 8, a 2048-token prompt, 32
+             new tokens, with the scan kernels' launches per ``generate``,
+             per prefill and per decode step (``wkv_scan``: 32 and 32;
+             ``ssd_scan``: 81 and 0, Mamba2's decode being the plain
+             recurrence, as in the reference); ``[times]``/``[profile]`` of
+             prefill and the decode step.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
-bf16, causal or not, bitwise repeatable) run with the other kernels.
+bf16, causal or not, bitwise repeatable) run with the other kernels, and so
+do the scan kernels' (``wkv_scan`` and ``ssd_scan`` against ``wkv_ref`` and
+``ssd_ref`` at the reference's kernel-test shapes, f32 and bf16, and at the
+models' shapes in f32 (the prefills, and rwkv6-7b's decode step), with and
+without an initial state, bitwise repeatable) with their ``[times]`` at the
+models' shapes (the decode step cycling through 32 layers' states, cold in
+L2 as in a decode step).  A ``[seconds]``
+line closes each phase.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that did not launch fails the run.  Any failure
@@ -71,6 +91,8 @@ per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import gc
+import itertools
 import json
 import math
 import subprocess
@@ -103,6 +125,24 @@ TOL_ATTN_OP = 2e-4     # attn_apply flash vs einsum in f32 (tests/test_kernels.p
 TOL_LM_LOGITS = 1e-4   # yi-6b prefill logits, card vs CPU, of the largest logit
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 2048, 32
 LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_NEW = 2, 64, 8
+# wkv_scan (B, H, S, K): the reference's kernel-test shapes
+# (tests/test_kernels.py:363) and rwkv6-7b's prefill, batch 8 x 2048
+WKV_SHAPES = [(1, 2, 128, 16), (2, 4, 64, 32), (8, 64, 2048, 64)]
+WKV_DECODE_SHAPE = (8, 64, 1, 64)  # one decode step of rwkv6-7b
+WKV_DECODE_LAYERS = 32  # its layers: a decode step reads 32 distinct states
+# ssd_scan (B, H, S, P, N, chunk): the reference's kernel-test shapes
+# (tests/test_kernels.py:299) and zamba2-7b's prefill
+SSD_SHAPES = [(1, 2, 256, 16, 16, 64), (2, 4, 128, 32, 16, 64), (8, 112, 2048, 64, 64, 256)]
+# the reference's scan-kernel bound (tests/test_kernels.py:305), rtol = atol
+TOL_SCAN = {"float32": 2e-4, "bfloat16": 5e-2}
+# at the model shapes, f32: of the output's largest entry.  With rwkv6's
+# decays (w ~ 0.9975) the wkv state sums ~400 steps and |y| reaches the
+# hundreds, so an absolute bound would tighten as the sums grow
+TOL_SCAN_SCALE = 1e-4
+# the card-against-CPU comparison of the SSM models: rwkv6-7b at depth 2;
+# zamba2-7b at depth 7, one superblock (six Mamba2 blocks, the shared
+# attention and FFN) and a one-block tail
+SSM_CPU_DEPTH = {"rwkv6-7b": 2, "zamba2-7b": 7}
 
 # tolerances, with their reasons
 TOL_F32 = 1e-4        # per element in f32: the reference's own kernel bound
@@ -183,6 +223,23 @@ def cost(name: str, shape, dtype):
     import torch
 
     es = torch.tensor([], dtype=dtype).element_size()
+    if name == "wkv_scan":
+        # (B, H, S, K): r, k, v, w in, y out in f32, u in, the (K, K) state
+        # in and out.  Per (token, head) 5 K^2 + 5 K operations: since
+        # r (S + u k v) = r S + (r . (u k)) v, y takes r S (2 K^2) and
+        # (r . (u k)) v (5 K), and the update w S + k v^T 3 K^2
+        b, h, s, kd = shape
+        return es * 4 * b * h * s * kd + 4 * (b * h * s * kd + h * kd + 2 * b * h * kd * kd), \
+            b * h * s * (5 * kd * kd + 5 * kd)
+    if name == "ssd_scan":
+        # (B, H, S, P, N, chunk): x in and y out, da and dt in (f32), B and C
+        # in, the (P, N) state in and out.  Per (batch, head, chunk) the four
+        # products: C state^T and the update over all c rows, C B^T and
+        # G (x dt) only over the c (c + 1) / 2 causal pairs (t >= s) the
+        # function keeps, as flash_attention's are counted
+        b, h, s, p, n, c = shape
+        nbytes = 2 * es * b * h * s * p + 8 * b * h * s + 2 * es * b * s * n + 8 * b * h * p * n
+        return nbytes, b * h * (s // c) * (4 * c * n * p + (n + p) * c * (c + 1))
     if name == "flash_attention":
         # (B, Hq, Hkv, S, D), causal: q, k, v read and o written once; two
         # D-long products for each visible (query, key) pair, S(S+1)/2 a head
@@ -310,17 +367,21 @@ def queued_ms(fn, reps: int = 20, spin_cycles: int = 20_000_000) -> float:
     raise SystemExit("chip_smoke: FAILED: the host could not queue the calls ahead of the card")
 
 
-def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None) -> dict:
+def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None) -> dict:
     """One ``[times]`` line: the kernel's, its plain version's and (where one
     PyTorch call computes the same function) that call's device time, beside
-    the bound, at ``shape``; ``ms_from`` names each time's source."""
-    (ms, k_src), (plain_ms, p_src) = device_ms(k_fn), device_ms(p_fn)
+    the bound, at ``shape``; ``ms_from`` names each time's source.
+    ``plain_reps`` times a slow plain version (a Python loop over time) over
+    fewer calls."""
+    (ms, k_src) = device_ms(k_fn)
+    plain_ms, p_src = device_ms(p_fn) if plain_reps is None else device_ms(p_fn, reps=plain_reps)
     lib_ms, l_src = device_ms(lib_fn) if lib_fn is not None else (None, None)
     nbytes, flops = cost(name, shape, dtype)
     row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(name, shape, dtype),
            "library_ms": lib_ms, "ms_from": {"ms": k_src, "plain_ms": p_src, "library_ms": l_src},
-           "call_ms": call_ms(k_fn), "plain_call_ms": call_ms(p_fn),
+           "call_ms": call_ms(k_fn),
+           "plain_call_ms": call_ms(p_fn) if plain_reps is None else call_ms(p_fn, plain_reps, 1),
            "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
     line("times", kernel=name, **row)
     return row
@@ -957,10 +1018,11 @@ def lm_serve_phase(dev, card) -> dict:
     return {"model": model, "engine": engine, "prompt": prompt}
 
 
-def lm_times(served, card, wall_ms) -> None:
-    """Phase 8, ``[times]``/``[profile]``: prefill (batch 8 x 2048) and one
-    decode step of yi-6b, medians and quartiles, tokens/s, one profiled call
-    of each with the device's idle share and its top ops."""
+def lm_times(served, card, wall_ms, name: str = "yi-6b") -> None:
+    """Phases 8 and 9, ``[times]``/``[profile]``: prefill (batch 8 x 2048)
+    and one decode step of the served LM ``name``, medians and quartiles,
+    tokens/s, one profiled call of each with the device's idle share and its
+    top ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -972,7 +1034,7 @@ def lm_times(served, card, wall_ms) -> None:
     for what, (fn, reps, n_tokens) in calls.items():
         median, runs_ms = wall_ms(fn, reps)
         q = sorted(runs_ms)
-        line("times", model="yi-6b", e2e=what, batch=LM_BATCH, median_ms=median, q1_ms=q[len(q) // 4],
+        line("times", model=name, e2e=what, batch=LM_BATCH, median_ms=median, q1_ms=q[len(q) // 4],
              q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms, tokens_per_s=n_tokens / (median * 1e-3),
              card=card)
         torch.cuda.synchronize()
@@ -980,13 +1042,13 @@ def lm_times(served, card, wall_ms) -> None:
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        (OUT / f"profile_yi6b_{what}.txt").write_text(
+        (OUT / f"profile_{name.replace('-', '')}_{what}.txt").write_text(
             events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
         busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
         by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
                         if not _is_device_event(e) and e.self_device_time_total > 0),
                        key=lambda r: -r[1])
-        line("profile", model="yi-6b", call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
+        line("profile", model=name, call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
              device_idle_share=max(0.0, 1 - busy_ms / median),
              device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
@@ -1013,6 +1075,262 @@ def time_attention(dev) -> list:
             del q, k, v
     torch.cuda.empty_cache()
     return rows
+
+
+def wkv_inputs(shape, dtype, dev, seed, model_like=False):
+    """r, k, v, w (B, H, S, K) in ``dtype``, each a (B, S, H, K) tensor viewed
+    as (B, H, S, K), as the model passes them; u (H, K) and state0
+    (B, H, K, K) in f32.  r, k, v standard normal; w = sigmoid(normal) as
+    in the reference's kernel test, or with ``model_like`` rwkv6's decays,
+    exp(-exp(-6 + normal)) (its init's w0 = -6, w ~ 0.9975)."""
+    import torch
+
+    b, h, s, kd = shape
+    g = torch.Generator(dev).manual_seed(seed)
+    r, k, v, z = (torch.randn(b, s, h, kd, generator=g, device=dev) for _ in range(4))
+    w = torch.exp(-torch.exp(z - 6.0)) if model_like else torch.sigmoid(z)
+    u = 0.1 * torch.randn(h, kd, generator=g, device=dev)
+    state0 = 0.5 * torch.randn(b, h, kd, kd, generator=g, device=dev)
+    return (*(t.to(dtype).transpose(1, 2) for t in (r, k, v, w)), u, state0)
+
+
+def ssd_inputs(shape, dtype, dev, seed, model_like=False):
+    """x (B, H, S, P) in ``dtype`` and da, dt (B, H, S) in f32, each viewed
+    from a (B, S, H, .) tensor as the model passes them; b_in, c_in (B, S, N)
+    in ``dtype``; state0 (B, H, P, N) in f32.  As in the reference's kernel
+    test, dt = softplus(normal) and da = -dt exp(0.2 normal); with
+    ``model_like`` zamba2's init, dt = softplus(normal + softplus^-1(0.01))
+    and da = dt A with A = -linspace(1, 16, H)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, s, p, n, _ = shape
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def rn(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+
+    x = rn(b, s, h, p)
+    if model_like:
+        dt = F.softplus(rn(b, s, h) + math.log(math.expm1(0.01)))
+        da = dt * -torch.linspace(1.0, 16.0, h, device=dev)
+    else:
+        dt = F.softplus(rn(b, s, h))
+        da = -dt * torch.exp(0.2 * rn(b, s, h))
+    b_in, c_in = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+    state0 = 0.5 * rn(b, h, p, n)
+    return x.to(dtype).transpose(1, 2), da.transpose(1, 2), dt.transpose(1, 2), b_in, c_in, state0
+
+
+def check_scan_kernels(dev) -> dict:
+    """Phase 2, ``wkv_scan`` and ``ssd_scan`` against ``wkv_ref`` and
+    ``ssd_ref`` on the same inputs: at the reference's kernel-test shapes in
+    f32 and bf16 within its 2e-4 / 5e-2, and at the model shapes in f32
+    (rwkv6-7b's prefill and decode step, zamba2-7b's prefill; rwkv6's or
+    zamba2's decays) within 1e-4 of the largest entry; with and
+    without an initial state; a second call bitwise equal.  Returns each
+    kernel's largest absolute y error at its model shape."""
+    import torch
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.rwkv.ref import wkv_ref
+    from repro_torch.kernels.ssd import ssd as sk
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    def wkv(shape, dtype, state):
+        r, k, v, w, u, s0 = wkv_inputs(shape, dtype, dev, SEED + 23,
+                                       model_like=shape in (WKV_SHAPES[-1], WKV_DECODE_SHAPE))
+        s0 = s0 if state else None
+        return (lambda: rk.wkv_scan(r, k, v, w, u, state0=s0)), (lambda: wkv_ref(r, k, v, w, u, s0))
+
+    def ssd(shape, dtype, state):
+        x, da, dt, b_in, c_in, s0 = ssd_inputs(shape, dtype, dev, SEED + 24,
+                                               model_like=shape == SSD_SHAPES[-1])
+        s0 = s0 if state else None
+        return ((lambda: sk.ssd_scan(x, da, dt, b_in, c_in, chunk=shape[-1], state0=s0)),
+                (lambda: ssd_ref(x, da, dt, b_in, c_in, s0)))
+
+    errs = {}
+    # the reference's shapes, then the models': rwkv6-7b's prefill and its
+    # decode step (1,024 of the 1,056 launches of a generate), zamba2-7b's
+    # prefill
+    for name, shapes, model_shapes, make in (
+            ("wkv_scan", WKV_SHAPES + [WKV_DECODE_SHAPE], (WKV_SHAPES[-1], WKV_DECODE_SHAPE), wkv),
+            ("ssd_scan", SSD_SHAPES, (SSD_SHAPES[-1],), ssd)):
+        for shape in shapes:
+            model = shape in model_shapes
+            for dtype in (torch.float32,) if model else (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                for state in (False, True):
+                    k_fn, p_fn = make(shape, dtype, state)
+                    (y, st), (y2, st2) = k_fn(), k_fn()
+                    y_r, st_r = p_fn()
+                    torch.cuda.synchronize()
+                    check(torch.equal(y, y2) and torch.equal(st, st2),
+                          f"{name} not bitwise repeatable at {shape} {dname}")
+                    out = {}
+                    for what, a, r in (("y", y, y_r), ("state", st, st_r)):
+                        d = (a.float() - r.float()).abs()
+                        scale = r.float().abs().max().item()
+                        out[what] = {"max_abs_err": d.max().item(), "scale": scale}
+                        if model:
+                            rel = d.max().item() / scale
+                            check(rel <= TOL_SCAN_SCALE,
+                                  f"{name} {what} {shape} state0={state}: {rel} of its scale")
+                        else:
+                            tol = TOL_SCAN[dname]
+                            bad = int((d > tol + tol * r.float().abs()).sum().item())
+                            check(bad == 0, f"{name} {what} {shape} {dname} state0={state}: {bad} "
+                                            f"entries off, max {d.max().item()}")
+                    if model:
+                        errs[name] = max(errs.get(name, 0.0), out["y"]["max_abs_err"])
+                    line("kernels", kernel=name, shape=list(shape), dtype=dname, state0=state,
+                         **{f"{w}_{k}": v for w, o in out.items() for k, v in o.items()},
+                         tol=TOL_SCAN_SCALE if model else TOL_SCAN[dname],
+                         tol_of="scale" if model else "rtol=atol", bitwise_repeatable=True)
+                    del y, y2, y_r, st, st2, st_r, k_fn, p_fn
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_scans(dev) -> dict:
+    """``[times]`` of ``wkv_scan`` at rwkv6-7b's prefill and decode step and
+    of ``ssd_scan`` at zamba2-7b's prefill, f32 with an initial state, as the
+    models call them; the plain versions (Python loops over 2,048 steps)
+    over two calls.  The decode step cycles through one input set and
+    state per layer (32, 268 MB of states), so that each call reads its
+    state cold from HBM as a decode step does, not from the 50 MB L2.  No
+    single PyTorch call computes either function."""
+    import torch
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.rwkv.ref import wkv_ref
+    from repro_torch.kernels.ssd import ssd as sk
+    from repro_torch.kernels.ssd.ref import ssd_ref
+
+    def cycling(fn, sets):
+        calls = itertools.cycle(sets)
+        return lambda: fn(*next(calls))
+
+    rows = {"wkv_scan": []}
+    r, k, v, w, u, s0 = wkv_inputs(WKV_SHAPES[-1], torch.float32, dev, SEED + 25, model_like=True)
+    rows["wkv_scan"].append(time_kernel(
+        "wkv_scan", WKV_SHAPES[-1], torch.float32, lambda: rk.wkv_scan(r, k, v, w, u, state0=s0),
+        lambda: wkv_ref(r, k, v, w, u, s0), plain_reps=2))
+    del r, k, v, w, u, s0
+    layers = [wkv_inputs(WKV_DECODE_SHAPE, torch.float32, dev, SEED + 60 + i, model_like=True)
+              for i in range(WKV_DECODE_LAYERS)]
+    rows["wkv_scan"].append(time_kernel(
+        "wkv_scan", WKV_DECODE_SHAPE, torch.float32,
+        cycling(lambda r, k, v, w, u, s0: rk.wkv_scan(r, k, v, w, u, state0=s0), layers),
+        cycling(wkv_ref, layers)))
+    del layers
+    shape = SSD_SHAPES[-1]
+    x, da, dt, b_in, c_in, s0 = ssd_inputs(shape, torch.float32, dev, SEED + 26, model_like=True)
+    rows["ssd_scan"] = [time_kernel(
+        "ssd_scan", shape, torch.float32,
+        lambda: sk.ssd_scan(x, da, dt, b_in, c_in, chunk=shape[-1], state0=s0),
+        lambda: ssd_ref(x, da, dt, b_in, c_in, s0), plain_reps=2)]
+    del x, da, dt, b_in, c_in
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssm_serve_phase(dev, card, arch: str) -> dict:
+    """Phase 9, ``[serve]`` rwkv6-7b or zamba2-7b: (a) full width at depth
+    ``SSM_CPU_DEPTH[arch]``, f32, the card against the CPU with the same
+    weights (prefill logits, 8 greedy tokens); (b) full width and depth,
+    bf16 activations, f32 weights drawn on the card, batch 8, a 2048-token
+    prompt, 32 new tokens, with the scan kernels' launches per ``generate``,
+    per prefill and per decode step.  Returns the served model, its prompt
+    and the main path's launches."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.ssd import ssd as sk
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    config = get_arch(arch).config
+    kernels = (*rk.KERNELS, *sk.KERNELS)
+    n_main = config.n_layers
+    if config.family == "hybrid":  # the Mamba2 blocks of the main stack and the tail
+        per = {"prefill": {"wkv_scan": 0, "ssd_scan": n_main},
+               "decode_step": {"wkv_scan": 0, "ssd_scan": 0}}
+    else:
+        per = {"prefill": {"wkv_scan": n_main, "ssd_scan": 0},
+               "decode_step": {"wkv_scan": n_main, "ssd_scan": 0}}
+    seed = SEED + (40 if arch == "rwkv6-7b" else 50)
+
+    # (a) cut depth, f32: the card against the CPU
+    depth = SSM_CPU_DEPTH[arch]
+    cfg_a = config.replace(n_layers=depth, dtype="float32")
+    t0 = time.perf_counter()
+    model_cpu = Model(cfg_a, generator=torch.Generator().manual_seed(seed), device="cpu")
+    init_s = time.perf_counter() - t0
+    model_card = copy.deepcopy(model_cpu).to(dev)
+    tokens = torch.randint(0, config.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    max_len = LM_CPU_PROMPT + LM_CPU_NEW
+    reset(kernels)
+    logits, _ = model_card.prefill({"tokens": tokens.to(dev)},
+                                   model_card.make_caches(LM_CPU_BATCH, max_len))
+    torch.cuda.synchronize()
+    a_launches = {k.name: k.launches for k in kernels}
+    scan = "ssd_scan" if config.family == "hybrid" else "wkv_scan"
+    check(a_launches[scan] == depth, f"{arch} depth-{depth} prefill launches: {a_launches}")
+    t0 = time.perf_counter()
+    logits_cpu, _ = model_cpu.prefill({"tokens": tokens}, model_cpu.make_caches(LM_CPU_BATCH, max_len))
+    tok_cpu, _ = ServeEngine(model_cpu, max_len, device="cpu").generate({"tokens": tokens}, LM_CPU_NEW)
+    cpu_s = time.perf_counter() - t0
+    tok, _ = ServeEngine(model_card, max_len, device=dev).generate({"tokens": tokens}, LM_CPU_NEW)
+    rel = (logits.cpu() - logits_cpu).abs().max().item() / logits_cpu.abs().max().item()
+    check(torch.isfinite(logits).all().item() and rel <= TOL_LM_LOGITS,
+          f"{arch} depth-{depth} f32 prefill logits vs cpu: {rel} of the largest")
+    check(torch.equal(tok.cpu(), tok_cpu), f"{arch} depth-{depth} greedy tokens differ: {tok} vs {tok_cpu}")
+    line("serve", model=arch, depth=depth, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
+         new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel, greedy_tokens_equal=True,
+         launches_per_prefill=a_launches, cpu_init_s=init_s, cpu_reference_s=cpu_s, card=card)
+    del model_cpu, model_card, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full depth, bf16 activations, weights drawn on the card
+    t0 = time.perf_counter()
+    model = Model(config, generator=torch.Generator(dev).manual_seed(seed + 2), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, LM_PROMPT + LM_NEW, device=dev)
+    prompt = torch.randint(0, config.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(seed + 3), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    out, last = engine.generate({"tokens": prompt}, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen_launches = {k.name: k.launches for k in kernels}
+    expected = {k: per["prefill"][k] + LM_NEW * per["decode_step"][k] for k in per["prefill"]}
+    check(gen_launches == expected, f"{arch} generate launches {gen_launches}, expected {expected}")
+    check(out.shape == (LM_BATCH, LM_NEW) and torch.isfinite(last).all().item(),
+          f"{arch} generate: tokens {tuple(out.shape)}, logits finite {torch.isfinite(last).all().item()}")
+    check(int(out.min()) >= 0 and int(out.max()) < config.vocab_size, f"{arch} tokens outside the vocabulary")
+    caches = model.make_caches(LM_BATCH, LM_PROMPT + LM_NEW)
+    measured = {}
+    for what, fn in (("prefill", lambda: model.prefill({"tokens": prompt}, caches)),
+                     ("decode_step", lambda: model.decode_step(out[:, :1], caches, LM_PROMPT))):
+        reset(kernels)
+        fn()
+        torch.cuda.synchronize()
+        measured[what] = {k.name: k.launches for k in kernels}
+    check(measured == per, f"{arch} launches per call {measured}, expected {per}")
+    del caches
+    line("serve", model=arch, depth=config.n_layers, dtype=config.dtype, batch=LM_BATCH,
+         prompt=LM_PROMPT, new_tokens=LM_NEW, n_params=sum(p.numel() for p in model.parameters()),
+         init_on_card_s=init_s, generate_s=gen_s, peak_memory_bytes=peak,
+         launches_per_generate=gen_launches, launches_per_prefill=measured["prefill"],
+         launches_per_decode_step=measured["decode_step"], first_tokens=out[:, :4].tolist(),
+         distinct_tokens=int(out.unique().numel()), card=card)
+    return {"model": model, "prompt": prompt, "launches": gen_launches[scan]}
 
 
 def time_flow_kernels(dev) -> dict:
@@ -1099,6 +1417,13 @@ def main() -> int:
     line("setup", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
          card=card, allow_tf32={"matmul": False, "cudnn": False})
 
+    marks = [time.perf_counter()]
+
+    def mark(phase: str):
+        """Print the seconds the phase took since the previous mark."""
+        marks.append(time.perf_counter())
+        line("seconds", of=phase, seconds=round(marks[-1] - marks[-2], 3))
+
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = common.build()
@@ -1108,6 +1433,7 @@ def main() -> int:
              for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
     line("build", seconds=round(build_s, 3), libraries=[str(p) for p in built.values()],
          ptxas=ptxas, card=card)
+    mark("build")
 
     # 2. kernels against their plain versions --------------------------------
     max_err = {"flowstep_fwd": 0.0, "flowstep_inv": 0.0}
@@ -1142,6 +1468,9 @@ def main() -> int:
     attn_errs = check_attention_kernel(dev)
     max_err["flash_attention"] = attn_errs[(ATTN_SHAPES[3], "bfloat16")]
     attn_times = time_attention(dev)
+    max_err.update(check_scan_kernels(dev))
+    scan_times = time_scans(dev)
+    mark("kernels")
 
     # 3. serve the model on the card ------------------------------------------
     flow_cpu = build_flow(GLOW_SCANNED, channels=3, generator=torch.Generator().manual_seed(SEED),
@@ -1191,6 +1520,7 @@ def main() -> int:
 
     coupled = coupled_serve_phase(dev, card, x_cpu)
     launches.update(coupled["launches"])
+    mark("serve")
 
     # 4. train, 5. memory and 6. the 1x1-conv op --------------------------------
     train = train_phase(dev, card)
@@ -1198,6 +1528,7 @@ def main() -> int:
     memory_phase(dev, card)
     coupled_train = coupled_train_phase(dev, card)
     launches.update(conv1x1_op_phase(dev, card))
+    mark("train, memory, op")
 
     # 7. times -----------------------------------------------------------------
     per_shape = time_flow_kernels(dev)
@@ -1259,10 +1590,26 @@ def main() -> int:
              device_idle_share=max(0.0, 1 - busy_ms / median),
              device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
+    mark("times")
+
     # 8. the language model: the flash kernel's op, yi-6b served, their times
     launches.update(attention_op_phase(dev, card))
     per_shape["flash_attention"] = attn_times
     lm_times(lm_serve_phase(dev, card), card, wall_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("yi-6b")
+
+    # 9. the SSM language models, one at a time: each is freed before the next
+    per_shape.update(scan_times)
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        served = ssm_serve_phase(dev, card, arch)
+        launches["wkv_scan" if arch == "rwkv6-7b" else "ssd_scan"] = served["launches"]
+        lm_times(served, card, wall_ms, name=arch)
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(arch)
 
     kernels = []
     sources = {
@@ -1275,10 +1622,14 @@ def main() -> int:
         "conv1x1_mm": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:70"),
         "conv1x1_gw": ("conv1x1.cu", "src/repro/kernels/conv1x1/conv1x1.py:46"),
         "flash_attention": ("attention.cu", "src/repro/kernels/attention/attention.py:80"),
+        "ssd_scan": ("ssd.cu", "src/repro/kernels/ssd/ssd.py:81"),
+        "wkv_scan": ("rwkv.cu", "src/repro/kernels/rwkv/rwkv.py:58"),
     }
     for name, (source, replaces) in sources.items():
         # the model's largest shape, in float32 (flash_attention: yi-6b's
-        # prefill in bf16, the dtype the model serves in)
+        # prefill in bf16, the dtype the model serves in; wkv_scan and
+        # ssd_scan: the prefill of rwkv6-7b and zamba2-7b, whose scans take
+        # f32 inputs)
         main = per_shape[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",

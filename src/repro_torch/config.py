@@ -8,11 +8,12 @@ no ``seed``: the flow arrives initialised, from the generator its builder was
 given.
 
 ``ModelConfig`` keeps every field of the reference so a configuration reads
-the same in both packages.  Its ``moe``, ``ssm`` and ``frontend`` sub-configs
-come with the slices that port those families (``ROADMAP.md`` queue 1); until
-then they stay ``None``, and ``models/blocks.py::decoder_layout`` refuses a
-family it cannot build.  Architectures register themselves from
-``repro_torch.configs``; only ported ones are registered.
+the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers) is
+ported; the ``moe`` and ``frontend`` sub-configs come with the slices that
+port those families (``ROADMAP.md`` queue 1); until then they stay ``None``,
+and ``models/blocks.py::decoder_layout`` refuses a family it cannot build.
+Architectures register themselves from ``repro_torch.configs``; only ported
+ones are registered.
 """
 
 from __future__ import annotations
@@ -55,6 +56,24 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str  # "mamba2" | "rwkv6"
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128  # chunk length for the blocked scan
+    # rwkv6: 0 = per-token wkv scan; >0 = chunked
+    wkv_chunk: int = 0
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -65,7 +84,7 @@ class ModelConfig:
 
     attention: Optional[AttentionConfig] = None
     moe: Optional[object] = None
-    ssm: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
     frontend: Optional[object] = None
 
     # hybrid (zamba2): apply the shared attention block every k SSM blocks

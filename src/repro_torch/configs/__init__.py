@@ -2,14 +2,14 @@
 language-model architecture the port builds.  The flow configurations live
 in ``configs/flows.py``."""
 
+import repro_torch.configs.rwkv6_7b  # noqa: F401
 import repro_torch.configs.yi_6b  # noqa: F401
+import repro_torch.configs.zamba2_7b  # noqa: F401
 from repro_torch.config import get_arch, list_archs  # noqa: F401
 
 #: the reference's architectures that the port does not build yet, in the
 #: order of ``ROADMAP.md`` queue 1, item 12
 UNPORTED_ARCHS = (
-    "rwkv6-7b",
-    "zamba2-7b",
     "glm4-9b",
     "granite-34b",
     "command-r-plus-104b",

@@ -66,6 +66,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._buffers or key in self._modules
+
 
 def share_parameters(dst: nn.Module, src: nn.Module) -> nn.Module:
     """Make ``dst`` hold ``src``'s own parameter and buffer tensors: two

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 #: kernel library name -> its source under ``csrc/``
 SOURCES = {"flowstep": "flowstep.cu", "coupling": "coupling.cu", "conv1x1": "conv1x1.cu",
-           "attention": "attention.cu"}
+           "attention": "attention.cu", "rwkv": "rwkv.cu", "ssd": "ssd.cu"}
 #: storage types the kernels take, as the code each C entry point reads
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,0 +1,22 @@
+"""Public wrapper of the wkv6 kernel, the port of the reference's
+``kernels/rwkv/ops.py::rwkv6_wkv``.
+
+CPU tensors take the plain version (``ref.py``); CUDA tensors take the
+hand-written kernel, or raise.  ``chunk`` is the TPU kernel's time tile,
+kept so calls read the same in both packages: the CUDA kernel walks time in
+its own tiles and takes any S, and neither choice changes the result."""
+
+from __future__ import annotations
+
+from repro_torch.kernels.common import use_plain
+from repro_torch.kernels.rwkv import rwkv as _k
+from repro_torch.kernels.rwkv.ref import wkv_ref
+
+
+def rwkv6_wkv(r, k, v, w, u, chunk: int = 64, state0=None):
+    """r, k, v, w: (B, H, S, K); u: (H, K); state0: (B, H, K, K) f32 or
+    None (zeros) -> (y (B, H, S, K) f32, state (B, H, K, K) f32)."""
+    tensors = (r, k, v, w, u) + (() if state0 is None else (state0,))
+    if use_plain(*tensors):
+        return wkv_ref(r, k, v, w, u, state0)
+    return _k.wkv_scan(r, k, v, w, u, chunk=chunk, state0=state0)

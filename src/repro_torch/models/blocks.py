@@ -1,25 +1,36 @@
-"""Transformer superblocks, the port of the reference's ``models/blocks.py``
-for the dense family.
+"""Superblocks, the port of the reference's ``models/blocks.py`` for the
+dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
 
-A superblock is the smallest repeating parameter pattern of a model; for a
-dense architecture it is one attention unit and one FFN unit.  In reversible
-mode the units alternate over two residual streams (additive coupling):
+A superblock is the smallest repeating parameter pattern of a model:
 
-    x1 += attn(x2);  x2 += ffn(x1)
+* dense archs — 1 block (attention + FFN);
+* rwkv6 — 1 block (time-mix + channel-mix);
+* zamba2 (hybrid) — k Mamba2 blocks + one application of the *shared*
+  attention and FFN (their weights live in ``Ctx.extra``; only each
+  application's norms and KV cache are per superblock), then a tail of
+  ``n_layers % k`` Mamba2 blocks run as a second stack.
+
+In reversible mode the units alternate over two residual streams (additive
+coupling):
+
+    x1 += u_0(x2);  x2 += u_1(x1);  x1 += u_2(x2);  ...
 
 In standard mode they apply in turn to one stream.  Units return their
-residual delta and write their caches in place; they run with caches
+residual delta and write their caches in place (attention caches through
+``nn/attention.py``; the SSM units ``copy_`` the mixers' new state into the
+cache views, in the reference's dtypes: shifts and conv states in the
+activation dtype, wkv and ssd states in f32); they run with caches
 (prefill and decode), the only stack runner serving needs.  What waits for
 later slices (``ROADMAP.md`` queue 1, item 12): the cacheless runner and the
-inverse and fused backward of the coupling that LM training needs, the MoE,
-SSM and hybrid units with the per-sample aux channel they feed, shared and
-cross attention, and the encoder layout.
+inverse and fused backward of the coupling that LM training needs, the MoE
+units with the per-sample aux channel they feed, cross attention, and the
+encoder layout.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,6 +38,17 @@ from repro_torch.config import ModelConfig
 from repro_torch.nn.attention import attn_apply, attn_init, make_cache
 from repro_torch.nn.mlp import ffn_apply, ffn_init
 from repro_torch.nn.norm import rmsnorm
+from repro_torch.nn.ssm import (
+    RWKV_CHAN_KEYS,
+    RWKV_TIME_KEYS,
+    mamba2_apply,
+    mamba2_init,
+    mamba2_state,
+    rwkv6_channel_mix,
+    rwkv6_init,
+    rwkv6_state,
+    rwkv6_time_mix,
+)
 
 
 class Ctx(NamedTuple):
@@ -34,6 +56,7 @@ class Ctx(NamedTuple):
 
     positions: torch.Tensor  # (S,) absolute positions of this call's tokens
     pos0: int  # cache write offset
+    extra: Optional[dict] = None  # shared inputs: the shared attention's and FFN's weights
 
 
 class Unit(NamedTuple):
@@ -50,16 +73,21 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def attention_unit(cfg: ModelConfig, name: str = "attn") -> Unit:
+def attention_unit(cfg: ModelConfig, name: str = "attn", *, shared: bool = False) -> Unit:
+    """Attention with its norm; ``shared`` reads the weights from
+    ``ctx.extra["shared_attn"]`` and holds only the norm."""
     acfg, d, dtype = cfg.attention, cfg.d_model, _dtype(cfg.dtype)
 
     def init(generator):
-        return {"norm": torch.ones(d, device=generator.device),
-                "attn": attn_init(generator, d, acfg)}
+        p = {"norm": torch.ones(d, device=generator.device)}
+        if not shared:
+            p["attn"] = attn_init(generator, d, acfg)
+        return p
 
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
-        out, _ = attn_apply(p["attn"], h, acfg, ctx.positions, cache=cache, cache_pos=ctx.pos0,
+        weights = ctx.extra["shared_attn"] if shared else p["attn"]
+        out, _ = attn_apply(weights, h, acfg, ctx.positions, cache=cache, cache_pos=ctx.pos0,
                             seq_shard=cfg.attn_seq_shard)
         return out
 
@@ -69,22 +97,92 @@ def attention_unit(cfg: ModelConfig, name: str = "attn") -> Unit:
     return Unit(name, init, apply, mk_cache)
 
 
-def ffn_unit(cfg: ModelConfig, name: str = "ffn") -> Unit:
+def ffn_unit(cfg: ModelConfig, name: str = "ffn", *, shared: bool = False) -> Unit:
+    """The FFN with its norm; ``shared`` reads the weights from
+    ``ctx.extra["shared_ffn"]`` and holds only the norm."""
     d, dff, kind, dtype = cfg.d_model, cfg.d_ff, cfg.ffn_kind, _dtype(cfg.dtype)
 
     def init(generator):
-        return {"norm": torch.ones(d, device=generator.device),
-                "ffn": ffn_init(generator, d, dff, kind)}
+        p = {"norm": torch.ones(d, device=generator.device)}
+        if not shared:
+            p["ffn"] = ffn_init(generator, d, dff, kind)
+        return p
 
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
-        return ffn_apply(p["ffn"], h, kind)
+        return ffn_apply(ctx.extra["shared_ffn"] if shared else p["ffn"], h, kind)
 
     return Unit(name, init, apply, lambda batch, max_len, device: {})
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def _copy_state(cache: dict, new: dict):
+    """Write a mixer's new state into its cache views, leaf by leaf."""
+    for key, value in new.items():
+        if isinstance(value, dict):
+            _copy_state(cache[key], value)
+        else:
+            cache[key].copy_(value)
+
+
+def mamba_unit(cfg: ModelConfig, name: str = "mamba") -> Unit:
+    d, scfg, dtype = cfg.d_model, cfg.ssm, _dtype(cfg.dtype)
+
+    def init(generator):
+        return {"norm": torch.ones(d, device=generator.device),
+                "mamba": mamba2_init(generator, d, scfg)}
+
+    def apply(p, x, cache, ctx: Ctx):
+        h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
+        y, new_state = mamba2_apply(p["mamba"], h, scfg, cache)
+        _copy_state(cache, new_state)
+        return y
+
+    def mk_cache(batch, max_len, device):
+        return mamba2_state(scfg, d, batch, dtype, device)
+
+    return Unit(name, init, apply, mk_cache)
+
+
+def rwkv_time_unit(cfg: ModelConfig) -> Unit:
+    d, scfg, dtype = cfg.d_model, cfg.ssm, _dtype(cfg.dtype)
+
+    def init(generator):
+        return {"norm": torch.ones(d, device=generator.device),
+                "rwkv": rwkv6_init(generator, d, scfg, cfg.d_ff, keys=RWKV_TIME_KEYS)}
+
+    def apply(p, x, cache, ctx: Ctx):
+        h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
+        y, new_state = rwkv6_time_mix(p["rwkv"], h, scfg, cache["time"])
+        _copy_state(cache["time"], new_state)
+        return y
+
+    def mk_cache(batch, max_len, device):
+        return {"time": rwkv6_state(scfg, d, batch, dtype, device)["time"]}
+
+    return Unit("time_mix", init, apply, mk_cache)
+
+
+def rwkv_channel_unit(cfg: ModelConfig) -> Unit:
+    d, scfg, dtype = cfg.d_model, cfg.ssm, _dtype(cfg.dtype)
+
+    def init(generator):
+        return {"norm": torch.ones(d, device=generator.device),
+                "rwkv": rwkv6_init(generator, d, scfg, cfg.d_ff, keys=RWKV_CHAN_KEYS)}
+
+    def apply(p, x, cache, ctx: Ctx):
+        h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
+        y, new_state = rwkv6_channel_mix(p["rwkv"], h, cache["chan"])
+        _copy_state(cache["chan"], new_state)
+        return y
+
+    def mk_cache(batch, max_len, device):
+        return {"chan": rwkv6_state(scfg, d, batch, dtype, device)["chan"]}
+
+    return Unit("chan_mix", init, apply, mk_cache)
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def _tree_copy_into(dst, src, i):
@@ -107,7 +205,7 @@ class SuperBlock:
         """``n_super`` draws of ``init_one``, each leaf stacked on a leading
         axis; one superblock's draw is held at a time beside the stack."""
         first = self.init_one(generator)
-        stacked = _tree_map(lambda v: v.new_empty((self.n_super,) + v.shape), first)
+        stacked = tree_map(lambda v: v.new_empty((self.n_super,) + v.shape), first)
         _tree_copy_into(stacked, first, 0)
         del first
         for i in range(1, self.n_super):
@@ -117,7 +215,7 @@ class SuperBlock:
     def make_caches(self, batch: int, max_len: int, device=None) -> dict:
         """Each unit's cache with a leading ``n_super`` axis."""
         one = {u.name: u.make_cache(batch, max_len, device) for u in self.units}
-        return _tree_map(lambda v: v.new_zeros((self.n_super,) + v.shape), one)
+        return tree_map(lambda v: v.new_zeros((self.n_super,) + v.shape), one)
 
     def fwd_pair(self, p, state, cache, ctx: Ctx):
         """Reversible coupling over ``(x1, x2)``: even units read x2 and add
@@ -142,11 +240,29 @@ class SuperBlock:
 @dataclass(frozen=True)
 class StackLayout:
     main: SuperBlock
+    tail: Optional[SuperBlock] = None  # zamba2's remainder blocks
+    has_shared_attn: bool = False
 
 
 def decoder_layout(cfg: ModelConfig) -> StackLayout:
     """Superblock layout of the decoder stack."""
     if cfg.family in ("dense", "vlm"):
         return StackLayout(SuperBlock((attention_unit(cfg), ffn_unit(cfg)), cfg.n_layers))
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        return StackLayout(SuperBlock((rwkv_time_unit(cfg), rwkv_channel_unit(cfg)),
+                                      cfg.n_layers))
+    if cfg.family == "hybrid":
+        # zamba2: k Mamba2 blocks, then one application of the shared
+        # transformer block (attention + FFN, weights in ``Ctx.extra``)
+        k = cfg.hybrid_attn_every
+        n_main, n_tail = cfg.n_layers // k, cfg.n_layers % k
+        units = tuple(mamba_unit(cfg, f"mamba{i}") for i in range(k)) + (
+            attention_unit(cfg, "shared_attn", shared=True),
+            ffn_unit(cfg, "shared_ffn", shared=True),
+        )
+        tail = None
+        if n_tail:
+            tail = SuperBlock(tuple(mamba_unit(cfg, f"mamba{i}") for i in range(n_tail)), 1)
+        return StackLayout(SuperBlock(units, n_main), tail, has_shared_attn=True)
     raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet "
                               "(ROADMAP.md queue 1, item 12)")

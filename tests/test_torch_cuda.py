@@ -18,7 +18,11 @@ cancels to near zero keeps the round-off of the large partial sums (as
 plain versions; ``flash_attention`` at the reference's ``_tol``
 (``tests/test_kernels.py:43``: 2e-5 in f32, 2e-2 in bf16) against
 ``attention_ref``, and ``attn_apply(impl="flash")`` within 2e-4 of the
-einsum path, as the reference pins it.
+einsum path, as the reference pins it; ``wkv_scan`` and ``ssd_scan`` at the
+reference's kernel bound (``tests/test_kernels.py:305``: 2e-4 in f32, 5e-2
+in bf16, rtol = atol) against ``wkv_ref`` and ``ssd_ref`` on the same
+inputs, and the model's scans (``nn/ssm.py``) on the card against the same
+scans on the CPU at 2e-4.
 """
 
 import pytest
@@ -36,6 +40,11 @@ from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref,
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
 from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
+from repro_torch.kernels.rwkv import rwkv as rkern
+from repro_torch.kernels.rwkv.ref import wkv_ref
+from repro_torch.kernels.ssd import ssd as skern
+from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.nn import ssm
 from repro_torch.nn.attention import attn_apply, attn_init
 
 pytestmark = pytest.mark.cuda
@@ -295,3 +304,107 @@ def test_flash_impl_of_attn_apply_on_the_card(dev):
     torch.cuda.synchronize()
     assert akern.flash_attention.launches == before + 1
     torch.testing.assert_close(out_flash, out_xla, rtol=2e-4, atol=2e-4)
+
+
+def _scan_tol(dtype):
+    return dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 else dict(rtol=2e-4, atol=2e-4)
+
+
+def _wkv_inputs(shape, dtype, dev, seed=11):
+    """r, k, v standard normal, w = sigmoid(normal) in ``dtype``; u (H, K) and
+    a state0 (B, H, K, K) in f32."""
+    b, h, s, kd = shape
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(b, h, s, kd, generator=g).to(dev, dtype) for _ in range(3))
+    w = torch.sigmoid(torch.randn(b, h, s, kd, generator=g)).to(dev, dtype)
+    u = (0.1 * torch.randn(h, kd, generator=g)).to(dev)
+    state0 = (0.5 * torch.randn(b, h, kd, kd, generator=g)).to(dev)
+    return r, k, v, w, u, state0
+
+
+# the reference's kernel-test shapes (tests/test_kernels.py:363), a ragged S
+# with K = 64, decode's S = 1, and rwkv6-7b's head size over 300 steps
+WKV_SHAPES = [(1, 2, 128, 16), (2, 4, 64, 32), (2, 3, 37, 64), (8, 64, 1, 64), (2, 4, 300, 64)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wkv_scan_matches_plain_version(dev, shape, dtype, with_state):
+    r, k, v, w, u, state0 = _wkv_inputs(shape, dtype, dev)
+    s0 = state0 if with_state else None
+    before = rkern.wkv_scan.launches
+    y, st = rkern.wkv_scan(r, k, v, w, u, state0=s0)
+    y2, st2 = rkern.wkv_scan(r, k, v, w, u, state0=s0)
+    y_ref, st_ref = wkv_ref(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rkern.wkv_scan.launches == before + 2
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, **_scan_tol(dtype))
+    torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
+    assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bitwise repeatable
+
+
+def _ssd_inputs(shape, dtype, dev, seed=12):
+    """x, b_in, c_in in ``dtype``; dt = softplus(normal), da = -dt * decay
+    rate, a state0 (B, H, P, N), all f32."""
+    b, h, s, p, n = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, s, p, generator=g).to(dev, dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, h, s, generator=g))
+    da = -dt * torch.exp(0.2 * torch.randn(b, h, s, generator=g))
+    b_in, c_in = (torch.randn(b, s, n, generator=g).to(dev, dtype) for _ in range(2))
+    state0 = (0.5 * torch.randn(b, h, p, n, generator=g)).to(dev)
+    return x, da.to(dev), dt.to(dev), b_in, c_in, state0
+
+
+# (B, H, S, P, N, chunk): the reference's kernel-test shapes
+# (tests/test_kernels.py:299), a chunk that is no multiple of the 64-row tile,
+# zamba2-7b's head dim, state size and chunk, and a single-chunk prompt
+SSD_SHAPES = [(1, 2, 256, 16, 16, 64), (2, 4, 128, 32, 16, 64), (2, 3, 96, 64, 64, 48),
+              (1, 4, 512, 64, 64, 256), (2, 2, 12, 16, 16, 256)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_matches_plain_version(dev, shape, dtype, with_state):
+    *dims, chunk = shape
+    x, da, dt, b_in, c_in, state0 = _ssd_inputs(dims, dtype, dev)
+    s0 = state0 if with_state else None
+    before = skern.ssd_scan.launches
+    y, st = skern.ssd_scan(x, da, dt, b_in, c_in, chunk=chunk, state0=s0)
+    y2, st2 = skern.ssd_scan(x, da, dt, b_in, c_in, chunk=chunk, state0=s0)
+    y_ref, st_ref = ssd_ref(x, da, dt, b_in, c_in, s0)
+    torch.cuda.synchronize()
+    assert skern.ssd_scan.launches == before + 2
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref, **_scan_tol(dtype))
+    torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
+    assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bitwise repeatable
+
+
+def test_model_scans_take_the_kernels_on_the_card(dev):
+    """``_wkv_scan``, ``_wkv_scan_chunked`` and ``_ssd_chunk_scan`` on CUDA
+    tensors, (B, S, H, .) as the mixers pass them: one launch each, the
+    results equal to the same scans on the CPU, y back in (B, S, H, .)."""
+    r, k, v, w, u, state0 = _wkv_inputs((2, 4, 40, 64), torch.float32, dev)
+    bshk = [t.transpose(1, 2).contiguous() for t in (r, k, v, w)]
+    before = rkern.wkv_scan.launches
+    y, st = ssm._wkv_scan(*bshk, u, state0)
+    yc, stc = ssm._wkv_scan_chunked(*bshk, u, state0, chunk=16)
+    y_cpu, st_cpu = ssm._wkv_scan(*(t.cpu() for t in bshk), u.cpu(), state0.cpu())
+    torch.cuda.synchronize()
+    assert rkern.wkv_scan.launches == before + 2
+    for a, b in ((y, y_cpu), (st, st_cpu), (yc, y_cpu), (stc, st_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+    x, da, dt, b_in, c_in, s0 = _ssd_inputs((2, 3, 128, 64, 64), torch.float32, dev)
+    args = (x.transpose(1, 2).contiguous(), da.transpose(1, 2).contiguous(),
+            dt.transpose(1, 2).contiguous(), b_in, c_in, s0)
+    before = skern.ssd_scan.launches
+    y, st = ssm._ssd_chunk_scan(*args, chunk=64)
+    y_cpu, st_cpu = ssm._ssd_chunk_scan(*(t.cpu() for t in args), chunk=64)
+    torch.cuda.synchronize()
+    assert skern.ssd_scan.launches == before + 1 and y.shape == (2, 128, 3, 64)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st.cpu(), st_cpu, rtol=2e-4, atol=2e-4)

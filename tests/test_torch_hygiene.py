@@ -1,8 +1,8 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
-unrolled GLOW; yi-6b ``REDUCED`` prefill and decode through
-``ServeEngine.generate``), and refuses to run quietly on the CPU when no
-device was named."""
+unrolled GLOW; yi-6b, rwkv6-7b and zamba2-7b ``REDUCED`` prefill and decode
+through ``ServeEngine.generate``), and refuses to run quietly on the CPU when
+no device was named."""
 
 import os
 import re
@@ -56,10 +56,11 @@ def test_lm_serving_runs_without_loading_jax():
         "from repro_torch.config import get_arch\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.serve.engine import ServeEngine\n"
-        "model, cfg = build_model(get_arch('yi-6b').reduced, device='cpu')\n"
-        "tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
-        "    {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
-        "assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
+        "for arch in ('yi-6b', 'rwkv6-7b', 'zamba2-7b'):\n"
+        "    model, cfg = build_model(get_arch(arch).reduced, device='cpu')\n"
+        "    tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
+        "        {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
+        "    assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
@@ -114,8 +115,9 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is cuda")
     cfg = get_arch("yi-6b").reduced
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_model(cfg)
+    for arch in ("yi-6b", "rwkv6-7b", "zamba2-7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(get_arch(arch).reduced)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -135,9 +135,10 @@ def test_configs_and_registry_match_the_reference():
     assert dataclasses.asdict(CONFIG) == dataclasses.asdict(J_CONFIG)
     assert dataclasses.asdict(REDUCED) == dataclasses.asdict(J_REDUCED)
     assert CONFIG.param_count() == J_CONFIG.param_count()
-    assert list_archs() == ["yi-6b"] and get_arch("yi-6b").reduced == REDUCED
+    assert list_archs() == ["rwkv6-7b", "yi-6b", "zamba2-7b"]
+    assert get_arch("yi-6b").reduced == REDUCED
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_arch("zamba2-7b")
+        get_arch("glm4-9b")
     with pytest.raises(KeyError, match="unknown architecture"):
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
