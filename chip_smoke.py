@@ -17,12 +17,17 @@ model at a time, and drives the flash-attention kernel through
 kernel against its plain PyTorch version.  Phases, one line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-             sm_90a, one process per source, all started together);
+             sm_90a, one process per source, all started together); each
+             kernel's registers, spills and shared memory;
 2. kernels - each kernel against its plain version at the model's shapes and
              a ragged one, in f32 and bf16, on strided views where the path
              passes them; the logdets and the sums over (b, m) are bitwise
              repeatable; ``invertible_conv1x1``'s gradient against autograd
-             through the plain version;
+             through the plain version; ``conv1x1_mm``'s path (the stream
+             at C = 12, 24, 48, the W panels at other widths); the LM
+             kernels' gradient guard (an input that requires grad raises on
+             backward; under ``no_grad`` the same output and launches as the
+             unguarded kernel);
 3. serve   - ``FlowServeEngine`` on cuda, scanned then unrolled: ``log_prob``
              against the same model on the CPU, ``sample`` (the unrolled
              model through its ``kernel_inverse=True`` twin) then
@@ -72,7 +77,10 @@ kernel against its plain PyTorch version.  Phases, one line each:
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
-bf16, causal or not, bitwise repeatable) run with the other kernels, and so
+bf16, causal or not, bitwise repeatable, bf16 with a head dim that is a
+multiple of 16 on the tensor-core kernel and the rest on the CUDA-core one;
+bf16 strided heads; a misaligned bf16 view on the CUDA-core kernel) run with
+the other kernels, and so
 do the scan kernels' (``wkv_scan`` and ``ssd_scan`` against ``wkv_ref`` and
 ``ssd_ref`` at the reference's kernel-test shapes, f32 and bf16, and at the
 models' shapes in f32 (the prefills, and rwkv6-7b's decode step), with and
@@ -108,17 +116,21 @@ BATCH, HW = 8, 256
 SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]
 # coupling_fwd / coupling_inv on the unrolled model's transformed halves
 # (B, M, ca), plus a ragged M; conv1x1_mm / conv1x1_gw at the model's (B, M, C),
-# the widest C the reference's tests take, and a ragged M
+# the widest C the reference's tests take, a ragged M, and a ragged last stream
+# tile at each GLOW width
 COUPLING_SHAPES = [(8, 16384, 6), (8, 4096, 12), (8, 1024, 24), (8, 300, 6)]
-CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8)]
+CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8),
+                  (2, 301, 12), (3, 77, 24), (1, 13, 48)]
 #: one NVIDIA H100 SXM (data sheet): HBM bytes/s, non-tensor-core f32 FLOP/s
 #: and dense bf16 tensor-core FLOP/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
 H100_BF16_FLOPS = 989.4e12
 # flash_attention (B, Hq, Hkv, S, D): the reference's kernel-test shapes
-# (tests/test_kernels.py:277-279) and yi-6b's prefill, batch 8 x 2048
-ATTN_SHAPES = [(1, 4, 4, 256, 32), (2, 8, 2, 256, 64), (1, 6, 1, 512, 64), (8, 32, 4, 2048, 128)]
+# (tests/test_kernels.py:277-279), yi-6b's prefill, batch 8 x 2048, and a head
+# dim that is no multiple of 16 (bf16 on the CUDA-core kernel)
+ATTN_SHAPES = [(1, 4, 4, 256, 32), (2, 8, 2, 256, 64), (1, 6, 1, 512, 64), (8, 32, 4, 2048, 128),
+               (2, 8, 2, 256, 36)]
 # the reference's kernel tolerance (tests/test_kernels.py:43), rtol = atol
 TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_ATTN_OP = 2e-4     # attn_apply flash vs einsum in f32 (tests/test_kernels.py:413-416)
@@ -367,12 +379,12 @@ def queued_ms(fn, reps: int = 20, spin_cycles: int = 20_000_000) -> float:
     raise SystemExit("chip_smoke: FAILED: the host could not queue the calls ahead of the card")
 
 
-def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None) -> dict:
+def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None, **extra) -> dict:
     """One ``[times]`` line: the kernel's, its plain version's and (where one
     PyTorch call computes the same function) that call's device time, beside
     the bound, at ``shape``; ``ms_from`` names each time's source.
     ``plain_reps`` times a slow plain version (a Python loop over time) over
-    fewer calls."""
+    fewer calls; ``extra`` (the kernel's path) goes into the line as is."""
     (ms, k_src) = device_ms(k_fn)
     plain_ms, p_src = device_ms(p_fn) if plain_reps is None else device_ms(p_fn, reps=plain_reps)
     lib_ms, l_src = device_ms(lib_fn) if lib_fn is not None else (None, None)
@@ -382,7 +394,8 @@ def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None) ->
            "library_ms": lib_ms, "ms_from": {"ms": k_src, "plain_ms": p_src, "library_ms": l_src},
            "call_ms": call_ms(k_fn),
            "plain_call_ms": call_ms(p_fn) if plain_reps is None else call_ms(p_fn, plain_reps, 1),
-           "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
+           "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
+           **extra}
     line("times", kernel=name, **row)
     return row
 
@@ -638,8 +651,11 @@ def check_unrolled_kernels(dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             x, gy, w = conv1x1_inputs(shape, dtype, dev, SEED + 10)
+            before = dict(c1k.conv1x1_mm.launches_by_path)
             y = c1k.conv1x1_mm(x, w)
             gx = c1k.conv1x1_mm(gy, w.T)
+            ran = [p for p, n in c1k.conv1x1_mm.launches_by_path.items() if n != before[p]]
+            check(ran == [c1k.mm_path(x)], f"conv1x1_mm {shape} {dtype} ran {ran}")
             gw, gw_again = c1k.conv1x1_gw(x, gy), c1k.conv1x1_gw(x, gy)
             gw_r = conv1x1_gw_ref(x, gy)
             torch.cuda.synchronize()
@@ -652,8 +668,9 @@ def check_unrolled_kernels(dev) -> dict:
             if dtype == torch.float32:
                 max_err["conv1x1_mm"] = max(max_err["conv1x1_mm"], err_mm)
                 max_err["conv1x1_gw"] = max(max_err["conv1x1_gw"], err_gw)
-            line("kernels", shape=list(shape), dtype=dname, conv1x1_mm_max_abs_err=err_mm,
-                 conv1x1_gw_max_rel_err=rel, gw_bitwise_repeatable=True)
+            line("kernels", shape=list(shape), dtype=dname, conv1x1_mm_path=ran[0],
+                 conv1x1_mm_max_abs_err=err_mm, conv1x1_gw_max_rel_err=rel,
+                 gw_bitwise_repeatable=True)
     # the op's gradient: conv1x1_mm (W^T) and conv1x1_gw inside autograd
     for shape in CONV1X1_SHAPES[:3]:
         x, gy, w = conv1x1_inputs(shape, torch.float32, dev, SEED + 11)
@@ -873,8 +890,13 @@ def attention_inputs(shape, dtype, dev, seed):
 def check_attention_kernel(dev) -> dict:
     """Phase 2, ``flash_attention`` against ``attention_ref`` at
     ``ATTN_SHAPES``, f32 and bf16, causal or not: within the reference's
-    ``_tol`` and bitwise repeatable.  Returns the largest abs error at each
-    (shape, dtype)."""
+    ``_tol`` and bitwise repeatable, each on the path ``flash_path`` picks
+    (bf16 with D % 16 == 0 on the tensor-core kernel, the rest on the
+    CUDA-core one; each line names the path that ran).  Then (B, S, H, D)
+    views passed as (B, H, S, D) in bf16, as ``attn_apply`` passes them,
+    equal to the same call on copies; and a bf16 view TMA cannot take, on
+    the CUDA-core kernel against ``attention_ref``.  Returns the largest abs
+    error at each (shape, dtype)."""
     import torch
     from repro_torch.kernels.attention import attention as ak
     from repro_torch.kernels.attention.ref import attention_ref
@@ -884,24 +906,107 @@ def check_attention_kernel(dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
             q, k, v = attention_inputs(shape, dtype, dev, SEED + 15)
+            want = ak.flash_path(q, k, v)
+            check(want == ("tensor_core" if dtype == torch.bfloat16 and shape[-1] % 16 == 0
+                           else "cuda_core"), f"flash_path {shape} {dname}: {want}")
             for causal in (True, False):
+                before = dict(ak.flash_attention.launches_by_path)
                 o, o_again = ak.flash_attention(q, k, v, causal), ak.flash_attention(q, k, v, causal)
                 r = attention_ref(q, k, v, causal).float()
                 torch.cuda.synchronize()
+                ran = [p for p, n in ak.flash_attention.launches_by_path.items() if n != before[p]]
                 d = (o.float() - r).abs()
                 tol = TOL_ATTN[dname]
                 bad = int((d > tol + tol * r.abs()).sum().item())
                 err = d.max().item()
                 del r, d
                 errs[(shape, dname)] = max(errs.get((shape, dname), 0.0), err)
+                check(ran == [want], f"flash_attention {shape} {dname} ran {ran}")
                 check(bad == 0, f"flash_attention {shape} {dname} causal={causal}: {bad} entries "
                                 f"off, max {err}")
                 check(torch.equal(o, o_again), f"flash_attention not bitwise repeatable at {shape}")
                 line("kernels", kernel="flash_attention", shape=list(shape), dtype=dname,
-                     causal=causal, max_abs_err=err, tol=tol, bitwise_repeatable=True)
+                     causal=causal, path=ran[0], max_abs_err=err, tol=tol, bitwise_repeatable=True)
             del q, k, v
+    g = torch.Generator(dev).manual_seed(SEED + 18)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=g, device=dev, dtype=torch.bfloat16)
+               for h in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    o = ak.flash_attention(*views)
+    o_copies = ak.flash_attention(*(t.contiguous() for t in views))
+    torch.cuda.synchronize()
+    check(torch.equal(o, o_copies) and o.transpose(1, 2).is_contiguous(),
+          "flash_attention bf16 on strided heads differs from copies or changed layout")
+    # q 8 bytes off a 16-byte boundary: TMA cannot copy it, so the CUDA-core
+    # kernel takes the call
+    misaligned = torch.empty(q.numel() + 4, device=dev, dtype=torch.bfloat16)[4:].view(views[0].shape)
+    misaligned.copy_(views[0])
+    before = dict(ak.flash_attention.launches_by_path)
+    o = ak.flash_attention(misaligned, views[1], views[2])
+    r = attention_ref(misaligned, views[1], views[2]).float()
+    torch.cuda.synchronize()
+    ran = [p for p, n in ak.flash_attention.launches_by_path.items() if n != before[p]]
+    tol = TOL_ATTN["bfloat16"]
+    err = (o.float() - r).abs().max().item()
+    check(ran == ["cuda_core"], f"flash_attention on a misaligned bf16 q ran {ran}")
+    check(bool(((o.float() - r).abs() <= tol + tol * r.abs()).all()),
+          f"flash_attention on a misaligned bf16 q: max {err}")
+    line("kernels", kernel="flash_attention", dtype="bfloat16", strided_heads_equal_copies=True,
+         output_layout_kept=True, misaligned_view_path=ran[0], misaligned_view_max_abs_err=err)
     torch.cuda.empty_cache()
     return errs
+
+
+def check_kernel_guards(dev) -> None:
+    """Phase 2, the LM kernels' gradient guard: through ``flash_sdpa``,
+    ``rwkv6_wkv`` and ``mamba2_ssd`` on the card, an input that requires grad
+    raises on ``.backward()``; under ``no_grad`` the output and the launches
+    equal those of the kernel called without the guard."""
+    import torch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.kernels.attention.ops import flash_sdpa
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.rwkv.ops import rwkv6_wkv
+    from repro_torch.kernels.ssd import ssd as sk
+    from repro_torch.kernels.ssd.ops import mamba2_ssd
+
+    q, k, v = attention_inputs(ATTN_SHAPES[1], torch.bfloat16, dev, SEED + 19)
+    r, kw, vw, w, u, s0 = wkv_inputs(WKV_SHAPES[1], torch.float32, dev, SEED + 20)
+    x, da, dt, b_in, c_in, s1 = ssd_inputs(SSD_SHAPES[1], torch.float32, dev, SEED + 21)
+    chunk = SSD_SHAPES[1][-1]
+    # kernel: (the op's call, through the guard; the kernel's own call; inputs)
+    cases = {
+        ak.flash_attention: (flash_sdpa, ak.flash_attention, (q, k, v)),
+        rk.wkv_scan: (lambda *a: rwkv6_wkv(*a[:5], state0=a[5]),
+                      lambda *a: rk.wkv_scan(*a[:5], state0=a[5]), (r, kw, vw, w, u, s0)),
+        sk.ssd_scan: (lambda *a: mamba2_ssd(*a[:5], chunk=chunk, state0=a[5]),
+                      lambda *a: sk.ssd_scan(*a[:5], chunk=chunk, state0=a[5]),
+                      (x, da, dt, b_in, c_in, s1)),
+    }
+    out = {}
+    for kernel, (op, unguarded, args) in cases.items():
+        name = kernel.name
+        y = op(args[0].clone().requires_grad_(), *args[1:])
+        try:
+            (y[0] if isinstance(y, tuple) else y).float().sum().backward()
+            raised = ""
+        except NotImplementedError as e:
+            raised = str(e)
+        check(name in raised, f"{name}: backward through the guarded kernel did not raise")
+        n0 = kernel.launches
+        with torch.no_grad():
+            guarded = op(*args)
+        n1 = kernel.launches
+        plain = unguarded(*args)
+        n2 = kernel.launches
+        torch.cuda.synchronize()
+        pairs = zip(guarded, plain) if isinstance(plain, tuple) else [(guarded, plain)]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        check(same and n1 - n0 == n2 - n1 == 1,
+              f"{name}: the guard changed the output or the launches ({n1 - n0} vs {n2 - n1})")
+        out[name] = {"backward_raises": True, "no_grad_output_equal": True,
+                     "launches_guarded_vs_unguarded": [n1 - n0, n2 - n1]}
+    line("kernels", guards=out)
 
 
 def attention_op_phase(dev, card) -> dict:
@@ -939,17 +1044,21 @@ def attention_op_phase(dev, card) -> dict:
     xb = x.to(torch.bfloat16)
     exact, _ = attn_apply(params, xb.float(), acfg, pos, impl="xla")
     errs = {}
+    by_path = dict(ak.flash_attention.launches_by_path)
     for impl in ("flash", "xla"):
         out, _ = attn_apply(params, xb, acfg, pos, impl=impl)
         d = (out.float() - exact).abs()
         errs[impl] = {"mean_abs_err": d.mean().item(), "max_abs_err": d.max().item()}
         del out, d
+    by_path = {p: n - by_path[p] for p, n in ak.flash_attention.launches_by_path.items()}
+    check(by_path == {"tensor_core": 1, "cuda_core": 0},
+          f"attn_apply(impl='flash') in bf16 launched {by_path}")
     check(errs["flash"]["mean_abs_err"] <= errs["xla"]["mean_abs_err"],
           f"attn_apply bf16: flash path errs more than the einsum path: {errs}")
     line("op", op="attn_apply", impl="flash", d_model=CONFIG.d_model, batch=LM_BATCH,
          seq=LM_PROMPT, heads=[acfg.n_heads, acfg.n_kv_heads, acfg.head_dim],
          f32_flash_vs_xla_max_abs_err=f32_err, bf16_vs_f32_op=errs,
-         launches_per_call=launches, card=card)
+         launches_per_call=launches, bf16_launches_by_path=by_path, card=card)
     del exact, x, params
     torch.cuda.empty_cache()
     return {"flash_attention": launches}
@@ -1071,7 +1180,8 @@ def time_attention(dev) -> list:
             rows.append(time_kernel(
                 "flash_attention", shape, dtype, lambda: ak.flash_attention(q, k, v),
                 lambda: attention_ref(q, k, v),
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)))
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                path=ak.flash_path(q, k, v)))
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -1385,7 +1495,8 @@ def time_flow_kernels(dev) -> dict:
             c = shape[-1]
             per_shape["conv1x1_mm"].append(time_kernel(
                 "conv1x1_mm", shape, dtype, lambda: c1kern.conv1x1_mm(xm, wm),
-                lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd)))
+                lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd),
+                path=c1kern.mm_path(xm)))
             per_shape["conv1x1_gw"].append(time_kernel(
                 "conv1x1_gw", shape, dtype, lambda: c1kern.conv1x1_gw(xm, gm),
                 lambda: conv1x1_gw_ref(xm, gm),
@@ -1429,10 +1540,17 @@ def main() -> int:
     built = common.build()
     build_s = time.perf_counter() - t0
     logs = [path.with_suffix(".log") for path in built.values()]
-    ptxas = [ln.strip() for log in logs if log.exists()
-             for ln in log.read_text().splitlines() if "registers" in ln or "spill" in ln]
+    # each kernel's entry line, then its registers, shared memory and spills
+    ptxas = [ln.strip() for log in logs if log.exists() for ln in log.read_text().splitlines()
+             if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+
     line("build", seconds=round(build_s, 3), libraries=[str(p) for p in built.values()],
-         ptxas=ptxas, card=card)
+         ptxas=ptxas, card=card, dynamic_smem_bytes={
+             **{f"flash_attention_tc_kernel<{d}>": ak.tc_smem_bytes(d) for d in (64, 128)},
+             **{f"conv1x1_mm_stream_kernel<{t}, {c}>": c1k.stream_smem_bytes(c, es)
+                for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))}})
     mark("build")
 
     # 2. kernels against their plain versions --------------------------------
@@ -1469,6 +1587,7 @@ def main() -> int:
     max_err["flash_attention"] = attn_errs[(ATTN_SHAPES[3], "bfloat16")]
     attn_times = time_attention(dev)
     max_err.update(check_scan_kernels(dev))
+    check_kernel_guards(dev)
     scan_times = time_scans(dev)
     mark("kernels")
 

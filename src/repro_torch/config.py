@@ -197,7 +197,7 @@ def get_arch(name: str) -> ArchSpec:
     if name not in _REGISTRY:
         if name in UNPORTED_ARCHS:
             raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
-                           f"item 12); ported: {sorted(_REGISTRY)}")
+                           f"item 6); ported: {sorted(_REGISTRY)}")
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 

@@ -8,7 +8,7 @@ import repro_torch.configs.zamba2_7b  # noqa: F401
 from repro_torch.config import get_arch, list_archs  # noqa: F401
 
 #: the reference's architectures that the port does not build yet, in the
-#: order of ``ROADMAP.md`` queue 1, item 12
+#: order of ``ROADMAP.md`` queue 1, item 6
 UNPORTED_ARCHS = (
     "glm4-9b",
     "granite-34b",

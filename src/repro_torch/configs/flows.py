@@ -41,9 +41,9 @@ GLOW_SCANNED = FlowConfig(
 )
 
 _NOT_PORTED = {
-    "realnvp": "ROADMAP.md queue 1, item 8 (core/realnvp.py)",
-    "chint": "ROADMAP.md queue 1, item 8 (core/conditional.py::build_chint)",
-    "hyperbolic": "ROADMAP.md queue 1, item 8 (core/hyperbolic.py)",
+    "realnvp": "ROADMAP.md queue 1, item 3 (core/realnvp.py)",
+    "chint": "ROADMAP.md queue 1, item 3 (core/conditional.py::build_chint)",
+    "hyperbolic": "ROADMAP.md queue 1, item 3 (core/hyperbolic.py)",
 }
 
 

@@ -1,38 +1,79 @@
 // Flash attention forward for Hopper (sm_90a): grouped-query attention with
-// an online softmax over key/value tiles.
+// an online softmax over key/value tiles.  Two kernels, one function:
 //
-// flash_attention_kernel replaces the Pallas kernel
+// flash_attention_tc_kernel (bf16, head_dim a multiple of 16 up to 128) and
+// flash_attention_kernel (f32, and bf16 with any other head_dim) replace the
+// Pallas kernel
 //   src/repro/kernels/attention/attention.py::flash_attention (_flash_kernel)
 //
 //   o[b, h, q, :] = sum_k softmax_k(q[b,h,q,:] . k[b,h/g,k,:] * D^-1/2) v[b,h/g,k,:]
 //
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), f32 or bf16, any strides over
-// (b, h, s) with the D axis contiguous; o in q's storage type.  The KV head
-// of query head h is h / (Hq / Hkv): K and V are never broadcast.  Causal
-// masking keeps the reference's top-left alignment (q_pos >= k_pos), and key
-// tiles wholly above the diagonal are skipped.
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), any strides over (b, h, s)
+// with the D axis contiguous; o in q's storage type.  The KV head of query
+// head h is h / (Hq / Hkv): K and V are never broadcast.  Causal masking keeps
+// the reference's top-left alignment (q_pos >= k_pos); masked scores take its
+// -1e30 in the CUDA-core kernel and -inf in the tensor-core one, which agree
+// since every query row sees key 0; key rows past Skv take -inf; key tiles
+// wholly above the diagonal are skipped, so any Sq and Skv work.  No atomics:
+// every result is bitwise repeatable.
 //
 // What bounds it: operations.  At yi-6b's prefill, (8, 32, 4, 2048, 128) bf16
 // causal, the two products take 4 * B*Hq*D * (pairs q >= k) = 275 GFLOP
 // against 302 MB of q, k, v and o: 0.28 ms on bf16 tensor cores, 4.1 ms at
-// the card's f32 rate.  This first kernel runs both products on the CUDA
-// cores in f32 (f32 inputs must stay f32, and bf16 inputs are widened on
-// load), so its floor is the f32 rate; tensor cores (mma.sync / wgmma) are
-// later work.
+// the card's f32 rate.
 //
-// Design.  One block of 256 threads per (q tile of 64 rows, query head,
-// batch).  The q tile lives in shared memory, transposed to (D, 64), for the
-// whole block.  For each key tile of 64 rows: K is staged transposed to
-// (D, 64); each thread forms a 4x4 tile of scores from float4 reads (three
-// shared-memory wavefronts per 16 FMAs a warp); the row max and row sum are
-// taken across the 16 threads of a row by shuffles; the probabilities go to
-// shared memory transposed to (64 keys, 64 rows); then V is staged into the
-// buffer K used and each thread adds P V into its 4 rows x 8 columns of the
-// output.  The running max, normaliser and accumulator stay in registers,
-// in f32, across all key tiles; the output is written once.  No atomics:
-// every result is bitwise repeatable.  Masked scores take the reference's
-// -1e30; key rows past Skv are excluded outright (their V rows are zero), so
-// any Sq and Skv work.
+// The tensor-core kernel (bf16, D % 16 == 0, D <= 128).  One CTA per (128
+// query rows, query head, batch), q tiles launched heaviest (latest) first so
+// the causal tail is short; 288 threads: two consumer warpgroups of 64 query
+// rows each and one producer warp (nine warps hold at most 168 registers a
+// thread: three share an SM sub-partition's 16K).
+//  - Copies: the producer's one thread issues TMA loads (cp.async.bulk.tensor,
+//    4-D maps (D, S, H, B) built on the host from the caller's strides) of the
+//    q tile once and of each 128-row K and V tile into a 3-stage ring, with
+//    full and empty mbarriers.  K and V of a stage have their own, so Q K^T
+//    starts while V is in flight and K is reloaded as soon as Q K^T is done.
+//    Tiles are 64-column halves of 128-byte rows in TMA's 128-byte swizzle;
+//    D is padded to 64 or 128 by TMA's zero fill (zero q/k columns add
+//    nothing to a score, and padded output columns are never stored), so two
+//    instantiations take every D.  TMA needs a 16-byte-aligned base and
+//    16-byte-multiple strides: the wrapper checks both and sends a call that
+//    lacks them to the CUDA-core kernel, whose scalar loads take any.
+//  - Products: S = Q K^T by wgmma m64n128k16 (bf16 from shared memory, f32
+//    accumulator); P V by wgmma m64n64k16 per 64 output columns, P from
+//    registers (the S accumulator's layout is the A fragment's) and V from
+//    shared memory read MN-major (V is (keys, D) with D contiguous).  Each
+//    warpgroup runs S, softmax, P V in turn; the two warpgroups interleave
+//    on the SM as they drift apart.
+//  - Softmax: online, in f32 on the accumulator fragments, in base 2.  Masks
+//    (only on tiles that cross the diagonal or the end of the keys) set raw
+//    scores to -inf; the row max is taken on raw scores, in four partial
+//    maxima a row, across the 4 threads of a row by shuffles, then scaled by
+//    D^-1/2 log2 e (a positive scale keeps the max); p = 2^(s scale - m) is
+//    one FMA and one ex2.approx; alpha = 2^(m_old - m_new) rescales O and
+//    the row sum, kept per thread in partial sums until the end.  P is
+//    rounded to bf16 for the second product (as SDPA and the einsum path
+//    do); the scores stay f32; O is normalised by l in f32 and stored once
+//    as bf16.
+//  Shared memory at D = 128: Q 32 KB + 3 stages x (K 32 KB + V 32 KB) = 224 KB.
+//  Tried and measured slower on the H100 (PERF.md): warpgroups taking turns
+//  on the tensor cores by named barriers, and issuing S_{t+1} before the
+//  softmax of S_t (ptxas serialises the wgmmas of that schedule).
+//
+// The CUDA-core kernel (f32, or bf16 with D % 16 != 0).  One block of 256
+// threads per (q tile of 64 rows, query head, batch).  The q tile lives in
+// shared memory, transposed to (D, 64), for the whole block.  For each key
+// tile of 64 rows: K is staged transposed to (D, 64); each thread forms a 4x4
+// tile of scores from float4 reads (three shared-memory wavefronts per 16
+// FMAs a warp); the row max and row sum are taken across the 16 threads of a
+// row by shuffles; the probabilities go to shared memory transposed to (64
+// keys, 64 rows); then V is staged into the buffer K used and each thread
+// adds P V into its 4 rows x 8 columns of the output.  The running max,
+// normaliser and accumulator stay in registers, in f32, across all key
+// tiles; the output is written once.  Key rows past Skv are excluded outright
+// (their V rows are zero).  Its floor is the f32 rate: f32 inputs stay f32.
+
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include "common.cuh"
 
@@ -214,6 +255,367 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
+// ---- the tensor-core kernel (bf16) -------------------------------------------
+
+constexpr int kTcRows = 128;                 // query rows of a CTA: two warpgroups of 64
+constexpr int kTcKeys = 128;                 // key rows of a K or V tile
+constexpr int kTcStages = 3;                 // K/V ring
+constexpr int kTcConsumers = 256;            // two consumer warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;  // and one producer warp
+constexpr int kTcHalf = 128 * 128;           // bytes of a 64-column half of a 128-row bf16 tile
+constexpr int kTcBarriers = 128;             // q_full; k_full, v_full, k_empty, v_empty per stage
+static_assert(kTcRows == kTcKeys, "one 128-row half size for Q, K and V tiles");
+
+// kept equal to tc_smem_bytes() in kernels/attention/attention.py
+constexpr size_t tc_smem_bytes(int dp) {
+  // Q, then K and V of each stage, each dp/64 halves; 1 KB to align the base
+  // to the 128-byte swizzle's 1024-byte period; the barriers
+  return (size_t)(1 + 2 * kTcStages) * (dp / 64) * kTcHalf + 1024 + kTcBarriers;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.  A phase
+// that never completes is a fault: trap (the launch fails) after 2^24 polls
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 24)) asm volatile("trap;");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in TMA's 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers an async wgmma writes: reads of them are not moved above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S (64 x 128, f32) += A (64 x 16) B (16 x 128): A and B bf16 in shared
+// memory, both K-major (the D axis contiguous); scale_d = 0 overwrites S.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x 64, f32) += P (64 x 16, bf16 in registers, the A fragment) V (16 x
+// 64, bf16 in shared memory, MN-major: the 64 output columns contiguous).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; 0 for -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// DP: the padded head dim, 64 or 128.  Grid (B * Hq, ceil(Sq / 128)).
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                          int Hq, int Hkv, int Sq, int Skv, int D, long long o_sb, long long o_sh,
+                          long long o_ss, int causal, float scale_log2) {
+  constexpr int NH = DP / 64;            // 64-column halves of a tile
+  constexpr int kTile = NH * kTcHalf;    // bytes of a Q, K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t bars = base + (1 + 2 * kTcStages) * kTile;
+  const uint32_t q_full = bars;
+  auto sk = [&](int s) { return base + (1 + 2 * s) * kTile; };
+  auto sv = [&](int s) { return base + (2 + 2 * s) * kTile; };
+  auto k_full = [&](int s) { return bars + 8 + 8 * s; };
+  auto v_full = [&](int s) { return bars + 8 + 8 * kTcStages + 8 * s; };
+  auto k_empty = [&](int s) { return bars + 8 + 16 * kTcStages + 8 * s; };
+  auto v_empty = [&](int s) { return bars + 8 + 24 * kTcStages + 8 * s; };
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;  // heaviest tiles first
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  int n_tiles = (Skv + kTcKeys - 1) / kTcKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kTcRows - 1) / kTcKeys + 1);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kTcConsumers / 32);  // one arrival per consumer warp
+      mbar_init(v_empty(s), kTcConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {  // the producer warp: one thread issues every copy
+    if (tid == kTcConsumers) {
+      mbar_expect_tx(q_full, kTile);
+      for (int hh = 0; hh < NH; ++hh) tma_load_4d(sq + hh * kTcHalf, &tq, q_full, hh * 64, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kTcStages;
+        const uint32_t parity = ((t / kTcStages) - 1) & 1;  // of the release of tile t - stages
+        if (t >= kTcStages) mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), kTile);
+        for (int hh = 0; hh < NH; ++hh)
+          tma_load_4d(sk(s) + hh * kTcHalf, &tk, k_full(s), hh * 64, t * kTcKeys, hk, b);
+        if (t >= kTcStages) mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), kTile);
+        for (int hh = 0; hh < NH; ++hh)
+          tma_load_4d(sv(s) + hh * kTcHalf, &tv, v_full(s), hh * 64, t * kTcKeys, hk, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg takes q rows wg*64.., its warp w rows w*16..; a
+  // thread holds rows r0 and r0 + 8, columns 8j + 2*(lane % 4) + {0, 1}
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int r0 = q0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const uint32_t q_rows = sq + wg * 64 * 128;  // this warpgroup's 64 rows in each half
+
+  float oacc[NH][32];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[hh][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kTcStages;
+    const uint32_t parity = (t / kTcStages) & 1;
+    const int k0 = t * kTcKeys;
+
+    float sacc[64];  // the first product overwrites it (scale_d = 0)
+    mbar_wait(k_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const uint32_t off = (ks / 4) * kTcHalf + (ks % 4) * 32;  // 16 columns = 32 bytes
+      wgmma_m64n128k16_ss(sacc, sw128_desc(q_rows + off, 16, 1024),
+                          sw128_desc(sk(s) + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty(s));  // this warp no longer reads K of stage s
+
+    // the softmax of the source note: masks, partial maxima, one FMA + ex2
+    const bool masked = k0 + kTcKeys > Skv || (causal && k0 + kTcKeys - 1 > q0);
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int col = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        if (col >= Skv || (causal && r0 + 8 * ((i >> 1) & 1) < col)) sacc[i] = -INFINITY;
+      }
+    }
+    uint32_t pa[8][4];
+    float mx[2][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] = sacc[i];
+#pragma unroll
+    for (int i = 8; i < 64; ++i) {
+      float& a = mx[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+      a = fmaxf(a, sacc[i]);
+    }
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float v = fmaxf(fmaxf(mx[rr][0], mx[rr][1]), fmaxf(mx[rr][2], mx[rr][3]));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      const float m_new = fmaxf(m[rr], v * scale_log2);
+      alpha[rr] = ex2(m[rr] - m_new);
+      m[rr] = m_new;
+      neg_m[rr] = -m_new;
+    }
+    float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int rr = (i >> 1) & 1;
+      const float p0 = ex2(fmaf(sacc[i], scale_log2, neg_m[rr]));
+      const float p1 = ex2(fmaf(sacc[i + 1], scale_log2, neg_m[rr]));
+      ps[rr][(i >> 2) & 1] += p0 + p1;
+      pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + (ps[rr][0] + ps[rr][1]);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[hh][i] *= alpha[(i >> 1) & 1];
+
+    mbar_wait(v_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh)
+        wgmma_m64n64k16_rs_tb(oacc[hh], pa[kk],
+                              sw128_desc(sv(s) + hh * kTcHalf + kk * 16 * 128, 1024, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) fence_regs(oacc[hh]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty(s));  // nor V
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    inv[rr] = 1.f / l[rr];
+  }
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int rr = (i >> 1) & 1;
+      const int row = r0 + 8 * rr;
+      const int col = hh * 64 + 8 * (i >> 2) + c0;  // even, and D is: col < D means col + 1 < D
+      if (row < Sq && col < D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * o_ss + col) =
+            __floats2bfloat162_rn(oacc[hh][i] * inv[rr], oacc[hh][i + 1] * inv[rr]);
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver the process has loaded: the library
+// links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A 4-D map (D, S, H, B) of a bf16 tensor with element strides (sb, sh, ss)
+// and a contiguous D axis; boxes of 64 columns x 128 rows, 128-byte swizzle,
+// out-of-range elements read as zero.
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D, int S, int H,
+                  int B, long long sb, long long sh, long long ss) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kTcKeys, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int DP>
+cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                      void* o, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                      const long long* st, int causal, float scale, cudaStream_t s) {
+  constexpr size_t smem = tc_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + kTcRows - 1) / kTcRows);
+  flash_attention_tc_kernel<DP><<<grid, kTcThreads, smem, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv, D, st[9], st[10], st[11],
+      causal, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -235,6 +637,31 @@ int flash_attention(int dtype, const void* q, const void* k, const void* v, void
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(err);
+}
+
+// The tensor-core path: q, k, v and o bf16 with D % 16 == 0 and D <= 128;
+// strides as flash_attention's, every q, k, v stride and base 16-byte
+// aligned in bytes (the caller checks).  Returns the cudaError_t of the
+// launch, or kMapError + the CUresult when a tensor map cannot be encoded
+// (kMapError alone: the driver has no cuTensorMapEncodeTiled).
+int flash_attention_tc(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                       int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
+                       float scale, int device, void* stream) {
+  constexpr int kMapError = 100000;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kMapError;
+  CUtensorMap tq, tk, tv;
+  const long long* st = strides;
+  CUresult r = make_map(encode, &tq, q, D, Sq, Hq, B, st[0], st[1], st[2]);
+  if (r == CUDA_SUCCESS) r = make_map(encode, &tk, k, D, Skv, Hkv, B, st[3], st[4], st[5]);
+  if (r == CUDA_SUCCESS) r = make_map(encode, &tv, v, D, Skv, Hkv, B, st[6], st[7], st[8]);
+  if (r != CUDA_SUCCESS) return kMapError + static_cast<int>(r);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = D <= 64 ? launch_tc<64>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s)
+                : launch_tc<128>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,8 @@
 // Invertible 1x1 convolution for Hopper (sm_90a): the channel-mixing product
 // and its weight cotangent, on the (N = B*M, C) rows of a (B, M, C) tensor.
 //
-// conv1x1_mm_kernel replaces the Pallas kernel
+// conv1x1_mm_stream_kernel (C = 12, 24, 48) and conv1x1_mm_kernel (other C)
+// replace the Pallas kernel
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_mm (_kernel)
 // conv1x1_gw_kernel (with gw_reduce_kernel) replaces
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_gw (_gw_kernel)
@@ -16,13 +17,31 @@
 // tensor-core tile worth filling, so both run on the CUDA cores with f32
 // accumulation and move each input byte once.
 //
-// conv1x1_mm: a block stages block_m rows of x and a column panel of W (the
-// whole of W up to C = 90) in shared memory, as flowstep_fwd does, then each
-// thread forms outputs of the tile from shared memory.  Wider C is cut into
-// column panels (grid.y) so a block never needs more than 48 KB: C = 192 in
-// f32 (147 KB of W) takes five panels of 42 columns.  W is read through its
-// strides, so W^T (the backward's gx = gy @ W^T) needs no copy.  The last
-// tile of rows is masked, so any M works.
+// conv1x1_mm at the GLOW widths C = 12, 24, 48 (conv1x1_mm_stream_kernel,
+// C a template parameter): a persistent, vectorised stream.  The grid is
+// sized from the occupancy (every SM full, no more blocks than tiles), and
+// each block stages W (or W^T, read through its strides) in shared memory
+// once, as f32, while its warps' first tiles load.  A lane computes OUT
+// output columns of RPL rows; a warp's tile is the whole rows its lanes
+// cover.  Each warp walks its tiles with a 2-stage ring of 16-byte cp.async
+// copies: the next tile is in flight while the current one computes.  A lane
+// reads x four columns at a time from shared memory (16- or 8-byte loads)
+// and W as float4 (or float2) broadcasts, each feeding RPL rows: shared
+// memory's 128 bytes a clock, not the FMAs, bound this loop, so each W load
+// serves 8 FMAs.  The sum over i runs in the same order as the panel
+// kernel's (the two agree bitwise); the outputs go back over the tile's
+// slots once every lane has read its rows, and the warp stores the tile with
+// 16-byte stores.  Any N: the last tile is masked, its bytes past the last
+// 16 copied one element at a time.
+//
+// conv1x1_mm at other widths (conv1x1_mm_kernel), and for an x whose base is
+// not 16-byte aligned: a block stages block_m rows of x and a column panel
+// of W (the whole of W up to C = 90) in shared memory, as flowstep_fwd does,
+// then each thread forms outputs of the tile from shared memory.  Wider C is
+// cut into column panels (grid.y) so a block never needs more than 48 KB:
+// C = 192 in f32 (147 KB of W) takes five panels of 42 columns.  W is read
+// through its strides, so W^T (the backward's gx = gy @ W^T) needs no copy.
+// The last tile of rows is masked, so any M works.
 //
 // conv1x1_gw: a cross-block reduction.  The TPU kernel adds into one output
 // block it revisits in grid order; blocks here run in no order.  So block k
@@ -34,6 +53,8 @@
 // bytes, and each thread keeps a 4x4 tile of gW in registers over a strided
 // subset of the chunk's rows (8 shared-memory loads per 16 FMAs); the row
 // groups are added in a fixed order at the end.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -70,6 +91,236 @@ conv1x1_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, long long w_
     float acc = 0.f;
     for (int i = 0; i < C; ++i) acc = fmaf(xr[i], ws[i * P + jj], acc);
     store_f(y, base + (long long)r * C + p0 + jj, acc);
+  }
+}
+
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// VB bytes (16, 8 or 4) as 32-bit words, from or to shared memory
+template <int VB>
+__device__ __forceinline__ void load_words(const unsigned char* p, uint32_t* w) {
+  if constexpr (VB == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else if constexpr (VB == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x, w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+template <int VB>
+__device__ __forceinline__ void store_words(unsigned char* p, const uint32_t* w) {
+  if constexpr (VB == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (VB == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  }
+}
+
+// The widest access (16, 8 or 4 bytes) that n values of type T split into
+template <typename T, int n>
+__host__ __device__ constexpr int vec_bytes() {
+  return (n * sizeof(T)) % 16 == 0 ? 16 : (n * sizeof(T)) % 8 == 0 ? 8 : 4;
+}
+
+// n values of type T at p (n * sizeof(T) a multiple of 4, p aligned to its
+// vec_bytes) to f32, and back (rounded to nearest even, as store_f)
+template <typename T, int n>
+__device__ __forceinline__ void load_vals(const unsigned char* p, float* out) {
+  constexpr int kWords = n * (int)sizeof(T) / 4;
+  constexpr int VB = vec_bytes<T, n>();
+  uint32_t w[kWords];
+#pragma unroll
+  for (int v = 0; v < kWords / (VB / 4); ++v) load_words<VB>(p + VB * v, w + (VB / 4) * v);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      out[i] = __uint_as_float(w[i]);
+    } else {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+template <typename T, int n>
+__device__ __forceinline__ void store_vals(unsigned char* p, const float* in) {
+  constexpr int kWords = n * (int)sizeof(T) / 4;
+  constexpr int VB = vec_bytes<T, n>();
+  uint32_t w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      w[i] = __float_as_uint(in[i]);
+    } else {
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b2);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kWords / (VB / 4); ++v) store_words<VB>(p + VB * v, w + (VB / 4) * v);
+}
+
+// Tile t of a warp: rows [t*R, t*R + R) of x, contiguous in memory, copied
+// into buf: 16-byte cp.async copies, and the bytes past the last 16 (a
+// ragged last tile) one element at a time.
+template <typename T, int C, int R>
+__device__ __forceinline__ void mm_issue(const T* __restrict__ x, long long N, long long t,
+                                         unsigned char* buf, int lane) {
+  const long long r0 = t * R;
+  const int n = (int)min((long long)R, N - r0) * C;  // elements of the tile
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(x + r0 * C);
+  const int chunks = n * (int)sizeof(T) / 16;
+  for (int c = lane; c < chunks; c += 32) cp_async16(buf + 16 * c, src + 16 * c);
+  for (int e = chunks * 16 / (int)sizeof(T) + lane; e < n; e += 32)
+    reinterpret_cast<T*>(buf)[e] = x[r0 * C + e];
+}
+
+// OUT: the output columns a lane computes; RPL: the rows it computes them
+// for; WARPS: warps of a block.  Grid: from the occupancy, at most one tile
+// per warp.  Shared memory: W (C * C f32) | each warp's ring (2 tiles of
+// 32 * OUT * RPL elements of T)
+template <typename T, int C, int OUT, int RPL, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+conv1x1_mm_stream_kernel(const T* __restrict__ x, const T* __restrict__ w, long long w_si,
+                         long long w_sj, T* __restrict__ y, long long N) {
+  constexpr int G = C / OUT;      // lanes of a row
+  constexpr int R = RPL * 32 / G;  // rows of a tile
+  constexpr int kTileBytes = 32 * OUT * RPL * (int)sizeof(T);
+  constexpr int WV = OUT % 4 == 0 ? 4 : 2;  // W's columns a shared load reads
+  static_assert(C % OUT == 0 && 32 % G == 0 && kTileBytes % 16 == 0 && OUT % 2 == 0 &&
+                    C % 4 == 0, "a GLOW width");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(ws + C * C) + warp * 2 * kTileBytes;
+
+  const long long n_tiles = (N + R - 1) / R;
+  const long long step = (long long)gridDim.x * WARPS;
+  long long t = (long long)blockIdx.x * WARPS + warp;
+  if (t < n_tiles) mm_issue<T, C, R>(x, N, t, ring, lane);
+  cp_async_commit();
+  for (int k = threadIdx.x; k < C * C; k += WARPS * 32) {
+    const int i = k / C;
+    ws[k] = load_f(w, i * w_si + (k - i * C) * w_sj);
+  }
+  __syncthreads();
+
+  const int row0 = (lane / G) * RPL;        // the lane's first row of the tile
+  const int j0 = (lane % G) * OUT;          // and its first output column
+  for (int s = 0; t < n_tiles; t += step, s ^= 1) {
+    unsigned char* cur = ring + s * kTileBytes;
+    if (t + step < n_tiles) mm_issue<T, C, R>(x, N, t + step, ring + (s ^ 1) * kTileBytes, lane);
+    cp_async_commit();
+    cp_async_wait_prev();  // this thread's copies of tile t have landed
+    __syncwarp();          // and every lane's
+    const long long r0 = t * R;
+    const int rows = (int)min((long long)R, N - r0);
+    float acc[RPL][OUT];
+#pragma unroll
+    for (int u = 0; u < RPL; ++u)
+#pragma unroll
+      for (int j = 0; j < OUT; ++j) acc[u][j] = 0.f;
+    if (row0 < rows) {  // rows past the end of x read what the tile holds there
+#pragma unroll
+      for (int i0 = 0; i0 < C; i0 += 4) {
+        float xb[RPL][4];  // x[row0 + u, i0 .. i0 + 3]
+#pragma unroll
+        for (int u = 0; u < RPL; ++u)
+          load_vals<T, 4>(cur + ((row0 + u) * C + i0) * (int)sizeof(T), xb[u]);
+#pragma unroll
+        for (int di = 0; di < 4; ++di) {
+          const float* wr = ws + (i0 + di) * C + j0;
+#pragma unroll
+          for (int q = 0; q < OUT / WV; ++q) {
+            float wv[WV];
+            if constexpr (WV == 4) {
+              const float4 w4 = reinterpret_cast<const float4*>(wr)[q];
+              wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
+            } else {
+              const float2 w2 = reinterpret_cast<const float2*>(wr)[q];
+              wv[0] = w2.x, wv[1] = w2.y;
+            }
+#pragma unroll
+            for (int u = 0; u < RPL; ++u)
+#pragma unroll
+              for (int e = 0; e < WV; ++e)
+                acc[u][WV * q + e] = fmaf(xb[u][di], wv[e], acc[u][WV * q + e]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane has read its rows of x: y goes over them
+#pragma unroll
+    for (int u = 0; u < RPL; ++u)
+      if (row0 + u < rows) store_vals<T, OUT>(cur + ((row0 + u) * C + j0) * (int)sizeof(T), acc[u]);
+    __syncwarp();  // the tile holds y
+    const int n = rows * C;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(y + r0 * C);
+    const int chunks = n * (int)sizeof(T) / 16;
+    for (int c = lane; c < chunks; c += 32)
+      *reinterpret_cast<uint4*>(dst + 16 * c) = *reinterpret_cast<const uint4*>(cur + 16 * c);
+    for (int e = chunks * 16 / (int)sizeof(T) + lane; e < n; e += 32)
+      y[r0 * C + e] = reinterpret_cast<const T*>(cur)[e];
+    __syncwarp();  // the buffer is free for the tile after next
+  }
+}
+
+// kept equal to stream_smem_bytes() in kernels/conv1x1/conv1x1.py
+size_t mm_stream_smem_bytes(int C, int tile_elems, int warps, int elem_size) {
+  return sizeof(float) * (size_t)C * C + (size_t)warps * 2 * tile_elems * elem_size;
+}
+
+template <typename T, int C, int OUT, int RPL, int WARPS>
+cudaError_t launch_stream(const void* x, const void* w, long long w_si, long long w_sj, void* y,
+                          long long N, int device, cudaStream_t s) {
+  auto kernel = conv1x1_mm_stream_kernel<T, C, OUT, RPL, WARPS>;
+  const size_t smem = mm_stream_smem_bytes(C, 32 * OUT * RPL, WARPS, sizeof(T));
+  static int per_sm = 0, n_sm = 0, n_sm_device = -1;  // asked once per instantiation and device
+  if (per_sm == 0 || n_sm_device != device) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS * 32, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    n_sm_device = device;
+  }
+  constexpr int R = RPL * 32 / (C / OUT);
+  const long long tiles = (N + R - 1) / R;
+  const long long grid = min((tiles + WARPS - 1) / WARPS, (long long)max(per_sm, 1) * n_sm);
+  kernel<<<(unsigned)grid, WARPS * 32, smem, s>>>(static_cast<const T*>(x),
+                                                  static_cast<const T*>(w), w_si, w_sj,
+                                                  static_cast<T*>(y), N);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stream_c(const void* x, const void* w, long long w_si, long long w_sj, void* y,
+                            long long N, int C, int device, cudaStream_t s) {
+  switch (C) {
+    // (output columns, rows) a lane, warps a block: the fastest in f32 of a
+    // sweep at GLOW's shapes on the H100 (PERF.md); kept equal to
+    // STREAM_PLAN in kernels/conv1x1/conv1x1.py
+    case 12: return launch_stream<T, 12, 12, 1, 8>(x, w, w_si, w_sj, y, N, device, s);
+    case 24: return launch_stream<T, 24, 12, 2, 4>(x, w, w_si, w_sj, y, N, device, s);
+    case 48: return launch_stream<T, 48, 6, 2, 8>(x, w, w_si, w_sj, y, N, device, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -236,6 +487,19 @@ int conv1x1_gw(int dtype, const void* x, const void* gy, float* partial, float* 
   const long long reduce_blocks = ((long long)width * 32 + kThreads - 1) / kThreads;
   gw_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, s>>>(partial, gw, n_chunks, width);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stream path: C in {12, 24, 48}, x 16-byte aligned (the caller
+// checks); otherwise as conv1x1_mm.  Returns the cudaError_t of the launch.
+int conv1x1_mm_stream(int dtype, const void* x, const void* w, long long w_si, long long w_sj,
+                      void* y, long long N, int C, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return static_cast<int>(launch_stream_c<float>(x, w, w_si, w_sj, y, N, C, device, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_stream_c<__nv_bfloat16>(x, w, w_si, w_sj, y, N, C, device, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

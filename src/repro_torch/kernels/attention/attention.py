@@ -3,11 +3,15 @@
 ``flash_attention`` replaces the Pallas kernel of the same name in
 ``repro/kernels/attention/attention.py``.  It is bound by operations (two
 D-long products per visible (query, key) pair); the source note in
-``attention.cu`` gives the design.  The wrapper checks what the kernel takes,
-allocates the output with q's strides (so a (B, S, H, D) tensor viewed as
-(B, H, S, D) comes back in the same layout, and the caller's swap back costs
-no copy), launches on PyTorch's current stream, raises if the launch was
-refused, and adds one to its ``launches`` count.
+``attention.cu`` gives the design.  Two kernels compute it, chosen by a shape
+rule (:func:`flash_path`), not by a fallback: bf16 with a head dim that is a
+multiple of 16 takes the tensor-core kernel (wgmma, TMA) when TMA can copy
+q, k and v; f32, and every other bf16 call, take the CUDA-core kernel.  The wrapper checks what the
+kernel takes, allocates the output with q's strides (so a (B, S, H, D) tensor
+viewed as (B, H, S, D) comes back in the same layout, and the caller's swap
+back costs no copy), launches on PyTorch's current stream, raises if the
+launch was refused, and adds one to its ``launches`` count and to the path's
+in ``launches_by_path``.
 """
 
 from __future__ import annotations
@@ -18,15 +22,67 @@ import torch
 
 from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, stream
 
-#: the head dims the kernel takes: multiples of 4 (float4 tiles) up to 128
+#: the head dims the kernels take: multiples of 4 (float4 tiles) up to 128
 MAX_HEAD_DIM = 128
+#: the tensor-core kernel's bf16 head dims are multiples of this (wgmma's k)
+TC_HEAD_DIM_STEP = 16
+#: tensor-core tiles: 128 query rows a CTA, 128-row K/V tiles in a 3-stage
+#: ring, each tile in 64-column halves of 128-byte rows (``attention.cu``)
+TC_ROWS, TC_STAGES, TC_HALF_BYTES, TC_BARRIER_BYTES = 128, 3, 128 * 128, 128
+#: shared memory one block may take on the card
+SMEM_LIMIT = 232448
+#: what TMA takes: a 16-byte-aligned base and 16-byte-multiple strides
+TMA_ALIGN = 16
+#: the C entry's code for a tensor map the driver refused (+ the CUresult)
+_MAP_ERROR = 100000
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
-              _I, ctypes.c_float, _I, _P]
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURE = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _I, _P]
+_TC_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _I, _P]
+
+
+def tc_head_dim(d: int) -> int:
+    """The head dim the tensor-core kernel pads ``d`` to: 64 or 128."""
+    return 64 if d <= 64 else 128
+
+
+def tc_smem_bytes(d_pad: int) -> int:
+    """Shared memory of one tensor-core CTA (``tc_smem_bytes`` in
+    ``attention.cu``): Q and every stage of K and V, ``d_pad // 64`` halves
+    each, 1 KB to align the swizzle, the barriers."""
+    return (1 + 2 * TC_STAGES) * (d_pad // 64) * TC_HALF_BYTES + 1024 + TC_BARRIER_BYTES
+
+
+def tma_strides(t: torch.Tensor) -> list[int]:
+    """The (batch, head, row) element strides a tensor map is given; an axis
+    of extent 1 is never stepped, so its stride is set to 16 bytes."""
+    return [s if n > 1 else TMA_ALIGN // t.element_size()
+            for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
+def tma_takes(t: torch.Tensor) -> bool:
+    """Whether TMA can copy ``t``: a 16-byte-aligned base and (batch, head,
+    row) strides that are multiples of 16 bytes."""
+    es = t.element_size()
+    return t.data_ptr() % TMA_ALIGN == 0 and all(s * es % TMA_ALIGN == 0 for s in tma_strides(t))
+
+
+def flash_path(q, k, v) -> str:
+    """The kernel that computes ``flash_attention(q, k, v)``: "tensor_core"
+    for bf16 with a head dim that is a multiple of 16 and q, k, v that TMA
+    can copy (:func:`tma_takes`); "cuda_core", whose loads take any base and
+    strides, for f32 and for every other bf16 call."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] % TC_HEAD_DIM_STEP:
+        return "cuda_core"
+    return "tensor_core" if all(tma_takes(t) for t in (q, k, v)) else "cuda_core"
 
 
 class _FlashAttention(Kernel):
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.launches_by_path = {"tensor_core": 0, "cuda_core": 0}
+
     def __call__(self, q, k, v, causal: bool = True):
         """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), f32 or bf16, any
         strides with D contiguous -> o: (B, Hq, Sq, D) in q's dtype."""
@@ -48,16 +104,29 @@ class _FlashAttention(Kernel):
             raise ValueError(f"{self.name}: the head_dim axis of q, k and v must be contiguous")
         if len({q.device, k.device, v.device}) != 1:
             raise ValueError(f"{self.name}: q, k and v must be on one device")
+        path = flash_path(q, k, v)
         o = torch.empty_like(q)
         if o.stride(-1) != 1:
             o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
-        err = bind("attention", "flash_attention", _SIGNATURE)(
-            KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, hq, hkv, sq, skv, d, strides, int(causal), d**-0.5, q.device.index, stream(q),
-        )
+        if path == "tensor_core":
+            st = [*tma_strides(q), *tma_strides(k), *tma_strides(v), *o.stride()[:3]]
+            err = bind("attention", "flash_attention_tc", _TC_SIGNATURE)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, sq, skv, d,
+                (ctypes.c_longlong * 12)(*st), int(causal), d**-0.5, q.device.index, stream(q),
+            )
+            if err >= _MAP_ERROR:
+                raise RuntimeError(f"{self.name}: the driver refused a TMA tensor map "
+                                   f"(CUresult {err - _MAP_ERROR}; 0: no cuTensorMapEncodeTiled)")
+        else:
+            st = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+            err = bind("attention", "flash_attention", _SIGNATURE)(
+                KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                b, hq, hkv, sq, skv, d, (ctypes.c_longlong * 12)(*st), int(causal), d**-0.5,
+                q.device.index, stream(q),
+            )
         raise_on(err, self.name)
         self.launches += 1
+        self.launches_by_path[path] += 1
         return o
 
 

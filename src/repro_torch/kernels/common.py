@@ -3,7 +3,9 @@ the build of the hand-written CUDA kernels.
 
 Dispatch has one rule and no switch: a wrapper given CPU tensors runs its
 kernel's plain PyTorch version; given CUDA tensors it launches the kernel, or
-raises.  Nothing falls back from the card to the plain version.
+raises.  Nothing falls back from the card to the plain version.  A kernel
+with no backward kernel is called through :func:`forward_only`, so a gradient
+through it raises instead of silently vanishing.
 
 Build: each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, at first use, into
@@ -67,6 +69,40 @@ def use_plain(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return False
     raise ValueError(f"no kernel for device {dev}")
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """A kernel call whose outputs carry no gradient: backward raises."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name} has no backward on the card: its CUDA kernel computes the forward only "
+            "(the backward comes with LM training, ROADMAP.md queue 1, item 6.3); "
+            "differentiate through the plain version on the CPU instead")
+
+
+def forward_only(fn, name: str):
+    """``fn`` (a kernel's launch) behind an ``autograd.Function`` whose
+    backward raises ``NotImplementedError`` naming ``name``.  Every argument,
+    keyword ones included, is an input of the Function, so any tensor that
+    requires grad makes the outputs require grad, and a backward through them
+    raises.  The forward, its results and its launches are ``fn``'s."""
+
+    def call(*args, **kwargs):
+        keys, n = tuple(kwargs), len(args)
+
+        def run(*flat):
+            return fn(*flat[:n], **dict(zip(keys, flat[n:])))
+
+        return _ForwardOnly.apply(name, run, *args, *kwargs.values())
+
+    return call
 
 
 def _nvcc() -> str:

@@ -4,10 +4,13 @@
 ``conv1x1_mm`` and ``conv1x1_gw`` replace the Pallas kernels of the same
 names in ``repro/kernels/conv1x1/conv1x1.py``.  Both are memory-bound at the
 widths GLOW uses (12 bytes an element in f32 for the product, 8 for the
-weight cotangent); the source note in ``conv1x1.cu`` gives the design.  Each
-wrapper checks what the kernel takes, allocates the outputs and scratch,
-launches on PyTorch's current stream, raises if the launch was refused, and
-adds one to its ``launches`` count.
+weight cotangent); the source note in ``conv1x1.cu`` gives the design.
+``conv1x1_mm`` has two kernels, chosen by a shape rule (:func:`mm_path`):
+the persistent stream at the GLOW widths, the W-panel kernel at any other.
+Each wrapper checks what the kernel takes, allocates the outputs and
+scratch, launches on PyTorch's current stream, raises if the launch was
+refused, and adds one to its ``launches`` count (``conv1x1_mm`` also to the
+path's in ``launches_by_path``).
 """
 
 from __future__ import annotations
@@ -26,11 +29,17 @@ TILE_ELEMS = 2048
 PANEL_ELEMS = 8192
 #: threads of a block, and the gW entries each ``conv1x1_gw`` thread keeps
 THREADS, GW_TILE_ENTRIES = 256, 16
+#: the stream kernel's widths (a template parameter each) and its plan at
+#: each: (output columns, rows) a lane computes, warps a block
+#: (``launch_stream_c`` in ``conv1x1.cu``)
+STREAM_PLAN = {12: (12, 1, 8), 24: (12, 2, 4), 48: (6, 2, 8)}
+STREAM_WIDTHS = tuple(STREAM_PLAN)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "conv1x1_mm": [_I, _P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P],
     "conv1x1_gw": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
+    "conv1x1_mm_stream": [_I, _P, _P, _L, _L, _P, _L, _I, _I, _P],
 }
 
 
@@ -42,6 +51,37 @@ def mm_smem_bytes(c: int, block_m: int, panel: int) -> int:
     """Shared memory of one ``conv1x1_mm`` block: a (C, panel) panel of W and
     a (block_m, C) tile of x, in f32 (``mm_smem_bytes`` in ``conv1x1.cu``)."""
     return 4 * (c * panel + block_m * c)
+
+
+def mm_path(x) -> str:
+    """The kernel that computes ``conv1x1_mm(x, W)``: "stream" for
+    C in ``STREAM_WIDTHS`` and a 16-byte-aligned x (its 16-byte copies),
+    "panel" otherwise."""
+    return "stream" if x.shape[-1] in STREAM_WIDTHS and x.data_ptr() % 16 == 0 else "panel"
+
+
+def stream_rows(c: int) -> int:
+    """Rows of a stream tile: each lane takes ``out`` columns of ``rpl``
+    rows, so ``c // out`` lanes share a group of ``rpl`` rows."""
+    out, rpl, _ = STREAM_PLAN[c]
+    return rpl * 32 // (c // out)
+
+
+def stream_smem_bytes(c: int, elem_size: int) -> int:
+    """Shared memory of one stream block (``mm_stream_smem_bytes`` in
+    ``conv1x1.cu``): W in f32 and each warp's 2-stage ring of x tiles."""
+    return 4 * c * c + STREAM_PLAN[c][2] * 2 * stream_rows(c) * c * elem_size
+
+
+def stream_walk(n_rows: int, c: int, grid: int) -> list[list[tuple[int, int]]]:
+    """The row ranges each warp of a ``grid``-block stream launch takes, in
+    its order: tile t is rows [t R, min(t R + R, n_rows)), and warp g takes
+    tiles g, g + grid * warps, ...  (the kernel's loop)."""
+    r = stream_rows(c)
+    n_tiles = -(-n_rows // r)
+    step = grid * STREAM_PLAN[c][2]
+    return [[(t * r, min(t * r + r, n_rows)) for t in range(g, n_tiles, step)]
+            for g in range(step)]
 
 
 def gw_smem_bytes(c: int, stage_rows: int) -> int:
@@ -72,6 +112,10 @@ def _check(name, x, other, what):
 
 
 class _Conv1x1Mm(Kernel):
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.launches_by_path = {"stream": 0, "panel": 0}
+
     def __call__(self, x, w):
         """x: (B, M, C); w: (C, C), any strides and float dtype (rounded to
         x's dtype first) -> y: (B, M, C) in x's dtype."""
@@ -80,18 +124,26 @@ class _Conv1x1Mm(Kernel):
             raise ValueError(f"{self.name}: W must be ({c}, {c}) on {x.device}")
         w = w.to(x.dtype)
         n = b * m
-        block_m = max(1, min(n, TILE_ELEMS // c))
-        panel = max(1, min(c, PANEL_ELEMS // c))
-        if mm_smem_bytes(c, block_m, panel) > SMEM_LIMIT:
-            raise ValueError(f"{self.name}: C={c} does not fit in {SMEM_LIMIT} bytes of "
-                             "shared memory")
+        path = mm_path(x)
         y = torch.empty_like(x)
-        err = _fn(self.name)(
-            KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
-            y.data_ptr(), n, c, block_m, panel, x.device.index, stream(x),
-        )
+        if path == "stream":
+            err = _fn("conv1x1_mm_stream")(
+                KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+                y.data_ptr(), n, c, x.device.index, stream(x),
+            )
+        else:
+            block_m = max(1, min(n, TILE_ELEMS // c))
+            panel = max(1, min(c, PANEL_ELEMS // c))
+            if mm_smem_bytes(c, block_m, panel) > SMEM_LIMIT:
+                raise ValueError(f"{self.name}: C={c} does not fit in {SMEM_LIMIT} bytes of "
+                                 "shared memory")
+            err = _fn(self.name)(
+                KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+                y.data_ptr(), n, c, block_m, panel, x.device.index, stream(x),
+            )
         raise_on(err, self.name)
         self.launches += 1
+        self.launches_by_path[path] += 1
         return y
 
 

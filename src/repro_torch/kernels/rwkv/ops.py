@@ -1,16 +1,20 @@
 """Public wrapper of the wkv6 kernel, the port of the reference's
 ``kernels/rwkv/ops.py::rwkv6_wkv``.
 
-CPU tensors take the plain version (``ref.py``); CUDA tensors take the
-hand-written kernel, or raise.  ``chunk`` is the TPU kernel's time tile,
+CPU tensors take the plain version (``ref.py``), which autograd
+differentiates; CUDA tensors take the hand-written kernel, or raise.  The
+kernel has no backward yet: on the card it is called through
+``forward_only``, so a gradient through it raises.  ``chunk`` is the TPU kernel's time tile,
 kept so calls read the same in both packages: the CUDA kernel walks time in
 its own tiles and takes any S, and neither choice changes the result."""
 
 from __future__ import annotations
 
-from repro_torch.kernels.common import use_plain
+from repro_torch.kernels.common import forward_only, use_plain
 from repro_torch.kernels.rwkv import rwkv as _k
 from repro_torch.kernels.rwkv.ref import wkv_ref
+
+_wkv_on_card = forward_only(_k.wkv_scan, "wkv_scan")
 
 
 def rwkv6_wkv(r, k, v, w, u, chunk: int = 64, state0=None):
@@ -19,4 +23,4 @@ def rwkv6_wkv(r, k, v, w, u, chunk: int = 64, state0=None):
     tensors = (r, k, v, w, u) + (() if state0 is None else (state0,))
     if use_plain(*tensors):
         return wkv_ref(r, k, v, w, u, state0)
-    return _k.wkv_scan(r, k, v, w, u, chunk=chunk, state0=state0)
+    return _wkv_on_card(r, k, v, w, u, chunk=chunk, state0=state0)

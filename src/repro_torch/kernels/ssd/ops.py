@@ -1,16 +1,20 @@
 """Public wrapper of the SSD kernel, the port of the reference's
 ``kernels/ssd/ops.py::mamba2_ssd``.
 
-CPU tensors take the plain version (``ref.py``); CUDA tensors take the
-hand-written kernel, or raise.  Both keep the TPU kernel's contract: the
+CPU tensors take the plain version (``ref.py``), which autograd
+differentiates; CUDA tensors take the hand-written kernel, or raise.  The
+kernel has no backward yet: on the card it is called through
+``forward_only``, so a gradient through it raises.  Both keep the TPU kernel's contract: the
 chunk is ``min(chunk, S)`` and must divide S, and y comes back in x's
 dtype."""
 
 from __future__ import annotations
 
-from repro_torch.kernels.common import use_plain
+from repro_torch.kernels.common import forward_only, use_plain
 from repro_torch.kernels.ssd import ssd as _k
 from repro_torch.kernels.ssd.ref import ssd_ref
+
+_ssd_on_card = forward_only(_k.ssd_scan, "ssd_scan")
 
 
 def mamba2_ssd(x, da, dt, b_in, c_in, chunk: int = 128, state0=None):
@@ -22,4 +26,4 @@ def mamba2_ssd(x, da, dt, b_in, c_in, chunk: int = 128, state0=None):
         _k.check_chunk(x.shape[2], chunk)
         y, state = ssd_ref(x, da, dt, b_in, c_in, state0)
         return y.to(x.dtype), state
-    return _k.ssd_scan(x, da, dt, b_in, c_in, chunk=chunk, state0=state0)
+    return _ssd_on_card(x, da, dt, b_in, c_in, chunk=chunk, state0=state0)

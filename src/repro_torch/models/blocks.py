@@ -21,7 +21,7 @@ residual delta and write their caches in place (attention caches through
 cache views, in the reference's dtypes: shifts and conv states in the
 activation dtype, wkv and ssd states in f32); they run with caches
 (prefill and decode), the only stack runner serving needs.  What waits for
-later slices (``ROADMAP.md`` queue 1, item 12): the cacheless runner and the
+later slices (``ROADMAP.md`` queue 1, item 6): the cacheless runner and the
 inverse and fused backward of the coupling that LM training needs, the MoE
 units with the per-sample aux channel they feed, cross attention, and the
 encoder layout.
@@ -265,4 +265,4 @@ def decoder_layout(cfg: ModelConfig) -> StackLayout:
             tail = SuperBlock(tuple(mamba_unit(cfg, f"mamba{i}") for i in range(n_tail)), 1)
         return StackLayout(SuperBlock(units, n_main), tail, has_shared_attn=True)
     raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-                              "(ROADMAP.md queue 1, item 12)")
+                              "(ROADMAP.md queue 1, item 6)")

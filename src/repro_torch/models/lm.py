@@ -22,7 +22,7 @@ Entry points, run under ``torch.inference_mode``:
 
 ``train_loss``, the cacheless stack runner, tied or vision/audio inputs
 beyond the text embedding, and the other families wait for their slices
-(``ROADMAP.md`` queue 1, item 12).
+(``ROADMAP.md`` queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -114,7 +114,7 @@ class Model(ParamTree):
         """The text-only input: the embedded tokens and the shared inputs."""
         if self.cfg.frontend is not None or self.cfg.is_enc_dec:
             raise NotImplementedError("vision and audio front ends are not ported yet "
-                                      "(ROADMAP.md queue 1, item 12)")
+                                      "(ROADMAP.md queue 1, item 6)")
         return self._embed(batch["tokens"]), self._extra()
 
     def _head(self):

@@ -103,7 +103,7 @@ def attn_apply(
     the reference's choices, ``"xla"`` being its einsum path."""
     if seq_shard:
         raise NotImplementedError("sequence-parallel attention comes with the distribution "
-                                  "slice (ROADMAP.md queue 1, item 11)")
+                                  "slice (ROADMAP.md queue 1, item 7)")
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     pos1d = positions[0] if positions.ndim > 1 else positions

@@ -203,7 +203,10 @@ def test_fused_coupling_fwd_gradient_on_the_card_matches_the_plain_path(dev):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
 
 
-CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8)]
+# the model's (B, M, C), the widest C the reference's tests take, a ragged M,
+# and a ragged last stream tile at each GLOW width
+CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8),
+                  (2, 301, 12), (3, 77, 24), (1, 13, 48)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -213,10 +216,14 @@ def test_conv1x1_kernels_match_plain_versions(dev, shape, dtype):
     x = torch.randn(shape, generator=g).to(dev, dtype)
     gy = torch.randn(shape, generator=g).to(dev, dtype)
     w = (torch.randn(shape[-1], shape[-1], generator=g) / shape[-1] ** 0.5).to(dev)
+    by_path = dict(c1kern.conv1x1_mm.launches_by_path)
     y = c1kern.conv1x1_mm(x, w)
     gx = c1kern.conv1x1_mm(gy, w.T)
     gw, gw2 = c1kern.conv1x1_gw(x, gy), c1kern.conv1x1_gw(x, gy)
     torch.cuda.synchronize()
+    # the GLOW widths take the persistent stream, the others the W panels
+    path = "stream" if shape[-1] in c1kern.STREAM_WIDTHS else "panel"
+    assert c1kern.conv1x1_mm.launches_by_path[path] == by_path[path] + 2
     _close(y, conv1x1_mm_ref(x, w), dtype)
     _close(gx, conv1x1_mm_ref(gy, w.T), dtype)
     ref = conv1x1_gw_ref(x, gy)
@@ -246,11 +253,13 @@ def test_invertible_conv1x1_gradient_on_the_card_matches_the_plain_path(dev):
 
 # (B, Hq, Hkv, Sq, Skv, D): the reference's kernel tests, every head_dim of
 # src/repro/configs, a top-left causal Sq != Skv, ragged lengths the kernel
-# masks, and yi-6b's prefill shape
+# masks, yi-6b's prefill shape, and head dims that are no multiple of 16 (bf16
+# on the CUDA-core kernel)
 FLASH_SHAPES = [
     (1, 4, 4, 256, 256, 32), (2, 8, 2, 256, 256, 64), (1, 6, 1, 512, 512, 64),
     (2, 4, 2, 128, 128, 16), (1, 4, 1, 128, 128, 112), (1, 8, 2, 128, 128, 128),
     (1, 4, 2, 128, 256, 32), (2, 4, 2, 100, 77, 64), (8, 32, 4, 2048, 2048, 128),
+    (2, 8, 2, 256, 256, 36), (1, 4, 2, 100, 77, 100),
 ]
 
 
@@ -264,21 +273,28 @@ def test_flash_attention_matches_plain_version(dev, shape, dtype, causal):
     k = torch.randn(b, hkv, skv, d, generator=g).to(dev, dtype)
     v = torch.randn(b, hkv, skv, d, generator=g).to(dev, dtype)
     before = akern.flash_attention.launches
+    by_path = dict(akern.flash_attention.launches_by_path)
+    # bf16 with a head dim that is a multiple of 16 takes the tensor-core
+    # kernel, f32 and the other bf16 head dims the CUDA-core one
+    path = akern.flash_path(q, k, v)
+    assert path == ("tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 else "cuda_core")
     o = akern.flash_attention(q, k, v, causal=causal)
     o2 = akern.flash_attention(q, k, v, causal=causal)
     ref = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert akern.flash_attention.launches == before + 2
+    assert akern.flash_attention.launches_by_path[path] == by_path[path] + 2
     tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(o.float(), ref.float(), **tol)
     assert torch.equal(o, o2)  # no atomics: bitwise repeatable
 
 
-def test_flash_attention_takes_strided_heads(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_strided_heads(dev, dtype):
     """(B, S, H, D) tensors viewed as (B, H, S, D), as attn_apply passes
     them: the same result as on copies, and the output in the same layout."""
     g = torch.Generator().manual_seed(10)
-    q, k, v = (torch.randn(2, 256, h, 64, generator=g).to(dev) for h in (8, 2, 2))
+    q, k, v = (torch.randn(2, 256, h, 64, generator=g).to(dev, dtype) for h in (8, 2, 2))
     views = [t.transpose(1, 2) for t in (q, k, v)]
     o = akern.flash_attention(*views)
     torch.testing.assert_close(o, akern.flash_attention(*(t.contiguous() for t in views)),
@@ -291,6 +307,66 @@ def test_flash_attention_refuses_an_unsupported_head_dim(dev, d):
     q = torch.zeros(1, 4, 128, d, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         akern.flash_attention(q, q[:, :2], q[:, :2])
+
+
+def test_flash_attention_sends_a_bf16_view_tma_cannot_take_to_cuda_cores(dev):
+    """The tensor-core kernel's TMA copies need a 16-byte-aligned base and
+    16-byte-multiple strides: a bf16 q 8 bytes off, or a k whose rows lie 136
+    bytes apart, goes to the CUDA-core kernel, which takes any."""
+    g = torch.Generator().manual_seed(14)
+    q0, k0, v = (torch.randn(2, h, 128, 64, generator=g).to(dev, torch.bfloat16)
+                 for h in (4, 2, 2))
+    q = torch.empty(q0.numel() + 4, device=dev, dtype=torch.bfloat16)[4:].view(q0.shape)
+    k = torch.empty(2, 2, 128, 68, device=dev, dtype=torch.bfloat16)[..., :64]
+    q.copy_(q0)
+    k.copy_(k0)
+    for args in ((q, k0, v), (q0, k, v)):
+        assert akern.flash_path(*args) == "cuda_core"
+        by_path = dict(akern.flash_attention.launches_by_path)
+        o = akern.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert akern.flash_attention.launches_by_path["cuda_core"] == by_path["cuda_core"] + 1
+        torch.testing.assert_close(o.float(), attention_ref(*args).float(), rtol=2e-2, atol=2e-2)
+
+
+def _guarded_cases(dev):
+    """Each LM kernel: (its op's call through the guard, the kernel's own
+    call, inputs)."""
+    from repro_torch.kernels.attention.ops import flash_sdpa
+    from repro_torch.kernels.rwkv.ops import rwkv6_wkv
+    from repro_torch.kernels.ssd.ops import mamba2_ssd
+
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(2, h, 128, 64, generator=g).to(dev, torch.bfloat16) for h in (8, 2, 2))
+    r, kw, vw, w, u, s0 = _wkv_inputs((2, 4, 64, 32), torch.float32, dev)
+    x, da, dt, b_in, c_in, s1 = _ssd_inputs((2, 4, 128, 32, 16), torch.float32, dev)
+    return {
+        "flash_attention": (akern.flash_attention, flash_sdpa, akern.flash_attention, (q, k, v)),
+        "wkv_scan": (rkern.wkv_scan, lambda *a: rwkv6_wkv(*a[:5], state0=a[5]),
+                     lambda *a: rkern.wkv_scan(*a[:5], state0=a[5]), (r, kw, vw, w, u, s0)),
+        "ssd_scan": (skern.ssd_scan, lambda *a: mamba2_ssd(*a[:5], chunk=64, state0=a[5]),
+                     lambda *a: skern.ssd_scan(*a[:5], chunk=64, state0=a[5]),
+                     (x, da, dt, b_in, c_in, s1)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "wkv_scan", "ssd_scan"])
+def test_lm_kernels_refuse_gradients_on_the_card(dev, name):
+    """No backward kernel yet: a CUDA input that requires grad raises on
+    backward instead of silently getting no gradient; under no_grad the op
+    gives the kernel's own output with the same one launch."""
+    kernel, op, unguarded, args = _guarded_cases(dev)[name]
+    y = op(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(NotImplementedError, match=name):
+        (y[0] if isinstance(y, tuple) else y).float().sum().backward()
+    before = kernel.launches
+    with torch.no_grad():
+        guarded = op(*args)
+    assert kernel.launches == before + 1
+    plain = unguarded(*args)
+    torch.cuda.synchronize()
+    for a, b in (zip(guarded, plain) if isinstance(plain, tuple) else [(guarded, plain)]):
+        assert torch.equal(a, b)
 
 
 def test_flash_impl_of_attn_apply_on_the_card(dev):
