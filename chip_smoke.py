@@ -24,7 +24,9 @@ kernel against its plain PyTorch version.  Phases, one line each:
              passes them; the logdets and the sums over (b, m) are bitwise
              repeatable; ``invertible_conv1x1``'s gradient against autograd
              through the plain version; ``conv1x1_mm``'s path (the stream
-             at C = 12, 24, 48, the W panels at other widths); the LM
+             at C = 12, 24, 48, the W panels at other widths) and
+             ``conv1x1_gw``'s (the cluster sum on the tensor cores at
+             C = 12, 24, 48, per-chunk partials at other widths); the LM
              kernels' gradient guard (an input that requires grad raises on
              backward; under ``no_grad`` the same output and launches as the
              unguarded kernel);
@@ -47,8 +49,11 @@ kernel against its plain PyTorch version.  Phases, one line each:
              (the model's ``Conv1x1`` layer computes its product with
              ``torch.matmul``, as the reference's does with XLA);
 7. times   - each kernel's device time (profiler) and per-call wall time
-             (CUDA events) beside its bound, its plain version's and, where
-             one PyTorch call computes the same function, that call's;
+             (CUDA events) beside its bound (at the rate of the units its
+             products run on, named in ``rate``), its plain version's and,
+             where one PyTorch call computes the same function, that call's;
+             ``kernels_per_call`` where one call runs several CUDA kernels
+             (``ssd_scan``'s five passes, ``conv1x1_gw``'s reduce);
              end-to-end ``log_prob``, ``sample`` and the train step of both
              models; one profiled call of each, with device time by op and
              the device's idle share (tables written to
@@ -116,16 +121,22 @@ BATCH, HW = 8, 256
 SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]
 # coupling_fwd / coupling_inv on the unrolled model's transformed halves
 # (B, M, ca), plus a ragged M; conv1x1_mm / conv1x1_gw at the model's (B, M, C),
-# the widest C the reference's tests take, a ragged M, and a ragged last stream
-# tile at each GLOW width
+# the widest C the reference's tests take, a ragged M, a ragged last stream
+# tile at each GLOW width, and an N that leaves blocks of conv1x1_gw's one
+# cluster without rows
 COUPLING_SHAPES = [(8, 16384, 6), (8, 4096, 12), (8, 1024, 24), (8, 300, 6)]
 CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8),
-                  (2, 301, 12), (3, 77, 24), (1, 13, 48)]
-#: one NVIDIA H100 SXM (data sheet): HBM bytes/s, non-tensor-core f32 FLOP/s
-#: and dense bf16 tensor-core FLOP/s
+                  (2, 301, 12), (3, 77, 24), (1, 13, 48), (1, 200, 48)]
+#: one NVIDIA H100 SXM (data sheet): HBM bytes/s, non-tensor-core f32 FLOP/s,
+#: dense TF32 and bf16 tensor-core FLOP/s
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_TF32_FLOPS = 495e12
 H100_BF16_FLOPS = 989.4e12
+#: the kernels whose products run on the TF32 tensor cores (3xTF32 for f32
+#: inputs, one TF32 product for bf16 ones, which TF32 holds exactly); their
+#: operations are counted once, as the function needs them
+TF32_KERNELS = ("ssd_scan", "conv1x1_gw")
 # flash_attention (B, Hq, Hkv, S, D): the reference's kernel-test shapes
 # (tests/test_kernels.py:277-279), yi-6b's prefill, batch 8 x 2048, and a head
 # dim that is no multiple of 16 (bf16 on the CUDA-core kernel)
@@ -245,13 +256,16 @@ def cost(name: str, shape, dtype):
             b * h * s * (5 * kd * kd + 5 * kd)
     if name == "ssd_scan":
         # (B, H, S, P, N, chunk): x in and y out, da and dt in (f32), B and C
-        # in, the (P, N) state in and out.  Per (batch, head, chunk) the four
-        # products: C state^T and the update over all c rows, C B^T and
-        # G (x dt) only over the c (c + 1) / 2 causal pairs (t >= s) the
-        # function keeps, as flash_attention's are counted
+        # in, the (P, N) state in and out.  Per (batch, head, chunk): C state^T
+        # and the update over all c rows, G (x dt) only over the c (c + 1) / 2
+        # causal pairs (t >= s) the function keeps, as flash_attention's are
+        # counted; G = C B^T over those pairs once per (batch, chunk), since B
+        # and C have one group, shared by the heads (PR 16 and before counted
+        # it per head: 90.4 against 60.5 GFLOP at zamba2-7b's prefill)
         b, h, s, p, n, c = shape
         nbytes = 2 * es * b * h * s * p + 8 * b * h * s + 2 * es * b * s * n + 8 * b * h * p * n
-        return nbytes, b * h * (s // c) * (4 * c * n * p + (n + p) * c * (c + 1))
+        return nbytes, (b * h * (s // c) * (4 * c * n * p + p * c * (c + 1))
+                        + b * (s // c) * n * c * (c + 1))
     if name == "flash_attention":
         # (B, Hq, Hkv, S, D), causal: q, k, v read and o written once; two
         # D-long products for each visible (query, key) pair, S(S+1)/2 a head
@@ -282,13 +296,22 @@ def cost(name: str, shape, dtype):
     return big + small, b * m * c * (2 * c + 2) + b * m * ca * 6
 
 
-def peak_flops(name, dtype) -> float:
-    """The card's rate for the function's products: bf16 tensor cores for
-    flash attention's bf16 inputs, the f32 rate (TF32 off) otherwise; the
-    flow kernels compute in f32 whatever their storage type."""
+def rate(name, dtype) -> tuple[float, str]:
+    """The card's rate for the units the kernel's products run on, and its
+    name: bf16 tensor cores for flash attention's bf16 inputs, TF32 tensor
+    cores for ``TF32_KERNELS``, the CUDA cores' f32 rate otherwise (the flow
+    kernels compute in f32 whatever their storage type)."""
     import torch
 
-    return H100_BF16_FLOPS if name == "flash_attention" and dtype == torch.bfloat16 else H100_F32_FLOPS
+    if name == "flash_attention" and dtype == torch.bfloat16:
+        return H100_BF16_FLOPS, "bf16 tensor cores"
+    if name in TF32_KERNELS:
+        return H100_TF32_FLOPS, "tf32 tensor cores"
+    return H100_F32_FLOPS, "f32 cuda cores"
+
+
+def peak_flops(name, dtype) -> float:
+    return rate(name, dtype)[0]
 
 
 def bound_ms(name, shape, dtype) -> float:
@@ -391,6 +414,7 @@ def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None, **
     nbytes, flops = cost(name, shape, dtype)
     row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(name, shape, dtype),
+           "rate": rate(name, dtype)[1],
            "library_ms": lib_ms, "ms_from": {"ms": k_src, "plain_ms": p_src, "library_ms": l_src},
            "call_ms": call_ms(k_fn),
            "plain_call_ms": call_ms(p_fn) if plain_reps is None else call_ms(p_fn, plain_reps, 1),
@@ -656,7 +680,10 @@ def check_unrolled_kernels(dev) -> dict:
             gx = c1k.conv1x1_mm(gy, w.T)
             ran = [p for p, n in c1k.conv1x1_mm.launches_by_path.items() if n != before[p]]
             check(ran == [c1k.mm_path(x)], f"conv1x1_mm {shape} {dtype} ran {ran}")
+            before_gw = dict(c1k.conv1x1_gw.launches_by_path)
             gw, gw_again = c1k.conv1x1_gw(x, gy), c1k.conv1x1_gw(x, gy)
+            ran_gw = [p for p, n in c1k.conv1x1_gw.launches_by_path.items() if n != before_gw[p]]
+            check(ran_gw == [c1k.gw_path(x, gy)], f"conv1x1_gw {shape} {dtype} ran {ran_gw}")
             gw_r = conv1x1_gw_ref(x, gy)
             torch.cuda.synchronize()
             err_mm = max(_elem_check("conv1x1_mm", y, conv1x1_mm_ref(x, w), dtype, shape),
@@ -669,8 +696,8 @@ def check_unrolled_kernels(dev) -> dict:
                 max_err["conv1x1_mm"] = max(max_err["conv1x1_mm"], err_mm)
                 max_err["conv1x1_gw"] = max(max_err["conv1x1_gw"], err_gw)
             line("kernels", shape=list(shape), dtype=dname, conv1x1_mm_path=ran[0],
-                 conv1x1_mm_max_abs_err=err_mm, conv1x1_gw_max_rel_err=rel,
-                 gw_bitwise_repeatable=True)
+                 conv1x1_mm_max_abs_err=err_mm, conv1x1_gw_path=ran_gw[0],
+                 conv1x1_gw_max_rel_err=rel, gw_bitwise_repeatable=True)
     # the op's gradient: conv1x1_mm (W^T) and conv1x1_gw inside autograd
     for shape in CONV1X1_SHAPES[:3]:
         x, gy, w = conv1x1_inputs(shape, torch.float32, dev, SEED + 11)
@@ -1335,10 +1362,13 @@ def time_scans(dev) -> dict:
     del layers
     shape = SSD_SHAPES[-1]
     x, da, dt, b_in, c_in, s0 = ssd_inputs(shape, torch.float32, dev, SEED + 26, model_like=True)
+    _, flops = cost("ssd_scan", shape, torch.float32)
     rows["ssd_scan"] = [time_kernel(
         "ssd_scan", shape, torch.float32,
         lambda: sk.ssd_scan(x, da, dt, b_in, c_in, chunk=shape[-1], state0=s0),
-        lambda: ssd_ref(x, da, dt, b_in, c_in, s0), plain_reps=2)]
+        lambda: ssd_ref(x, da, dt, b_in, c_in, s0), plain_reps=2,
+        kernels_per_call=sk.KERNELS_PER_CALL,
+        bound_ms_at_f32_cuda_cores=1e3 * flops / H100_F32_FLOPS)]
     del x, da, dt, b_in, c_in
     torch.cuda.empty_cache()
     return rows
@@ -1497,10 +1527,13 @@ def time_flow_kernels(dev) -> dict:
                 "conv1x1_mm", shape, dtype, lambda: c1kern.conv1x1_mm(xm, wm),
                 lambda: conv1x1_mm_ref(xm, wm), lambda: torch.matmul(xm, wd),
                 path=c1kern.mm_path(xm)))
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = c1kern.gw_plan(shape[0] * shape[1], c, xm.element_size(), n_sm)
             per_shape["conv1x1_gw"].append(time_kernel(
                 "conv1x1_gw", shape, dtype, lambda: c1kern.conv1x1_gw(xm, gm),
                 lambda: conv1x1_gw_ref(xm, gm),
-                lambda: xm.reshape(-1, c).T @ gm.reshape(-1, c)))
+                lambda: xm.reshape(-1, c).T @ gm.reshape(-1, c), path=c1kern.gw_path(xm, gm),
+                kernels_per_call=1 if plan["clusters"] == 1 else 2, plan=plan))
     return per_shape
 
 
@@ -1545,12 +1578,22 @@ def main() -> int:
              if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
     from repro_torch.kernels.attention import attention as ak
     from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.ssd import ssd as sk
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gw_plans = {f"{c}, {t}": c1k.gw_plan(rows, c, es, n_sm) for rows, c in zip(
+        (131072, 32768, 8192), c1k.STREAM_WIDTHS) for t, es in (("float", 4), ("bf16", 2))}
     line("build", seconds=round(build_s, 3), libraries=[str(p) for p in built.values()],
          ptxas=ptxas, card=card, dynamic_smem_bytes={
              **{f"flash_attention_tc_kernel<{d}>": ak.tc_smem_bytes(d) for d in (64, 128)},
              **{f"conv1x1_mm_stream_kernel<{t}, {c}>": c1k.stream_smem_bytes(c, es)
-                for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))}})
+                for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))},
+             **{f"conv1x1_gw_cluster_kernel<{k}> at the model's rows": c1k.gw_cluster_smem_bytes(
+                 int(k.split(",")[0]), pl["xw"], pl["slab_rows"], 4 if "float" in k else 2,
+                 pl["cluster_size"]) for k, pl in gw_plans.items()},
+             **{f"ssd_{which}_kernel<{t}>": b for t, es in (("float", 4), ("bf16", 2))
+                for which, b in sk.ssd_smem_bytes(es).items()}},
+         conv1x1_gw_plans=gw_plans)
     mark("build")
 
     # 2. kernels against their plain versions --------------------------------

@@ -4,7 +4,8 @@
 // conv1x1_mm_stream_kernel (C = 12, 24, 48) and conv1x1_mm_kernel (other C)
 // replace the Pallas kernel
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_mm (_kernel)
-// conv1x1_gw_kernel (with gw_reduce_kernel) replaces
+// conv1x1_gw_cluster_kernel (C = 12, 24, 48) and conv1x1_gw_kernel (other C,
+// each with gw_reduce_kernel where its partials need it) replace
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_gw (_gw_kernel)
 //
 //   conv1x1_mm:  y[r, :] = x[r, :] @ W            (W in x's storage type, f32 sums)
@@ -44,17 +45,40 @@
 // The last tile of rows is masked, so any M works.
 //
 // conv1x1_gw: a cross-block reduction.  The TPU kernel adds into one output
-// block it revisits in grid order; blocks here run in no order.  So block k
-// owns a fixed chunk of rows and writes its (C, C) partial sum to partial[k];
-// gw_reduce_kernel then sums each entry over the chunks, one warp per entry,
-// in a fixed order.  No atomics: repeated runs are bitwise equal.  Unlike
-// spine_bwd (whose per-block partials outweighed its tiles), the caller picks
+// block it revisits in grid order; blocks here run in no order, and no atomic
+// adds are used, so every sum runs in a fixed order and repeated runs are
+// bitwise equal.  Its 2 C flops per element put it near the card's f32 ridge
+// at C = 48 (12 flops a byte in f32, 24 in bf16, against 20), so the sum needs
+// most of the SMs and not only their bandwidth.
+//
+// At the GLOW widths C = 12, 24, 48 (conv1x1_gw_cluster_kernel, C a template
+// parameter): one pass, summed in thread-block clusters.  The grid is
+// clusters x cluster_size blocks (the plan, gw_plan() in
+// kernels/conv1x1/conv1x1.py); block k owns rows [k cta_rows, (k+1)
+// cta_rows).  It streams them as flat (rows x C) slabs of x and gy through a
+// 4-stage ring of 16-byte cp.async copies (the bytes past the last 16 one
+// element at a time), so three slabs are in flight while one is summed.  The
+// sum runs on the tensor cores, which the CUDA cores could not match here on
+// the few SMs of one cluster: each warp takes 8-row steps of the slab into
+// the whole (C, C) gW with m16n8k8 TF32 products, exact for bf16 inputs and
+// 3xTF32 for f32 (hi/lo operand halves, a_lo b_hi + a_hi b_lo + a_hi b_hi).
+// The warps' sums are added in warp order through shared memory; after a
+// cluster barrier, each block of the cluster sums its slice of the (C, C)
+// entries over the cluster's blocks in rank order, reading their shared
+// memory (distributed shared memory).  One cluster writes gW; several write a
+// partial each, which gw_reduce_kernel adds in cluster order.
+//
+// At other widths, and for a base that is not 16-byte aligned
+// (conv1x1_gw_kernel): block k owns a fixed chunk of rows and writes its
+// (C, C) partial sum to partial[k]; gw_reduce_kernel then sums each entry
+// over the chunks, one warp per entry, in a fixed order.  The caller picks
 // the number of chunks so the partials stay under a quarter of the inputs'
 // bytes, and each thread keeps a 4x4 tile of gW in registers over a strided
-// subset of the chunk's rows (8 shared-memory loads per 16 FMAs); the row
-// groups are added in a fixed order at the end.
+// subset of the chunk's rows; the row groups are added in a fixed order.
 
 #include <cstdint>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -94,19 +118,6 @@ conv1x1_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, long long w_
   }
 }
 
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prev() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // VB bytes (16, 8 or 4) as 32-bit words, from or to shared memory
 template <int VB>
@@ -414,6 +425,253 @@ __global__ void gw_reduce_kernel(const float* __restrict__ partial, float* __res
   if (lane == 0) out[o] = s;
 }
 
+constexpr int kGwStages = 4;  // the cluster kernel's ring: slabs in flight + 1
+
+// kept equal to gw_cluster_smem_bytes() in kernels/conv1x1/conv1x1.py: the
+// ring (kGwStages x (x slab | gy slab)), which the warps' sums then reuse;
+// the block's sum of its XW x C entries; the inbox of its slice of them from
+// each block of its cluster
+__host__ __device__ constexpr int gw_ring_bytes(int C, int XW, int slab_rows, int elem_size) {
+  return kGwStages * slab_rows * (XW + C) * elem_size > 4 * kWarps * XW * C
+             ? kGwStages * slab_rows * (XW + C) * elem_size
+             : 4 * kWarps * XW * C;
+}
+__host__ __device__ constexpr int gw_slice_per_rank(int C, int XW, int cl) {
+  return (XW * C + cl - 1) / cl;
+}
+size_t gw_cluster_smem_bytes(int C, int XW, int slab_rows, int elem_size, int cl) {
+  return (size_t)gw_ring_bytes(C, XW, slab_rows, elem_size) +
+         sizeof(float) * (XW * C + cl * gw_slice_per_rank(C, XW, cl));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 operands, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Element (r, i) of a staged (rows, W) slab as f32, 0 past its rows or w
+template <typename T, int W>
+__device__ __forceinline__ float slab_at(const unsigned char* s, int r, int i, int rows, int w) {
+  return r < rows && i < w ? load_f(reinterpret_cast<const T*>(s), r * W + i) : 0.f;
+}
+
+// Grid: slices x clusters x cl blocks, blockIdx = (slice * clusters +
+// cluster) * cl + rank.  Slice z takes gW's rows [z XW, (z+1) XW) (x's
+// columns); row block cluster * cl + rank takes rows [that * cta_rows, + cta_rows)
+// of x and gy, slab_rows (a multiple of 8) at a time through a kGwStages
+// ring.  Warp w takes the slab's 16-row steps w, w + 8, ... into the slice's
+// (XW, C) block of gW, as two sums of 8 rows: m16n8k8 tensor-core products, A = x^T and B = gy.
+// bf16 values are TF32 values, so one product is exact; f32 splits each
+// operand into a TF32 hi and lo and adds a_lo b_hi + a_hi b_lo + a_hi b_hi
+// (3xTF32, 2^-22 of each term dropped).  The warps' sums are added in warp
+// order; then each block pushes its rank-o slice of them into block o's
+// inbox (distributed shared memory), and after one cluster barrier each block
+// sums its inbox in rank order.  out: gW (one cluster a slice) or one (C, C)
+// partial per cluster.
+template <typename T, int C, int XW>
+__global__ void __launch_bounds__(kThreads)
+conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                          float* __restrict__ out, long long N, long long cta_rows,
+                          int slab_rows, int clusters) {
+  constexpr int MT = (XW + 15) / 16, NT = (C + 7) / 8;  // the slice's 16 x 8 tiles
+  constexpr int E = XW * C;                             // entries of a slice
+  constexpr bool kSplit = sizeof(T) == 4;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char gsm[];
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int per = gw_slice_per_rank(C, XW, cl);
+  const int xbytes = slab_rows * XW * (int)sizeof(T), gbytes = slab_rows * C * (int)sizeof(T);
+  float* red = reinterpret_cast<float*>(gsm);  // kWarps x E, over the ring
+  float* part = reinterpret_cast<float*>(gsm + gw_ring_bytes(C, XW, slab_rows, sizeof(T)));
+  float* inbox = part + E;  // cl x per
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int cid = blockIdx.x / cl, slice = cid / clusters, rc = cid % clusters;
+  const int i0 = slice * XW, w = min(XW, C - i0);  // x's columns of this slice
+  const long long r0 = min(((long long)rc * cl + rank) * cta_rows, N);
+  const long long r1 = min(r0 + cta_rows, N);
+  const int n_slabs = (int)((r1 - r0 + slab_rows - 1) / slab_rows);
+
+  auto issue = [&](int sl) {  // slab sl into stage sl % kGwStages: x's slice, then gy
+    const long long s0 = r0 + (long long)sl * slab_rows;
+    const int rows = (int)min((long long)slab_rows, r1 - s0);
+    unsigned char* dst = gsm + (sl % kGwStages) * (xbytes + gbytes);
+    if constexpr (XW == C) {
+      const int n = rows * C, chunks = n * (int)sizeof(T) / 16;
+      for (int c = tid; c < chunks; c += kThreads)
+        cp_async16(dst + 16 * c, reinterpret_cast<const unsigned char*>(x + s0 * C) + 16 * c);
+      for (int e = chunks * 16 / (int)sizeof(T) + tid; e < n; e += kThreads)
+        reinterpret_cast<T*>(dst)[e] = x[s0 * C + e];
+    } else {  // rows of XW values, whole 16-byte pieces (the plan's widths)
+      constexpr int kPieces = XW * (int)sizeof(T) / 16;
+      for (int c = tid; c < rows * kPieces; c += kThreads) {
+        const int r = c / kPieces, q = c % kPieces;
+        cp_async16(dst + r * XW * (int)sizeof(T) + 16 * q,
+                   reinterpret_cast<const unsigned char*>(x + (s0 + r) * C + i0) + 16 * q);
+      }
+    }
+    dst += xbytes;
+    const int n = rows * C, chunks = n * (int)sizeof(T) / 16;
+    for (int c = tid; c < chunks; c += kThreads)
+      cp_async16(dst + 16 * c, reinterpret_cast<const unsigned char*>(gy + s0 * C) + 16 * c);
+    for (int e = chunks * 16 / (int)sizeof(T) + tid; e < n; e += kThreads)
+      reinterpret_cast<T*>(dst)[e] = gy[s0 * C + e];
+  };
+
+  // two sums, of the even and the odd 8-row steps of the warp, so that two
+  // steps' products are in flight; added in that order at the end
+  float acc[2][MT][NT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[h][mi][ni][c] = 0.f;
+#pragma unroll
+  for (int sl = 0; sl < kGwStages - 1; ++sl) {
+    if (sl < n_slabs) issue(sl);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGwStages - 2) : "memory");
+    __syncthreads();  // slab sl has landed; slab sl - 1 is no longer read
+    if (sl + kGwStages - 1 < n_slabs) issue(sl + kGwStages - 1);
+    cp_async_commit();
+    const unsigned char* xs = gsm + (sl % kGwStages) * (xbytes + gbytes);
+    const unsigned char* gs = xs + xbytes;
+    const int rows = (int)min((long long)slab_rows, r1 - r0 - (long long)sl * slab_rows);
+    for (int k00 = warp * 16; k00 < rows; k00 += kWarps * 16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = k00 + 8 * h;  // past the slab's rows its values read 0
+        float a[MT][4], b[NT][2];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          a[mi][0] = slab_at<T, XW>(xs, k0 + t, mi * 16 + g, rows, w);
+          a[mi][1] = slab_at<T, XW>(xs, k0 + t, mi * 16 + g + 8, rows, w);
+          a[mi][2] = slab_at<T, XW>(xs, k0 + t + 4, mi * 16 + g, rows, w);
+          a[mi][3] = slab_at<T, XW>(xs, k0 + t + 4, mi * 16 + g + 8, rows, w);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni) {
+          b[ni][0] = slab_at<T, C>(gs, k0 + t, ni * 8 + g, rows, C);
+          b[ni][1] = slab_at<T, C>(gs, k0 + t + 4, ni * 8 + g, rows, C);
+        }
+        uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[mi][e] = kSplit ? to_tf32(a[mi][e]) : __float_as_uint(a[mi][e]);
+            al[mi][e] = kSplit ? to_tf32(a[mi][e] - __uint_as_float(ah[mi][e])) : 0u;
+          }
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bh[ni][e] = kSplit ? to_tf32(b[ni][e]) : __float_as_uint(b[ni][e]);
+            bl[ni][e] = kSplit ? to_tf32(b[ni][e] - __uint_as_float(bh[ni][e])) : 0u;
+          }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NT; ++ni) {
+            if constexpr (kSplit) {
+              mma_tf32(acc[h][mi][ni], al[mi], bh[ni]);
+              mma_tf32(acc[h][mi][ni], ah[mi], bl[ni]);
+            }
+            mma_tf32(acc[h][mi][ni], ah[mi], bh[ni]);
+          }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the ring is no longer read: the warps' sums go over it
+
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = mi * 16 + g + (c >= 2 ? 8 : 0), j = ni * 8 + 2 * t + (c & 1);
+        if (i < w && j < C) red[warp * E + i * C + j] = acc[0][mi][ni][c] + acc[1][mi][ni][c];
+      }
+  __syncthreads();
+  // the warps in order, each entry pushed to the inbox of the block that owns it
+  for (int e = tid; e < w * C; e += kThreads) {
+    float s = 0.f;
+    for (int q = 0; q < kWarps; ++q) s += red[q * E + e];
+    const int o = e / per;
+    cluster.map_shared_rank(inbox, o)[rank * per + e - o * per] = s;
+  }
+  cluster.sync();  // every inbox is full
+
+  // this block's slice of the entries, summed over the cluster in rank order
+  float* dst = out + (long long)(clusters == 1 ? 0 : rc) * C * C + (long long)i0 * C;
+  for (int e = tid; e < per && rank * per + e < w * C; e += kThreads) {
+    float s = 0.f;
+    for (int q = 0; q < cl; ++q) s += inbox[q * per + e];
+    dst[rank * per + e] = s;
+  }
+}
+
+template <typename T, int C, int XW>
+cudaError_t launch_gw_cluster(const void* x, const void* gy, float* out, long long N,
+                              long long cta_rows, int slab_rows, int clusters, int cl,
+                              cudaStream_t s) {
+  auto kernel = conv1x1_gw_cluster_kernel<T, C, XW>;
+  const size_t smem = gw_cluster_smem_bytes(C, XW, slab_rows, sizeof(T), cl);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cl > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C / XW * clusters * cl));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(gy), out,
+                           N, cta_rows, slab_rows, clusters);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gw_cluster_c(const void* x, const void* gy, float* out, long long N, int C,
+                                int xw, long long cta_rows, int slab_rows, int clusters, int cl,
+                                cudaStream_t s) {
+  // (C, slice width): kept equal to GW_PLAN in kernels/conv1x1/conv1x1.py
+  if (C == 12 && xw == 12)
+    return launch_gw_cluster<T, 12, 12>(x, gy, out, N, cta_rows, slab_rows, clusters, cl, s);
+  if (C == 24 && xw == 24)
+    return launch_gw_cluster<T, 24, 24>(x, gy, out, N, cta_rows, slab_rows, clusters, cl, s);
+  if (C == 48 && xw == 16)
+    return launch_gw_cluster<T, 48, 16>(x, gy, out, N, cta_rows, slab_rows, clusters, cl, s);
+  return cudaErrorInvalidValue;
+}
+
 // kept equal to mm_smem_bytes() in kernels/conv1x1/conv1x1.py, which checks it
 size_t mm_smem_bytes(int C, int block_m, int panel) {
   return sizeof(float) * ((size_t)C * panel + (size_t)block_m * C);
@@ -500,6 +758,35 @@ int conv1x1_mm_stream(int dtype, const void* x, const void* w, long long w_si, l
   if (dtype == 1)
     return static_cast<int>(launch_stream_c<__nv_bfloat16>(x, w, w_si, w_sj, y, N, C, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cluster path: C in {12, 24, 48}, x and gy 16-byte aligned (the caller
+// checks).  C / xw slices of gW's rows, each clusters x cluster_size blocks
+// of cta_rows rows (a multiple of 8), slab_rows (a multiple of 8) staged at a
+// time; partial: (clusters, C*C) float32 scratch, unused (may be null) for
+// one cluster a slice; gw: (C, C) float32.  Returns the cudaError_t of the
+// launches.
+int conv1x1_gw_cluster(int dtype, const void* x, const void* gy, float* partial, float* gw,
+                       long long N, int C, int xw, long long cta_rows, int slab_rows,
+                       int clusters, int cluster_size, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = clusters == 1 ? gw : partial;
+  if (dtype == 0) {
+    err = launch_gw_cluster_c<float>(x, gy, out, N, C, xw, cta_rows, slab_rows, clusters,
+                                     cluster_size, s);
+  } else if (dtype == 1) {
+    err = launch_gw_cluster_c<__nv_bfloat16>(x, gy, out, N, C, xw, cta_rows, slab_rows,
+                                             clusters, cluster_size, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
+  const int width = C * C;
+  const long long reduce_blocks = ((long long)width * 32 + kThreads - 1) / kThreads;
+  gw_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, s>>>(partial, gw, clusters, width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -34,12 +34,29 @@ THREADS, GW_TILE_ENTRIES = 256, 16
 #: (``launch_stream_c`` in ``conv1x1.cu``)
 STREAM_PLAN = {12: (12, 1, 8), 24: (12, 2, 4), 48: (6, 2, 8)}
 STREAM_WIDTHS = tuple(STREAM_PLAN)
+#: ``conv1x1_gw``'s cluster kernel at each stream width and element size:
+#: the columns of x (rows of gW) a slice takes (a template instance each,
+#: ``launch_gw_cluster_c`` in ``conv1x1.cu``), the clusters of each slice at
+#: most, the blocks of a cluster.  The fastest of ``tools/gw_plan_sweep.py``
+#: on the H100 (``PERF.md``): C = 12 and 24 are bound by bytes and take
+#: every SM, a partial per block and the fixed-order reduce; at C = 48 bf16
+#: three slices of one 16-block cluster each sum in one launch, f32 needs 4
+#: clusters a slice for its bytes
+GW_PLAN = {(12, 4): (12, 128, 1), (12, 2): (12, 128, 1), (24, 4): (24, 128, 1),
+           (24, 2): (24, 128, 1), (48, 4): (16, 4, 8), (48, 2): (16, 1, 16)}
+#: the bytes of x and gy a block stages at a time, the stages of its ring
+#: (``kGwStages``), the fewest rows worth another cluster, and the shared
+#: memory a block may opt in to on the card
+GW_STAGE_BYTES, GW_STAGES, GW_MIN_ROWS, SMEM_OPT_IN = 49152, 4, 64, 232448
+#: what launches_by_path counts, for each kernel
+PATHS = {"conv1x1_mm": ("stream", "panel"), "conv1x1_gw": ("cluster", "panel")}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "conv1x1_mm": [_I, _P, _P, _L, _L, _P, _L, _I, _I, _I, _I, _P],
     "conv1x1_gw": [_I, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
     "conv1x1_mm_stream": [_I, _P, _P, _L, _L, _P, _L, _I, _I, _P],
+    "conv1x1_gw_cluster": [_I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _I, _P],
 }
 
 
@@ -90,6 +107,61 @@ def gw_smem_bytes(c: int, stage_rows: int) -> int:
     return 4 * (2 * stage_rows * c + THREADS * GW_TILE_ENTRIES)
 
 
+def gw_path(x, gy) -> str:
+    """The kernel that computes ``conv1x1_gw(x, gy)``: "cluster" for C in
+    ``STREAM_WIDTHS`` with x and gy 16-byte aligned (its 16-byte copies),
+    "panel" otherwise."""
+    aligned = x.data_ptr() % 16 == 0 and gy.data_ptr() % 16 == 0
+    return "cluster" if x.shape[-1] in STREAM_WIDTHS and aligned else "panel"
+
+
+def gw_plan(n_rows: int, c: int, elem_size: int, n_sm: int) -> dict[str, int]:
+    """The cluster kernel's launch (``GW_PLAN``): ``c // xw`` slices of gW's
+    rows, each ``clusters`` clusters of ``cluster_size`` blocks; block k of a
+    slice sums rows [k cta_rows, (k+1) cta_rows), ``slab_rows`` at a time.
+    Fewer clusters where each would get under ``GW_MIN_ROWS`` rows a block,
+    and no more blocks than SMs.  Row counts are multiples of 8, so every slab
+    of either storage type starts 16-byte aligned."""
+    xw, most, cl = GW_PLAN[c, elem_size]
+    slices = c // xw
+    clusters = max(1, min(most, n_sm // (slices * cl), -(-n_rows // (cl * GW_MIN_ROWS))))
+    cta_rows, slab_rows = gw_rows(n_rows, c, elem_size, xw, clusters * cl)
+    return {"xw": xw, "slices": slices, "clusters": clusters, "cluster_size": cl,
+            "cta_rows": cta_rows, "slab_rows": slab_rows}
+
+
+def gw_rows(n_rows: int, c: int, elem_size: int, xw: int, blocks: int) -> tuple[int, int]:
+    """The rows of each of a slice's ``blocks`` blocks and of its slabs: both
+    multiples of 8, a slab of x's ``xw`` columns and of gy at most
+    ``GW_STAGE_BYTES``, a block's slabs as even as 8 rows allow."""
+    round8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    cta_rows = round8(-(-n_rows // blocks))
+    cap = max(8, GW_STAGE_BYTES // ((xw + c) * elem_size) // 8 * 8)
+    return cta_rows, round8(-(-cta_rows // -(-cta_rows // cap)))
+
+
+def gw_walk(n_rows: int, plan: dict[str, int]) -> list[list[tuple[int, int]]]:
+    """The slabs each block of a slice sums, in its order, as row ranges (the
+    kernel's loop): block k's rows are [k cta_rows, (k+1) cta_rows) cut at
+    ``n_rows``, ``slab_rows`` at a time.  Every slice walks the same rows."""
+    blocks = []
+    for k in range(plan["clusters"] * plan["cluster_size"]):
+        r0 = min(k * plan["cta_rows"], n_rows)
+        r1 = min(r0 + plan["cta_rows"], n_rows)
+        blocks.append([(s, min(s + plan["slab_rows"], r1))
+                       for s in range(r0, r1, plan["slab_rows"])])
+    return blocks
+
+
+def gw_cluster_smem_bytes(c: int, xw: int, slab_rows: int, elem_size: int, cl: int) -> int:
+    """Shared memory of one cluster-kernel block (``gw_cluster_smem_bytes``
+    in ``conv1x1.cu``): the ring of x-slice and gy slabs, which the 8 warps'
+    (xw, C) sums then reuse; the block's (xw, C) sum; the inbox of its share
+    of them from each of the ``cl`` blocks of its cluster, in f32."""
+    ring = max(GW_STAGES * slab_rows * (xw + c) * elem_size, 4 * 8 * xw * c)
+    return ring + 4 * (xw * c + cl * -(-(xw * c) // cl))
+
+
 def gw_chunks(n_rows: int, c: int, elem_size: int, n_sm: int) -> int:
     """The row chunks ``conv1x1_gw`` sums separately: two per SM, but no more
     than keeps the chunks' (C, C) f32 partials under a quarter of the inputs'
@@ -111,11 +183,15 @@ def _check(name, x, other, what):
     return x.shape
 
 
-class _Conv1x1Mm(Kernel):
+class _PathKernel(Kernel):
+    """A kernel with two paths, each counted in ``launches_by_path``."""
+
     def __init__(self, name: str):
         super().__init__(name)
-        self.launches_by_path = {"stream": 0, "panel": 0}
+        self.launches_by_path = dict.fromkeys(PATHS[name], 0)
 
+
+class _Conv1x1Mm(_PathKernel):
     def __call__(self, x, w):
         """x: (B, M, C); w: (C, C), any strides and float dtype (rounded to
         x's dtype first) -> y: (B, M, C) in x's dtype."""
@@ -147,12 +223,33 @@ class _Conv1x1Mm(Kernel):
         return y
 
 
-class _Conv1x1Gw(Kernel):
+class _Conv1x1Gw(_PathKernel):
     def __call__(self, x, gy):
         """x, gy: (B, M, C) -> gW: (C, C) f32, ``sum_{b,m} x^T gy``."""
         b, m, c = _check(self.name, x, gy, "gy")
         n = b * m
         n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        path = gw_path(x, gy)
+        gw = torch.empty((c, c), dtype=torch.float32, device=x.device)
+        if path == "cluster":
+            plan = gw_plan(n, c, x.element_size(), n_sm)
+            partial = (None if plan["clusters"] == 1 else
+                       torch.empty((plan["clusters"], c * c), dtype=torch.float32,
+                                   device=x.device))
+            err = _fn("conv1x1_gw_cluster")(
+                KERNEL_DTYPES[x.dtype], x.data_ptr(), gy.data_ptr(),
+                None if partial is None else partial.data_ptr(), gw.data_ptr(), n, c,
+                plan["xw"], plan["cta_rows"], plan["slab_rows"], plan["clusters"],
+                plan["cluster_size"], x.device.index, stream(x),
+            )
+        else:
+            err = self._panel(x, gy, gw, n, c, n_sm)
+        raise_on(err, self.name)
+        self.launches += 1
+        self.launches_by_path[path] += 1
+        return gw
+
+    def _panel(self, x, gy, gw, n, c, n_sm) -> int:
         chunk_rows = -(-n // gw_chunks(n, c, x.element_size(), n_sm))
         n_chunks = -(-n // chunk_rows)
         stage_rows = max(1, min(chunk_rows, TILE_ELEMS // c))
@@ -160,14 +257,10 @@ class _Conv1x1Gw(Kernel):
             raise ValueError(f"{self.name}: C={c} does not fit in {SMEM_LIMIT} bytes of "
                              "shared memory")
         partial = torch.empty((n_chunks, c * c), dtype=torch.float32, device=x.device)
-        gw = torch.empty((c, c), dtype=torch.float32, device=x.device)
-        err = _fn(self.name)(
+        return _fn(self.name)(
             KERNEL_DTYPES[x.dtype], x.data_ptr(), gy.data_ptr(), partial.data_ptr(),
             gw.data_ptr(), n, c, chunk_rows, stage_rows, x.device.index, stream(x),
         )
-        raise_on(err, self.name)
-        self.launches += 1
-        return gw
 
 
 conv1x1_mm = _Conv1x1Mm("conv1x1_mm")

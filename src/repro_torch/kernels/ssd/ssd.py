@@ -4,13 +4,15 @@
 ``repro/kernels/ssd/ssd.py``, keeping its contract (the chunk is
 ``min(chunk, S)`` and must divide S; y in x's dtype, the state in f32) with
 one more input: an optional initial state (absent means zeros, the TPU
-kernel's case), which the model's chunk scan needs.  It is bound by
-operations (four f32 products per (batch, head, chunk)); the source note in
-``ssd.cu`` gives the design.  The wrapper checks what the kernel takes,
-allocates y with x's strides (so a (B, S, H, P) tensor viewed as
-(B, H, S, P) comes back in the same layout) and the final state, launches on
-PyTorch's current stream, raises if the launch was refused, and adds one to
-its ``launches`` count.
+kernel's case), which the model's chunk scan needs.  Its products run on
+the TF32 tensor cores in 3xTF32; the source note in ``ssd.cu`` gives the
+design, SSD's chunked decomposition as five kernels that are parallel over
+chunks (``KERNELS_PER_CALL``).  The wrapper checks what the kernel takes,
+allocates y with x's strides (so a (B, H, S, P) view of a (B, S, H, P)
+tensor comes back in the same layout), the final state and the passes'
+scratch (:func:`ssd_scratch`: the chunk states, C B^T per (batch, chunk),
+f32 copies of B and C), launches on PyTorch's current stream, raises if a
+launch was refused, and adds one to its ``launches`` count per call.
 """
 
 from __future__ import annotations
@@ -23,12 +25,20 @@ from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, st
 
 #: the largest head dim P and state size N (one 64-wide tile each)
 MAX_WIDTH = 64
-#: the longest chunk (its cumulative decays stay in shared memory)
+#: the longest chunk (its 64-row tiles form at most 2,080 causal tile pairs)
 MAX_CHUNK = 4096
+#: rows and columns of the kernels' tiles (``kL`` in ``ssd.cu``)
+TILE = 64
+#: CUDA kernels one ``ssd_scan`` call runs: prep, C B^T, chunk states, carry,
+#: output
+KERNELS_PER_CALL = 5
+#: the largest grid dimension y or z (the prep and C B^T grids' chunk and
+#: batch axes)
+MAX_GRID_YZ = 65535
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-              ctypes.POINTER(ctypes.c_longlong), _I, _P]
+_SIGNATURE = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              ctypes.POINTER(ctypes.c_longlong), _I, _I, _P]
 
 
 def check_chunk(s: int, chunk: int) -> int:
@@ -38,6 +48,76 @@ def check_chunk(s: int, chunk: int) -> int:
     if c < 1 or s % c:
         raise ValueError(f"sequence {s} is not divisible by chunk {c}")
     return c
+
+
+def tiles_of(chunk: int) -> int:
+    """64-row tiles of a chunk: its rows padded to a multiple of ``TILE``."""
+    return -(-chunk // TILE)
+
+
+def ssd_scratch(b: int, h: int, s: int, chunk: int) -> dict[str, tuple[int, int]]:
+    """(offset, length) in floats of each scratch array of one call, in the
+    order ``launch`` in ``ssd.cu`` lays them out, each a multiple of 64
+    floats (so every array starts 256-byte aligned): cum (as an f32 high and
+    low part) and dt per (batch, head) time-contiguous; B, B^T and C^T per (batch, chunk), zero-padded to
+    (cp, 64) / (64, cp); C B^T's causal 64 x 64 tile pairs per (batch,
+    chunk); one 64 x 64 state per (batch, head, chunk); one flag per (batch,
+    head, chunk) that no da of the chunk is positive."""
+    k, tiles = s // chunk, tiles_of(chunk)
+    cp = tiles * TILE
+    pairs = tiles * (tiles + 1) // 2
+    up = lambda n: -(-n // 64) * 64  # noqa: E731
+    sizes = {"cum": up(b * h * s), "cuml": up(b * h * s), "dts": up(b * h * s),
+             "bp": b * k * cp * TILE,
+             "bt": b * k * cp * TILE, "ct": b * k * cp * TILE,
+             "g0t": b * k * pairs * TILE * TILE, "states": b * h * k * TILE * TILE,
+             "falls": up(b * h * k)}
+    out, off = {}, 0
+    for name, n in sizes.items():
+        out[name] = (off, n)
+        off += n
+    return out
+
+
+def ssd_smem_bytes(elem_size: int) -> dict[str, int]:
+    """Dynamic shared memory of the two product kernels (``state_smem_bytes``
+    and ``out_smem_bytes`` in ``ssd.cu``): two stages of an A and a B tile and
+    three row vectors, the output pass two more row vectors, and for bf16 x
+    two staging tiles."""
+    stage = 2 * TILE * (TILE + 8) + 3 * TILE  # shared tiles' rows are 72 floats apart
+    staging = 2 * TILE * TILE * 2 if elem_size == 2 else 0
+    return {"state": 4 * 2 * stage + staging, "out": 4 * (2 * stage + 2 * TILE) + staging}
+
+
+def out_blocks(h: int, k: int, b: int, chunk: int) -> list[tuple[int, int, int, int]]:
+    """The output pass's blocks in launch order, as (batch, head, chunk,
+    row tile) (``ssd_out_kernel``'s decoding of ``blockIdx.x``): row tiles
+    fastest, heaviest first, then heads, chunks, batches."""
+    tiles = tiles_of(chunk)
+    blocks = []
+    for i in range(b * k * h * tiles):
+        r = tiles - 1 - i % tiles
+        j = i // tiles
+        blocks.append((j // (h * k), j % h, (j // h) % k, r))
+    return blocks
+
+
+def out_rows(chunk: int, k: int, r: int) -> tuple[range, list[range]]:
+    """Block (k, r) of the output pass: the time steps it writes, and the
+    source rows of each stage after the carried state (tiles 0..r of its
+    chunk, each the rows it sums over)."""
+    t0 = k * chunk
+    rows = range(t0 + r * TILE, t0 + min(r * TILE + TILE, chunk))
+    return rows, [range(t0 + q * TILE, t0 + min(q * TILE + TILE, chunk)) for q in range(r + 1)]
+
+
+def x_vec16(x) -> bool:
+    """Whether the kernels copy x in 16-byte pieces: its base, its (batch,
+    head, time) strides and its P values are whole pieces; otherwise one
+    element at a time."""
+    per = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.shape[-1] % per == 0
+            and all(st % per == 0 for st in x.stride()[:3]))
 
 
 class _SsdScan(Kernel):
@@ -65,6 +145,9 @@ class _SsdScan(Kernel):
         c = check_chunk(s, chunk)
         if c > MAX_CHUNK:
             raise ValueError(f"{self.name}: chunk {c} is longer than {MAX_CHUNK}")
+        if b > MAX_GRID_YZ or s // c > MAX_GRID_YZ:
+            raise ValueError(f"{self.name}: batch {b} and chunks {s // c} must be at most "
+                             f"{MAX_GRID_YZ}")
         if state0 is not None and tuple(state0.shape) != (b, h, p, n):
             raise ValueError(f"{self.name}: state0 must be {(b, h, p, n)}, got "
                              f"{tuple(state0.shape)}")
@@ -79,13 +162,16 @@ class _SsdScan(Kernel):
         if y.stride(-1) != 1:
             y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+        scratch = torch.empty(sum(size for _, size in ssd_scratch(b, h, s, c).values()),
+                              dtype=torch.float32, device=x.device)
         strides = (ctypes.c_longlong * 16)(
             *x.stride()[:3], *da.stride(), *dt.stride(), *b_in.stride()[:2], *c_in.stride()[:2],
             *y.stride()[:3])
         err = bind("ssd", "ssd_scan", _SIGNATURE)(
             KERNEL_DTYPES[x.dtype], x.data_ptr(), da.data_ptr(), dt.data_ptr(), b_in.data_ptr(),
             c_in.data_ptr(), None if state0 is None else state0.data_ptr(), y.data_ptr(),
-            state.data_ptr(), b, h, s, p, n, c, strides, x.device.index, stream(x),
+            state.data_ptr(), scratch.data_ptr(), b, h, s, p, n, c, strides, int(x_vec16(x)),
+            x.device.index, stream(x),
         )
         raise_on(err, self.name)
         self.launches += 1

@@ -203,10 +203,11 @@ def test_fused_coupling_fwd_gradient_on_the_card_matches_the_plain_path(dev):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
 
 
-# the model's (B, M, C), the widest C the reference's tests take, a ragged M,
-# and a ragged last stream tile at each GLOW width
+# the model's (B, M, C), the widest C the reference's tests take (conv1x1_gw's
+# per-chunk path), a ragged M, a ragged last stream tile at each GLOW width,
+# and an N that leaves blocks of conv1x1_gw's one cluster without rows
 CONV1X1_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (2, 128, 192), (2, 300, 8),
-                  (2, 301, 12), (3, 77, 24), (1, 13, 48)]
+                  (2, 301, 12), (3, 77, 24), (1, 13, 48), (1, 200, 48)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -217,13 +218,18 @@ def test_conv1x1_kernels_match_plain_versions(dev, shape, dtype):
     gy = torch.randn(shape, generator=g).to(dev, dtype)
     w = (torch.randn(shape[-1], shape[-1], generator=g) / shape[-1] ** 0.5).to(dev)
     by_path = dict(c1kern.conv1x1_mm.launches_by_path)
+    gw_by_path = dict(c1kern.conv1x1_gw.launches_by_path)
     y = c1kern.conv1x1_mm(x, w)
     gx = c1kern.conv1x1_mm(gy, w.T)
     gw, gw2 = c1kern.conv1x1_gw(x, gy), c1kern.conv1x1_gw(x, gy)
     torch.cuda.synchronize()
-    # the GLOW widths take the persistent stream, the others the W panels
-    path = "stream" if shape[-1] in c1kern.STREAM_WIDTHS else "panel"
+    # the GLOW widths take the persistent stream and the cluster sum, the
+    # others the W panels and the per-chunk partials
+    glow = shape[-1] in c1kern.STREAM_WIDTHS
+    path = "stream" if glow else "panel"
     assert c1kern.conv1x1_mm.launches_by_path[path] == by_path[path] + 2
+    gw_path = "cluster" if glow else "panel"
+    assert c1kern.conv1x1_gw.launches_by_path[gw_path] == gw_by_path[gw_path] + 2
     _close(y, conv1x1_mm_ref(x, w), dtype)
     _close(gx, conv1x1_mm_ref(gy, w.T), dtype)
     ref = conv1x1_gw_ref(x, gy)
@@ -436,9 +442,11 @@ def _ssd_inputs(shape, dtype, dev, seed=12):
 
 # (B, H, S, P, N, chunk): the reference's kernel-test shapes
 # (tests/test_kernels.py:299), a chunk that is no multiple of the 64-row tile,
-# zamba2-7b's head dim, state size and chunk, and a single-chunk prompt
+# zamba2-7b's head dim, state size and chunk, a single-chunk prompt, eight
+# chunks at zamba2's widths, and P, N < 64 over five ragged-tile chunks
 SSD_SHAPES = [(1, 2, 256, 16, 16, 64), (2, 4, 128, 32, 16, 64), (2, 3, 96, 64, 64, 48),
-              (1, 4, 512, 64, 64, 256), (2, 2, 12, 16, 16, 256)]
+              (1, 4, 512, 64, 64, 256), (2, 2, 12, 16, 16, 256), (2, 8, 2048, 64, 64, 256),
+              (1, 3, 200, 20, 12, 40)]
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -458,6 +466,26 @@ def test_ssd_scan_matches_plain_version(dev, shape, dtype, with_state):
     torch.testing.assert_close(y.float(), y_ref, **_scan_tol(dtype))
     torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
     assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_takes_rising_decays_and_any_head_dim(dev, dtype):
+    """da of either sign (mean -0.02, std 0.05), so cum rises inside every
+    chunk and each decay below the diagonal is taken per element, not as a
+    row and a column factor; P = 18, whose rows x copies one element at a
+    time in either type."""
+    b, h, s, p, n, chunk = 2, 3, 384, 18, 16, 192
+    x, _, dt, b_in, c_in, state0 = _ssd_inputs((b, h, s, p, n), dtype, dev)
+    noise = torch.randn(b, h, s, generator=torch.Generator().manual_seed(13))
+    da = (-0.02 + 0.05 * noise).to(dev)
+    assert (da > 0).any() and (da < 0).any()
+    y, st = skern.ssd_scan(x, da, dt, b_in, c_in, chunk=chunk, state0=state0)
+    y2, st2 = skern.ssd_scan(x, da, dt, b_in, c_in, chunk=chunk, state0=state0)
+    y_ref, st_ref = ssd_ref(x, da, dt, b_in, c_in, state0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_ref, **_scan_tol(dtype))
+    torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
+    assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 def test_model_scans_take_the_kernels_on_the_card(dev):
