@@ -18,7 +18,8 @@ kernel against its plain PyTorch version.  Phases, one line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together); each
-             kernel's registers, spills and shared memory;
+             kernel's registers, spills and shared memory (``wkv_scan``'s
+             kernels held to 128 registers a thread and no spill);
 2. kernels - each kernel against its plain version at the model's shapes and
              a ragged one, in f32 and bf16, on strided views where the path
              passes them; the logdets and the sums over (b, m) are bitwise
@@ -26,7 +27,9 @@ kernel against its plain PyTorch version.  Phases, one line each:
              through the plain version; ``conv1x1_mm``'s path (the stream
              at C = 12, 24, 48, the W panels at other widths) and
              ``conv1x1_gw``'s (the cluster sum on the tensor cores at
-             C = 12, 24, 48, per-chunk partials at other widths); the LM
+             C = 12, 24, 48, per-chunk partials at other widths) and
+             ``spine_bwd``'s (one pass summed in clusters at C = 12, 24, 48,
+             the tile kernel and its reduce at other widths); the LM
              kernels' gradient guard (an input that requires grad raises on
              backward; under ``no_grad`` the same output and launches as the
              unguarded kernel);
@@ -49,11 +52,13 @@ kernel against its plain PyTorch version.  Phases, one line each:
              (the model's ``Conv1x1`` layer computes its product with
              ``torch.matmul``, as the reference's does with XLA);
 7. times   - each kernel's device time (profiler) and per-call wall time
-             (CUDA events) beside its bound (at the rate of the units its
-             products run on, named in ``rate``), its plain version's and,
+             (CUDA events) beside its bound (its operations at the rates of
+             the units they run on, named in ``rate``), its plain version's and,
              where one PyTorch call computes the same function, that call's;
              ``kernels_per_call`` where one call runs several CUDA kernels
-             (``ssd_scan``'s five passes, ``conv1x1_gw``'s reduce);
+             (``ssd_scan``'s five passes, ``conv1x1_gw``'s and
+             ``spine_bwd``'s reduce, one for ``wkv_scan``), and each call's
+             device time split by CUDA kernel (``ms_by_kernel``);
              end-to-end ``log_prob``, ``sample`` and the train step of both
              models; one profiled call of each, with device time by op and
              the device's idle share (tables written to
@@ -205,6 +210,24 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_entries(lines) -> dict[str, dict]:
+    """ptxas's ``-v`` report by entry function (its mangled name): registers
+    a thread and bytes of spill stores and loads."""
+    import re
+
+    entries: dict[str, dict] = {}
+    name = None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entries[name] = {"registers": None, "spill_bytes": 0}
+        elif name is not None and "spill" in ln:
+            entries[name]["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+        elif name is not None and "registers" in ln:
+            entries[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return entries
+
+
 def perturb(module, seed: int, scale: float = 0.05, stacked: bool = True):
     """Add noise of std ``scale / sqrt(fan_in)`` to every float parameter of
     the flow (as ``tests/test_torch_glow*.py`` do), ``fan_in`` the product of
@@ -310,18 +333,38 @@ def rate(name, dtype) -> tuple[float, str]:
     return H100_F32_FLOPS, "f32 cuda cores"
 
 
-def peak_flops(name, dtype) -> float:
-    return rate(name, dtype)[0]
+def units(name, shape, dtype) -> list[tuple[float, float, str]]:
+    """The kernel's operations by the units they run on: (operations, the
+    units' rate, their name).  ``spine_bwd`` at the cluster kernel's widths
+    (C = 12, 24, 48) runs gW = x1^T gx2 (2 C operations an element) on the
+    TF32 tensor cores and the rest (x1, gx1, the elementwise work: 4 C + 6)
+    on the CUDA cores; the tile kernel at other widths runs all of it on the
+    CUDA cores.  Every other kernel runs on the units ``rate`` names."""
+    _, flops = cost(name, shape, dtype)
+    if name == "spine_bwd" and shape[-1] in (12, 24, 48):
+        b, m, c = shape
+        gw = 2 * b * m * c * c
+        return [(flops - gw, H100_F32_FLOPS, "f32 cuda cores"),
+                (gw, H100_TF32_FLOPS, "tf32 tensor cores")]
+    peak, unit = rate(name, dtype)
+    return [(flops, peak, unit)]
+
+
+def ops_ms(name, shape, dtype) -> float:
+    """The least time of the kernel's operations: each kind at its units'
+    rate, the kinds one after another."""
+    return 1e3 * sum(n / peak for n, peak, _ in units(name, shape, dtype))
 
 
 def bound_ms(name, shape, dtype) -> float:
-    nbytes, flops = cost(name, shape, dtype)
-    return 1e3 * max(nbytes / H100_BYTES_PER_S, flops / peak_flops(name, dtype))
+    nbytes, _ = cost(name, shape, dtype)
+    return max(1e3 * nbytes / H100_BYTES_PER_S, ops_ms(name, shape, dtype))
 
 
 def bound_by(name, shape, dtype) -> str:
-    nbytes, flops = cost(name, shape, dtype)
-    return "bytes" if nbytes / H100_BYTES_PER_S >= flops / peak_flops(name, dtype) else "operations"
+    nbytes, _ = cost(name, shape, dtype)
+    return "bytes" if 1e3 * nbytes / H100_BYTES_PER_S >= ops_ms(name, shape, dtype) \
+        else "operations"
 
 
 def call_ms(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -345,8 +388,18 @@ def _is_device_event(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def device_ms(fn, reps: int = 20, attempts: int = 10) -> tuple[float, str]:
-    """Device time of one call and where it came from.
+def _kernel_name(key: str) -> str:
+    """A profiler kernel name without its template arguments, parameters and
+    namespace; PyTorch's own kernels as "torch <what>"."""
+    if "at::native" in key:
+        return "torch copy" if "copy" in key else "torch op"
+    return key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0].split(
+        "<")[0]
+
+
+def device_ms(fn, reps: int = 20, attempts: int = 10) -> tuple[float, str, dict | None]:
+    """Device time of one call, where it came from, and its split by the
+    CUDA kernels the call launches (ms each, by ``_kernel_name``).
 
     First choice, ``"profiler"``: the summed durations of every kernel the
     call launches (host work and gaps between launches are not counted).
@@ -356,22 +409,31 @@ def device_ms(fn, reps: int = 20, attempts: int = 10) -> tuple[float, str]:
     ``attempts`` times.  Late in a long run the profiler can lose some
     kernels of every window of a call that launches one kernel; then the
     time is ``queued_ms``'s, ``"queued_events"``, which also counts the
-    device's gaps between kernels (about 1 µs a launch)."""
+    device's gaps between kernels (about 1 µs a launch), and the split is
+    that time under the one kernel's name (None if the windows named
+    several)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    names: set[str] = set()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if _is_device_event(e)]
+        names |= {_kernel_name(e.key) for e in kernels}
         total_us = sum(e.device_time_total for e in kernels)
         if total_us > 0 and sum(e.count for e in kernels) >= reps:
-            return total_us / reps / 1e3, "profiler"
-    return queued_ms(fn, reps), "queued_events"
+            split: dict[str, float] = {}
+            for e in kernels:
+                name = _kernel_name(e.key)
+                split[name] = split.get(name, 0.0) + e.device_time_total / reps / 1e3
+            return total_us / reps / 1e3, "profiler", split
+    ms = queued_ms(fn, reps)
+    return ms, "queued_events", ({names.pop(): ms} if len(names) == 1 else None)
 
 
 def queued_ms(fn, reps: int = 20, spin_cycles: int = 20_000_000) -> float:
@@ -407,19 +469,21 @@ def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None, **
     PyTorch call computes the same function) that call's device time, beside
     the bound, at ``shape``; ``ms_from`` names each time's source.
     ``plain_reps`` times a slow plain version (a Python loop over time) over
-    fewer calls; ``extra`` (the kernel's path) goes into the line as is."""
-    (ms, k_src) = device_ms(k_fn)
-    plain_ms, p_src = device_ms(p_fn) if plain_reps is None else device_ms(p_fn, reps=plain_reps)
-    lib_ms, l_src = device_ms(lib_fn) if lib_fn is not None else (None, None)
+    fewer calls; ``ms_by_kernel`` splits the kernel call's device time by
+    CUDA kernel; ``extra`` (the kernel's path) goes into the line as is."""
+    ms, k_src, k_split = device_ms(k_fn)
+    plain_ms, p_src, _ = (device_ms(p_fn) if plain_reps is None
+                          else device_ms(p_fn, reps=plain_reps))
+    lib_ms, l_src, _ = device_ms(lib_fn) if lib_fn is not None else (None, None, None)
     nbytes, flops = cost(name, shape, dtype)
     row = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(name, shape, dtype),
-           "rate": rate(name, dtype)[1],
+           "rate": " + ".join(unit for _, _, unit in units(name, shape, dtype)),
            "library_ms": lib_ms, "ms_from": {"ms": k_src, "plain_ms": p_src, "library_ms": l_src},
            "call_ms": call_ms(k_fn),
            "plain_call_ms": call_ms(p_fn) if plain_reps is None else call_ms(p_fn, plain_reps, 1),
            "bytes": nbytes, "flops": flops, "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
-           **extra}
+           "ms_by_kernel": k_split, **extra}
     line("times", kernel=name, **row)
     return row
 
@@ -446,9 +510,13 @@ def check_bwd_kernels(dev) -> dict:
             gld = torch.randn(shape[0], generator=g).to(dev)
             w_inv = torch.linalg.inv(w)
             ca = shape[-1] // 2
+            before = dict(kern.spine_bwd.launches_by_path)
             got = kern.spine_bwd(x2, gx2, w, w_inv, ls, ab)
             again = kern.spine_bwd(x2, gx2, w, w_inv, ls, ab)
             ref = spine_bwd_ref(x2, gx2, w, w_inv, ls, ab)
+            path = kern.spine_path(x2, gx2)
+            check(path == "cluster" and kern.spine_bwd.launches_by_path[path] == before[path] + 2,
+                  f"spine_bwd at {shape} {dname} did not take the cluster kernel")
             c_got = ckern.coupling_bwd(x2[..., :ca], raw, t, gx2[..., :ca], gld)
             c_ref = coupling_bwd_ref(x2[..., :ca], raw, t, gx2[..., :ca], gld)
             torch.cuda.synchronize()
@@ -472,7 +540,8 @@ def check_bwd_kernels(dev) -> dict:
             if dtype == torch.float32:
                 for name in max_err:
                     max_err[name] = max(max_err[name], errs[name])
-            line("kernels", shape=list(shape), dtype=dname, spine_bwd_max_abs_err=errs["spine_bwd"],
+            line("kernels", shape=list(shape), dtype=dname, spine_bwd_path=path,
+                 spine_bwd_max_abs_err=errs["spine_bwd"],
                  spine_bwd_sums_max_rel_err=sum_err, coupling_bwd_max_abs_err=errs["coupling_bwd"],
                  sums_bitwise_repeatable=True)
     return max_err
@@ -520,11 +589,14 @@ def train_phase(dev, card) -> dict:
     kernels = (*kern.KERNELS, *ckern.KERNELS)
     for k in kernels:
         k.launches = 0
+    kern.spine_bwd.launches_by_path = dict.fromkeys(kern.spine_bwd.launches_by_path, 0)
     loss, grads = value_and_grad_nll(flow, x)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
     check(launches == {"flowstep_fwd": 24, "flowstep_inv": 0, "spine_bwd": 24, "coupling_fwd": 0,
                        "coupling_inv": 0, "coupling_bwd": 24}, f"train-step launches: {launches}")
+    spine_by_path = dict(kern.spine_bwd.launches_by_path)
+    check(spine_by_path == {"cluster": 24, "tile": 0}, f"spine_bwd paths: {spine_by_path}")
 
     t0 = time.perf_counter()
     flow_cpu = make("cpu")
@@ -555,6 +627,7 @@ def train_phase(dev, card) -> dict:
          grad_max_rel_err_vs_cpu=grad_rel, grad_worst_leaf_vs_cpu=grad_worst,
          cpu_reference_s=cpu_s, loss_rel_err_vs_stored=st_loss_rel,
          grad_max_rel_err_vs_stored=st_rel, launches_per_train_step=launches,
+         spine_bwd_launches_by_path=spine_by_path,
          train_flow_losses=res.losses, step0_loss_bitwise_equal=res.losses[0] == loss.item(),
          n_params=sum(p.numel() for p in flow.parameters()), card=card)
     return {"launches": launches, "flow": flow, "x": x}
@@ -1351,14 +1424,14 @@ def time_scans(dev) -> dict:
     r, k, v, w, u, s0 = wkv_inputs(WKV_SHAPES[-1], torch.float32, dev, SEED + 25, model_like=True)
     rows["wkv_scan"].append(time_kernel(
         "wkv_scan", WKV_SHAPES[-1], torch.float32, lambda: rk.wkv_scan(r, k, v, w, u, state0=s0),
-        lambda: wkv_ref(r, k, v, w, u, s0), plain_reps=2))
+        lambda: wkv_ref(r, k, v, w, u, s0), plain_reps=2, kernels_per_call=1))
     del r, k, v, w, u, s0
     layers = [wkv_inputs(WKV_DECODE_SHAPE, torch.float32, dev, SEED + 60 + i, model_like=True)
               for i in range(WKV_DECODE_LAYERS)]
     rows["wkv_scan"].append(time_kernel(
         "wkv_scan", WKV_DECODE_SHAPE, torch.float32,
         cycling(lambda r, k, v, w, u, s0: rk.wkv_scan(r, k, v, w, u, state0=s0), layers),
-        cycling(wkv_ref, layers)))
+        cycling(wkv_ref, layers), kernels_per_call=1))
     del layers
     shape = SSD_SHAPES[-1]
     x, da, dt, b_in, c_in, s0 = ssd_inputs(shape, torch.float32, dev, SEED + 26, model_like=True)
@@ -1505,8 +1578,14 @@ def time_flow_kernels(dev) -> dict:
                 "coupling_bwd": (lambda: ckern.coupling_bwd(y_[..., :ca], raw, t, g_[..., :ca], gld),
                                  lambda: coupling_bwd_ref(y_[..., :ca], raw, t, g_[..., :ca], gld)),
             }
+            b, m, c = shape
+            path = kern.spine_path(x_, g_)
+            plan = kern.spine_plan(b * m, c, kern.spine_max_clusters(x_.device, dtype, c))
+            extra = {"spine_bwd": {"path": path, "plan": plan,
+                                   "kernels_per_call": kern.spine_kernels_per_call(path, plan)}}
             for name, (k_fn, p_fn) in runs.items():
-                per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn))
+                per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn,
+                                                   **extra.get(name, {})))
     for name in ("coupling_fwd", "coupling_inv", "conv1x1_mm", "conv1x1_gw"):
         per_shape[name] = []
     for i in range(3):
@@ -1576,13 +1655,24 @@ def main() -> int:
     # each kernel's entry line, then its registers, shared memory and spills
     ptxas = [ln.strip() for log in logs if log.exists() for ln in log.read_text().splitlines()
              if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
+    # wkv_scan's design fits four blocks of 2K threads to an SM: at most 128
+    # registers a thread (its __launch_bounds__), and a spill would put the
+    # state tile in local memory
+    wkv_regs = {n: e for n, e in ptxas_entries(ptxas).items() if "wkv_scan_kernel" in n}
+    check(len(wkv_regs) == 6 and all(e["registers"] is not None and e["registers"] <= 128
+                                     and e["spill_bytes"] == 0 for e in wkv_regs.values()),
+          f"wkv_scan_kernel's registers or spills: {wkv_regs}")
     from repro_torch.kernels.attention import attention as ak
     from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.rwkv import rwkv as rk
     from repro_torch.kernels.ssd import ssd as sk
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gw_plans = {f"{c}, {t}": c1k.gw_plan(rows, c, es, n_sm) for rows, c in zip(
         (131072, 32768, 8192), c1k.STREAM_WIDTHS) for t, es in (("float", 4), ("bf16", 2))}
+    spine_plans = {f"{c}, {t}": kern.spine_plan(rows, c, kern.spine_max_clusters(dev, dt, c))
+                   for rows, c in zip((131072, 32768, 8192), kern.SPINE_WIDTHS)
+                   for t, dt in (("float", torch.float32), ("bf16", torch.bfloat16))}
     line("build", seconds=round(build_s, 3), libraries=[str(p) for p in built.values()],
          ptxas=ptxas, card=card, dynamic_smem_bytes={
              **{f"flash_attention_tc_kernel<{d}>": ak.tc_smem_bytes(d) for d in (64, 128)},
@@ -1592,8 +1682,13 @@ def main() -> int:
                  int(k.split(",")[0]), pl["xw"], pl["slab_rows"], 4 if "float" in k else 2,
                  pl["cluster_size"]) for k, pl in gw_plans.items()},
              **{f"ssd_{which}_kernel<{t}>": b for t, es in (("float", 4), ("bf16", 2))
-                for which, b in sk.ssd_smem_bytes(es).items()}},
-         conv1x1_gw_plans=gw_plans)
+                for which, b in sk.ssd_smem_bytes(es).items()},
+             **{f"wkv_scan_kernel<{t}, {kd}>": rk.wkv_smem_bytes(kd, es)
+                for kd in rk.HEAD_SIZES for t, es in (("float", 4), ("bf16", 2))},
+             **{f"spine_bwd_cluster_kernel<{t}, {c}>": kern.spine_cluster_smem_bytes(
+                 c, es, kern.SPINE_CLUSTER) for c in kern.SPINE_WIDTHS
+                for t, es in (("float", 4), ("bf16", 2))}},
+         conv1x1_gw_plans=gw_plans, spine_bwd_plans=spine_plans)
     mark("build")
 
     # 2. kernels against their plain versions --------------------------------

@@ -5,7 +5,7 @@
 // replace the Pallas kernel
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_mm (_kernel)
 // conv1x1_gw_cluster_kernel (C = 12, 24, 48) and conv1x1_gw_kernel (other C,
-// each with gw_reduce_kernel where its partials need it) replace
+// each with reduce_partials_kernel where its partials need it) replace
 //   src/repro/kernels/conv1x1/conv1x1.py::conv1x1_gw (_gw_kernel)
 //
 //   conv1x1_mm:  y[r, :] = x[r, :] @ W            (W in x's storage type, f32 sums)
@@ -66,19 +66,15 @@
 // cluster barrier, each block of the cluster sums its slice of the (C, C)
 // entries over the cluster's blocks in rank order, reading their shared
 // memory (distributed shared memory).  One cluster writes gW; several write a
-// partial each, which gw_reduce_kernel adds in cluster order.
+// partial each, which reduce_partials_kernel adds in cluster order.
 //
 // At other widths, and for a base that is not 16-byte aligned
 // (conv1x1_gw_kernel): block k owns a fixed chunk of rows and writes its
-// (C, C) partial sum to partial[k]; gw_reduce_kernel then sums each entry
+// (C, C) partial sum to partial[k]; reduce_partials_kernel then sums each entry
 // over the chunks, one warp per entry, in a fixed order.  The caller picks
 // the number of chunks so the partials stay under a quarter of the inputs'
 // bytes, and each thread keeps a 4x4 tile of gW in registers over a strided
 // subset of the chunk's rows; the row groups are added in a fixed order.
-
-#include <cstdint>
-
-#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -119,86 +115,13 @@ conv1x1_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, long long w_
 }
 
 
-// VB bytes (16, 8 or 4) as 32-bit words, from or to shared memory
-template <int VB>
-__device__ __forceinline__ void load_words(const unsigned char* p, uint32_t* w) {
-  if constexpr (VB == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-  } else if constexpr (VB == 8) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x, w[1] = u.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-}
-template <int VB>
-__device__ __forceinline__ void store_words(unsigned char* p, const uint32_t* w) {
-  if constexpr (VB == 16) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (VB == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = w[0];
-  }
-}
-
-// The widest access (16, 8 or 4 bytes) that n values of type T split into
-template <typename T, int n>
-__host__ __device__ constexpr int vec_bytes() {
-  return (n * sizeof(T)) % 16 == 0 ? 16 : (n * sizeof(T)) % 8 == 0 ? 8 : 4;
-}
-
-// n values of type T at p (n * sizeof(T) a multiple of 4, p aligned to its
-// vec_bytes) to f32, and back (rounded to nearest even, as store_f)
-template <typename T, int n>
-__device__ __forceinline__ void load_vals(const unsigned char* p, float* out) {
-  constexpr int kWords = n * (int)sizeof(T) / 4;
-  constexpr int VB = vec_bytes<T, n>();
-  uint32_t w[kWords];
-#pragma unroll
-  for (int v = 0; v < kWords / (VB / 4); ++v) load_words<VB>(p + VB * v, w + (VB / 4) * v);
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      out[i] = __uint_as_float(w[i]);
-    } else {
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
-template <typename T, int n>
-__device__ __forceinline__ void store_vals(unsigned char* p, const float* in) {
-  constexpr int kWords = n * (int)sizeof(T) / 4;
-  constexpr int VB = vec_bytes<T, n>();
-  uint32_t w[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      w[i] = __float_as_uint(in[i]);
-    } else {
-      const __nv_bfloat162 b2 = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&b2);
-    }
-  }
-#pragma unroll
-  for (int v = 0; v < kWords / (VB / 4); ++v) store_words<VB>(p + VB * v, w + (VB / 4) * v);
-}
-
 // Tile t of a warp: rows [t*R, t*R + R) of x, contiguous in memory, copied
-// into buf: 16-byte cp.async copies, and the bytes past the last 16 (a
-// ragged last tile) one element at a time.
+// into buf (a ragged last tile's bytes past the last 16 one element at a time)
 template <typename T, int C, int R>
 __device__ __forceinline__ void mm_issue(const T* __restrict__ x, long long N, long long t,
                                          unsigned char* buf, int lane) {
   const long long r0 = t * R;
-  const int n = (int)min((long long)R, N - r0) * C;  // elements of the tile
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(x + r0 * C);
-  const int chunks = n * (int)sizeof(T) / 16;
-  for (int c = lane; c < chunks; c += 32) cp_async16(buf + 16 * c, src + 16 * c);
-  for (int e = chunks * 16 / (int)sizeof(T) + lane; e < n; e += 32)
-    reinterpret_cast<T*>(buf)[e] = x[r0 * C + e];
+  stage_elems<T>(buf, x + r0 * C, (int)min((long long)R, N - r0) * C, lane, 32);
 }
 
 // OUT: the output columns a lane computes; RPL: the rows it computes them
@@ -280,13 +203,7 @@ conv1x1_mm_stream_kernel(const T* __restrict__ x, const T* __restrict__ w, long 
     for (int u = 0; u < RPL; ++u)
       if (row0 + u < rows) store_vals<T, OUT>(cur + ((row0 + u) * C + j0) * (int)sizeof(T), acc[u]);
     __syncwarp();  // the tile holds y
-    const int n = rows * C;
-    unsigned char* dst = reinterpret_cast<unsigned char*>(y + r0 * C);
-    const int chunks = n * (int)sizeof(T) / 16;
-    for (int c = lane; c < chunks; c += 32)
-      *reinterpret_cast<uint4*>(dst + 16 * c) = *reinterpret_cast<const uint4*>(cur + 16 * c);
-    for (int e = chunks * 16 / (int)sizeof(T) + lane; e < n; e += 32)
-      y[r0 * C + e] = reinterpret_cast<const T*>(cur)[e];
+    store_elems<T>(y + r0 * C, cur, rows * C, lane, 32);
     __syncwarp();  // the buffer is free for the tile after next
   }
 }
@@ -412,19 +329,6 @@ conv1x1_gw_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   }
 }
 
-// out[o] = sum over chunks of partial[chunk, o]: one warp per entry o, lane l
-// summing chunks l, l + 32, ... in order, then a fixed shuffle tree.
-__global__ void gw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                 int n_chunks, int width) {
-  const int o = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (o >= width) return;  // o is the same across a warp
-  float s = 0.f;
-  for (int c = lane; c < n_chunks; c += 32) s += partial[(long long)c * width + o];
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
-  if (lane == 0) out[o] = s;
-}
-
 constexpr int kGwStages = 4;  // the cluster kernel's ring: slabs in flight + 1
 
 // kept equal to gw_cluster_smem_bytes() in kernels/conv1x1/conv1x1.py: the
@@ -436,34 +340,9 @@ __host__ __device__ constexpr int gw_ring_bytes(int C, int XW, int slab_rows, in
              ? kGwStages * slab_rows * (XW + C) * elem_size
              : 4 * kWarps * XW * C;
 }
-__host__ __device__ constexpr int gw_slice_per_rank(int C, int XW, int cl) {
-  return (XW * C + cl - 1) / cl;
-}
 size_t gw_cluster_smem_bytes(int C, int XW, int slab_rows, int elem_size, int cl) {
   return (size_t)gw_ring_bytes(C, XW, slab_rows, elem_size) +
-         sizeof(float) * (XW * C + cl * gw_slice_per_rank(C, XW, cl));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 operands, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Element (r, i) of a staged (rows, W) slab as f32, 0 past its rows or w
-template <typename T, int W>
-__device__ __forceinline__ float slab_at(const unsigned char* s, int r, int i, int rows, int w) {
-  return r < rows && i < w ? load_f(reinterpret_cast<const T*>(s), r * W + i) : 0.f;
+         sizeof(float) * (XW * C + cl * cluster_slice(XW * C, cl));
 }
 
 // Grid: slices x clusters x cl blocks, blockIdx = (slice * clusters +
@@ -487,15 +366,13 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
   constexpr int MT = (XW + 15) / 16, NT = (C + 7) / 8;  // the slice's 16 x 8 tiles
   constexpr int E = XW * C;                             // entries of a slice
   constexpr bool kSplit = sizeof(T) == 4;
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char gsm[];
-  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int per = gw_slice_per_rank(C, XW, cl);
+  const int cl = (int)cooperative_groups::this_cluster().num_blocks();
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
   const int xbytes = slab_rows * XW * (int)sizeof(T), gbytes = slab_rows * C * (int)sizeof(T);
   float* red = reinterpret_cast<float*>(gsm);  // kWarps x E, over the ring
   float* part = reinterpret_cast<float*>(gsm + gw_ring_bytes(C, XW, slab_rows, sizeof(T)));
-  float* inbox = part + E;  // cl x per
+  float* inbox = part + E;  // cl x cluster_slice(E, cl)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int cid = blockIdx.x / cl, slice = cid / clusters, rc = cid % clusters;
@@ -509,11 +386,7 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     const int rows = (int)min((long long)slab_rows, r1 - s0);
     unsigned char* dst = gsm + (sl % kGwStages) * (xbytes + gbytes);
     if constexpr (XW == C) {
-      const int n = rows * C, chunks = n * (int)sizeof(T) / 16;
-      for (int c = tid; c < chunks; c += kThreads)
-        cp_async16(dst + 16 * c, reinterpret_cast<const unsigned char*>(x + s0 * C) + 16 * c);
-      for (int e = chunks * 16 / (int)sizeof(T) + tid; e < n; e += kThreads)
-        reinterpret_cast<T*>(dst)[e] = x[s0 * C + e];
+      stage_elems<T>(dst, x + s0 * C, rows * C, tid, kThreads);
     } else {  // rows of XW values, whole 16-byte pieces (the plan's widths)
       constexpr int kPieces = XW * (int)sizeof(T) / 16;
       for (int c = tid; c < rows * kPieces; c += kThreads) {
@@ -522,12 +395,7 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                    reinterpret_cast<const unsigned char*>(x + (s0 + r) * C + i0) + 16 * q);
       }
     }
-    dst += xbytes;
-    const int n = rows * C, chunks = n * (int)sizeof(T) / 16;
-    for (int c = tid; c < chunks; c += kThreads)
-      cp_async16(dst + 16 * c, reinterpret_cast<const unsigned char*>(gy + s0 * C) + 16 * c);
-    for (int e = chunks * 16 / (int)sizeof(T) + tid; e < n; e += kThreads)
-      reinterpret_cast<T*>(dst)[e] = gy[s0 * C + e];
+    stage_elems<T>(dst + xbytes, gy + s0 * C, rows * C, tid, kThreads);
   };
 
   // two sums, of the even and the odd 8-row steps of the warp, so that two
@@ -547,7 +415,7 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
     cp_async_commit();
   }
   for (int sl = 0; sl < n_slabs; ++sl) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGwStages - 2) : "memory");
+    cp_async_wait<kGwStages - 2>();
     __syncthreads();  // slab sl has landed; slab sl - 1 is no longer read
     if (sl + kGwStages - 1 < n_slabs) issue(sl + kGwStages - 1);
     cp_async_commit();
@@ -575,27 +443,16 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            ah[mi][e] = kSplit ? to_tf32(a[mi][e]) : __float_as_uint(a[mi][e]);
-            al[mi][e] = kSplit ? to_tf32(a[mi][e] - __uint_as_float(ah[mi][e])) : 0u;
-          }
+          for (int e = 0; e < 4; ++e) split_tf32<kSplit>(a[mi][e], ah[mi][e], al[mi][e]);
 #pragma unroll
         for (int ni = 0; ni < NT; ++ni)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            bh[ni][e] = kSplit ? to_tf32(b[ni][e]) : __float_as_uint(b[ni][e]);
-            bl[ni][e] = kSplit ? to_tf32(b[ni][e] - __uint_as_float(bh[ni][e])) : 0u;
-          }
+          for (int e = 0; e < 2; ++e) split_tf32<kSplit>(b[ni][e], bh[ni][e], bl[ni][e]);
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-          for (int ni = 0; ni < NT; ++ni) {
-            if constexpr (kSplit) {
-              mma_tf32(acc[h][mi][ni], al[mi], bh[ni]);
-              mma_tf32(acc[h][mi][ni], ah[mi], bl[ni]);
-            }
-            mma_tf32(acc[h][mi][ni], ah[mi], bh[ni]);
-          }
+          for (int ni = 0; ni < NT; ++ni)
+            mma_3xtf32<kSplit, kSplit>(acc[h][mi][ni], ah[mi], al[mi], bh[ni], bl[ni]);
       }
     }
   }
@@ -612,50 +469,25 @@ conv1x1_gw_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gy,
         if (i < w && j < C) red[warp * E + i * C + j] = acc[0][mi][ni][c] + acc[1][mi][ni][c];
       }
   __syncthreads();
-  // the warps in order, each entry pushed to the inbox of the block that owns it
-  for (int e = tid; e < w * C; e += kThreads) {
-    float s = 0.f;
-    for (int q = 0; q < kWarps; ++q) s += red[q * E + e];
-    const int o = e / per;
-    cluster.map_shared_rank(inbox, o)[rank * per + e - o * per] = s;
-  }
-  cluster.sync();  // every inbox is full
-
-  // this block's slice of the entries, summed over the cluster in rank order
-  float* dst = out + (long long)(clusters == 1 ? 0 : rc) * C * C + (long long)i0 * C;
-  for (int e = tid; e < per && rank * per + e < w * C; e += kThreads) {
-    float s = 0.f;
-    for (int q = 0; q < cl; ++q) s += inbox[q * per + e];
-    dst[rank * per + e] = s;
-  }
+  // the warps in order, then over the cluster in rank order
+  cluster_sum(
+      w * C,
+      [&](int e) {
+        float s = 0.f;
+        for (int q = 0; q < kWarps; ++q) s += red[q * E + e];
+        return s;
+      },
+      inbox, out + (long long)(clusters == 1 ? 0 : rc) * C * C + (long long)i0 * C);
 }
 
 template <typename T, int C, int XW>
 cudaError_t launch_gw_cluster(const void* x, const void* gy, float* out, long long N,
                               long long cta_rows, int slab_rows, int clusters, int cl,
                               cudaStream_t s) {
-  auto kernel = conv1x1_gw_cluster_kernel<T, C, XW>;
-  const size_t smem = gw_cluster_smem_bytes(C, XW, slab_rows, sizeof(T), cl);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cl > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(C / XW * clusters * cl));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(gy), out,
-                           N, cta_rows, slab_rows, clusters);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_clustered(conv1x1_gw_cluster_kernel<T, C, XW>, C / XW * clusters * cl, kThreads,
+                          gw_cluster_smem_bytes(C, XW, slab_rows, sizeof(T), cl), cl, s,
+                          static_cast<const T*>(x), static_cast<const T*>(gy), out, N, cta_rows,
+                          slab_rows, clusters);
 }
 
 template <typename T>
@@ -741,10 +573,7 @@ int conv1x1_gw(int dtype, const void* x, const void* gy, float* partial, float* 
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int width = C * C;
-  const long long reduce_blocks = ((long long)width * 32 + kThreads - 1) / kThreads;
-  gw_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, s>>>(partial, gw, n_chunks, width);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reduce_partials(partial, gw, n_chunks, C * C, s));
 }
 
 // The stream path: C in {12, 24, 48}, x 16-byte aligned (the caller
@@ -783,10 +612,7 @@ int conv1x1_gw_cluster(int dtype, const void* x, const void* gy, float* partial,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess || clusters == 1) return static_cast<int>(err);
-  const int width = C * C;
-  const long long reduce_blocks = ((long long)width * 32 + kThreads - 1) / kThreads;
-  gw_reduce_kernel<<<(unsigned)reduce_blocks, kThreads, 0, s>>>(partial, gw, clusters, width);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_reduce_partials(partial, gw, clusters, C * C, s));
 }
 
 }  // extern "C"

@@ -84,29 +84,6 @@ constexpr int kTileS = kL * kLD;   // floats of a shared tile
 constexpr int kPT = 128;           // threads of a product block: 4 warps of 32 x 32
 constexpr int kStageF = 2 * kTileS + 3 * kL;  // a stage: A tile | B tile | three row vectors
 
-// x in TF32 (its top 19 bits, rounded to nearest), as the tensor cores take it
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo + O(2^-22 |v|), both TF32
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 operands, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // acc += sum_{k < kend} a[k][m] b[k][n] over the warp's 32 x 32 block (rows
 // wm*32.., columns wn*32..) of a 64 x 64 output, two shared tiles stored with
 // the reduction axis first (row stride kLD); kend a multiple of 8.  3xTF32:
@@ -114,7 +91,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // a_hi b_hi, which drops only a_lo b_lo (2^-22 of a b).  acc[mi][ni][c] is
 // row wm*32 + mi*16 + lane/4 (+8 for c >= 2), column wn*32 + ni*8 +
 // 2 (lane % 4) + c % 2.
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[2][4][4], const float* __restrict__ a,
+__device__ __forceinline__ void tile_mma_3xtf32(float (&acc)[2][4][4], const float* __restrict__ a,
                                            const float* __restrict__ b, int kend, int wm,
                                            int wn) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -126,28 +103,26 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[2][4][4], const float* _
     uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
-      split_tf32(ak[mi * 16], ah[mi][0], al[mi][0]);
-      split_tf32(ak[mi * 16 + 8], ah[mi][1], al[mi][1]);
-      split_tf32(ak[4 * kLD + mi * 16], ah[mi][2], al[mi][2]);
-      split_tf32(ak[4 * kLD + mi * 16 + 8], ah[mi][3], al[mi][3]);
+      split_tf32<true>(ak[mi * 16], ah[mi][0], al[mi][0]);
+      split_tf32<true>(ak[mi * 16 + 8], ah[mi][1], al[mi][1]);
+      split_tf32<true>(ak[4 * kLD + mi * 16], ah[mi][2], al[mi][2]);
+      split_tf32<true>(ak[4 * kLD + mi * 16 + 8], ah[mi][3], al[mi][3]);
     }
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
-      split_tf32(bk[ni * 8], bh[ni][0], bl[ni][0]);
-      split_tf32(bk[4 * kLD + ni * 8], bh[ni][1], bl[ni][1]);
+      split_tf32<true>(bk[ni * 8], bh[ni][0], bl[ni][0]);
+      split_tf32<true>(bk[4 * kLD + ni * 8], bh[ni][1], bl[ni][1]);
     }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-        mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-        mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+        mma_3xtf32<true, true>(acc[mi][ni], ah[mi], al[mi], bh[ni], bl[ni]);
       }
   }
 }
 
-// The output row and column of acc[mi][ni][c] (mma_3xtf32's layout)
+// The output row and column of acc[mi][ni][c] (tile_mma_3xtf32's layout)
 __device__ __forceinline__ int acc_row(int wm, int mi, int c) {
   return wm * 32 + mi * 16 + ((threadIdx.x & 31) >> 2) + (c >= 2 ? 8 : 0);
 }
@@ -360,7 +335,7 @@ ssd_cb_kernel(const float* __restrict__ bt, const float* __restrict__ ct, float*
   __syncthreads();
   const int wm = threadIdx.x >> 6, wn = (threadIdx.x >> 5) & 1;
   float acc[2][4][4] = {};
-  mma_3xtf32(acc, tiles, tiles + kTileS, round8(N), wm, wn);
+  tile_mma_3xtf32(acc, tiles, tiles + kTileS, round8(N), wm, wn);
   store_acc(g0t + (((long long)b * K + k) * pairs + pair) * kTileF, acc, wm, wn);
 }
 
@@ -421,7 +396,7 @@ ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ cum,
     }
     convert_x<T>(st + kTileS, stage + (u & 1) * kTileF, ns, P);
     __syncthreads();
-    mma_3xtf32(acc, st, st + kTileS, round8(ns), wm, wn);
+    tile_mma_3xtf32(acc, st, st + kTileS, round8(ns), wm, wn);
   }
   store_acc(states + (((long long)b * H + h) * K + k) * kTileF, acc, wm, wn);
 }
@@ -541,7 +516,7 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ cum,
     cp_async_commit();
     if (j == 0) {
       // the carried state: sum_n C[t][n] state[p][n], times exp(cum_t)
-      mma_3xtf32(acc, st, st + kTileS, round8(N), wm, wn);
+      tile_mma_3xtf32(acc, st, st + kTileS, round8(N), wm, wn);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -602,7 +577,7 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ cum,
     __syncthreads();
     // on the diagonal, a warp's rows wm*32 .. +31 take sources up to its last row
     const int kend = q < r ? round8(ns) : min(round8(ns), wm * 32 + 32);
-    mma_3xtf32(acc, st, st + kTileS, kend, wm, wn);
+    tile_mma_3xtf32(acc, st, st + kTileS, kend, wm, wn);
   }
 
   // y two columns at a time where they are whole and aligned pairs

@@ -56,6 +56,27 @@ def flatten_bmc(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], spatial_size(v.shape), v.shape[-1])
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 to TF32 as the kernels' ``cvt.rna.tf32.f32``: the low 13 mantissa
+    bits rounded off to nearest, ties away from zero (plain PyTorch, for the
+    plain versions that mirror a tensor-core kernel's rounding)."""
+    return ((v.float().contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def product_3xtf32(a: torch.Tensor, b: torch.Tensor, split_b: bool = True) -> torch.Tensor:
+    """``a @ b`` as the kernels' 3xTF32 tensor-core products: each operand
+    split into a TF32 hi and lo, ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, each
+    product exact (float64 here); without ``split_b`` (b is exact in TF32,
+    as bf16 values are) ``a_lo b + a_hi b``.  Returns f32."""
+    ah, bh = tf32_round(a), tf32_round(b) if split_b else b.float()
+    al = tf32_round(a.float() - ah)
+    d = lambda u, v: torch.matmul(u.double(), v.double())  # noqa: E731
+    out = d(al, bh)
+    if split_b:
+        out = out + d(ah, tf32_round(b.float() - bh))
+    return (out + d(ah, bh)).float()
+
+
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (run the plain version), False
     when every tensor lies on one CUDA device (launch the kernel); raises on

@@ -4,9 +4,13 @@
 kernels of the same names in ``repro/kernels/flowstep/flowstep.py``.  All
 three are memory-bound at the served widths (12*B*M*C bytes a launch in f32
 for the first two, 16*B*M*C for ``spine_bwd``); the source notes in
-``flowstep.cu`` give the design.  Each wrapper checks what the kernel takes,
-allocates the outputs, launches on PyTorch's current stream, raises if the
-launch was refused, and adds one to its ``launches`` count.
+``flowstep.cu`` give the design.  ``spine_bwd`` has two kernels, chosen by a
+shape rule (:func:`spine_path`): one pass summed in thread-block clusters at
+the GLOW widths, planned by :func:`spine_plan`, and the per-tile kernel with
+its reduce at any other.  Each wrapper checks what the kernel takes,
+allocates the outputs and scratch, launches on PyTorch's current stream,
+raises if the launch was refused, and adds one to its ``launches`` count
+(``spine_bwd`` also to the path's in ``launches_by_path``).
 """
 
 from __future__ import annotations
@@ -16,12 +20,25 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KERNEL_DTYPES as _DTYPES
-from repro_torch.kernels.common import Kernel, bind, raise_on
+from repro_torch.kernels.common import Kernel, bind, raise_on, stream
 
 #: shared memory a block may take without opting in to more
 SMEM_LIMIT = 48 * 1024
 #: elements a block stages: block_m = max(1, TILE_ELEMS // C) rows
 TILE_ELEMS = 2048
+#: ``spine_bwd``'s cluster kernel: the output columns a lane computes
+#: (``kSpineOut``), the blocks of a cluster, the fewest rows worth another
+#: cluster, and at each width (a template instance each,
+#: ``launch_spine_cluster_c`` in ``flowstep.cu``) the clusters at most: the
+#: fastest of ``tools/kernel_split.py --spine-plans`` on the H100
+#: (``PERF.md``), two blocks an SM at C = 12 and 24, one at C = 48; clusters
+#: of 4 to 16 blocks measured slower at every width
+SPINE_OUT = 12
+SPINE_CLUSTER, SPINE_MIN_ROWS = 2, 32
+SPINE_PLAN = {12: 128, 24: 128, 48: 64}
+SPINE_WIDTHS = tuple(SPINE_PLAN)
+#: threads of a block, and what ``launches_by_path`` counts
+THREADS, SPINE_PATHS = 256, ("cluster", "tile")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -31,6 +48,9 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _I, _F, _I, _P],
     "spine_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _P],
+    "spine_bwd_cluster": [_I, _P, _P, _P, _P, ctypes.POINTER(_L), _P, _P, _P, _P, _P, _P,
+                          _L, _I, _L, _I, _I, _I, _I, _P],
+    "spine_max_clusters": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -50,6 +70,98 @@ def spine_smem_bytes(c: int, block_m: int) -> int:
     channel vectors (3*C) and three tiles (3*block_m*C), in f32
     (``spine_smem_bytes`` in ``flowstep.cu``)."""
     return 4 * (2 * c * c + 3 * c + 3 * block_m * c)
+
+
+def spine_slab_rows(c: int) -> int:
+    """Rows of a cluster-kernel slab at most (``spine_slab_rows`` in
+    ``flowstep.cu``): 8 warps of 32 / (C / SPINE_OUT) rows, one row a lane
+    group, so one pass of the block's lanes covers the slab."""
+    return 8 * 32 // (c // SPINE_OUT)
+
+
+def spine_path(x2, gx2) -> str:
+    """The kernel that computes ``spine_bwd(x2, gx2, ...)``: "cluster" for C
+    in ``SPINE_WIDTHS`` with x2 and gx2 16-byte aligned (its 16-byte
+    copies), "tile" otherwise."""
+    aligned = x2.data_ptr() % 16 == 0 and gx2.data_ptr() % 16 == 0
+    return "cluster" if x2.shape[-1] in SPINE_WIDTHS and aligned else "tile"
+
+
+def spine_plan(n_rows: int, c: int, max_clusters: int) -> dict[str, int]:
+    """The cluster kernel's launch, as ``gw_plan`` (``kernels/conv1x1``) is
+    conv1x1_gw's: ``clusters`` clusters of ``cluster_size`` blocks; block k
+    takes rows [k cta_rows, (k+1) cta_rows), ``slab_rows`` at a time.  No
+    more clusters than ``SPINE_PLAN`` names, than the card holds at once
+    (``max_clusters``), or than give each block ``SPINE_MIN_ROWS`` rows.
+    Row counts are multiples of 8 (whole 8-row steps of the gW product, and
+    16-byte aligned slabs in either storage type), and a block's slabs are
+    as even as 8 rows allow."""
+    round8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    cl = SPINE_CLUSTER
+    clusters = max(1, min(SPINE_PLAN[c], max_clusters, -(-n_rows // (cl * SPINE_MIN_ROWS))))
+    cta_rows = round8(-(-n_rows // (clusters * cl)))
+    slab_rows = round8(-(-cta_rows // -(-cta_rows // spine_slab_rows(c))))
+    return {"clusters": clusters, "cluster_size": cl, "cta_rows": cta_rows,
+            "slab_rows": slab_rows}
+
+
+def spine_walk(n_rows: int, plan: dict[str, int]) -> list[list[tuple[int, int]]]:
+    """The slabs each block of the cluster kernel takes, in its order, as row
+    ranges (the kernel's loop): block k's rows are [k cta_rows, (k+1)
+    cta_rows) cut at ``n_rows``, ``slab_rows`` at a time."""
+    blocks = []
+    for k in range(plan["clusters"] * plan["cluster_size"]):
+        r0 = min(k * plan["cta_rows"], n_rows)
+        r1 = min(r0 + plan["cta_rows"], n_rows)
+        blocks.append([(s, min(s + plan["slab_rows"], r1))
+                       for s in range(r0, r1, plan["slab_rows"])])
+    return blocks
+
+
+def spine_groups(c: int) -> int:
+    """The groups of 8-row steps that gW's products split into
+    (``spine_groups`` in ``flowstep.cu``): 8 warps over its 16 x 8 tiles,
+    so at C = 12 each of the two tiles takes four warps."""
+    tiles = -(-c // 16) * -(-c // 8)
+    return 1 if tiles >= 8 else 8 // tiles
+
+
+def spine_cluster_smem_bytes(c: int, elem_size: int, cl: int) -> int:
+    """Shared memory of one cluster-kernel block (``spine_cluster_smem_bytes``
+    in ``flowstep.cu``): W^-1, W^T and three channel vectors in f32; two
+    stages of x2 and gx2 slabs, the f32 x1 slab and the gx slab, which the
+    groups' gW and the 8 warps' column sums then reuse; the inbox of the
+    block's share of the C*C + 2*C sums from each of the ``cl`` blocks of
+    its cluster."""
+    tr = spine_slab_rows(c)
+    tail = max((2 * 2 * elem_size + 4 + elem_size) * tr * c,
+               4 * (spine_groups(c) * c * c + 8 * 2 * c))
+    e = c * c + 2 * c
+    return 4 * (2 * c * c + 3 * c) + tail + 4 * cl * -(-e // cl)
+
+
+_max_clusters: dict[tuple, int] = {}
+
+
+def spine_max_clusters(device, dtype, c: int) -> int:
+    """How many clusters of the cluster kernel the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per device, dtype and C."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    key = (index, dtype, c)
+    if key not in _max_clusters:
+        n = ctypes.c_int(0)
+        raise_on(_fn("spine_max_clusters")(_DTYPES[dtype], c, SPINE_CLUSTER, index,
+                                           ctypes.byref(n)), "spine_bwd")
+        _max_clusters[key] = max(1, n.value)
+    return _max_clusters[key]
+
+
+def spine_kernels_per_call(path: str, plan: dict[str, int] | None) -> int:
+    """CUDA kernels one ``spine_bwd`` call launches: the cluster kernel, and
+    the reduce of its clusters' partials where there are several; the tile
+    kernel and its reduce."""
+    return 1 if path == "cluster" and plan["clusters"] == 1 else 2
 
 
 def _check(x, an_log_s, an_b, w, raw, t):
@@ -115,6 +227,10 @@ class _FlowstepInv(Kernel):
 
 
 class _SpineBwd(Kernel):
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.launches_by_path = dict.fromkeys(SPINE_PATHS, 0)
+
     def __call__(self, x2, gx2, w, w_inv, an_log_s, an_b):
         """x2, gx2: (B, M, C) -> (x, gx: (B, M, C) in x2's dtype, gW: (C, C),
         g_log_s, g_b: (C,), all three f32)."""
@@ -130,24 +246,43 @@ class _SpineBwd(Kernel):
         if (tuple(w.shape) != (c, c) or tuple(w_inv.shape) != (c, c)
                 or tuple(an_log_s.shape) != (c,) or tuple(an_b.shape) != (c,)):
             raise ValueError("W and W^-1 must be (C, C) and the actnorm parameters (C,)")
-        block_m = max(1, min(m, TILE_ELEMS // c))
-        if spine_smem_bytes(c, block_m) > SMEM_LIMIT:
-            raise ValueError(f"C={c}: W, W^-1 and the tiles do not fit in {SMEM_LIMIT} bytes "
-                             "of shared memory")
-        w32, wi32, ls, ab = (v.to(torch.float32).contiguous() for v in (w, w_inv, an_log_s, an_b))
-        n_blocks = b * -(-m // block_m)
+        ls, ab = (v.to(torch.float32).contiguous() for v in (an_log_s, an_b))
+        w32, wi32 = w.to(torch.float32), w_inv.to(torch.float32)
         x = torch.empty_like(x2)
         gx = torch.empty_like(x2)
-        partial = torch.empty((n_blocks, c * c + 2 * c), dtype=torch.float32, device=x2.device)
         sums = torch.empty((c * c + 2 * c,), dtype=torch.float32, device=x2.device)
-        err = _fn("spine_bwd")(
-            _DTYPES[x2.dtype], x2.data_ptr(), gx2.data_ptr(), w32.data_ptr(), wi32.data_ptr(),
-            ls.data_ptr(), ab.data_ptr(), x.data_ptr(), gx.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), b, m, c, block_m, x2.device.index,
-            torch.cuda.current_stream(x2.device).cuda_stream,
-        )
+        path = spine_path(x2, gx2)
+        if path == "cluster":  # W and W^-1 read through their strides
+            plan = spine_plan(b * m, c, spine_max_clusters(x2.device, x2.dtype, c))
+            partial = (None if plan["clusters"] == 1 else
+                       torch.empty((plan["clusters"], c * c + 2 * c), dtype=torch.float32,
+                                   device=x2.device))
+            strides = (ctypes.c_longlong * 4)(*w32.stride(), *wi32.stride())
+            err = _fn("spine_bwd_cluster")(
+                _DTYPES[x2.dtype], x2.data_ptr(), gx2.data_ptr(), w32.data_ptr(),
+                wi32.data_ptr(), strides, ls.data_ptr(), ab.data_ptr(), x.data_ptr(), gx.data_ptr(),
+                None if partial is None else partial.data_ptr(), sums.data_ptr(), b * m, c,
+                plan["cta_rows"], plan["slab_rows"], plan["clusters"], plan["cluster_size"],
+                x2.device.index, stream(x2),
+            )
+        else:
+            block_m = max(1, min(m, TILE_ELEMS // c))
+            if spine_smem_bytes(c, block_m) > SMEM_LIMIT:
+                raise ValueError(f"C={c}: W, W^-1 and the tiles do not fit in {SMEM_LIMIT} bytes "
+                                 "of shared memory")
+            n_blocks = b * -(-m // block_m)
+            partial = torch.empty((n_blocks, c * c + 2 * c), dtype=torch.float32,
+                                  device=x2.device)
+            w32, wi32 = w32.contiguous(), wi32.contiguous()
+            err = _fn("spine_bwd")(
+                _DTYPES[x2.dtype], x2.data_ptr(), gx2.data_ptr(), w32.data_ptr(),
+                wi32.data_ptr(), ls.data_ptr(), ab.data_ptr(), x.data_ptr(), gx.data_ptr(),
+                partial.data_ptr(), sums.data_ptr(), b, m, c, block_m, x2.device.index,
+                stream(x2),
+            )
         raise_on(err, self.name)
         self.launches += 1
+        self.launches_by_path[path] += 1
         return x, gx, sums[: c * c].view(c, c), sums[c * c: c * c + c], sums[c * c + c:]
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import product_3xtf32
+
 
 def flowstep_fwd_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0):
     """(y, ld_coupling): actnorm -> x @ W -> affine-couple the first half."""
@@ -63,3 +65,38 @@ def spine_bwd_ref(x2, gx2, w, w_inv, an_log_s, an_b):
     g_b = torch.sum(gx1, dim=(0, 1))
     g_log_s = torch.sum(gx1 * (x1 - b32), dim=(0, 1))
     return x.to(x2.dtype), gx.to(x2.dtype), gw, g_log_s, g_b
+
+
+def spine_tiled_ref(x2, gx2, w, w_inv, an_log_s, an_b, plan=None):
+    """The cluster kernel's arithmetic in plain PyTorch (``csrc/flowstep.cu``,
+    ``spine_bwd_cluster_kernel``): the same function as
+    :func:`spine_bwd_ref`, with gW's products in 3xTF32 (x1 split into a TF32
+    hi and lo, gx2 too when it is f32; bf16 gx2 is exact in TF32) and the
+    sums over rows taken as the kernel's launch ``plan`` (``spine_plan`` in
+    ``kernels/flowstep/flowstep.py``; one block when None) takes them: each
+    block sums its rows, the blocks of a cluster are added in rank order and
+    the clusters in order.  Returns ``(x, gx, gW, g_log_s, g_b)``."""
+    b, m, c = x2.shape
+    ls32, b32 = an_log_s.float(), an_b.float()
+    x1 = x2.float().reshape(-1, c) @ w_inv.float()
+    gx2_32 = gx2.float().reshape(-1, c)
+    gx1 = gx2_32 @ w.float().T
+    x = ((x1 - b32) * torch.exp(-ls32)).to(x2.dtype).reshape(b, m, c)
+    gx = (gx1 * torch.exp(ls32)).to(x2.dtype).reshape(b, m, c)
+    n = b * m
+    if plan is None:
+        plan = {"clusters": 1, "cluster_size": 1, "cta_rows": n}
+    split_b = x2.dtype == torch.float32
+    total = None
+    for cid in range(plan["clusters"]):
+        cluster = None
+        for rank in range(plan["cluster_size"]):
+            r0 = min((cid * plan["cluster_size"] + rank) * plan["cta_rows"], n)
+            r1 = min(r0 + plan["cta_rows"], n)
+            rows = slice(r0, r1)
+            d = x1[rows] - b32
+            part = torch.cat([product_3xtf32(x1[rows].T, gx2_32[rows], split_b).reshape(-1),
+                              torch.sum(gx1[rows] * d, dim=0), torch.sum(gx1[rows], dim=0)])
+            cluster = part if cluster is None else cluster + part
+        total = cluster if total is None else total + cluster
+    return x, gx, total[: c * c].view(c, c), total[c * c: c * c + c], total[c * c + c:]

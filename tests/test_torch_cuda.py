@@ -137,6 +137,40 @@ def test_spine_bwd_matches_plain_version(dev, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,path", [((8, 300, 12), "cluster"), ((2, 1001, 48), "cluster"),
+                                        ((3, 77, 24), "cluster"), ((2, 100, 16), "tile"),
+                                        ((2, 28, 6), "tile")])
+def test_spine_bwd_takes_the_path_its_shape_names(dev, shape, path, dtype):
+    """``spine_path``: the cluster kernel at C = 12, 24, 48 (ragged rows, a
+    plan whose last block is short), the tile kernel at a width off the
+    template path and for an x2 one element off 16 bytes; each against the
+    plain version, its sums bitwise repeatable, one launch on the named
+    path."""
+    x2, ls, ab, w, _, _ = _inputs(*shape, dtype, dev, seed=3)
+    gx2 = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(dev, dtype)
+    w_inv = torch.linalg.inv(w)
+    cases = [(x2, path)]
+    if path == "cluster":
+        odd = torch.cat([torch.zeros(1, dtype=dtype, device=dev), x2.reshape(-1)])[1:]
+        cases.append((odd.view(shape), "tile"))
+    for x2c, want in cases:
+        assert kern.spine_path(x2c, gx2) == want
+        before = dict(kern.spine_bwd.launches_by_path)
+        got = kern.spine_bwd(x2c, gx2, w, w_inv, ls, ab)
+        again = kern.spine_bwd(x2c, gx2, w, w_inv, ls, ab)
+        ref = spine_bwd_ref(x2c, gx2, w, w_inv, ls, ab)
+        torch.cuda.synchronize()
+        assert kern.spine_bwd.launches_by_path[want] == before[want] + 2
+        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        for a, r in zip(got[:2], ref[:2]):
+            _close(a, r, dtype)
+        for name, a, r, b in zip(("gW", "g_log_s", "g_b"), got[2:], ref[2:], again[2:]):
+            err = (a - r).abs().max().item()
+            assert err <= tol * r.abs().max().item(), (name, err)
+            assert torch.equal(a, b), f"{name} not bitwise repeatable"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_coupling_bwd_matches_plain_version(dev, shape, dtype):
     """On strided halves, as the flow step's backward passes them."""
@@ -405,8 +439,10 @@ def _wkv_inputs(shape, dtype, dev, seed=11):
 
 
 # the reference's kernel-test shapes (tests/test_kernels.py:363), a ragged S
-# with K = 64, decode's S = 1, and rwkv6-7b's head size over 300 steps
-WKV_SHAPES = [(1, 2, 128, 16), (2, 4, 64, 32), (2, 3, 37, 64), (8, 64, 1, 64), (2, 4, 300, 64)]
+# (no multiple of the kernel's 16-step stage) at each head size, decode's
+# S = 1, and rwkv6-7b's head size over 300 steps
+WKV_SHAPES = [(1, 2, 128, 16), (2, 4, 64, 32), (2, 3, 37, 64), (8, 64, 1, 64), (2, 4, 300, 64),
+              (2, 3, 21, 16), (1, 2, 45, 32)]
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -425,6 +461,46 @@ def test_wkv_scan_matches_plain_version(dev, shape, dtype, with_state):
     torch.testing.assert_close(y, y_ref, **_scan_tol(dtype))
     torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
     assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kd", [16, 32, 64])
+def test_wkv_scan_takes_strided_and_misaligned_views(dev, kd, dtype):
+    """(B, S, H, K) tensors viewed as (B, H, S, K), as the model passes them,
+    and views whose base is one element off 16 bytes (the wrapper copies
+    them for the kernel's 16-byte copies): y keeps r's layout where it can,
+    equals the plain version and is bitwise repeatable, with and without a
+    state."""
+    b, h, s = 2, 3, 29
+    r, k, v, w, u, state0 = _wkv_inputs((b, h, s, kd), dtype, dev, seed=14)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, w)]
+    flat = torch.cat([torch.zeros(1, dtype=dtype, device=dev), r.transpose(1, 2).reshape(-1)])
+    odd = flat[1:].view(b, s, h, kd).transpose(1, 2)
+    assert odd.data_ptr() % 16 != 0 and torch.equal(odd, r)
+    for args in (views, [odd] + views[1:]):
+        for s0 in (None, state0):
+            y, st = rkern.wkv_scan(*args, u, state0=s0)
+            y2, st2 = rkern.wkv_scan(*args, u, state0=s0)
+            y_ref, st_ref = wkv_ref(*args, u, s0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, y_ref, **_scan_tol(dtype))
+            torch.testing.assert_close(st, st_ref, **_scan_tol(dtype))
+            assert torch.equal(y, y2) and torch.equal(st, st2)
+    assert rkern.wkv_scan(*views, u)[0].stride() == views[0].stride()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kd", [16, 32, 64])
+def test_wkv_decode_step_is_the_staged_first_step(dev, kd, dtype):
+    """A decode step (S = 1) reads r, k, w, v straight from HBM; its y is
+    bitwise the first step of the staged path (S = 17) on the same inputs."""
+    r, k, v, w, u, state0 = _wkv_inputs((2, 3, 17, kd), dtype, dev, seed=16)
+    y, _ = rkern.wkv_scan(r, k, v, w, u, state0=state0)
+    y1, st1 = rkern.wkv_scan(*(t[:, :, :1] for t in (r, k, v, w)), u, state0=state0)
+    y_ref, st_ref = wkv_ref(*(t[:, :, :1] for t in (r, k, v, w)), u, state0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y[:, :, :1])
+    torch.testing.assert_close(st1, st_ref, **_scan_tol(dtype))
 
 
 def _ssd_inputs(shape, dtype, dev, seed=12):

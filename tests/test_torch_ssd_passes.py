@@ -27,6 +27,7 @@ import torch
 from repro.kernels.ssd.ops import mamba2_ssd as j_mamba2_ssd
 from repro.kernels.ssd.ref import ssd_ref as j_ssd_ref
 from repro.nn import ssm as jssm
+from repro_torch.kernels.common import product_3xtf32, tf32_round
 from repro_torch.kernels.conv1x1 import conv1x1 as ckern
 from repro_torch.kernels.ssd import ssd as skern
 from repro_torch.kernels.ssd.ref import ssd_passes_ref, ssd_ref
@@ -101,23 +102,14 @@ def test_ssd_passes_carry_an_initial_state(shape):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def _tf32(v: torch.Tensor) -> torch.Tensor:
-    """f32 to TF32 as ``cvt.rna.tf32.f32``: the low 13 mantissa bits rounded
-    off to nearest, ties away from zero."""
-    return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def _product_3xtf32(a, b):
     """The kernel's product: each operand split into a TF32 hi and lo,
     a_lo b_hi + a_hi b_lo + a_hi b_hi, each product exact (float64 here)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    d = lambda u, v: torch.matmul(u.double(), v.double())  # noqa: E731
-    return (d(al, bh) + d(ah, bl) + d(ah, bh)).float()
+    return product_3xtf32(a, b)
 
 
 def _product_tf32(a, b):
-    return torch.matmul(_tf32(a).double(), _tf32(b).double()).float()
+    return torch.matmul(tf32_round(a).double(), tf32_round(b).double()).float()
 
 
 @pytest.mark.parametrize("product,within", [(_product_3xtf32, True), (_product_tf32, False)],
