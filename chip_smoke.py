@@ -23,7 +23,12 @@ kernel against its plain PyTorch version.  Phases, one line each:
 2. kernels - each kernel against its plain version at the model's shapes and
              a ragged one, in f32 and bf16, on strided views where the path
              passes them; the logdets and the sums over (b, m) are bitwise
-             repeatable; ``invertible_conv1x1``'s gradient against autograd
+             repeatable; ``flowstep_fwd`` / ``flowstep_inv``'s path (the
+             persistent stream at C = 12, 24, 48 on the halves of one
+             conditioner output, at every shape and the ragged one, y, x and
+             ld bitwise repeatable and ld against ``flowstep_stream_ref``'s
+             kernel-order sum; the tile kernel for raw and t that are two
+             tensors); ``invertible_conv1x1``'s gradient against autograd
              through the plain version; ``conv1x1_mm``'s path (the stream
              at C = 12, 24, 48, the W panels at other widths) and
              ``conv1x1_gw``'s (the cluster sum on the tensor cores at
@@ -37,7 +42,8 @@ kernel against its plain PyTorch version.  Phases, one line each:
              against the same model on the CPU, ``sample`` (the unrolled
              model through its ``kernel_inverse=True`` twin) then
              ``log_prob`` of the samples, the round trip
-             ``forward(inverse(z)) == z``, and the launches of each call;
+             ``forward(inverse(z)) == z``, and the launches of each call
+             (the scanned model's 24 flow-step launches all on the stream);
 4. train   - ``grad_mode="coupled"``, scanned then unrolled: one
              ``value_and_grad_nll`` against the same model on the CPU and
              against another backward on the card (scanned: ``stored``;
@@ -57,7 +63,9 @@ kernel against its plain PyTorch version.  Phases, one line each:
              where one PyTorch call computes the same function, that call's;
              ``kernels_per_call`` where one call runs several CUDA kernels
              (``ssd_scan``'s five passes, ``conv1x1_gw``'s and
-             ``spine_bwd``'s reduce, one for ``wkv_scan``), and each call's
+             ``spine_bwd``'s reduce, ``flowstep_fwd``'s ld reduce, one for
+             ``wkv_scan`` and ``flowstep_inv``), the path of the kernels
+             that have two, and each call's
              device time split by CUDA kernel (``ms_by_kernel``);
              end-to-end ``log_prob``, ``sample`` and the train step of both
              models; one profiled call of each, with device time by op and
@@ -587,9 +595,7 @@ def train_phase(dev, card) -> dict:
           "coupled_bwd='auto' did not resolve to 'reversible' on cuda")
 
     kernels = (*kern.KERNELS, *ckern.KERNELS)
-    for k in kernels:
-        k.launches = 0
-    kern.spine_bwd.launches_by_path = dict.fromkeys(kern.spine_bwd.launches_by_path, 0)
+    reset(kernels)
     loss, grads = value_and_grad_nll(flow, x)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
@@ -597,6 +603,8 @@ def train_phase(dev, card) -> dict:
                        "coupling_inv": 0, "coupling_bwd": 24}, f"train-step launches: {launches}")
     spine_by_path = dict(kern.spine_bwd.launches_by_path)
     check(spine_by_path == {"cluster": 24, "tile": 0}, f"spine_bwd paths: {spine_by_path}")
+    fwd_by_path = dict(kern.flowstep_fwd.launches_by_path)
+    check(fwd_by_path == {"stream": 24, "tile": 0}, f"flowstep_fwd paths: {fwd_by_path}")
 
     t0 = time.perf_counter()
     flow_cpu = make("cpu")
@@ -627,7 +635,7 @@ def train_phase(dev, card) -> dict:
          grad_max_rel_err_vs_cpu=grad_rel, grad_worst_leaf_vs_cpu=grad_worst,
          cpu_reference_s=cpu_s, loss_rel_err_vs_stored=st_loss_rel,
          grad_max_rel_err_vs_stored=st_rel, launches_per_train_step=launches,
-         spine_bwd_launches_by_path=spine_by_path,
+         spine_bwd_launches_by_path=spine_by_path, flowstep_fwd_launches_by_path=fwd_by_path,
          train_flow_losses=res.losses, step0_loss_bitwise_equal=res.losses[0] == loss.item(),
          n_params=sum(p.numel() for p in flow.parameters()), card=card)
     return {"launches": launches, "flow": flow, "x": x}
@@ -807,8 +815,11 @@ def build_coupled(device, kernel_inverse=False, grad_mode=None):
 
 
 def reset(kernels):
+    """Set every launch count to 0, by path too where a kernel has two."""
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "launches_by_path"):
+            k.launches_by_path = dict.fromkeys(k.launches_by_path, 0)
 
 
 def coupled_serve_phase(dev, card, x_cpu) -> dict:
@@ -1581,8 +1592,12 @@ def time_flow_kernels(dev) -> dict:
             b, m, c = shape
             path = kern.spine_path(x_, g_)
             plan = kern.spine_plan(b * m, c, kern.spine_max_clusters(x_.device, dtype, c))
+            flow_path = kern.flowstep_path(x_, raw, t)
             extra = {"spine_bwd": {"path": path, "plan": plan,
-                                   "kernels_per_call": kern.spine_kernels_per_call(path, plan)}}
+                                   "kernels_per_call": kern.spine_kernels_per_call(path, plan)},
+                     **{name: {"path": flow_path, "plan": kern.FLOW_PLAN[c],
+                               "kernels_per_call": kern.KERNELS_PER_CALL[name]}
+                        for name in ("flowstep_fwd", "flowstep_inv")}}
             for name, (k_fn, p_fn) in runs.items():
                 per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn,
                                                    **extra.get(name, {})))
@@ -1628,7 +1643,8 @@ def main() -> int:
     from repro_torch.core import derive_key, std_normal_sample, value_and_grad_nll
     from repro_torch.kernels import common
     from repro_torch.kernels.flowstep import flowstep as kern
-    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref
+    from repro_torch.kernels.flowstep.ref import (flowstep_fwd_ref, flowstep_inv_ref,
+                                                  flowstep_stream_ref)
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.serve.engine import FlowServeEngine
 
@@ -1687,7 +1703,9 @@ def main() -> int:
                 for kd in rk.HEAD_SIZES for t, es in (("float", 4), ("bf16", 2))},
              **{f"spine_bwd_cluster_kernel<{t}, {c}>": kern.spine_cluster_smem_bytes(
                  c, es, kern.SPINE_CLUSTER) for c in kern.SPINE_WIDTHS
-                for t, es in (("float", 4), ("bf16", 2))}},
+                for t, es in (("float", 4), ("bf16", 2))},
+             **{f"flowstep_{{fwd,inv}}_stream_kernel<{t}, {c}>": kern.flow_stream_smem_bytes(c, es)
+                for c in kern.FLOW_PLAN for t, es in (("float", 4), ("bf16", 2))}},
          conv1x1_gw_plans=gw_plans, spine_bwd_plans=spine_plans)
     mark("build")
 
@@ -1696,16 +1714,26 @@ def main() -> int:
     for shape in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x, ls, ab, w, raw, t = step_inputs(shape, dtype, dev, SEED)
+            path = kern.flowstep_path(x, raw, t)
+            check(path == "stream", f"flowstep at {shape} {dtype} would take the {path} path")
+            before = (dict(kern.flowstep_fwd.launches_by_path),
+                      dict(kern.flowstep_inv.launches_by_path))
             y, ld = kern.flowstep_fwd(x, ls, ab, w, raw, t)
             y_r, ld_r = flowstep_fwd_ref(x, ls, ab, w, raw, t)
-            _, ld_again = kern.flowstep_fwd(x, ls, ab, w, raw, t)
+            y_again, ld_again = kern.flowstep_fwd(x, ls, ab, w, raw, t)
             w_inv = torch.linalg.inv(w)
             xb = kern.flowstep_inv(y_r, ls, ab, w_inv, raw, t)
             xb_r = flowstep_inv_ref(y_r, ls, ab, w_inv, raw, t)
+            xb_again = kern.flowstep_inv(y_r, ls, ab, w_inv, raw, t)
+            _, ld_k = flowstep_stream_ref(x, ls, ab, w, raw, t)
             torch.cuda.synchronize()
+            check(kern.flowstep_fwd.launches_by_path["stream"] == before[0]["stream"] + 2
+                  and kern.flowstep_inv.launches_by_path["stream"] == before[1]["stream"] + 2,
+                  f"flowstep at {shape} {dtype} did not take the stream")
             err_y = (y.float() - y_r.float()).abs().max().item()
             err_x = (xb.float() - xb_r.float()).abs().max().item()
             err_ld = ((ld - ld_r).abs() / ld_r.abs().clamp_min(1.0)).max().item()
+            err_ld_k = ((ld - ld_k).abs() / ld_k.abs().clamp_min(1.0)).max().item()
             if dtype == torch.float32:
                 check(err_y <= TOL_F32 and err_x <= TOL_F32, f"f32 {shape}: y {err_y}, x {err_x}")
                 max_err["flowstep_fwd"] = max(max_err["flowstep_fwd"], err_y)
@@ -1714,11 +1742,43 @@ def main() -> int:
                 for a, r, what in ((y, y_r, "y"), (xb, xb_r, "x")):
                     bad = (a.float() - r.float()).abs() > TOL_BF16 + TOL_BF16 * r.float().abs()
                     check(not bad.any().item(), f"bf16 {shape}: {what}")
-            check(err_ld <= TOL_LD_REL, f"ld {shape} {dtype}: {err_ld}")
-            check(torch.equal(ld, ld_again), f"ld not bitwise repeatable at {shape} {dtype}")
-            line("kernels", shape=list(shape), dtype=str(dtype).removeprefix("torch."),
+            check(err_ld <= TOL_LD_REL and err_ld_k <= TOL_LD_REL,
+                  f"ld {shape} {dtype}: {err_ld} (plain), {err_ld_k} (kernel order)")
+            check(torch.equal(ld, ld_again) and torch.equal(y, y_again)
+                  and torch.equal(xb, xb_again),
+                  f"y, ld or x not bitwise repeatable at {shape} {dtype}")
+            line("kernels", shape=list(shape), dtype=str(dtype).removeprefix("torch."), path=path,
                  fwd_max_abs_err=err_y, inv_max_abs_err=err_x, ld_max_rel_err=err_ld,
-                 ld_bitwise_repeatable=True)
+                 ld_max_rel_err_vs_kernel_order=err_ld_k, bitwise_repeatable=True)
+    # the tile kernel: raw and t two tensors, not the halves of one
+    for dtype in (torch.float32, torch.bfloat16):
+        x, ls, ab, w, raw, t = step_inputs(SHAPES[-1], dtype, dev, SEED)
+        raw, t = raw.contiguous(), t.contiguous()
+        check(kern.flowstep_path(x, raw, t) == "tile",
+              "separate raw and t not sent to the tile path")
+        before = (dict(kern.flowstep_fwd.launches_by_path),
+                  dict(kern.flowstep_inv.launches_by_path))
+        y, ld = kern.flowstep_fwd(x, ls, ab, w, raw, t)
+        y_r, ld_r = flowstep_fwd_ref(x, ls, ab, w, raw, t)
+        w_inv = torch.linalg.inv(w)
+        xb = kern.flowstep_inv(y_r, ls, ab, w_inv, raw, t)
+        xb_r = flowstep_inv_ref(y_r, ls, ab, w_inv, raw, t)
+        torch.cuda.synchronize()
+        check(kern.flowstep_fwd.launches_by_path["tile"] == before[0]["tile"] + 1
+              and kern.flowstep_inv.launches_by_path["tile"] == before[1]["tile"] + 1,
+              "flowstep did not take the tile path")
+        err_y = (y.float() - y_r.float()).abs().max().item()
+        err_x = (xb.float() - xb_r.float()).abs().max().item()
+        err_ld = ((ld - ld_r).abs() / ld_r.abs().clamp_min(1.0)).max().item()
+        if dtype == torch.float32:
+            check(err_y <= TOL_F32 and err_x <= TOL_F32, f"tile path f32: y {err_y}, x {err_x}")
+        else:
+            for a, r, what in ((y, y_r, "y"), (xb, xb_r, "x")):
+                bad = (a.float() - r.float()).abs() > TOL_BF16 + TOL_BF16 * r.float().abs()
+                check(not bad.any().item(), f"tile path bf16: {what}")
+        check(err_ld <= TOL_LD_REL, f"tile path ld {dtype}: {err_ld}")
+        line("kernels", shape=list(SHAPES[-1]), dtype=str(dtype).removeprefix("torch."),
+             path="tile", fwd_max_abs_err=err_y, inv_max_abs_err=err_x, ld_max_rel_err=err_ld)
     max_err.update(check_bwd_kernels(dev))
     max_err.update(check_unrolled_kernels(dev))
     attn_errs = check_attention_kernel(dev)
@@ -1738,13 +1798,15 @@ def main() -> int:
     x_cpu = torch.rand((BATCH, HW, HW, 3), generator=g) - 0.5  # images scaled to [-0.5, 0.5)
     x = x_cpu.to(dev)
 
-    for k in kern.KERNELS:
-        k.launches = 0
+    reset(kern.KERNELS)
     lp = engine.log_prob(x)
     torch.cuda.synchronize()
     launches = {"flowstep_fwd": kern.flowstep_fwd.launches}
+    by_path = {"log_prob": dict(kern.flowstep_fwd.launches_by_path)}
     check(kern.flowstep_fwd.launches == 24 and kern.flowstep_inv.launches == 0,
           f"log_prob launches: {kern.KERNELS}")
+    check(by_path["log_prob"] == {"stream": 24, "tile": 0},
+          f"log_prob flowstep_fwd paths: {by_path['log_prob']}")
 
     lp_cpu = FlowServeEngine(flow_cpu, device="cpu").log_prob(x_cpu)
     rel = ((lp.cpu() - lp_cpu).abs() / lp_cpu.abs()).max().item()
@@ -1753,13 +1815,15 @@ def main() -> int:
     with torch.inference_mode():
         z_data, _ = engine.flow(x)
     like = tuple(torch.empty_like(v, device="meta") for v in z_data)
-    for k in kern.KERNELS:
-        k.launches = 0
+    reset(kern.KERNELS)
     samples = engine.sample(torch.Generator().manual_seed(SEED + 3), like)
     torch.cuda.synchronize()
     launches["flowstep_inv"] = kern.flowstep_inv.launches
+    by_path["sample"] = dict(kern.flowstep_inv.launches_by_path)
     check(kern.flowstep_inv.launches == 24 and kern.flowstep_fwd.launches == 0,
           f"sample launches: {kern.KERNELS}")
+    check(by_path["sample"] == {"stream": 24, "tile": 0},
+          f"sample flowstep_inv paths: {by_path['sample']}")
 
     lp_s = engine.log_prob(samples)
     z = std_normal_sample(derive_key(torch.Generator().manual_seed(SEED + 3), 0, dev), like)
@@ -1773,7 +1837,8 @@ def main() -> int:
          log_prob_rel_err_vs_cpu=rel, sample_shape=list(samples.shape),
          sample_log_prob_mean=lp_s.mean().item(), round_trip_max_abs_err=rt,
          launches={"log_prob": {"flowstep_fwd": launches["flowstep_fwd"]},
-                   "sample": {"flowstep_inv": launches["flowstep_inv"]}})
+                   "sample": {"flowstep_inv": launches["flowstep_inv"]}},
+         launches_by_path=by_path)
 
     coupled = coupled_serve_phase(dev, card, x_cpu)
     launches.update(coupled["launches"])

@@ -244,7 +244,7 @@ cudaError_t launch_stream_c(const void* x, const void* w, long long w_si, long l
   switch (C) {
     // (output columns, rows) a lane, warps a block: the fastest in f32 of a
     // sweep at GLOW's shapes on the H100 (PERF.md); kept equal to
-    // STREAM_PLAN in kernels/conv1x1/conv1x1.py
+    // STREAM_PLAN in kernels/common.py
     case 12: return launch_stream<T, 12, 12, 1, 8>(x, w, w_si, w_sj, y, N, device, s);
     case 24: return launch_stream<T, 24, 12, 2, 4>(x, w, w_si, w_sj, y, N, device, s);
     case 48: return launch_stream<T, 48, 6, 2, 8>(x, w, w_si, w_sj, y, N, device, s);

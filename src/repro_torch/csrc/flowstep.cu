@@ -1,36 +1,84 @@
 // Fused GLOW flow step for Hopper (sm_90a): actnorm -> 1x1 conv -> affine
 // coupling, forward and inverse, on the (B, M, C) view.
 //
-// flowstep_fwd_kernel replaces the Pallas kernel
+// flowstep_fwd_stream_kernel (C = 12, 24, 48, with ld_reduce_kernel) and
+// flowstep_fwd_kernel (other widths and layouts, with ld_reduce_kernel)
+// replace the Pallas kernel
 //   src/repro/kernels/flowstep/flowstep.py::flowstep_fwd (_fwd_kernel)
-// flowstep_inv_kernel replaces
+// flowstep_inv_stream_kernel (C = 12, 24, 48) and flowstep_inv_kernel (other
+// widths and layouts) replace
 //   src/repro/kernels/flowstep/flowstep.py::flowstep_inv (_inv_kernel)
 // spine_bwd_kernel (with reduce_partials_kernel) replaces
 //   src/repro/kernels/flowstep/flowstep.py::spine_bwd (_spine_bwd_kernel)
 //
-// What bounds them: memory.  A step reads x (or y), raw and t and writes y
-// (or x): with ca = C/2 that is 3*B*M*C elements, 12*B*M*C bytes in f32
-// (about 18.9 MB at (8, 16384, 12), about 5.6 us at 3.35 TB/s), against
-// 2*C flops per element for the C x C product, about 0.6 us at 67 TFLOP/s
-// f32.  So the design moves each byte once: a block stages its tile of rows
-// in shared memory, applies the elementwise part there, and does the C x C
-// product out of shared memory on the CUDA cores with f32 accumulation (at
-// C <= 48 no tensor core is needed).  W (or W^-1) sits in shared memory for
-// the block's life; at C <= 48 in f32 that is at most 9 KB.  At the two
-// smaller scales of the served model, (8, 4096, 24) and (8, 1024, 48), a step
-// moves 9.4 MB and 4.7 MB, 2.8 us and 1.4 us at full bandwidth, so launch
-// latency (a few us) will likely dominate there.
+// What bounds the forward and inverse: memory.  A step reads x (or y), raw
+// and t and writes y (or x): with ca = C/2 that is 3*B*M*C elements,
+// 12*B*M*C bytes in f32 (about 18.9 MB at (8, 16384, 12), about 5.6 us at
+// 3.35 TB/s), against 2*C flops per element for the C x C product, about
+// 0.6 us at 67 TFLOP/s f32.  So each byte moves once, and the C x C product
+// runs out of shared memory on the CUDA cores with f32 accumulation (at
+// C <= 48 no tensor core is needed).  At the two smaller scales of the
+// served model, (8, 4096, 24) and (8, 1024, 48), a step moves 9.4 MB and
+// 4.7 MB, 2.8 us and 1.4 us at full bandwidth, so a call's fixed costs
+// (launch, the first loads' latency) weigh as much as its bytes.
 //
-// Grid: (tiles of block_m rows, B); the kernel masks the ragged last tile
-// itself, so any M works.  raw and t may be strided views (the two halves of
-// the conditioner output): element (b, m, j) sits at b*h_sb + m*h_sm + j.
+// At the GLOW widths C = 12, 24, 48 (flowstep_{fwd,inv}_stream_kernel, C a
+// template parameter; flowstep_path() in kernels/flowstep/flowstep.py picks
+// them when raw and t are the two halves of one contiguous (B, M, C)
+// conditioner output h and x, h and each batch's rows are 16-byte aligned):
+// a persistent, vectorised stream in the shape of conv1x1_mm's (conv1x1.cu),
+// with its lane layout but at C = 24 (FLOW_PLAN in
+// kernels/flowstep/flowstep.py; the fastest of tools/flow_plan_sweep.py).
+// The grid is sized from the occupancy (every SM full, no more blocks than
+// tiles); each block stages W (or W^-1, read through its strides) and an_b
+// in shared memory once, as f32, by 4-byte cp.async copies in a group of
+// their own, and exp(+-an_log_s), while its warps' first tiles load.  A tile
+// is R = RPL * 32 / (C / OUT) whole rows of one batch (a batch's last tile
+// is ragged), tiles are numbered batch by batch, and warp g walks tiles g,
+// g + grid * warps, ... behind a 2-stage ring of 16-byte cp.async copies:
+// the x (or y) tile and the h tile, read as whole C-wide rows (raw | t
+// together), the next tile in flight while the current one computes (the
+// bytes past the last 16 one element at a time).  A lane computes OUT output
+// columns of RPL rows; C is a compile-time constant, so the product's loop
+// is unrolled with no / or % by C, reads its rows four columns at a time
+// (bf16 widened once, in registers) and W as float4 (or float2) broadcasts,
+// each feeding RPL rows.  Forward: actnorm as x is read (x1 = x e^an_ls +
+// an_b per column), then x1 @ W; for the lane's columns j < ca, ls = clamp
+// tanh(raw / clamp) from the staged h row (raw times 1 / clamp, exact for
+// GLOW's clamp of 2) and y = acc e^ls + t; the columns j >= ca pass the
+// product through.  Inverse: the lanes first uncouple the first ca columns
+// of their rows, v = (y - t) e^-ls, into the h row's slots as f32 (a warp
+// owns whole rows, so __syncwarp orders this before the product reads
+// them), then x = (v | y_b) @ W^-1 - an_b, times e^-an_ls.  The outputs go
+// back over the tile's slots, and the warp stores whole rows with 16-byte
+// stores.  tanhf and expf, not tanh.approx: the work is bound by memory, and
+// the gate is 1e-4 in f32.
+//
+// At the served sizes each warp gets about one tile, so a call is one
+// latency chain (launch, W and the first tile, the product, the stores) and
+// what sits before the first product costs its full latency: W staged by
+// plain loads, or actnorm folded into W there (W' = diag(e) W and b W),
+// measured slower (PERF.md, PR 20).  Other measured alternatives that lost:
+// the coupled entries of a tile spread over all 32 lanes (balanced tanh and
+// exp, an f32 scratch and a barrier more), the forward's ld summed in the
+// same launch over thread-block clusters of 8 or 16 blocks, one a batch
+// (slower at every served shape), and caps on blocks an SM.
+//
+// At other widths, or for raw and t that are not the halves of one tensor,
+// or a base that is not 16-byte aligned (flowstep_fwd_kernel,
+// flowstep_inv_kernel): grid (tiles of block_m rows, B); the kernel masks
+// the ragged last tile itself, so any M works; raw and t may be strided
+// views: element (b, m, j) sits at b*h_sb + m*h_sm + j.
 //
 // The coupling log-determinant ld[b] = sum over (m, j < ca) of log_s is a sum
 // across tiles.  The TPU kernel adds into a revisited output block, which is
-// right only because the TPU grid runs in order.  Here each block writes its
-// tile's partial sum, reduced in a fixed order, into partial[b, tile], and a
-// second small kernel sums each row of partial in a fixed order.  No atomics:
-// repeated runs are bitwise equal.
+// right only because the TPU grid runs in order.  Here each tile's sum is
+// taken in a fixed order (the stream: each lane over its rows and columns,
+// then the warp's lanes by a fixed shuffle tree; the tile kernel: the block's
+// threads, then its warps in order) into partial[b, tile], and
+// ld_reduce_kernel sums each row of partial in a fixed order.  The stream's
+// partials do not depend on the grid.  No atomics: repeated runs are bitwise
+// equal.
 
 #include "common.cuh"
 
@@ -136,6 +184,318 @@ flowstep_inv_kernel(const T* __restrict__ y, const float* __restrict__ an_ls,
     float acc = 0.f;
     for (int i = 0; i < C; ++i) acc = fmaf(xr[i], ws[i * C + j], acc);
     store_f(x, base + k, (acc - bs[j]) * es[j]);
+  }
+}
+
+// The flow-step stream (C = 12, 24, 48).  OUT: the output columns a lane
+// computes; RPL: the rows it computes them for; WARPS: warps of a block.
+// kInv: the inverse (in = y, w = W^-1, out = x, no partial).
+// Shared memory, kept equal to flow_stream_smem_bytes() in
+// kernels/flowstep/flowstep.py: W (C * C f32) | e^+-an_ls (C) | an_b (C) |
+// each warp's ring: 2 stages of (in tile | h tile), R * C elements of T each.
+
+template <int C, int OUT, int RPL>
+__host__ __device__ constexpr int flow_rows() {  // rows of a tile
+  return RPL * 32 / (C / OUT);
+}
+
+template <typename T, int C, int OUT, int RPL, int WARPS, bool kInv>
+__device__ __forceinline__ void flow_stream(const T* __restrict__ in,
+                                            const float* __restrict__ an_ls,
+                                            const float* __restrict__ an_b,
+                                            const float* __restrict__ w, long long w_si,
+                                            long long w_sj, const T* __restrict__ h,
+                                            T* __restrict__ out, float* __restrict__ partial,
+                                            int B, int M, float clamp) {
+  constexpr int G = C / OUT;               // lanes of a row
+  constexpr int R = flow_rows<C, OUT, RPL>();
+  constexpr int CA = C / 2;                // the coupled columns
+  constexpr int KC = OUT < CA ? OUT : CA;  // coupled columns of a lane that has any
+  constexpr int ES = (int)sizeof(T);
+  constexpr int kTileBytes = R * C * ES;
+  constexpr int WV = OUT % 4 == 0 ? 4 : 2;     // W's columns a shared load reads
+  constexpr bool kRow16 = (C * ES) % 16 == 0;  // rows start 16-byte aligned
+  static_assert(C % OUT == 0 && 32 % G == 0 && kTileBytes % 16 == 0 && OUT % 2 == 0 &&
+                    C % 4 == 0 && (OUT == C || CA % OUT == 0),
+                "a GLOW width");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;
+  float* ev = ws + C * C;
+  float* bv = ev + C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(bv + C) + warp * 4 * kTileBytes;
+
+  const int tpb = (M + R - 1) / R;  // tiles of a batch
+  const long long n_tiles = (long long)B * tpb;
+  const long long step = (long long)gridDim.x * WARPS;
+  long long t = (long long)blockIdx.x * WARPS + warp;
+  // tile tt into buf: its rows of in, then of h
+  auto issue = [&](long long tt, unsigned char* buf) {
+    const long long b = tt / tpb;
+    const int m0 = (int)(tt - b * tpb) * R;
+    const long long e0 = (b * M + m0) * C;
+    const int n = min(R, M - m0) * C;
+    stage_elems<T>(buf, in + e0, n, lane, 32);
+    stage_elems<T>(buf + kTileBytes, h + e0, n, lane, 32);
+  };
+  // W (read through its strides) and an_b by 4-byte cp.async copies, a group
+  // of their own, then the first tile; e^+-an_ls while they fly
+  for (int k = threadIdx.x; k < C * C; k += WARPS * 32) {
+    const int i = k / C;
+    cp_async4(ws + k, w + i * w_si + (k - i * C) * w_sj);
+  }
+  for (int k = threadIdx.x; k < C; k += WARPS * 32) cp_async4(bv + k, an_b + k);
+  cp_async_commit();
+  if (t < n_tiles) issue(t, ring);
+  cp_async_commit();
+  for (int k = threadIdx.x; k < C; k += WARPS * 32) ev[k] = expf(kInv ? -an_ls[k] : an_ls[k]);
+  cp_async_wait_prev();  // this thread's copies of W and an_b have landed
+  __syncthreads();       // and every thread's
+
+  const int row0 = (lane / G) * RPL;  // the lane's first row of the tile
+  const int j0 = (lane % G) * OUT;    // and its first output column
+  const bool coupled = j0 < CA;       // its first KC columns are coupled
+  const float rclamp = 1.f / clamp;   // log_s = clamp tanh(raw rclamp)
+  for (int s = 0; t < n_tiles; t += step, s ^= 1) {
+    unsigned char* xt = ring + s * 2 * kTileBytes;
+    unsigned char* ht = xt + kTileBytes;
+    if (t + step < n_tiles) issue(t + step, ring + (s ^ 1) * 2 * kTileBytes);
+    cp_async_commit();
+    cp_async_wait_prev();  // this thread's copies of tile t have landed
+    __syncwarp();          // and every lane's
+    const long long b = t / tpb;
+    const int m0 = (int)(t - b * tpb) * R;
+    const int rows = min(R, M - m0);
+
+    if constexpr (kInv) {  // v = (y - t) e^-ls over the h row's slots, as f32
+      float v[RPL][KC];
+#pragma unroll
+      for (int u = 0; u < RPL; ++u) {
+        if (coupled && row0 + u < rows) {
+          const int r = row0 + u;
+          float yv[KC], rv[KC], tv[KC];
+          load_vals<T, KC>(xt + (r * C + j0) * ES, yv);
+          load_vals<T, KC>(ht + (r * C + j0) * ES, rv);
+          load_vals<T, KC>(ht + (r * C + CA + j0) * ES, tv);
+#pragma unroll
+          for (int j = 0; j < KC; ++j)
+            v[u][j] = (yv[j] - tv[j]) * expf(-(clamp * tanhf(rv[j] * rclamp)));
+        }
+      }
+      __syncwarp();  // every lane has read raw | t of its rows: v goes over them
+#pragma unroll
+      for (int u = 0; u < RPL; ++u)
+        if (coupled && row0 + u < rows)
+          store_vals<float, KC>(ht + (row0 + u) * C * ES + j0 * 4, v[u]);
+      __syncwarp();  // the rows' v are in place
+    }
+
+    float acc[RPL][OUT];
+#pragma unroll
+    for (int u = 0; u < RPL; ++u)
+#pragma unroll
+      for (int j = 0; j < OUT; ++j) acc[u][j] = 0.f;
+    if (row0 < rows) {  // rows past the end read what the tile holds there
+#pragma unroll
+      for (int i0 = 0; i0 < C; i0 += 4) {
+        float xb[RPL][4];  // the product's inputs [row0 + u, i0 .. i0 + 3]
+#pragma unroll
+        for (int u = 0; u < RPL; ++u) {
+          const int r = row0 + u;
+          if constexpr (!kInv) {  // actnorm as x is read
+            load_vals<T, 4>(xt + (r * C + i0) * ES, xb[u]);
+            const float4 e4 = *reinterpret_cast<const float4*>(ev + i0);
+            const float4 b4 = *reinterpret_cast<const float4*>(bv + i0);
+            xb[u][0] = xb[u][0] * e4.x + b4.x;
+            xb[u][1] = xb[u][1] * e4.y + b4.y;
+            xb[u][2] = xb[u][2] * e4.z + b4.z;
+            xb[u][3] = xb[u][3] * e4.w + b4.w;
+          } else if (i0 + 4 <= CA) {  // v, f32 in the h row
+            const unsigned char* p = ht + r * C * ES + i0 * 4;
+            if constexpr (kRow16) {
+              const float4 q = *reinterpret_cast<const float4*>(p);
+              xb[u][0] = q.x, xb[u][1] = q.y, xb[u][2] = q.z, xb[u][3] = q.w;
+            } else {
+              const float2 q0 = reinterpret_cast<const float2*>(p)[0];
+              const float2 q1 = reinterpret_cast<const float2*>(p)[1];
+              xb[u][0] = q0.x, xb[u][1] = q0.y, xb[u][2] = q1.x, xb[u][3] = q1.y;
+            }
+          } else if (i0 >= CA) {  // the pass-through half of y
+            load_vals<T, 4>(xt + (r * C + i0) * ES, xb[u]);
+          } else {  // C = 12: columns 4, 5 of v, then 6, 7 of y
+#pragma unroll
+            for (int di = 0; di < 4; ++di)
+              xb[u][di] = i0 + di < CA
+                              ? reinterpret_cast<const float*>(ht + r * C * ES)[i0 + di]
+                              : load_f(reinterpret_cast<const T*>(xt), r * C + i0 + di);
+          }
+        }
+#pragma unroll
+        for (int di = 0; di < 4; ++di) {
+          const float* wr = ws + (i0 + di) * C + j0;
+#pragma unroll
+          for (int q = 0; q < OUT / WV; ++q) {
+            float wv[WV];
+            if constexpr (WV == 4) {
+              const float4 w4 = reinterpret_cast<const float4*>(wr)[q];
+              wv[0] = w4.x, wv[1] = w4.y, wv[2] = w4.z, wv[3] = w4.w;
+            } else {
+              const float2 w2 = reinterpret_cast<const float2*>(wr)[q];
+              wv[0] = w2.x, wv[1] = w2.y;
+            }
+#pragma unroll
+            for (int u = 0; u < RPL; ++u)
+#pragma unroll
+              for (int e = 0; e < WV; ++e)
+                acc[u][WV * q + e] = fmaf(xb[u][di], wv[e], acc[u][WV * q + e]);
+          }
+        }
+      }
+    }
+
+    float ld = 0.f;  // the lane's log_s, over its rows and then its columns
+#pragma unroll
+    for (int u = 0; u < RPL; ++u) {
+      const int r = row0 + u;
+      if constexpr (kInv) {
+#pragma unroll
+        for (int j = 0; j < OUT; ++j) acc[u][j] = (acc[u][j] - bv[j0 + j]) * ev[j0 + j];
+      } else if (coupled && r < rows) {
+        float rv[KC], tv[KC];
+        load_vals<T, KC>(ht + (r * C + j0) * ES, rv);
+        load_vals<T, KC>(ht + (r * C + CA + j0) * ES, tv);
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const float ls = clamp * tanhf(rv[j] * rclamp);
+          acc[u][j] = acc[u][j] * expf(ls) + tv[j];
+          ld += ls;
+        }
+      }
+    }
+    __syncwarp();  // every lane has read its rows: the outputs go over them
+#pragma unroll
+    for (int u = 0; u < RPL; ++u)
+      if (row0 + u < rows)
+        store_vals<T, OUT>(xt + ((row0 + u) * C + j0) * ES, acc[u]);
+    __syncwarp();  // the tile holds the outputs
+    store_elems<T>(out + (b * M + m0) * C, xt, rows * C, lane, 32);
+    if constexpr (!kInv) {  // the tile's sum: lane 0 + lane 16, ..., a fixed tree
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ld += __shfl_down_sync(0xffffffffu, ld, o);
+      if (lane == 0) partial[t] = ld;
+    }
+    __syncwarp();  // the buffer is free for the tile after next
+  }
+}
+
+// C = 12 holds 4 blocks an SM (its shared memory allows 4 in f32): at most
+// 64 registers a thread
+template <int C>
+__host__ __device__ constexpr int flow_min_blocks() {
+  return C == 12 ? 4 : 1;
+}
+
+template <typename T, int C, int OUT, int RPL, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, flow_min_blocks<C>())
+flowstep_fwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ an_ls,
+                           const float* __restrict__ an_b, const float* __restrict__ w,
+                           long long w_si, long long w_sj, const T* __restrict__ h,
+                           T* __restrict__ y, float* __restrict__ partial, int B, int M,
+                           float clamp) {
+  flow_stream<T, C, OUT, RPL, WARPS, false>(x, an_ls, an_b, w, w_si, w_sj, h, y, partial, B, M,
+                                            clamp);
+}
+
+template <typename T, int C, int OUT, int RPL, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, flow_min_blocks<C>())
+flowstep_inv_stream_kernel(const T* __restrict__ y, const float* __restrict__ an_ls,
+                           const float* __restrict__ an_b, const float* __restrict__ w_inv,
+                           long long w_si, long long w_sj, const T* __restrict__ h,
+                           T* __restrict__ x, int B, int M, float clamp) {
+  flow_stream<T, C, OUT, RPL, WARPS, true>(y, an_ls, an_b, w_inv, w_si, w_sj, h, x, nullptr, B,
+                                           M, clamp);
+}
+
+// kept equal to flow_stream_smem_bytes() in kernels/flowstep/flowstep.py
+size_t flow_stream_smem_bytes(int C, int R, int warps, int elem_size) {
+  return sizeof(float) * ((size_t)C * C + 2 * C) + (size_t)warps * 2 * 2 * R * C * elem_size;
+}
+
+// The stream's launch: the grid from the occupancy (asked once per
+// instantiation and device), then, forward, the fixed-order sum of the
+// tiles' partials.  Returns the cudaError_t of the launches.
+template <typename T, int C, int OUT, int RPL, int WARPS>
+cudaError_t launch_flow_stream(bool inverse, const void* in, const float* an_ls,
+                               const float* an_b, const float* w, long long w_si, long long w_sj,
+                               const void* h, void* out, float* partial, float* ld, int B, int M,
+                               float clamp, int device, cudaStream_t s) {
+  auto fwd = flowstep_fwd_stream_kernel<T, C, OUT, RPL, WARPS>;
+  auto inv = flowstep_inv_stream_kernel<T, C, OUT, RPL, WARPS>;
+  constexpr int R = flow_rows<C, OUT, RPL>();
+  const size_t smem = flow_stream_smem_bytes(C, R, WARPS, sizeof(T));
+  // blocks an SM holds and SMs, asked once per direction and device
+  static int per_sm[2] = {0, 0}, n_sm[2] = {0, 0}, asked_on[2] = {-1, -1};
+  const int d = inverse ? 1 : 0;
+  if (asked_on[d] != device) {
+    cudaError_t err = inverse
+        ? cudaFuncSetAttribute(inv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+        : cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = inverse
+          ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[d], inv, WARPS * 32, smem)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[d], fwd, WARPS * 32, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm[d], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    asked_on[d] = device;
+  }
+  const int tpb = (M + R - 1) / R;
+  const long long tiles = (long long)B * tpb;
+  const long long grid =
+      min((tiles + WARPS - 1) / WARPS, (long long)max(per_sm[d], 1) * n_sm[d]);
+  if (inverse) {
+    inv<<<(unsigned)grid, WARPS * 32, smem, s>>>(static_cast<const T*>(in), an_ls, an_b, w, w_si,
+                                                 w_sj, static_cast<const T*>(h),
+                                                 static_cast<T*>(out), B, M, clamp);
+    return cudaGetLastError();
+  }
+  fwd<<<(unsigned)grid, WARPS * 32, smem, s>>>(static_cast<const T*>(in), an_ls, an_b, w, w_si,
+                                               w_sj, static_cast<const T*>(h),
+                                               static_cast<T*>(out), partial, B, M, clamp);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ld_reduce_kernel<<<B, 32, 0, s>>>(partial, ld, tpb);
+  return cudaGetLastError();
+}
+
+// The stream's plan at each width, (OUT, RPL, WARPS) as OUT * 10000 + RPL *
+// 100 + WARPS: kept equal to FLOW_PLAN in kernels/flowstep/flowstep.py;
+// tools/flow_plan_sweep.py builds this source with other plans to time them
+#ifndef FLOW_PLAN_12
+#define FLOW_PLAN_12 120108
+#endif
+#ifndef FLOW_PLAN_24
+#define FLOW_PLAN_24 240108
+#endif
+#ifndef FLOW_PLAN_48
+#define FLOW_PLAN_48 60208
+#endif
+#define FLOW_PLAN_ARGS(P) (P) / 10000, (P) / 100 % 100, (P) % 100
+
+template <typename T>
+cudaError_t launch_flow_stream_c(bool inverse, const void* in, const float* an_ls,
+                                 const float* an_b, const float* w, long long w_si,
+                                 long long w_sj, const void* h, void* out, float* partial,
+                                 float* ld, int B, int M, int C, float clamp, int device,
+                                 cudaStream_t s) {
+  switch (C) {
+    case 12: return launch_flow_stream<T, 12, FLOW_PLAN_ARGS(FLOW_PLAN_12)>(
+        inverse, in, an_ls, an_b, w, w_si, w_sj, h, out, partial, ld, B, M, clamp, device, s);
+    case 24: return launch_flow_stream<T, 24, FLOW_PLAN_ARGS(FLOW_PLAN_24)>(
+        inverse, in, an_ls, an_b, w, w_si, w_sj, h, out, partial, ld, B, M, clamp, device, s);
+    case 48: return launch_flow_stream<T, 48, FLOW_PLAN_ARGS(FLOW_PLAN_48)>(
+        inverse, in, an_ls, an_b, w, w_si, w_sj, h, out, partial, ld, B, M, clamp, device, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -628,6 +988,31 @@ int flowstep_inv(int dtype, const void* y, const float* an_ls, const float* an_b
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stream path: C in {12, 24, 48}; in (x or y) and out (B, M, C)
+// contiguous; h (B, M, C) contiguous, raw = h[..., :C/2] and t = h[..., C/2:];
+// in, h and each batch's rows (M * C elements) 16-byte aligned (the caller
+// checks).  w: (C, C) float32, element (i, j) at i*w_si + j*w_sj.  inverse:
+// 0 = forward (w = W; partial: (B, ceil(M / R)) float32 scratch, R =
+// stream_rows(C); ld: (B,) float32), 1 = inverse (w = W^-1; partial and ld
+// unused, may be null).  Returns the cudaError_t of the launches.
+int flowstep_stream(int dtype, int inverse, const void* in, const float* an_ls,
+                    const float* an_b, const float* w, long long w_si, long long w_sj,
+                    const void* h, void* out, float* partial, float* ld, int B, int M, int C,
+                    float clamp, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_flow_stream_c<float>(inverse != 0, in, an_ls, an_b, w, w_si,
+                                                         w_sj, h, out, partial, ld, B, M, C, clamp,
+                                                         device, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_flow_stream_c<__nv_bfloat16>(
+        inverse != 0, in, an_ls, an_b, w, w_si, w_sj, h, out, partial, ld, B, M, C, clamp, device,
+        s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x2, gx2 -> x, gx: (B, M, C) of dtype (0 = float32, 1 = bfloat16); w, w_inv:

@@ -39,8 +39,31 @@ SOURCES = {"flowstep": "flowstep.cu", "coupling": "coupling.cu", "conv1x1": "con
            "attention": "attention.cu", "rwkv": "rwkv.cu", "ssd": "ssd.cu"}
 #: storage types the kernels take, as the code each C entry point reads
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the persistent stream kernels' widths (a template parameter each) and
+#: ``conv1x1_mm``'s lane layout at each (``launch_stream_c`` in
+#: ``conv1x1.cu``): (output columns, rows) a lane computes, warps a block;
+#: the flow-step streams start from it (``FLOW_PLAN`` in
+#: ``kernels/flowstep/flowstep.py``)
+STREAM_PLAN = {12: (12, 1, 8), 24: (12, 2, 4), 48: (6, 2, 8)}
+STREAM_WIDTHS = tuple(STREAM_PLAN)
 
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def stream_rows(c: int, plan=STREAM_PLAN) -> int:
+    """Rows of a stream tile under ``plan`` (``STREAM_PLAN``'s layout): each
+    lane takes ``out`` columns of ``rpl`` rows, so ``c // out`` lanes share a
+    group of ``rpl`` rows."""
+    out, rpl, _ = plan[c]
+    return rpl * 32 // (c // out)
+
+
+def stream_tiles(n_tiles: int, c: int, grid: int, plan=STREAM_PLAN) -> list[list[int]]:
+    """The tiles each warp of a ``grid``-block stream launch takes, in its
+    order: warp g (block g // warps) takes tiles g, g + grid * warps, ...
+    (the stream kernels' loop)."""
+    step = grid * plan[c][2]
+    return [list(range(g, n_tiles, step)) for g in range(step)]
 
 
 def spatial_size(shape) -> int:
@@ -209,3 +232,19 @@ class Kernel:
 
     def __repr__(self) -> str:
         return f"<kernel {self.name}: {self.launches} launches>"
+
+
+class PathKernel(Kernel):
+    """A CUDA entry point with several kernels, chosen by a shape rule; each
+    launch is counted in ``launches`` and by its path in ``launches_by_path``."""
+
+    def __init__(self, name: str, paths: tuple[str, ...]):
+        super().__init__(name)
+        self.launches_by_path = dict.fromkeys(paths, 0)
+
+    def count(self, err: int, path: str):
+        """Raise if the launch on ``path`` failed (:func:`raise_on`), else
+        count it."""
+        raise_on(err, self.name)
+        self.launches += 1
+        self.launches_by_path[path] += 1

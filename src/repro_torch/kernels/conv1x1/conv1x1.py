@@ -19,7 +19,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, stream
+from repro_torch.kernels.common import (STREAM_PLAN, STREAM_WIDTHS, KERNEL_DTYPES, PathKernel,
+                                        bind, stream, stream_rows, stream_tiles)
 
 #: shared memory a block may take without opting in to more
 SMEM_LIMIT = 48 * 1024
@@ -29,11 +30,6 @@ TILE_ELEMS = 2048
 PANEL_ELEMS = 8192
 #: threads of a block, and the gW entries each ``conv1x1_gw`` thread keeps
 THREADS, GW_TILE_ENTRIES = 256, 16
-#: the stream kernel's widths (a template parameter each) and its plan at
-#: each: (output columns, rows) a lane computes, warps a block
-#: (``launch_stream_c`` in ``conv1x1.cu``)
-STREAM_PLAN = {12: (12, 1, 8), 24: (12, 2, 4), 48: (6, 2, 8)}
-STREAM_WIDTHS = tuple(STREAM_PLAN)
 #: ``conv1x1_gw``'s cluster kernel at each stream width and element size:
 #: the columns of x (rows of gW) a slice takes (a template instance each,
 #: ``launch_gw_cluster_c`` in ``conv1x1.cu``), the clusters of each slice at
@@ -77,13 +73,6 @@ def mm_path(x) -> str:
     return "stream" if x.shape[-1] in STREAM_WIDTHS and x.data_ptr() % 16 == 0 else "panel"
 
 
-def stream_rows(c: int) -> int:
-    """Rows of a stream tile: each lane takes ``out`` columns of ``rpl``
-    rows, so ``c // out`` lanes share a group of ``rpl`` rows."""
-    out, rpl, _ = STREAM_PLAN[c]
-    return rpl * 32 // (c // out)
-
-
 def stream_smem_bytes(c: int, elem_size: int) -> int:
     """Shared memory of one stream block (``mm_stream_smem_bytes`` in
     ``conv1x1.cu``): W in f32 and each warp's 2-stage ring of x tiles."""
@@ -93,12 +82,10 @@ def stream_smem_bytes(c: int, elem_size: int) -> int:
 def stream_walk(n_rows: int, c: int, grid: int) -> list[list[tuple[int, int]]]:
     """The row ranges each warp of a ``grid``-block stream launch takes, in
     its order: tile t is rows [t R, min(t R + R, n_rows)), and warp g takes
-    tiles g, g + grid * warps, ...  (the kernel's loop)."""
+    tiles g, g + grid * warps, ...  (the kernel's loop, ``stream_tiles``)."""
     r = stream_rows(c)
-    n_tiles = -(-n_rows // r)
-    step = grid * STREAM_PLAN[c][2]
-    return [[(t * r, min(t * r + r, n_rows)) for t in range(g, n_tiles, step)]
-            for g in range(step)]
+    return [[(t * r, min(t * r + r, n_rows)) for t in tiles]
+            for tiles in stream_tiles(-(-n_rows // r), c, grid)]
 
 
 def gw_smem_bytes(c: int, stage_rows: int) -> int:
@@ -183,15 +170,7 @@ def _check(name, x, other, what):
     return x.shape
 
 
-class _PathKernel(Kernel):
-    """A kernel with two paths, each counted in ``launches_by_path``."""
-
-    def __init__(self, name: str):
-        super().__init__(name)
-        self.launches_by_path = dict.fromkeys(PATHS[name], 0)
-
-
-class _Conv1x1Mm(_PathKernel):
+class _Conv1x1Mm(PathKernel):
     def __call__(self, x, w):
         """x: (B, M, C); w: (C, C), any strides and float dtype (rounded to
         x's dtype first) -> y: (B, M, C) in x's dtype."""
@@ -217,13 +196,11 @@ class _Conv1x1Mm(_PathKernel):
                 KERNEL_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
                 y.data_ptr(), n, c, block_m, panel, x.device.index, stream(x),
             )
-        raise_on(err, self.name)
-        self.launches += 1
-        self.launches_by_path[path] += 1
+        self.count(err, path)
         return y
 
 
-class _Conv1x1Gw(_PathKernel):
+class _Conv1x1Gw(PathKernel):
     def __call__(self, x, gy):
         """x, gy: (B, M, C) -> gW: (C, C) f32, ``sum_{b,m} x^T gy``."""
         b, m, c = _check(self.name, x, gy, "gy")
@@ -244,9 +221,7 @@ class _Conv1x1Gw(_PathKernel):
             )
         else:
             err = self._panel(x, gy, gw, n, c, n_sm)
-        raise_on(err, self.name)
-        self.launches += 1
-        self.launches_by_path[path] += 1
+        self.count(err, path)
         return gw
 
     def _panel(self, x, gy, gw, n, c, n_sm) -> int:
@@ -263,6 +238,6 @@ class _Conv1x1Gw(_PathKernel):
         )
 
 
-conv1x1_mm = _Conv1x1Mm("conv1x1_mm")
-conv1x1_gw = _Conv1x1Gw("conv1x1_gw")
+conv1x1_mm = _Conv1x1Mm("conv1x1_mm", PATHS["conv1x1_mm"])
+conv1x1_gw = _Conv1x1Gw("conv1x1_gw", PATHS["conv1x1_gw"])
 KERNELS = (conv1x1_mm, conv1x1_gw)

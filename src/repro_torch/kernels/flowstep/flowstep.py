@@ -4,13 +4,16 @@
 kernels of the same names in ``repro/kernels/flowstep/flowstep.py``.  All
 three are memory-bound at the served widths (12*B*M*C bytes a launch in f32
 for the first two, 16*B*M*C for ``spine_bwd``); the source notes in
-``flowstep.cu`` give the design.  ``spine_bwd`` has two kernels, chosen by a
-shape rule (:func:`spine_path`): one pass summed in thread-block clusters at
-the GLOW widths, planned by :func:`spine_plan`, and the per-tile kernel with
-its reduce at any other.  Each wrapper checks what the kernel takes,
-allocates the outputs and scratch, launches on PyTorch's current stream,
-raises if the launch was refused, and adds one to its ``launches`` count
-(``spine_bwd`` also to the path's in ``launches_by_path``).
+``flowstep.cu`` give the design.  Each has two kernels, chosen by a shape
+rule: ``flowstep_fwd`` and ``flowstep_inv`` a persistent vectorised stream
+at the GLOW widths when raw and t are the halves of one conditioner output
+(:func:`flowstep_path`; its tiles as :func:`flow_walk` lists them), and the
+per-tile kernel otherwise; ``spine_bwd`` one pass summed in thread-block
+clusters at the GLOW widths, planned by :func:`spine_plan`, and the per-tile
+kernel with its reduce at any other (:func:`spine_path`).  Each wrapper
+checks what the kernel takes, allocates the outputs and scratch, launches on
+PyTorch's current stream, raises if the launch was refused, and adds one to
+its ``launches`` count and to the path's in ``launches_by_path``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import KERNEL_DTYPES as _DTYPES
-from repro_torch.kernels.common import Kernel, bind, raise_on, stream
+from repro_torch.kernels.common import (STREAM_PLAN, STREAM_WIDTHS, PathKernel, bind, raise_on,
+                                        stream, stream_rows, stream_tiles)
 
 #: shared memory a block may take without opting in to more
 SMEM_LIMIT = 48 * 1024
@@ -38,7 +42,16 @@ SPINE_CLUSTER, SPINE_MIN_ROWS = 2, 32
 SPINE_PLAN = {12: 128, 24: 128, 48: 64}
 SPINE_WIDTHS = tuple(SPINE_PLAN)
 #: threads of a block, and what ``launches_by_path`` counts
-THREADS, SPINE_PATHS = 256, ("cluster", "tile")
+THREADS, SPINE_PATHS, FLOW_PATHS = 256, ("cluster", "tile"), ("stream", "tile")
+#: CUDA kernels one call launches, on either path: the step's kernel, and for
+#: the forward the fixed-order sum of its tiles' ld partials (``ld_reduce_kernel``)
+KERNELS_PER_CALL = {"flowstep_fwd": 2, "flowstep_inv": 1}
+#: the flow-step streams' lane layout at each width, as ``STREAM_PLAN``'s:
+#: (output columns, rows) a lane computes, warps a block (``FLOW_PLAN_<C>`` in
+#: ``flowstep.cu``).  ``conv1x1_mm``'s at C = 12 and 48; at C = 24 a lane
+#: takes a whole row, which ``tools/flow_plan_sweep.py`` timed fastest of
+#: five plans a width on the H100 (``PERF.md``)
+FLOW_PLAN = {**STREAM_PLAN, 24: (24, 1, 8)}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +59,7 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _I, _F, _I, _P],
     "flowstep_inv": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P,
                      _I, _I, _I, _I, _I, _F, _I, _P],
+    "flowstep_stream": [_I, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "spine_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _P],
     "spine_bwd_cluster": [_I, _P, _P, _P, _P, ctypes.POINTER(_L), _P, _P, _P, _P, _P, _P,
@@ -63,6 +77,47 @@ def smem_bytes(c: int, block_m: int) -> int:
     the tile (block_m*C) and 8 warp sums, in f32 (``smem_bytes`` in
     ``flowstep.cu``)."""
     return 4 * (c * c + 2 * c + block_m * c + 8)
+
+
+def flowstep_path(x, raw, t) -> str:
+    """The kernel that computes ``flowstep_fwd(x, ..., raw, t)`` (x: y for
+    ``flowstep_inv``): "stream" for C in ``STREAM_WIDTHS`` when raw and t
+    are the two halves of one contiguous (B, M, C) tensor (``t`` starts C/2
+    elements after ``raw``, rows C apart), as ``GlowStepStack`` passes its
+    conditioner output, and x, raw and each batch's rows (M*C elements) are
+    16-byte aligned (its 16-byte copies); "tile" otherwise."""
+    b, m, c = x.shape
+    ca, es = raw.shape[-1], x.element_size()
+    halves = (2 * ca == c and raw.stride() == (m * c, c, 1)
+              and t.data_ptr() == raw.data_ptr() + ca * es)
+    aligned = (x.data_ptr() % 16 == 0 and raw.data_ptr() % 16 == 0
+               and (b == 1 or m * c * es % 16 == 0))
+    return "stream" if c in STREAM_WIDTHS and halves and aligned else "tile"
+
+
+def flow_stream_smem_bytes(c: int, elem_size: int) -> int:
+    """Shared memory of one stream block (``flow_stream_smem_bytes`` in
+    ``flowstep.cu``): W, e^+-an_log_s and an_b in f32, and each warp's
+    2-stage ring of (x | h) tiles in the storage type."""
+    return 4 * (c * c + 2 * c) + FLOW_PLAN[c][2] * 2 * 2 * stream_rows(c, FLOW_PLAN) * c * elem_size
+
+
+def flow_tiles_per_batch(m: int, c: int) -> int:
+    """The stream's tiles of one batch: ``stream_rows(c, FLOW_PLAN)`` rows
+    each, the last ragged; the forward's ld partials are (B, this)."""
+    return -(-m // stream_rows(c, FLOW_PLAN))
+
+
+def flow_walk(b: int, m: int, c: int, grid: int) -> list[list[tuple[int, int, int]]]:
+    """The tiles each warp of a ``grid``-block stream launch takes, in its
+    order, as (batch, first row, end row) within the batch: tile k is
+    batch k // T's rows [i R, min(i R + R, m)), i = k % T, T =
+    ``flow_tiles_per_batch(m, c)``, R = ``stream_rows(c, FLOW_PLAN)``; warp
+    g takes tiles g, g + grid * warps, ...  (the kernel's loop,
+    ``stream_tiles``)."""
+    r, per = stream_rows(c, FLOW_PLAN), flow_tiles_per_batch(m, c)
+    return [[(k // per, k % per * r, min(k % per * r + r, m)) for k in tiles]
+            for tiles in stream_tiles(b * per, c, grid, FLOW_PLAN)]
 
 
 def spine_smem_bytes(c: int, block_m: int) -> int:
@@ -164,9 +219,9 @@ def spine_kernels_per_call(path: str, plan: dict[str, int] | None) -> int:
     return 1 if path == "cluster" and plan["clusters"] == 1 else 2
 
 
-def _check(x, an_log_s, an_b, w, raw, t):
-    """Validate the kernel's inputs; returns (B, M, C, ca, block_m) and the
-    f32 channel parameters."""
+def _validate(x, an_log_s, an_b, w, raw, t) -> tuple[int, int, int, int, int]:
+    """Raise on what the kernels do not take; returns (B, M, C, ca, block_m),
+    block_m the tile kernel's rows a block."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"flow-step kernels take float32 or bfloat16, got {x.dtype}")
     if x.ndim != 3 or not x.is_contiguous():
@@ -185,51 +240,80 @@ def _check(x, an_log_s, an_b, w, raw, t):
     block_m = max(1, min(m, TILE_ELEMS // c))
     if smem_bytes(c, block_m) > SMEM_LIMIT:
         raise ValueError(f"C={c}: W and a tile do not fit in {SMEM_LIMIT} bytes of shared memory")
-    params = [v.to(torch.float32).contiguous() for v in (an_log_s, an_b, w)]
-    return (b, m, c, ca, block_m), params
+    return b, m, c, ca, block_m
 
 
-class _FlowstepFwd(Kernel):
+def _params(an_log_s, an_b, w) -> list[torch.Tensor]:
+    """The f32 channel parameters and W, contiguous, as the tile kernels
+    read them."""
+    return [v.to(torch.float32).contiguous() for v in (an_log_s, an_b, w)]
+
+
+def _check(x, an_log_s, an_b, w, raw, t):
+    """Validate the kernel's inputs; returns (B, M, C, ca, block_m) and
+    :func:`_params`."""
+    return _validate(x, an_log_s, an_b, w, raw, t), _params(an_log_s, an_b, w)
+
+
+def _stream(inverse: int, x, an_log_s, an_b, w, raw, out, partial, ld, clamp) -> int:
+    """Launch the stream (``flowstep_stream`` in ``flowstep.cu``); W (or
+    W^-1) is read through its strides."""
+    b, m, c = x.shape
+    ls, ab = (v.to(torch.float32).contiguous() for v in (an_log_s, an_b))
+    w32 = w.to(torch.float32)
+    return _fn("flowstep_stream")(
+        _DTYPES[x.dtype], inverse, x.data_ptr(), ls.data_ptr(), ab.data_ptr(), w32.data_ptr(),
+        w32.stride(0), w32.stride(1), raw.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), None if ld is None else ld.data_ptr(),
+        b, m, c, clamp, x.device.index, stream(x),
+    )
+
+
+class _FlowstepFwd(PathKernel):
     def __call__(self, x, an_log_s, an_b, w, raw, t, clamp: float = 2.0):
         """x: (B, M, C); an_*: (C,); w: (C, C); raw, t: (B, M, ca)
         -> (y: (B, M, C) in x's dtype, ld_coupling: (B,) f32)."""
-        (b, m, c, ca, block_m), (ls, ab, w32) = _check(x, an_log_s, an_b, w, raw, t)
-        n_tiles = -(-m // block_m)
+        b, m, c, ca, block_m = _validate(x, an_log_s, an_b, w, raw, t)
+        path = flowstep_path(x, raw, t)
+        n_tiles = flow_tiles_per_batch(m, c) if path == "stream" else -(-m // block_m)
         y = torch.empty_like(x)
         partial = torch.empty((b, n_tiles), dtype=torch.float32, device=x.device)
         ld = torch.empty((b,), dtype=torch.float32, device=x.device)
-        err = _fn("flowstep_fwd")(
-            _DTYPES[x.dtype], x.data_ptr(), ls.data_ptr(), ab.data_ptr(),
-            w32.data_ptr(), raw.data_ptr(), t.data_ptr(), raw.stride(0),
-            raw.stride(1), y.data_ptr(), partial.data_ptr(), ld.data_ptr(),
-            b, m, c, ca, block_m, clamp, x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        raise_on(err, self.name)
-        self.launches += 1
+        if path == "stream":
+            err = _stream(0, x, an_log_s, an_b, w, raw, y, partial, ld, clamp)
+        else:
+            ls, ab, w32 = _params(an_log_s, an_b, w)
+            err = _fn("flowstep_fwd")(
+                _DTYPES[x.dtype], x.data_ptr(), ls.data_ptr(), ab.data_ptr(),
+                w32.data_ptr(), raw.data_ptr(), t.data_ptr(), raw.stride(0),
+                raw.stride(1), y.data_ptr(), partial.data_ptr(), ld.data_ptr(),
+                b, m, c, ca, block_m, clamp, x.device.index, stream(x),
+            )
+        self.count(err, path)
         return y, ld
 
 
-class _FlowstepInv(Kernel):
+class _FlowstepInv(PathKernel):
     def __call__(self, y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
         """Inverse flow step given ``W^-1``: (B, M, C) -> (B, M, C)."""
-        (b, m, c, ca, block_m), (ls, ab, wi32) = _check(y, an_log_s, an_b, w_inv, raw, t)
+        b, m, c, ca, block_m = _validate(y, an_log_s, an_b, w_inv, raw, t)
+        path = flowstep_path(y, raw, t)
         x = torch.empty_like(y)
-        err = _fn("flowstep_inv")(
-            _DTYPES[y.dtype], y.data_ptr(), ls.data_ptr(), ab.data_ptr(),
-            wi32.data_ptr(), raw.data_ptr(), t.data_ptr(), raw.stride(0),
-            raw.stride(1), x.data_ptr(), b, m, c, ca, block_m, clamp, y.device.index,
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-        raise_on(err, self.name)
-        self.launches += 1
+        if path == "stream":
+            err = _stream(1, y, an_log_s, an_b, w_inv, raw, x, None, None, clamp)
+        else:
+            ls, ab, wi32 = _params(an_log_s, an_b, w_inv)
+            err = _fn("flowstep_inv")(
+                _DTYPES[y.dtype], y.data_ptr(), ls.data_ptr(), ab.data_ptr(),
+                wi32.data_ptr(), raw.data_ptr(), t.data_ptr(), raw.stride(0),
+                raw.stride(1), x.data_ptr(), b, m, c, ca, block_m, clamp, y.device.index,
+                stream(y),
+            )
+        self.count(err, path)
         return x
 
 
-class _SpineBwd(Kernel):
-    def __init__(self, name: str):
-        super().__init__(name)
-        self.launches_by_path = dict.fromkeys(SPINE_PATHS, 0)
+class _SpineBwd(PathKernel):
 
     def __call__(self, x2, gx2, w, w_inv, an_log_s, an_b):
         """x2, gx2: (B, M, C) -> (x, gx: (B, M, C) in x2's dtype, gW: (C, C),
@@ -280,13 +364,11 @@ class _SpineBwd(Kernel):
                 partial.data_ptr(), sums.data_ptr(), b, m, c, block_m, x2.device.index,
                 stream(x2),
             )
-        raise_on(err, self.name)
-        self.launches += 1
-        self.launches_by_path[path] += 1
+        self.count(err, path)
         return x, gx, sums[: c * c].view(c, c), sums[c * c: c * c + c], sums[c * c + c:]
 
 
-flowstep_fwd = _FlowstepFwd("flowstep_fwd")
-flowstep_inv = _FlowstepInv("flowstep_inv")
-spine_bwd = _SpineBwd("spine_bwd")
+flowstep_fwd = _FlowstepFwd("flowstep_fwd", FLOW_PATHS)
+flowstep_inv = _FlowstepInv("flowstep_inv", FLOW_PATHS)
+spine_bwd = _SpineBwd("spine_bwd", SPINE_PATHS)
 KERNELS = (flowstep_fwd, flowstep_inv, spine_bwd)

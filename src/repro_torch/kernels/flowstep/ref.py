@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import product_3xtf32
+from repro_torch.kernels.common import product_3xtf32, stream_rows
+from repro_torch.kernels.flowstep.flowstep import FLOW_PLAN
 
 
 def flowstep_fwd_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0):
@@ -36,6 +37,56 @@ def flowstep_inv_ref(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
     x1 = x2 @ w_inv.float()
     x = (x1 - an_b.float()) * torch.exp(-an_log_s.float())
     return x.to(y.dtype)
+
+
+def _seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one term after another from 0, as a loop in a
+    kernel adds them."""
+    s = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for k in range(v.shape[-1]):
+        s = s + v[..., k]
+    return s
+
+
+def _shfl_down_tree(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0's sum of 32 lanes (last axis) after ``v += shfl_down(v, o)``
+    for o = 16, 8, 4, 2, 1."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def flowstep_stream_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0, inverse: bool = False):
+    """The stream kernels' arithmetic in plain PyTorch (``csrc/flowstep.cu``,
+    ``flow_stream``; C in ``FLOW_PLAN``, ca = C/2).  Forward: ``(y, ld)``,
+    y as :func:`flowstep_fwd_ref` computes it, ld summed in the kernel's
+    order: a tile is ``stream_rows(C, FLOW_PLAN)`` rows of one batch; each lane adds the
+    log_s of its rows and then its columns (lane l: rows (l // G) RPL + u,
+    columns (l % G) OUT + j < ca, G = C // OUT), the tile's 32 lanes by the
+    kernel's shuffle tree, then per batch the tiles' sums as
+    ``ld_reduce_kernel`` adds them (lane l takes tiles l, l + 32, ..., then
+    the tree).  With ``inverse`` (x = y, w = W^-1): x as
+    :func:`flowstep_inv_ref` computes it, v = (y - t) e^-ls kept in f32."""
+    if inverse:
+        return flowstep_inv_ref(x, an_log_s, an_b, w, raw, t, clamp=clamp)
+    y, _ = flowstep_fwd_ref(x, an_log_s, an_b, w, raw, t, clamp=clamp)
+    b, m, c = x.shape
+    ca = raw.shape[-1]
+    out, rpl, _ = FLOW_PLAN[c]
+    g, r, kc = c // out, stream_rows(c, FLOW_PLAN), min(out, ca)
+    per = -(-m // r)
+    log_s = clamp * torch.tanh(raw.float() / clamp)
+    # rows past a batch's end add nothing (0 here)
+    log_s = torch.nn.functional.pad(log_s, (0, 0, 0, per * r - m))
+    # (b, tile, row group, u, column group, j) -> each lane's terms in order
+    lanes = log_s.reshape(b, per, r // rpl, rpl, ca // kc, kc).permute(0, 1, 2, 4, 3, 5)
+    sums = _seq_sum(lanes.reshape(b, per, r // rpl, ca // kc, rpl * kc))
+    by_lane = torch.zeros(b, per, r // rpl, g, device=x.device)
+    by_lane[..., : ca // kc] = sums
+    partial = _shfl_down_tree(by_lane.reshape(b, per, 32))
+    partial = torch.nn.functional.pad(partial, (0, -per % 32))
+    ld = _shfl_down_tree(_seq_sum(partial.reshape(b, -1, 32).transpose(1, 2)))
+    return y, ld
 
 
 def spine_bwd_ref(x2, gx2, w, w_inv, an_log_s, an_b):

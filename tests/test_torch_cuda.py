@@ -39,7 +39,8 @@ from repro_torch.kernels.coupling.ops import fused_coupling_fwd
 from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
-from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
+from repro_torch.kernels.flowstep.ref import (flowstep_fwd_ref, flowstep_inv_ref,
+                                              flowstep_stream_ref, spine_bwd_ref)
 from repro_torch.kernels.rwkv import rwkv as rkern
 from repro_torch.kernels.rwkv.ref import wkv_ref
 from repro_torch.kernels.ssd import ssd as skern
@@ -112,6 +113,47 @@ def test_gradient_through_the_kernel_matches_the_plain_path(dev):
     assert (kern.spine_bwd.launches, ckern.coupling_bwd.launches) == (before[0] + 1, before[1] + 1)
     for name, a, r in zip(("x", "an_log_s", "an_b", "w", "raw", "t"), got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,path", [((8, 16384, 12), "stream"), ((8, 4096, 24), "stream"),
+                                        ((8, 1024, 48), "stream"), ((8, 300, 12), "stream"),
+                                        ((3, 77, 24), "stream"), ((2, 1001, 48), "stream"),
+                                        ((1, 5, 12), "stream"), ((2, 28, 6), "tile"),
+                                        ((2, 100, 16), "tile")])
+def test_flowstep_takes_the_path_its_shape_names(dev, shape, path, dtype):
+    """``flowstep_path``: the stream at C = 12, 24, 48 on the halves of one
+    conditioner output (ragged last tiles, more tiles a batch than the ld
+    reduce's 32 lanes, fewer rows than a tile), the tile kernel at other
+    widths and, at the stream's widths, for raw and t that are two tensors;
+    each against the plain version, its ld against ``flowstep_stream_ref``'s
+    kernel-order sum, y, ld and x bitwise repeatable, one launch on the
+    named path a call."""
+    x, ls, ab, w, raw, t = _inputs(*shape, dtype, dev, seed=8)
+    w_inv = torch.linalg.inv(w)
+    y_r, _ = flowstep_fwd_ref(x, ls, ab, w, raw, t)
+    cases = [(raw, t, path)]
+    if path == "stream":
+        cases.append((raw.contiguous(), t.contiguous(), "tile"))
+    for rc, tc, want in cases:
+        assert kern.flowstep_path(x, rc, tc) == want
+        before = (dict(kern.flowstep_fwd.launches_by_path),
+                  dict(kern.flowstep_inv.launches_by_path))
+        y, ld = kern.flowstep_fwd(x, ls, ab, w, rc, tc)
+        y2, ld2 = kern.flowstep_fwd(x, ls, ab, w, rc, tc)
+        back = kern.flowstep_inv(y_r, ls, ab, w_inv, rc, tc)
+        back2 = kern.flowstep_inv(y_r, ls, ab, w_inv, rc, tc)
+        torch.cuda.synchronize()
+        assert kern.flowstep_fwd.launches_by_path[want] == before[0][want] + 2
+        assert kern.flowstep_inv.launches_by_path[want] == before[1][want] + 2
+        ref = flowstep_fwd_ref(x, ls, ab, w, rc, tc)
+        _close(y, ref[0], dtype)
+        torch.testing.assert_close(ld, ref[1], rtol=1e-5, atol=1e-4)
+        if shape[-1] in (12, 24, 48):
+            _, ld_k = flowstep_stream_ref(x, ls, ab, w, raw, t)
+            assert ((ld - ld_k).abs() <= 1e-5 * ld_k.abs().clamp_min(1.0)).all()
+        _close(back, flowstep_inv_ref(y_r, ls, ab, w_inv, rc, tc), dtype)
+        assert torch.equal(y, y2) and torch.equal(ld, ld2) and torch.equal(back, back2)
 
 
 BWD_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12)]

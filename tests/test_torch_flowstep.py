@@ -148,7 +148,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
 
 
 def test_kernel_wrapper_tile_and_shared_memory_limit():
-    (b, m, c, ca, block_m), params = kern._check(*_kernel_args(m=300, c=12))
+    """The tile path's block and shared memory (raw and t two tensors: not
+    the stream's halves of one conditioner output)."""
+    args = _kernel_args(m=300, c=12)
+    assert kern.flowstep_path(args[0], args[4], args[5]) == "tile"
+    (b, m, c, ca, block_m), params = kern._check(*args)
     assert (b, m, c, ca) == (2, 300, 12, 6) and block_m == kern.TILE_ELEMS // 12
     assert all(p.dtype == torch.float32 and p.is_contiguous() for p in params)
     # the slice's widths fit: C = 12, 24, 48

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Device time of ``spine_bwd`` and ``wkv_scan`` on one NVIDIA GPU, split by
-the CUDA kernels each call launches.
+"""Device time of ``flowstep_fwd``, ``flowstep_inv``, ``spine_bwd`` and
+``wkv_scan`` on one NVIDIA GPU, split by the CUDA kernels each call launches.
 
-    python3 tools/kernel_split.py [--src DIR] [--label NAME]
+    python3 tools/kernel_split.py [--src DIR] [--label NAME] [--only KERNEL ...]
 
-``spine_bwd`` at the scanned GLOW's three (B, M, C) in f32 and bf16, and
-``wkv_scan`` at rwkv6-7b's prefill (8, 64, 2048, 64) and its decode step
-(8, 64, 1, 64, cycling through 32 layers' states so that each call reads its
-state cold from HBM), f32 with an initial state, on the inputs
-``chip_smoke.py`` times.  Each point: the summed device time of one call and
-its split by kernel name (``torch.profiler``, 20 calls), and the call's wall
-time between CUDA events.  ``--src`` names the ``src`` directory whose
-``repro_torch`` is timed (default: this checkout's), so that two versions of
-the kernels can be timed in one run, each built from its own sources into
-its own checkout's ``build/``.  Prints one JSON line per point, then the
-card's name and power limit.  With ``--spine-plans`` it times instead
+``flowstep_fwd``, ``flowstep_inv`` and ``spine_bwd`` at the scanned GLOW's
+three (B, M, C) in f32 and bf16, and ``wkv_scan`` at rwkv6-7b's prefill
+(8, 64, 2048, 64) and its decode step (8, 64, 1, 64, cycling through 32
+layers' states so that each call reads its state cold from HBM), f32 with an
+initial state, on the inputs ``chip_smoke.py`` times (the flow step's raw
+and t the halves of one conditioner output, as the model passes them).
+Each point: the summed device time of one call and its split by kernel name
+(``torch.profiler``, 20 calls), the call's wall time between CUDA events,
+and the path the call took where the kernel has two.  ``--only`` times the
+named kernels alone.  ``--src`` names the ``src`` directory whose
+``repro_torch`` is timed (default: this checkout's), so that two versions
+of the kernels can be timed in one run, each built from its own sources
+into its own checkout's ``build/``.  Prints one JSON line per point, then
+the card's name and power limit.  With ``--spine-plans`` it times instead
 ``spine_bwd``'s cluster kernel at the same points under candidate launch
 plans (blocks a cluster, blocks in all) beside the plan ``spine_plan``
 picks, each held against ``spine_bwd_ref`` at ``chip_smoke.py``'s
@@ -35,6 +38,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (timing, inputs and tolerances as the smoke run's)
 
 SPINE_SHAPES = cs.SHAPES[:3]
+KERNELS = ("flowstep_fwd", "flowstep_inv", "spine_bwd", "wkv_scan")
 
 
 def spine_inputs(shape, dtype, dev):
@@ -47,13 +51,24 @@ def spine_inputs(shape, dtype, dev):
     return x2, gx2, w, torch.linalg.inv(w), ls, ab
 
 
-def report(label, kernel, shape, dtype, fn):
+def flow_inputs(shape, dtype, dev):
+    """x, an_log_s, an_b, W, raw, t, and the forward's y and W^-1, as
+    ``chip_smoke.py``'s ``[times]`` pass them to the flow-step kernels."""
+    import torch
+
+    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref
+
+    x, ls, ab, w, raw, t = cs.step_inputs(shape, dtype, dev, cs.SEED)
+    return x, ls, ab, w, raw, t, flowstep_fwd_ref(x, ls, ab, w, raw, t)[0], torch.linalg.inv(w)
+
+
+def report(label, kernel, shape, dtype, fn, **extra):
     ms, src, split = cs.device_ms(fn)
     print(json.dumps({"label": label, "kernel": kernel, "shape": list(shape), "dtype": dtype,
                       "device_us": 1e3 * ms, "device_us_from": src,
                       "device_us_by_kernel": None if split is None else
                       {k: 1e3 * v for k, v in split.items()},
-                      "call_us": 1e3 * cs.call_ms(fn)}), flush=True)
+                      "call_us": 1e3 * cs.call_ms(fn), **extra}), flush=True)
 
 
 def spine_plans(dev) -> None:
@@ -106,6 +121,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"), help="the src directory to time")
     ap.add_argument("--label", default="this checkout", help="names the version in each line")
+    ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS,
+                    help="time these kernels alone")
     ap.add_argument("--spine-plans", action="store_true",
                     help="time spine_bwd's cluster kernel under candidate plans instead")
     args = ap.parse_args()
@@ -125,9 +142,24 @@ def main() -> int:
         return 0
     for shape in SPINE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            x2, gx2, w, w_inv, ls, ab = spine_inputs(shape, dtype, dev)
-            report(args.label, "spine_bwd", shape, str(dtype).removeprefix("torch."),
-                   lambda: fk.spine_bwd(x2, gx2, w, w_inv, ls, ab))
+            dname = str(dtype).removeprefix("torch.")
+            x, ls, ab, w, raw, t, y, w_inv = flow_inputs(shape, dtype, dev)
+            # flow-step kernels of one path have no flowstep_path
+            path = ({"path": fk.flowstep_path(x, raw, t)} if hasattr(fk, "flowstep_path")
+                    else {})
+            if "flowstep_fwd" in args.only:
+                report(args.label, "flowstep_fwd", shape, dname,
+                       lambda: fk.flowstep_fwd(x, ls, ab, w, raw, t), **path)
+            if "flowstep_inv" in args.only:
+                report(args.label, "flowstep_inv", shape, dname,
+                       lambda: fk.flowstep_inv(y, ls, ab, w_inv, raw, t), **path)
+            if "spine_bwd" in args.only:
+                x2, gx2, w2, w2_inv, ls2, ab2 = spine_inputs(shape, dtype, dev)
+                report(args.label, "spine_bwd", shape, dname,
+                       lambda: fk.spine_bwd(x2, gx2, w2, w2_inv, ls2, ab2))
+    if "wkv_scan" not in args.only:
+        print(cs.smi())
+        return 0
     prefill, decode = cs.WKV_SHAPES[-1], cs.WKV_DECODE_SHAPE
     r, k, v, w, u, s0 = cs.wkv_inputs(prefill, torch.float32, dev, cs.SEED + 25, model_like=True)
     report(args.label, "wkv_scan", prefill, "float32",
