@@ -10,11 +10,11 @@ The options keep the reference's meaning (``repro/core/coupling.py``).  With
 a kernel flag off the layer computes with plain torch ops; with it on, CPU
 tensors take the kernel's plain version and CUDA tensors the kernel:
 
-* ``kernel_training`` - the forward goes through ``fused_coupling_fwd``
-  (differentiable from its output side) and :meth:`fused_bwd` through
-  ``fused_coupling_bwd``;
+* ``kernel_training`` - the forward goes through ``fused_coupling_fwd_rows``
+  (differentiable from its output side), which writes the layer's whole
+  output row, and :meth:`fused_bwd` through ``fused_coupling_bwd``;
 * ``kernel_inverse`` - the inverse (sampling) goes through
-  ``fused_coupling_inv``.
+  ``fused_coupling_inv_rows``.
 
 :meth:`fused_bwd` is the ``grad_mode="coupled"`` hook: it rebuilds the input
 from the output and emits every cotangent with one conditioner evaluation
@@ -30,8 +30,8 @@ from repro_torch.core.types import Invertible, zero_logdet
 from repro_torch.kernels.common import flatten_bmc
 from repro_torch.kernels.coupling.ops import (
     fused_coupling_bwd,
-    fused_coupling_fwd,
-    fused_coupling_inv,
+    fused_coupling_fwd_rows,
+    fused_coupling_inv_rows,
 )
 from repro_torch.kernels.coupling.ref import coupling_bwd_ref
 
@@ -77,12 +77,12 @@ class AffineCoupling(Invertible):
         h = self.net(xb, cond)
         if self.additive:
             return self._merge(xa + h, xb), zero_logdet(x)
+        if self.kernel_training:  # the whole output row, merged by the op
+            y, ld = fused_coupling_fwd_rows(flatten_bmc(x), flatten_bmc(h), flip=self.flip,
+                                            clamp=self.clamp)
+            return y.reshape(x.shape), ld
         ca = xa.shape[-1]
         raw, t = h[..., :ca], h[..., ca:]
-        if self.kernel_training:
-            ya, ld = fused_coupling_fwd(flatten_bmc(xa), flatten_bmc(raw), flatten_bmc(t),
-                                        clamp=self.clamp)
-            return self._merge(ya.reshape(xa.shape), xb), ld
         log_s = self.clamp * torch.tanh(raw / self.clamp)
         ld = torch.sum(log_s.float(), dim=tuple(range(1, log_s.ndim)))
         return self._merge(xa * torch.exp(log_s) + t, xb), ld
@@ -92,13 +92,12 @@ class AffineCoupling(Invertible):
         h = self.net(yb, cond)
         if self.additive:
             return self._merge(ya - h, yb)
+        if self.kernel_inverse:  # the whole input row, merged by the op
+            return fused_coupling_inv_rows(flatten_bmc(y), flatten_bmc(h), flip=self.flip,
+                                           clamp=self.clamp).reshape(y.shape)
         ca = ya.shape[-1]
         raw, t = h[..., :ca], h[..., ca:]
-        if self.kernel_inverse:
-            xa = fused_coupling_inv(flatten_bmc(ya), flatten_bmc(raw), flatten_bmc(t),
-                                    clamp=self.clamp).reshape(ya.shape)
-        else:
-            xa = (ya - t) * torch.exp(-self.clamp * torch.tanh(raw / self.clamp))
+        xa = (ya - t) * torch.exp(-self.clamp * torch.tanh(raw / self.clamp))
         return self._merge(xa, yb)
 
     def fused_bwd(self, y, gy, gld, cond=None):

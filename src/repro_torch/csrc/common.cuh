@@ -160,8 +160,15 @@ __device__ float block_sum(float v, float* warp_buf) {
 }
 
 // ld[b] = sum_tile partial[b, tile], one warp per batch row, fixed order.
+// kDependent: launched as a programmatic dependent of the grid that stores
+// the partials (cudaLaunchAttributeProgrammaticStreamSerialization), it is
+// scheduled while that grid's last blocks run and waits in
+// griddepcontrol.wait for the grid to complete and its stores to be
+// visible; the wait returns at once in a plain launch.
+template <bool kDependent = false>
 __global__ void ld_reduce_kernel(const float* __restrict__ partial, float* __restrict__ ld,
                                  int n_tiles) {
+  if constexpr (kDependent) asm volatile("griddepcontrol.wait;" ::: "memory");
   const int b = blockIdx.x;
   float s = 0.f;
   for (int i = threadIdx.x; i < n_tiles; i += 32) s += partial[(long long)b * n_tiles + i];

@@ -38,7 +38,8 @@
 // g + grid * warps, ... behind a 2-stage ring of 16-byte cp.async copies:
 // the x (or y) tile and the h tile, read as whole C-wide rows (raw | t
 // together), the next tile in flight while the current one computes (the
-// bytes past the last 16 one element at a time).  A lane computes OUT output
+// bytes past the last 16 one element at a time): RowWalk in row_stream.cuh,
+// which coupling.cu's row stream shares.  A lane computes OUT output
 // columns of RPL rows; C is a compile-time constant, so the product's loop
 // is unrolled with no / or % by C, reads its rows four columns at a time
 // (bf16 widened once, in registers) and W as float4 (or float2) broadcasts,
@@ -80,7 +81,7 @@
 // partials do not depend on the grid.  No atomics: repeated runs are bitwise
 // equal.
 
-#include "common.cuh"
+#include "row_stream.cuh"
 
 namespace {
 
@@ -223,21 +224,8 @@ __device__ __forceinline__ void flow_stream(const T* __restrict__ in,
   float* ev = ws + C * C;
   float* bv = ev + C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(bv + C) + warp * 4 * kTileBytes;
-
-  const int tpb = (M + R - 1) / R;  // tiles of a batch
-  const long long n_tiles = (long long)B * tpb;
-  const long long step = (long long)gridDim.x * WARPS;
-  long long t = (long long)blockIdx.x * WARPS + warp;
-  // tile tt into buf: its rows of in, then of h
-  auto issue = [&](long long tt, unsigned char* buf) {
-    const long long b = tt / tpb;
-    const int m0 = (int)(tt - b * tpb) * R;
-    const long long e0 = (b * M + m0) * C;
-    const int n = min(R, M - m0) * C;
-    stage_elems<T>(buf, in + e0, n, lane, 32);
-    stage_elems<T>(buf + kTileBytes, h + e0, n, lane, 32);
-  };
+  RowWalk<T, C, R, WARPS> walk(in, h, reinterpret_cast<unsigned char*>(bv + C) +
+                                          warp * 4 * kTileBytes, B, M, warp, lane);
   // W (read through its strides) and an_b by 4-byte cp.async copies, a group
   // of their own, then the first tile; e^+-an_ls while they fly
   for (int k = threadIdx.x; k < C * C; k += WARPS * 32) {
@@ -246,8 +234,7 @@ __device__ __forceinline__ void flow_stream(const T* __restrict__ in,
   }
   for (int k = threadIdx.x; k < C; k += WARPS * 32) cp_async4(bv + k, an_b + k);
   cp_async_commit();
-  if (t < n_tiles) issue(t, ring);
-  cp_async_commit();
+  walk.first();
   for (int k = threadIdx.x; k < C; k += WARPS * 32) ev[k] = expf(kInv ? -an_ls[k] : an_ls[k]);
   cp_async_wait_prev();  // this thread's copies of W and an_b have landed
   __syncthreads();       // and every thread's
@@ -256,17 +243,7 @@ __device__ __forceinline__ void flow_stream(const T* __restrict__ in,
   const int j0 = (lane % G) * OUT;    // and its first output column
   const bool coupled = j0 < CA;       // its first KC columns are coupled
   const float rclamp = 1.f / clamp;   // log_s = clamp tanh(raw rclamp)
-  for (int s = 0; t < n_tiles; t += step, s ^= 1) {
-    unsigned char* xt = ring + s * 2 * kTileBytes;
-    unsigned char* ht = xt + kTileBytes;
-    if (t + step < n_tiles) issue(t + step, ring + (s ^ 1) * 2 * kTileBytes);
-    cp_async_commit();
-    cp_async_wait_prev();  // this thread's copies of tile t have landed
-    __syncwarp();          // and every lane's
-    const long long b = t / tpb;
-    const int m0 = (int)(t - b * tpb) * R;
-    const int rows = min(R, M - m0);
-
+  walk.template run<!kInv>(out, partial, [&](unsigned char* xt, unsigned char* ht, int rows) {
     if constexpr (kInv) {  // v = (y - t) e^-ls over the h row's slots, as f32
       float v[RPL][KC];
 #pragma unroll
@@ -377,15 +354,8 @@ __device__ __forceinline__ void flow_stream(const T* __restrict__ in,
     for (int u = 0; u < RPL; ++u)
       if (row0 + u < rows)
         store_vals<T, OUT>(xt + ((row0 + u) * C + j0) * ES, acc[u]);
-    __syncwarp();  // the tile holds the outputs
-    store_elems<T>(out + (b * M + m0) * C, xt, rows * C, lane, 32);
-    if constexpr (!kInv) {  // the tile's sum: lane 0 + lane 16, ..., a fixed tree
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ld += __shfl_down_sync(0xffffffffu, ld, o);
-      if (lane == 0) partial[t] = ld;
-    }
-    __syncwarp();  // the buffer is free for the tile after next
-  }
+    return ld;
+  });
 }
 
 // C = 12 holds 4 blocks an SM (its shared memory allows 4 in f32): at most
@@ -450,9 +420,7 @@ cudaError_t launch_flow_stream(bool inverse, const void* in, const float* an_ls,
     asked_on[d] = device;
   }
   const int tpb = (M + R - 1) / R;
-  const long long tiles = (long long)B * tpb;
-  const long long grid =
-      min((tiles + WARPS - 1) / WARPS, (long long)max(per_sm[d], 1) * n_sm[d]);
+  const long long grid = stream_grid((long long)B * tpb, WARPS, per_sm[d], n_sm[d]);
   if (inverse) {
     inv<<<(unsigned)grid, WARPS * 32, smem, s>>>(static_cast<const T*>(in), an_ls, an_b, w, w_si,
                                                  w_sj, static_cast<const T*>(h),

@@ -66,6 +66,46 @@ def stream_tiles(n_tiles: int, c: int, grid: int, plan=STREAM_PLAN) -> list[list
     return [list(range(g, n_tiles, step)) for g in range(step)]
 
 
+def _seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one term after another from 0, as a loop in a
+    kernel adds them."""
+    s = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for k in range(v.shape[-1]):
+        s = s + v[..., k]
+    return s
+
+
+def _shfl_down_tree(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0's sum of 32 lanes (last axis) after ``v += shfl_down(v, o)``
+    for o = 16, 8, 4, 2, 1."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def stream_ld(log_s: torch.Tensor, rows: int, rpl: int, cols: int, g: int) -> torch.Tensor:
+    """The row streams' ld (``RowWalk`` in ``csrc/row_stream.cuh``) in their
+    order, from the f32 log_s (B, M, ca) of the coupled columns: a tile is
+    ``rows`` rows of one batch; lane l takes rows (l // g) rpl + u and
+    coupled columns (l % g) cols + j (lanes whose columns lie past ca take
+    none) and adds its terms over u and then j; the tile's 32 lanes by the
+    kernels' shuffle tree; then per batch the tiles' sums as
+    ``ld_reduce_kernel`` adds them (lane l takes tiles l, l + 32, ..., then
+    the tree).  Returns (B,) f32."""
+    b, m, ca = log_s.shape
+    per = -(-m // rows)
+    # rows past a batch's end add nothing (0 here)
+    log_s = torch.nn.functional.pad(log_s, (0, 0, 0, per * rows - m))
+    # (b, tile, row group, u, column group, j) -> each lane's terms in order
+    lanes = log_s.reshape(b, per, rows // rpl, rpl, ca // cols, cols).permute(0, 1, 2, 4, 3, 5)
+    sums = _seq_sum(lanes.reshape(b, per, rows // rpl, ca // cols, rpl * cols))
+    by_lane = torch.zeros(b, per, rows // rpl, g, device=log_s.device)
+    by_lane[..., : ca // cols] = sums
+    partial = _shfl_down_tree(by_lane.reshape(b, per, 32))
+    partial = torch.nn.functional.pad(partial, (0, -per % 32))
+    return _shfl_down_tree(_seq_sum(partial.reshape(b, -1, 32).transpose(1, 2)))
+
+
 def spatial_size(shape) -> int:
     """Flattened spatial extent M of a (B, ..., C) shape."""
     m = 1

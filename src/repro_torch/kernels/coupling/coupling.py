@@ -6,11 +6,19 @@ three are memory-bound (16 bytes an element in f32 for the forward and the
 inverse, 32 for the backward); the source note in ``coupling.cu`` gives the
 design.  Each wrapper checks what the kernel takes, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch was refused, and
-adds one to its ``launches`` count.
+adds one to its ``launches`` count (``coupling_fwd`` and ``coupling_inv``
+also to the path's in ``launches_by_path``).
 
-Inputs are (B, M, ca) views with unit channel stride and any row and batch
-strides (the halves of a (B, M, C) tensor); ``raw`` and ``t`` share theirs.
-Outputs are contiguous (B, M, ca) in the input's dtype.
+Two contracts.  Called as ``coupling_fwd(x, raw, t)`` / ``coupling_inv(y,
+raw, t)``, the half kernels (the "tile" path) take (B, M, ca) views with
+unit channel stride and any row and batch strides (the halves of a (B, M, C)
+tensor); ``raw`` and ``t`` share theirs.  Outputs are contiguous (B, M, ca)
+in the input's dtype.  Called as ``coupling_fwd.rows(x, h, flip)`` /
+``coupling_inv.rows(y, h, flip)``, they compute the coupling layer's whole
+(B, M, C) output from its whole input and conditioner output: on the row
+stream where :func:`coupling_path` allows it ("rows"), else on the half
+kernel, whose half is then joined to the pass-through half ("tile"); an h
+of width 2 C makes all of x the transformed half (:func:`row_halves`).
 """
 
 from __future__ import annotations
@@ -19,10 +27,19 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, stream
+from repro_torch.kernels.common import (KERNEL_DTYPES, STREAM_WIDTHS, Kernel, PathKernel, bind,
+                                        raise_on, stream)
 
 #: elements of one batch row a ``coupling_fwd`` block owns (8 a thread)
 TILE_ELEMS = 2048
+#: what ``launches_by_path`` counts: the row stream and the half kernels
+COUPLING_PATHS = ("rows", "tile")
+#: the row stream's lane layout at every width (``COUPLING_PLAN`` in
+#: ``coupling.cu``): (coupled columns, rows) a lane computes, warps a block
+COUPLING_PLAN = (6, 1, 8)
+#: CUDA kernels one call launches, on either path: the coupling's kernel and,
+#: forward, the fixed-order sum of its tiles' ld partials
+KERNELS_PER_CALL = {"coupling_fwd": 2, "coupling_inv": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -30,6 +47,7 @@ _SIGNATURES = {
     "coupling_inv": [_I, _P, _L, _L, _P, _P, _L, _L, _P, _I, _I, _I, _F, _I, _P],
     "coupling_bwd": [_I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P,
                      _I, _I, _I, _F, _I, _P],
+    "coupling_rows": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 
@@ -56,10 +74,132 @@ def _check(name, v, raw, t, *more):
     return b, m, ca
 
 
-class _CouplingFwd(Kernel):
+def coupling_rows_per_tile(c: int) -> int:
+    """Rows of a row-stream tile (``coupling_rows_per_tile`` in
+    ``coupling.cu``): each lane takes ``k`` coupled columns of ``rpl`` rows,
+    so ``(c // 2) // k`` lanes share a group of ``rpl`` rows."""
+    k, rpl, _ = COUPLING_PLAN
+    return rpl * 32 // (c // 2 // k)
+
+
+def coupling_tiles_per_batch(m: int, c: int) -> int:
+    """The row stream's tiles of one batch, the last ragged; the forward's ld
+    partials are (B, this)."""
+    return -(-m // coupling_rows_per_tile(c))
+
+
+def coupling_walk(b: int, m: int, c: int, grid: int) -> list[list[tuple[int, int, int]]]:
+    """The tiles each warp of a ``grid``-block row-stream launch takes, in its
+    order, as (batch, first row, end row) within the batch: tile k is batch
+    k // T's rows [i R, min(i R + R, m)), i = k % T, T =
+    ``coupling_tiles_per_batch(m, c)``, R = ``coupling_rows_per_tile(c)``;
+    warp g takes tiles g, g + grid * warps, ...  (``RowWalk`` in
+    ``row_stream.cuh``)."""
+    r, per = coupling_rows_per_tile(c), coupling_tiles_per_batch(m, c)
+    step = grid * COUPLING_PLAN[2]
+    return [[(k // per, k % per * r, min(k % per * r + r, m)) for k in range(g, b * per, step)]
+            for g in range(step)]
+
+
+def coupling_rows_smem_bytes(c: int, elem_size: int) -> int:
+    """Shared memory of one row-stream block: each warp's 2-stage ring of
+    (x | h) tiles in the storage type."""
+    return COUPLING_PLAN[2] * 2 * 2 * coupling_rows_per_tile(c) * c * elem_size
+
+
+def coupling_path(x, raw, t, flip: bool = False) -> str:
+    """The kernel that computes the coupling layer's output from its input x
+    (the output y for the inverse), (B, M, C), and the conditioner's raw and
+    t: "rows" (the row stream) for C = 2 ca in ``STREAM_WIDTHS`` when the
+    first half is the coupled one (no ``flip``), x is contiguous, raw and t
+    are the two halves of one contiguous (B, M, C) tensor (``t`` starts ca
+    elements after ``raw``, rows C apart), as the layer passes its
+    conditioner output, and x, raw and each batch's rows (M*C elements) are
+    16-byte aligned (its 16-byte copies); "tile" (the half kernel)
+    otherwise."""
+    b, m, c = x.shape
+    ca, es = raw.shape[-1], x.element_size()
+    halves = (2 * ca == c and raw.dtype == t.dtype == x.dtype
+              and raw.stride() == t.stride() == (m * c, c, 1)
+              and t.data_ptr() == raw.data_ptr() + ca * es)
+    aligned = (x.data_ptr() % 16 == 0 and raw.data_ptr() % 16 == 0
+               and (b == 1 or m * c * es % 16 == 0))
+    return ("rows" if not flip and c in STREAM_WIDTHS and x.is_contiguous() and halves
+            and aligned else "tile")
+
+
+def row_halves(v, h, flip: bool = False):
+    """The coupling layer's split of a (B, M, C) row tensor ``v`` and its
+    (B, M, 2 n) conditioner output ``h``: (transformed half (B, M, n),
+    pass-through half, raw, t).  The transformed half is the first n = C // 2
+    columns, or the last n = C - C // 2 with ``flip``, as
+    ``AffineCoupling._split`` takes them; or, n = C, the whole of ``v``, and
+    the pass-through half is empty (the half contract)."""
+    c, s = v.shape[-1], v.shape[-1] // 2
+    n = c - s if flip else s
+    if h.shape[:-1] != v.shape[:-1] or h.shape[-1] not in (2 * n, 2 * c):
+        raise ValueError(f"h must be {(*v.shape[:-1], 2 * n)} or {(*v.shape[:-1], 2 * c)} "
+                         f"for rows {tuple(v.shape)}, got {tuple(h.shape)}")
+    if h.shape[-1] == 2 * c:
+        s, n = (0, c) if flip else (c, c)
+    va, vb = (v[..., s:], v[..., :s]) if flip else (v[..., :s], v[..., s:])
+    return va, vb, h[..., :n], h[..., n:]
+
+
+def join_rows(va, vb, flip: bool = False):
+    """The layer's output row from its transformed half ``va`` and its
+    pass-through half ``vb`` (``AffineCoupling._merge``); ``va`` itself when
+    ``vb`` is empty."""
+    if vb.shape[-1] == 0:
+        return va
+    return torch.cat([vb, va] if flip else [va, vb], dim=-1)
+
+
+def unit_channels(v, raw, t):
+    """``(v, raw, t)`` in a layout the half kernels take: unit channel
+    stride, and ``raw``/``t`` sharing strides."""
+    if v.stride(-1) != 1:
+        v = v.contiguous()
+    if raw.stride(-1) != 1 or raw.stride() != t.stride():
+        raw, t = raw.contiguous(), t.contiguous()
+    return v, raw, t
+
+
+def _rows(kernel, inverse: int, v, h, flip, clamp):
+    """The row op on the card: the row stream where :func:`coupling_path`
+    allows it, else ``kernel``'s half kernel and the join.  Returns (out,
+    ld or None)."""
+    if v.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{kernel.name} takes float32 or bfloat16, got {v.dtype}")
+    if v.ndim != 3 or v.numel() == 0:
+        raise ValueError(f"{kernel.name}: rows must be non-empty (B, M, C), got {tuple(v.shape)}")
+    if h.device != v.device:
+        raise ValueError(f"{kernel.name}: rows on {v.device}, h on {h.device}")
+    va, vb, raw, t = row_halves(v, h, flip)
+    if coupling_path(v, raw, t, flip) == "tile":
+        out = kernel(*unit_channels(va, raw, t), clamp)
+        va, ld = (out, None) if inverse else out
+        return join_rows(va, vb, flip), ld
+    b, m, c = v.shape
+    out = torch.empty_like(v)
+    partial = ld = None
+    if not inverse:
+        partial = torch.empty((b, coupling_tiles_per_batch(m, c)), dtype=torch.float32,
+                              device=v.device)
+        ld = torch.empty((b,), dtype=torch.float32, device=v.device)
+    err = _fn("coupling_rows")(
+        KERNEL_DTYPES[v.dtype], inverse, v.data_ptr(), raw.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(), None if ld is None else ld.data_ptr(),
+        b, m, c, clamp, v.device.index, stream(v),
+    )
+    kernel.count(err, "rows")
+    return out, ld
+
+
+class _CouplingFwd(PathKernel):
     def __call__(self, x, raw, t, clamp: float = 2.0):
         """x, raw, t: (B, M, ca) -> (y: contiguous (B, M, ca) in x's dtype,
-        ld: (B,) f32, the sum of log_s over (m, j))."""
+        ld: (B,) f32, the sum of log_s over (m, j)), on the half kernel."""
         b, m, ca = _check(self.name, x, raw, t)
         n_tiles = -(-(m * ca) // TILE_ELEMS)
         y = torch.empty((b, m, ca), dtype=x.dtype, device=x.device)
@@ -70,14 +210,20 @@ class _CouplingFwd(Kernel):
             t.data_ptr(), raw.stride(0), raw.stride(1), y.data_ptr(), partial.data_ptr(),
             ld.data_ptr(), b, m, ca, TILE_ELEMS, clamp, x.device.index, stream(x),
         )
-        raise_on(err, self.name)
-        self.launches += 1
+        self.count(err, "tile")
         return y, ld
 
+    def rows(self, x, h, flip: bool = False, clamp: float = 2.0):
+        """x: (B, M, C), h: its conditioner output (B, M, 2 n), n the
+        transformed width -> (y: contiguous (B, M, C) in x's dtype, the
+        layer's whole output row, ld: (B,) f32)."""
+        return _rows(self, 0, x, h, flip, clamp)
 
-class _CouplingInv(Kernel):
+
+class _CouplingInv(PathKernel):
     def __call__(self, y, raw, t, clamp: float = 2.0):
-        """y, raw, t: (B, M, ca) -> x: contiguous (B, M, ca) in y's dtype."""
+        """y, raw, t: (B, M, ca) -> x: contiguous (B, M, ca) in y's dtype, on
+        the half kernel."""
         b, m, ca = _check(self.name, y, raw, t)
         x = torch.empty((b, m, ca), dtype=y.dtype, device=y.device)
         err = _fn("coupling_inv")(
@@ -85,9 +231,13 @@ class _CouplingInv(Kernel):
             t.data_ptr(), raw.stride(0), raw.stride(1), x.data_ptr(), b, m, ca, clamp,
             y.device.index, stream(y),
         )
-        raise_on(err, self.name)
-        self.launches += 1
+        self.count(err, "tile")
         return x
+
+    def rows(self, y, h, flip: bool = False, clamp: float = 2.0):
+        """y: (B, M, C), h: the conditioner output of its pass-through half
+        (B, M, 2 n) -> x: contiguous (B, M, C) in y's dtype."""
+        return _rows(self, 1, y, h, flip, clamp)[0]
 
 
 class _CouplingBwd(Kernel):
@@ -111,7 +261,7 @@ class _CouplingBwd(Kernel):
         return x, gx, graw, gt
 
 
-coupling_fwd = _CouplingFwd("coupling_fwd")
-coupling_inv = _CouplingInv("coupling_inv")
+coupling_fwd = _CouplingFwd("coupling_fwd", COUPLING_PATHS)
+coupling_inv = _CouplingInv("coupling_inv", COUPLING_PATHS)
 coupling_bwd = _CouplingBwd("coupling_bwd")
 KERNELS = (coupling_fwd, coupling_inv, coupling_bwd)

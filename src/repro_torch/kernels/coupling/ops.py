@@ -4,19 +4,28 @@ Each goes to its CUDA kernel (``kernels/coupling/coupling.py``) when its
 tensors lie on one CUDA device, and to the plain version (``ref.py``) when
 they lie on the CPU; nothing falls back from the card to the plain version.
 
-* ``fused_coupling_fwd`` is an ``autograd.Function`` on either device, as the
-  reference's ``custom_vjp`` (``_fwd_fwd`` / ``_fwd_bwd``): it saves only the
-  output side ``(y, raw, t)``, and its backward is :func:`fused_coupling_bwd`,
-  which rebuilds ``x`` in the same pass that emits the cotangents.
-* ``fused_coupling_inv`` has no gradient, as the reference's
-  ``coupling_inv`` has no VJP; its backward raises.
+* ``fused_coupling_fwd_rows`` / ``fused_coupling_inv_rows`` are the
+  coupling layer's whole op, from its (B, M, C) input (or output) row and
+  its conditioner output h to the (B, M, C) output (or input) row: the
+  row stream on the card (``coupling_fwd.rows``), the row versions in
+  ``ref.py`` on the CPU, bit for bit the half's result joined to the
+  pass-through half.  The forward is an ``autograd.Function``, as the
+  reference's ``custom_vjp`` (``_fwd_fwd`` / ``_fwd_bwd``): it saves only
+  the output side ``(y, h)``; its backward splits the row cotangent into
+  the coupled half, for :func:`fused_coupling_bwd` (which rebuilds ``x`` in
+  the same pass that emits the cotangents), and the pass-through half, and
+  returns the cotangent of h as ``(graw | gt)``.  The inverse has no
+  gradient, as the reference's ``coupling_inv`` has no VJP; its backward
+  raises.
+* ``fused_coupling_fwd`` / ``fused_coupling_inv`` keep the half contract,
+  (B, M, ca) in and out: the same ops on h = ``(raw | t)``, whose width 2 ca
+  makes all of x the transformed half.
 * :func:`fused_coupling_bwd` is the one home of the coupling-backward
-  dispatch: ``AffineCoupling.fused_bwd`` and the flow step's backward
-  (``kernels/flowstep/ops.py``) both call it.
-
-Inputs are (B, M, ca) views of the transformed half; a view whose channels
-are not adjacent (or a ``raw``/``t`` pair with different strides) is made
-contiguous first, the layout the kernels take.
+  dispatch: ``AffineCoupling.fused_bwd``, the forward's backward here and
+  the flow step's backward (``kernels/flowstep/ops.py``) all call it.  It
+  takes (B, M, ca) views of the transformed half; a view whose channels are
+  not adjacent (or a ``raw``/``t`` pair with different strides) is made
+  contiguous first, the layout the kernel takes.
 """
 
 from __future__ import annotations
@@ -25,29 +34,9 @@ import torch
 
 from repro_torch.kernels.common import use_plain
 from repro_torch.kernels.coupling import coupling as _k
-from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
-
-
-def _unit_channels(v, raw, t):
-    """``(v, raw, t)`` in a layout the kernels take: unit channel stride, and
-    ``raw``/``t`` sharing strides."""
-    if v.stride(-1) != 1:
-        v = v.contiguous()
-    if raw.stride(-1) != 1 or raw.stride() != t.stride():
-        raw, t = raw.contiguous(), t.contiguous()
-    return v, raw, t
-
-
-def _fwd(x, raw, t, clamp):
-    if use_plain(x, raw, t):
-        return coupling_fwd_ref(x, raw, t, clamp=clamp)
-    return _k.coupling_fwd(*_unit_channels(x, raw, t), clamp)
-
-
-def _inv(y, raw, t, clamp):
-    if use_plain(y, raw, t):
-        return coupling_inv_ref(y, raw, t, clamp=clamp)
-    return _k.coupling_inv(*_unit_channels(y, raw, t), clamp)
+from repro_torch.kernels.coupling.coupling import join_rows, row_halves, unit_channels
+from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_rows_ref,
+                                              coupling_inv_rows_ref)
 
 
 def fused_coupling_bwd(y, raw, t, gy, gld, clamp: float = 2.0):
@@ -56,29 +45,37 @@ def fused_coupling_bwd(y, raw, t, gy, gld, clamp: float = 2.0):
     conditioner's VJP."""
     if use_plain(y, raw, t, gy, gld):
         return coupling_bwd_ref(y, raw, t, gy, gld, clamp=clamp)
-    y, raw, t = _unit_channels(y, raw, t)
+    y, raw, t = unit_channels(y, raw, t)
     return _k.coupling_bwd(y, raw, t, gy if gy.stride(-1) == 1 else gy.contiguous(), gld, clamp)
 
 
 class _FwdFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, raw, t, clamp):
-        y, ld = _fwd(x, raw, t, clamp)
-        ctx.save_for_backward(y, raw, t)
-        ctx.clamp = clamp
+    def forward(ctx, x, h, flip, clamp):
+        if use_plain(x, h):
+            y, ld = coupling_fwd_rows_ref(x, h, flip=flip, clamp=clamp)
+        else:
+            y, ld = _k.coupling_fwd.rows(x, h, flip, clamp)
+        ctx.save_for_backward(y, h)
+        ctx.flip, ctx.clamp = flip, clamp
         return y, ld
 
     @staticmethod
     def backward(ctx, gy, gld):
-        y, raw, t = ctx.saved_tensors
-        _x, gx, graw, gt = fused_coupling_bwd(y, raw, t, gy, gld, ctx.clamp)
-        return gx, graw, gt, None
+        y, h = ctx.saved_tensors
+        ya, _, raw, t = row_halves(y, h, ctx.flip)
+        gya, gyb, _, _ = row_halves(gy, h, ctx.flip)
+        _x, gxa, graw, gt = fused_coupling_bwd(ya, raw, t, gya, gld, ctx.clamp)
+        gx = join_rows(gxa, gyb.to(gxa.dtype), ctx.flip)
+        return gx, torch.cat([graw, gt], dim=-1), None, None
 
 
 class _InvFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, raw, t, clamp):
-        return _inv(y, raw, t, clamp)
+    def forward(ctx, y, h, flip, clamp):
+        if use_plain(y, h):
+            return coupling_inv_rows_ref(y, h, flip=flip, clamp=clamp)
+        return _k.coupling_inv.rows(y, h, flip, clamp)
 
     @staticmethod
     def backward(ctx, gx):
@@ -87,12 +84,25 @@ class _InvFn(torch.autograd.Function):
             "differentiate the forward instead")
 
 
+def fused_coupling_fwd_rows(x, h, flip: bool = False, clamp: float = 2.0):
+    """The coupling layer's forward on whole rows: x (B, M, C) and its
+    conditioner output h (B, M, 2 n), n the transformed width, ->
+    ``(y (B, M, C), ld (B,) f32)``; differentiable, from the output side."""
+    return _FwdFn.apply(x, h, flip, clamp)
+
+
+def fused_coupling_inv_rows(y, h, flip: bool = False, clamp: float = 2.0):
+    """The coupling layer's inverse on whole rows: y (B, M, C) and h ->
+    x (B, M, C) (the sampling path)."""
+    return _InvFn.apply(y, h, flip, clamp)
+
+
 def fused_coupling_fwd(x, raw, t, clamp: float = 2.0):
     """``y = x*exp(log_s) + t`` and ``ld`` (B,) f32 on (B, M, ca):
     differentiable, from the output side."""
-    return _FwdFn.apply(x, raw, t, clamp)
+    return fused_coupling_fwd_rows(x, torch.cat([raw, t], dim=-1), clamp=clamp)
 
 
 def fused_coupling_inv(y, raw, t, clamp: float = 2.0):
     """``x = (y - t)*exp(-log_s)`` on (B, M, ca) (the sampling path)."""
-    return _InvFn.apply(y, raw, t, clamp)
+    return fused_coupling_inv_rows(y, torch.cat([raw, t], dim=-1), clamp=clamp)

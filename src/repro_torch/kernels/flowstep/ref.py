@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import product_3xtf32, stream_rows
+from repro_torch.kernels.common import product_3xtf32, stream_ld, stream_rows
 from repro_torch.kernels.flowstep.flowstep import FLOW_PLAN
 
 
@@ -39,23 +39,6 @@ def flowstep_inv_ref(y, an_log_s, an_b, w_inv, raw, t, clamp: float = 2.0):
     return x.to(y.dtype)
 
 
-def _seq_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis one term after another from 0, as a loop in a
-    kernel adds them."""
-    s = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
-    for k in range(v.shape[-1]):
-        s = s + v[..., k]
-    return s
-
-
-def _shfl_down_tree(v: torch.Tensor) -> torch.Tensor:
-    """Lane 0's sum of 32 lanes (last axis) after ``v += shfl_down(v, o)``
-    for o = 16, 8, 4, 2, 1."""
-    for o in (16, 8, 4, 2, 1):
-        v = v[..., :o] + v[..., o:2 * o]
-    return v[..., 0]
-
-
 def flowstep_stream_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0, inverse: bool = False):
     """The stream kernels' arithmetic in plain PyTorch (``csrc/flowstep.cu``,
     ``flow_stream``; C in ``FLOW_PLAN``, ca = C/2).  Forward: ``(y, ld)``,
@@ -70,22 +53,10 @@ def flowstep_stream_ref(x, an_log_s, an_b, w, raw, t, clamp: float = 2.0, invers
     if inverse:
         return flowstep_inv_ref(x, an_log_s, an_b, w, raw, t, clamp=clamp)
     y, _ = flowstep_fwd_ref(x, an_log_s, an_b, w, raw, t, clamp=clamp)
-    b, m, c = x.shape
-    ca = raw.shape[-1]
+    c = x.shape[-1]
     out, rpl, _ = FLOW_PLAN[c]
-    g, r, kc = c // out, stream_rows(c, FLOW_PLAN), min(out, ca)
-    per = -(-m // r)
     log_s = clamp * torch.tanh(raw.float() / clamp)
-    # rows past a batch's end add nothing (0 here)
-    log_s = torch.nn.functional.pad(log_s, (0, 0, 0, per * r - m))
-    # (b, tile, row group, u, column group, j) -> each lane's terms in order
-    lanes = log_s.reshape(b, per, r // rpl, rpl, ca // kc, kc).permute(0, 1, 2, 4, 3, 5)
-    sums = _seq_sum(lanes.reshape(b, per, r // rpl, ca // kc, rpl * kc))
-    by_lane = torch.zeros(b, per, r // rpl, g, device=x.device)
-    by_lane[..., : ca // kc] = sums
-    partial = _shfl_down_tree(by_lane.reshape(b, per, 32))
-    partial = torch.nn.functional.pad(partial, (0, -per % 32))
-    ld = _shfl_down_tree(_seq_sum(partial.reshape(b, -1, 32).transpose(1, 2)))
+    ld = stream_ld(log_s, stream_rows(c, FLOW_PLAN), rpl, min(out, raw.shape[-1]), c // out)
     return y, ld
 
 

@@ -35,8 +35,10 @@ from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
 from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
 from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
 from repro_torch.kernels.coupling import coupling as ckern
-from repro_torch.kernels.coupling.ops import fused_coupling_fwd
-from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_fwd_ref, coupling_inv_ref
+from repro_torch.kernels.coupling.ops import fused_coupling_fwd, fused_coupling_fwd_rows
+from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_ref,
+                                              coupling_fwd_rows_ref, coupling_inv_ref,
+                                              coupling_inv_rows_ref, coupling_stream_ref)
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
 from repro_torch.kernels.flowstep.ref import (flowstep_fwd_ref, flowstep_inv_ref,
@@ -276,6 +278,101 @@ def test_fused_coupling_fwd_gradient_on_the_card_matches_the_plain_path(dev):
     torch.cuda.synchronize()
     assert ckern.coupling_bwd.launches == before + 1
     for name, a, r in zip(("x", "raw", "t"), got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+# the row stream: the unrolled model's (B, M, C), a ragged last tile at each
+# GLOW width
+ROW_SHAPES = [(8, 16384, 12), (8, 4096, 24), (8, 1024, 48), (8, 300, 12), (3, 77, 24),
+              (1, 13, 48)]
+
+
+def _rows(shape, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g).to(dev, dtype),
+            torch.randn(shape, generator=g).to(dev, dtype))
+
+
+def _ld_scale(h):
+    """sum |log_s| of each batch (at least 1): the terms cancel for random
+    raw, so the sum's error scales with it"""
+    ca = h.shape[-1] // 2
+    return (2.0 * torch.tanh(h[..., :ca].float() / 2.0)).abs().sum(dim=(1, 2)).clamp_min(1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_coupling_rows_match_plain_versions(dev, shape, dtype):
+    """The row stream writes the layer's whole output row: the coupled half
+    as the plain row version computes it, the pass-through half the input's
+    bit for bit, ld within 1e-5 of sum |log_s| of the plain sum and of the
+    kernel-order mirror, and bitwise repeatable."""
+    x, h = _rows(shape, dtype, dev, 7)
+    ca = shape[-1] // 2
+    assert ckern.coupling_path(x, h[..., :ca], h[..., ca:]) == "rows"
+    before = (dict(ckern.coupling_fwd.launches_by_path), dict(ckern.coupling_inv.launches_by_path))
+    y, ld = ckern.coupling_fwd.rows(x, h)
+    y2, ld2 = ckern.coupling_fwd.rows(x, h)
+    y_r, ld_r = coupling_fwd_rows_ref(x, h)
+    _, ld_k = coupling_stream_ref(x, h)
+    back = ckern.coupling_inv.rows(y_r, h)
+    back_r = coupling_inv_rows_ref(y_r, h)
+    torch.cuda.synchronize()
+    _close(y, y_r, dtype)
+    _close(back, back_r, dtype)
+    assert torch.equal(y[..., ca:], x[..., ca:]) and torch.equal(back[..., ca:], y_r[..., ca:])
+    scale = _ld_scale(h)
+    assert ((ld - ld_r).abs() <= 1e-5 * scale).all() and ((ld - ld_k).abs() <= 1e-5 * scale).all()
+    assert torch.equal(ld, ld2) and torch.equal(y, y2)  # no atomics: bitwise repeatable
+    assert ckern.coupling_fwd.launches_by_path == {**before[0], "rows": before[0]["rows"] + 2}
+    assert ckern.coupling_inv.launches_by_path == {**before[1], "rows": before[1]["rows"] + 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coupling_rows_off_the_rule_take_the_half_kernels(dev, dtype):
+    """The second half coupled, a width off the stream's, h a slice of a
+    wider tensor, a base off 16 bytes: the half kernel and the join, against
+    the plain row version."""
+    x, h = _rows((2, 300, 12), dtype, dev, 9)
+    wide = torch.randn(2, 300, 20, generator=torch.Generator().manual_seed(10)).to(dev, dtype)
+    x_off = torch.randn(2 * 300 * 12 + 1, generator=torch.Generator().manual_seed(11))
+    x_off = x_off.to(dev, dtype)[1:].view(2, 300, 12)
+    x7, h7 = _rows((2, 300, 7), dtype, dev, 12)
+    for xx, hh, flip in ((x, h, True), (x7, h7[..., :6], False), (x, wide[..., :12], False),
+                         (x_off, h, False)):
+        before = dict(ckern.coupling_fwd.launches_by_path)
+        y, ld = ckern.coupling_fwd.rows(xx, hh, flip)
+        y_r, ld_r = coupling_fwd_rows_ref(xx, hh, flip)
+        back = ckern.coupling_inv.rows(y_r, hh, flip)
+        torch.cuda.synchronize()
+        assert ckern.coupling_fwd.launches_by_path == {**before, "tile": before["tile"] + 1}
+        _close(y, y_r, dtype)
+        _close(back, coupling_inv_rows_ref(y_r, hh, flip), dtype)
+        n = hh.shape[-1] // 2
+        scale = (2.0 * torch.tanh(hh[..., :n].float() / 2.0)).abs().sum(dim=(1, 2))
+        assert ((ld - ld_r).abs() <= 1e-5 * scale.clamp_min(1.0)).all()
+
+
+def test_coupling_rows_gradient_on_the_card_matches_the_plain_path(dev):
+    """The row op's backward on the card (``coupling_bwd`` on the coupled
+    half, the pass-through half's cotangent passed on, h's as (graw | gt))
+    gives the gradient autograd takes through the plain row version."""
+    x, h = _rows((2, 300, 12), torch.float32, dev, 13)
+    g = torch.Generator().manual_seed(14)
+    gy = torch.randn(2, 300, 12, generator=g).to(dev)
+    gld = torch.randn(2, generator=g).to(dev)
+
+    def grads(fn):
+        leaves = [v.detach().clone().requires_grad_() for v in (x, h)]
+        y, ld = fn(*leaves)
+        return torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), leaves)
+
+    before = (ckern.coupling_bwd.launches, ckern.coupling_fwd.launches_by_path["rows"])
+    got, ref = grads(fused_coupling_fwd_rows), grads(coupling_fwd_rows_ref)
+    torch.cuda.synchronize()
+    assert (ckern.coupling_bwd.launches, ckern.coupling_fwd.launches_by_path["rows"]) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, r in zip(("x", "h"), got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
 
 

@@ -133,16 +133,16 @@ def test_kernel_inverse_twin_serves_the_samples(tree, monkeypatch):
     """``FlowServeEngine(flow, sample_flow=twin)``: the twin is a second
     build with ``kernel_inverse=True`` that holds the flow's own parameters,
     and ``sample`` inverts through it (every coupling through
-    ``fused_coupling_inv``), matching the reference's twin on the same
-    latent."""
+    ``fused_coupling_inv_rows``, the whole-row inverse), matching the
+    reference's twin on the same latent."""
     calls = [0]
-    inv = coupling_mod.fused_coupling_inv
+    inv = coupling_mod.fused_coupling_inv_rows
 
     def counting(*a, **kw):
         calls[0] += 1
         return inv(*a, **kw)
 
-    monkeypatch.setattr(coupling_mod, "fused_coupling_inv", counting)
+    monkeypatch.setattr(coupling_mod, "fused_coupling_inv_rows", counting)
     flow = _port(tree)
     twin = share_parameters(build_glow(**SMALL, grad_mode="coupled", kernel_inverse=True,
                                        device="cpu", generator=torch.Generator().manual_seed(9)),

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of ``flowstep_fwd``, ``flowstep_inv``, ``spine_bwd`` and
-``wkv_scan`` on one NVIDIA GPU, split by the CUDA kernels each call launches.
+"""Device time of ``flowstep_fwd``, ``flowstep_inv``, ``spine_bwd``, the
+coupling layer's op (``coupling_fwd``, ``coupling_inv``), ``coupling_bwd``
+and ``wkv_scan`` on one NVIDIA GPU, split by the CUDA kernels each call
+launches.
 
     python3 tools/kernel_split.py [--src DIR] [--label NAME] [--only KERNEL ...]
 
@@ -16,12 +18,30 @@ and the path the call took where the kernel has two.  ``--only`` times the
 named kernels alone.  ``--src`` names the ``src`` directory whose
 ``repro_torch`` is timed (default: this checkout's), so that two versions
 of the kernels can be timed in one run, each built from its own sources
-into its own checkout's ``build/``.  Prints one JSON line per point, then
-the card's name and power limit.  With ``--spine-plans`` it times instead
-``spine_bwd``'s cluster kernel at the same points under candidate launch
-plans (blocks a cluster, blocks in all) beside the plan ``spine_plan``
-picks, each held against ``spine_bwd_ref`` at ``chip_smoke.py``'s
-``TOL_SUM``.  Exits 2 without a CUDA device.
+into its own checkout's ``build/``.
+
+``coupling_fwd`` / ``coupling_inv`` time the unrolled GLOW layer's coupling
+op at its three (B, M, C) = (8, 16384, 12), (8, 4096, 24), (8, 1024, 48),
+f32 and bf16, from the layer's input (or output) row and its conditioner
+output h to the merged (B, M, C) row (and ld), as the checkout's layer does
+it under ``no_grad``: where the checkout has the row op
+(``fused_coupling_fwd_rows``), that op; else the half kernel on the first
+half and ``torch.cat`` with the second.  ``coupling_bwd`` times the backward
+kernel on the transformed half (8, ·, 6 / 12 / 24).  Each point is read
+twice, "warm" (the same inputs call after call, as far as they fit in the
+50 MB L2) and "flushed" (a 64 MB buffer read, by a sum, before each call, so
+that the call's inputs come from HBM and the lines left in L2 are clean),
+each as the summed device time of the call's kernels (the flush's left out)
+and as the events' span of many calls queued back to back behind a spin
+kernel (``chip_smoke.queued_ms``; flushed: the span of flush-and-call
+pairs less that of the flushes alone, the median of three), which counts
+the gaps between a call's kernels.
+
+Prints one JSON line per point, then the card's name and power limit.  With
+``--spine-plans`` it times instead ``spine_bwd``'s cluster kernel at the
+same points under candidate launch plans (blocks a cluster, blocks in all)
+beside the plan ``spine_plan`` picks, each held against ``spine_bwd_ref``
+at ``chip_smoke.py``'s ``TOL_SUM``.  Exits 2 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,7 +58,14 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (timing, inputs and tolerances as the smoke run's)
 
 SPINE_SHAPES = cs.SHAPES[:3]
-KERNELS = ("flowstep_fwd", "flowstep_inv", "spine_bwd", "wkv_scan")
+KERNELS = ("flowstep_fwd", "flowstep_inv", "spine_bwd", "coupling_fwd", "coupling_inv",
+           "coupling_bwd", "wkv_scan")
+COUPLING_KERNELS = ("coupling_fwd", "coupling_inv", "coupling_bwd")
+#: bytes read before each call of a "flushed" reading: more than the L2;
+#: and the names of the kernels the flush's sum launches (its reduction and
+#: the memset of its output), which the summed reading leaves out
+FLUSH_BYTES = 64 << 20
+FLUSH_KERNELS = ("ReduceOp", "Memset")
 
 
 def spine_inputs(shape, dtype, dev):
@@ -69,6 +96,104 @@ def report(label, kernel, shape, dtype, fn, **extra):
                       "device_us_by_kernel": None if split is None else
                       {k: 1e3 * v for k, v in split.items()},
                       "call_us": 1e3 * cs.call_ms(fn), **extra}), flush=True)
+
+
+def summed_us(fn, flush=None, reps: int = 20, attempts: int = 10):
+    """The summed device time (µs) of one call's kernels and its split by
+    kernel name (``torch.profiler``), each call after ``flush`` where given,
+    whose reduction kernels are left out of the sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if cs._is_device_event(e)
+                   and (flush is None or not any(k in e.key for k in FLUSH_KERNELS))]
+        if sum(e.device_time_total for e in kernels) > 0 and sum(e.count for e in kernels) >= reps:
+            split: dict[str, float] = {}
+            for e in kernels:
+                name = cs._kernel_name(e.key)
+                split[name] = split.get(name, 0.0) + e.device_time_total / reps
+            return sum(split.values()), split
+    return None, None
+
+
+def coupling_points(label, names, dev) -> None:
+    """The coupling op's lines (module docstring): each kernel in ``names``
+    at each (shape, dtype), warm and flushed, by both readings."""
+    import torch
+
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.coupling import ops as cops
+
+    rows = hasattr(cops, "fused_coupling_fwd_rows")
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def flush():  # read, so the lines it leaves in L2 are clean
+        return flush_buf.sum()
+
+    def flushed():
+        flush()
+        return fn()
+
+    for shape in SPINE_SHAPES:
+        b, m, c = shape
+        ca = c // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(cs.SEED + 13)
+            x = torch.randn(shape, generator=g).to(dev, dtype)
+            h = torch.randn(shape, generator=g).to(dev, dtype)
+            raw, t = h[..., :ca], h[..., ca:]
+            gy = torch.randn(shape, generator=g).to(dev, dtype)
+            gld = torch.randn(b, generator=g).to(dev)
+            if rows:
+                ops = {"coupling_fwd": lambda: cops.fused_coupling_fwd_rows(x, h),
+                       "coupling_inv": lambda: cops.fused_coupling_inv_rows(y, h)}
+            else:  # the half kernel, then the layer's join
+                ops = {"coupling_fwd": lambda: torch.cat(
+                           [cops.fused_coupling_fwd(x[..., :ca], raw, t)[0], x[..., ca:]], dim=-1),
+                       "coupling_inv": lambda: torch.cat(
+                           [cops.fused_coupling_inv(y[..., :ca], raw, t), y[..., ca:]], dim=-1)}
+            ops["coupling_bwd"] = lambda: ck.coupling_bwd(y[..., :ca], raw, t, gy[..., :ca], gld)
+            with torch.no_grad():
+                y = ops["coupling_fwd"]()
+                y = y[0] if rows else y
+            for name in names:
+                kernel = getattr(ck, name)
+                before = dict(getattr(kernel, "launches_by_path", {}))
+                with torch.no_grad():
+                    fn = ops[name]
+                    fn()
+                    torch.cuda.synchronize()
+                    path = [p for p, n in getattr(kernel, "launches_by_path", {}).items()
+                            if n != before[p]]
+                    readings = {}
+                    for reading, fl in (("warm", None), ("flushed", flush)):
+                        total, split = summed_us(fn, fl)
+                        # the events' span of many queued calls, less that
+                        # of as many flushes alone (the median of three
+                        # such differences)
+                        span = (1e3 * cs.queued_ms(fn) if fl is None else 1e3 * sorted(
+                            cs.queued_ms(flushed) - cs.queued_ms(flush) for _ in range(3))[1])
+                        readings[reading] = {"summed_us": total, "span_us": span,
+                                             "summed_us_by_kernel": split}
+                op = ("half kernel" if name == "coupling_bwd" else "row op" if rows
+                      else "half kernel + torch.cat")
+                bound_name = name if name == "coupling_bwd" else f"{name}_rows"
+                print(json.dumps({
+                    "label": label, "kernel": name, "op": op,
+                    "shape": list(shape) if name != "coupling_bwd" else [b, m, ca],
+                    "dtype": str(dtype).removeprefix("torch."),
+                    "path": path[0] if len(path) == 1 else None,
+                    "bound_us": 1e3 * cs.bound_ms(bound_name, shape, dtype),
+                    **readings}), flush=True)
 
 
 def spine_plans(dev) -> None:
@@ -140,6 +265,9 @@ def main() -> int:
         spine_plans(dev)
         print(cs.smi())
         return 0
+    coupling = [k for k in args.only if k in COUPLING_KERNELS]
+    if coupling:
+        coupling_points(args.label, coupling, dev)
     for shape in SPINE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
