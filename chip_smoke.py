@@ -40,7 +40,12 @@ kernel against its plain PyTorch version.  Phases, one line each:
              ``conv1x1_gw``'s (the cluster sum on the tensor cores at
              C = 12, 24, 48, per-chunk partials at other widths) and
              ``spine_bwd``'s (one pass summed in clusters at C = 12, 24, 48,
-             the tile kernel and its reduce at other widths); the LM
+             the tile kernel and its reduce at other widths);
+             ``coupling_bwd`` on whole rows (the backward's row stream at
+             C = 12, 24, 48 and a ragged M: x, gx and gh = (graw | gt)
+             against the plain row version, the pass-through halves
+             bitwise, bitwise repeatable) and on strided halves (the half
+             kernel, the "tile" path); the LM
              kernels' gradient guard (an input that requires grad raises on
              backward; under ``no_grad`` the same output and launches as the
              unguarded kernel);
@@ -56,8 +61,9 @@ kernel against its plain PyTorch version.  Phases, one line each:
              ``value_and_grad_nll`` against the same model on the CPU and
              against another backward on the card (scanned: ``stored``;
              unrolled: ``autodiff``), the launches per train step (the
-             unrolled model's 24 ``coupling_fwd`` on the row stream), then
-             ``train_flow`` for a few steps;
+             unrolled model's 24 ``coupling_fwd`` on the row stream, both
+             models' 24 ``coupling_bwd`` on the backward's row stream),
+             then ``train_flow`` for a few steps;
 5. memory  - peak device memory of one scanned train step at 4 and 8 steps a
              scale, ``coupled`` (reversible) and ``autodiff``: the coupled
              peak must grow by less than a quarter of the autodiff peak's
@@ -77,7 +83,8 @@ kernel against its plain PyTorch version.  Phases, one line each:
              that have two, and each call's
              device time split by CUDA kernel (``ms_by_kernel``);
              the coupling op on whole rows at the unrolled model's (B, M,
-             C) beside the half kernels on its halves;
+             C) beside the half kernels on its halves, and the coupling
+             backward on whole rows beside the half kernel;
              end-to-end ``log_prob``, ``sample`` and the train step of both
              models; one profiled call of each, with device time by op,
              ``aten::cat`` launches and the device's idle share (tables written to
@@ -107,8 +114,9 @@ kernel against its plain PyTorch version.  Phases, one line each:
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
 bf16, causal or not, bitwise repeatable, bf16 with a head dim that is a
-multiple of 16 on the tensor-core kernel and the rest on the CUDA-core one;
-bf16 strided heads; a misaligned bf16 view on the CUDA-core kernel) run with
+multiple of 16 on the tensor-core kernel, f32 with one that is a multiple of
+8 on the TF32 kernel (3xTF32) and the rest on the CUDA-core one; bf16
+strided heads; a misaligned bf16 view on the CUDA-core kernel) run with
 the other kernels, and so
 do the scan kernels' (``wkv_scan`` and ``ssd_scan`` against ``wkv_ref`` and
 ``ssd_ref`` at the reference's kernel-test shapes, f32 and bf16, and at the
@@ -159,7 +167,9 @@ H100_TF32_FLOPS = 495e12
 H100_BF16_FLOPS = 989.4e12
 #: the kernels whose products run on the TF32 tensor cores (3xTF32 for f32
 #: inputs, one TF32 product for bf16 ones, which TF32 holds exactly); their
-#: operations are counted once, as the function needs them
+#: operations are counted once, as the function needs them.  f32
+#: flash_attention with a head dim that is a multiple of 8 runs there too
+#: (``units``)
 TF32_KERNELS = ("ssd_scan", "conv1x1_gw")
 # flash_attention (B, Hq, Hkv, S, D): the reference's kernel-test shapes
 # (tests/test_kernels.py:277-279), yi-6b's prefill, batch 8 x 2048, and a head
@@ -323,6 +333,11 @@ def cost(name: str, shape, dtype):
     if name == "coupling_bwd":
         # y, raw, t, gy in; x, gx, graw, gt out; gld in
         return 8 * es * b * m * ca + 4 * b, 15 * b * m * ca
+    if name == "coupling_bwd_rows":
+        # the backward on whole rows (B, M, C) = shape: y, h (raw | t), gy in,
+        # x, gx, gh (graw | gt) out, gld in; the same work on the ca coupled
+        # columns, the pass-through halves moved as they are
+        return 6 * es * b * m * c + 4 * b, 15 * b * m * ca
     if name in ("coupling_fwd", "coupling_inv"):
         # on the transformed half (B, M, ca) = shape: x|y, raw, t in, y|x out
         # (ld out); tanh, divide, scale, exp, multiply, add (+ the ld sum)
@@ -365,7 +380,13 @@ def units(name, shape, dtype) -> list[tuple[float, float, str]]:
     TF32 tensor cores and the rest (x1, gx1, the elementwise work: 4 C + 6)
     on the CUDA cores; the tile kernel at other widths runs all of it on the
     CUDA cores.  Every other kernel runs on the units ``rate`` names."""
+    import torch
+
     _, flops = cost(name, shape, dtype)
+    if name == "flash_attention" and dtype == torch.float32 and shape[-1] % 8 == 0:
+        # the TF32 kernel: the two products on the TF32 tensor cores, their
+        # operations counted once (three TF32 products each in 3xTF32)
+        return [(flops, H100_TF32_FLOPS, "tf32 tensor cores")]
     if name == "spine_bwd" and shape[-1] in (12, 24, 48):
         b, m, c = shape
         gw = 2 * b * m * c * c
@@ -516,13 +537,16 @@ def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None, **
 def check_bwd_kernels(dev) -> dict:
     """Phase 2, the backward kernels: ``spine_bwd`` and ``coupling_bwd``
     against their plain versions at the trained shapes and a ragged one, in
-    f32 and bf16, on strided halves as the flow step passes them; the sums
-    over (b, m) bitwise repeatable.  Returns each kernel's largest
+    f32 and bf16; ``coupling_bwd`` on whole rows (the backward's row stream:
+    x, gx and gh from y, h and gy, as both models' backward passes them) and
+    on strided halves (the half kernel); the sums over (b, m) and the row
+    stream's outputs bitwise repeatable.  Returns each kernel's largest
     per-element f32 error."""
     import torch
     from repro_torch.kernels.coupling import coupling as ckern
-    from repro_torch.kernels.coupling.ref import coupling_bwd_ref
+    from repro_torch.kernels.coupling.ref import coupling_bwd_ref, coupling_bwd_rows_ref
     from repro_torch.kernels.flowstep import flowstep as kern
+    from repro_torch.kernels.flowstep.ops import conditioner_output
     from repro_torch.kernels.flowstep.ref import spine_bwd_ref
 
     max_err = {"spine_bwd": 0.0, "coupling_bwd": 0.0}
@@ -542,11 +566,30 @@ def check_bwd_kernels(dev) -> dict:
             path = kern.spine_path(x2, gx2)
             check(path == "cluster" and kern.spine_bwd.launches_by_path[path] == before[path] + 2,
                   f"spine_bwd at {shape} {dname} did not take the cluster kernel")
+            before_c = dict(ckern.coupling_bwd.launches_by_path)
             c_got = ckern.coupling_bwd(x2[..., :ca], raw, t, gx2[..., :ca], gld)
             c_ref = coupling_bwd_ref(x2[..., :ca], raw, t, gx2[..., :ca], gld)
+            # the backward's whole rows: y = x2, h whose halves raw and t are
+            h = conditioner_output(raw, t)
+            check(h.data_ptr() == raw.data_ptr() and ckern.coupling_path(x2, raw, t, gy=gx2)
+                  == "rows", f"coupling_bwd rows at {shape} {dname} would take the tile path")
+            r_got = ckern.coupling_bwd.rows(x2, h, gx2, gld)
+            r_again = ckern.coupling_bwd.rows(x2, h, gx2, gld)
+            r_ref = coupling_bwd_rows_ref(x2, h, gx2, gld)
             torch.cuda.synchronize()
+            check(ckern.coupling_bwd.launches_by_path == {"rows": before_c["rows"] + 2,
+                                                          "tile": before_c["tile"] + 1},
+                  f"coupling_bwd at {shape} {dname} did not take the row stream and the half")
+            check(all(torch.equal(a, b) for a, b in zip(r_got, r_again)),
+                  f"coupling_bwd rows not bitwise repeatable at {shape} {dname}")
+            check(torch.equal(r_got[0][..., ca:], x2[..., ca:])
+                  and torch.equal(r_got[1][..., ca:], gx2[..., ca:])
+                  and torch.equal(r_got[2][..., ca:], gx2[..., :ca]),
+                  f"coupling_bwd rows at {shape} {dname}: a pass-through half or gt changed")
             errs = {}
-            for name, pairs in (("spine_bwd", zip(got[:2], ref[:2])), ("coupling_bwd", zip(c_got, c_ref))):
+            for name, pairs in (("spine_bwd", zip(got[:2], ref[:2])),
+                                ("coupling_bwd", zip(c_got, c_ref)),
+                                ("coupling_bwd_rows", zip(r_got, r_ref))):
                 for a, r in pairs:
                     d = (a.float() - r.float()).abs()
                     errs[name] = max(errs.get(name, 0.0), d.max().item())
@@ -565,10 +608,13 @@ def check_bwd_kernels(dev) -> dict:
             if dtype == torch.float32:
                 for name in max_err:
                     max_err[name] = max(max_err[name], errs[name])
+            if dtype == torch.float32:
+                max_err["coupling_bwd"] = max(max_err["coupling_bwd"], errs["coupling_bwd_rows"])
             line("kernels", shape=list(shape), dtype=dname, spine_bwd_path=path,
                  spine_bwd_max_abs_err=errs["spine_bwd"],
                  spine_bwd_sums_max_rel_err=sum_err, coupling_bwd_max_abs_err=errs["coupling_bwd"],
-                 sums_bitwise_repeatable=True)
+                 coupling_bwd_rows_max_abs_err=errs["coupling_bwd_rows"],
+                 coupling_bwd_rows_bitwise_repeatable=True, sums_bitwise_repeatable=True)
     return max_err
 
 
@@ -622,6 +668,8 @@ def train_phase(dev, card) -> dict:
     check(spine_by_path == {"cluster": 24, "tile": 0}, f"spine_bwd paths: {spine_by_path}")
     fwd_by_path = dict(kern.flowstep_fwd.launches_by_path)
     check(fwd_by_path == {"stream": 24, "tile": 0}, f"flowstep_fwd paths: {fwd_by_path}")
+    bwd_by_path = dict(ckern.coupling_bwd.launches_by_path)
+    check(bwd_by_path == {"rows": 24, "tile": 0}, f"coupling_bwd paths: {bwd_by_path}")
 
     t0 = time.perf_counter()
     flow_cpu = make("cpu")
@@ -653,9 +701,10 @@ def train_phase(dev, card) -> dict:
          cpu_reference_s=cpu_s, loss_rel_err_vs_stored=st_loss_rel,
          grad_max_rel_err_vs_stored=st_rel, launches_per_train_step=launches,
          spine_bwd_launches_by_path=spine_by_path, flowstep_fwd_launches_by_path=fwd_by_path,
+         coupling_bwd_launches_by_path=bwd_by_path,
          train_flow_losses=res.losses, step0_loss_bitwise_equal=res.losses[0] == loss.item(),
          n_params=sum(p.numel() for p in flow.parameters()), card=card)
-    return {"launches": launches, "flow": flow, "x": x}
+    return {"launches": launches, "flow": flow, "x": x, "coupling_bwd_by_path": bwd_by_path}
 
 
 def memory_phase(dev, card) -> dict:
@@ -987,6 +1036,9 @@ def coupled_train_phase(dev, card) -> dict:
           f"unrolled train-step launches: {launches}")
     paths = dict(ck.coupling_fwd.launches_by_path)
     check(paths == {"rows": 24, "tile": 0}, f"unrolled train-step coupling_fwd paths: {paths}")
+    bwd_paths = dict(ck.coupling_bwd.launches_by_path)
+    check(bwd_paths == {"rows": 24, "tile": 0},
+          f"unrolled train-step coupling_bwd paths: {bwd_paths}")
 
     t0 = time.perf_counter()
     loss_cpu, grads_cpu = value_and_grad_nll(build_coupled("cpu"), x_cpu)
@@ -1018,8 +1070,9 @@ def coupled_train_phase(dev, card) -> dict:
          grad_worst_leaf_vs_cpu=grad_worst, cpu_reference_s=cpu_s,
          loss_rel_err_vs_autodiff=ad_loss_rel, grad_max_rel_err_vs_autodiff=ad_rel,
          **oracle, launches_per_train_step=launches,
-         coupling_fwd_launches_by_path=paths, train_flow_losses=res.losses,
-         n_params=sum(p.numel() for p in flow.parameters()), card=card)
+         coupling_fwd_launches_by_path=paths, coupling_bwd_launches_by_path=bwd_paths,
+         train_flow_losses=res.losses, n_params=sum(p.numel() for p in flow.parameters()),
+         card=card)
     return {"launches": launches, "flow": flow, "x": x}
 
 
@@ -1092,8 +1145,9 @@ def check_attention_kernel(dev) -> dict:
     """Phase 2, ``flash_attention`` against ``attention_ref`` at
     ``ATTN_SHAPES``, f32 and bf16, causal or not: within the reference's
     ``_tol`` and bitwise repeatable, each on the path ``flash_path`` picks
-    (bf16 with D % 16 == 0 on the tensor-core kernel, the rest on the
-    CUDA-core one; each line names the path that ran).  Then (B, S, H, D)
+    (bf16 with D % 16 == 0 on the tensor-core kernel, f32 with D % 8 == 0
+    on the TF32 kernel, the rest on the CUDA-core one; each line names the
+    path that ran).  Then (B, S, H, D)
     views passed as (B, H, S, D) in bf16, as ``attn_apply`` passes them,
     equal to the same call on copies; and a bf16 view TMA cannot take, on
     the CUDA-core kernel against ``attention_ref``.  Returns the largest abs
@@ -1109,6 +1163,7 @@ def check_attention_kernel(dev) -> dict:
             q, k, v = attention_inputs(shape, dtype, dev, SEED + 15)
             want = ak.flash_path(q, k, v)
             check(want == ("tensor_core" if dtype == torch.bfloat16 and shape[-1] % 16 == 0
+                           else "tf32" if dtype == torch.float32 and shape[-1] % 8 == 0
                            else "cuda_core"), f"flash_path {shape} {dname}: {want}")
             for causal in (True, False):
                 before = dict(ak.flash_attention.launches_by_path)
@@ -1232,7 +1287,9 @@ def attention_op_phase(dev, card) -> dict:
     out_flash, _ = attn_apply(params, x, acfg, pos, impl="flash")
     torch.cuda.synchronize()
     launches = ak.flash_attention.launches
-    check(launches == 1, f"attn_apply(impl='flash') launched flash_attention {launches} times")
+    f32_by_path = dict(ak.flash_attention.launches_by_path)
+    check(launches == 1 and f32_by_path["tf32"] == 1,
+          f"attn_apply(impl='flash') in f32 launched {f32_by_path}")
     reset(ak.KERNELS)
     out_xla, _ = attn_apply(params, x, acfg, pos, impl="xla")
     torch.cuda.synchronize()
@@ -1252,14 +1309,15 @@ def attention_op_phase(dev, card) -> dict:
         errs[impl] = {"mean_abs_err": d.mean().item(), "max_abs_err": d.max().item()}
         del out, d
     by_path = {p: n - by_path[p] for p, n in ak.flash_attention.launches_by_path.items()}
-    check(by_path == {"tensor_core": 1, "cuda_core": 0},
+    check(by_path == {"tensor_core": 1, "tf32": 0, "cuda_core": 0},
           f"attn_apply(impl='flash') in bf16 launched {by_path}")
     check(errs["flash"]["mean_abs_err"] <= errs["xla"]["mean_abs_err"],
           f"attn_apply bf16: flash path errs more than the einsum path: {errs}")
     line("op", op="attn_apply", impl="flash", d_model=CONFIG.d_model, batch=LM_BATCH,
          seq=LM_PROMPT, heads=[acfg.n_heads, acfg.n_kv_heads, acfg.head_dim],
          f32_flash_vs_xla_max_abs_err=f32_err, bf16_vs_f32_op=errs,
-         launches_per_call=launches, bf16_launches_by_path=by_path, card=card)
+         launches_per_call=launches, f32_launches_by_path=f32_by_path,
+         bf16_launches_by_path=by_path, card=card)
     del exact, x, params
     torch.cuda.empty_cache()
     return {"flash_attention": launches}
@@ -1368,7 +1426,9 @@ def time_attention(dev) -> list:
     yi-6b's prefill shape and the reference's (2, 8, 2, 256, 64), bf16 then
     f32; the library call is ``F.scaled_dot_product_attention(...,
     is_causal=True, enable_gqa=True)``, timed only (top-left causal, as the
-    kernel's when Sq == Skv)."""
+    kernel's when Sq == Skv).  f32 on the TF32 kernel is bounded at the TF32
+    rate (its operations counted once); its line also gives the bound at
+    the card's f32 rate."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import attention as ak
@@ -1378,11 +1438,14 @@ def time_attention(dev) -> list:
     for shape in (ATTN_SHAPES[3], ATTN_SHAPES[1]):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attention_inputs(shape, dtype, dev, SEED + 22)
+            nbytes, flops = cost("flash_attention", shape, dtype)
             rows.append(time_kernel(
                 "flash_attention", shape, dtype, lambda: ak.flash_attention(q, k, v),
                 lambda: attention_ref(q, k, v),
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-                path=ak.flash_path(q, k, v)))
+                path=ak.flash_path(q, k, v),
+                f32_rate_bound_ms=max(1e3 * nbytes / H100_BYTES_PER_S,
+                                      1e3 * flops / H100_F32_FLOPS)))
             del q, k, v
     torch.cuda.empty_cache()
     return rows
@@ -1656,9 +1719,9 @@ def time_flow_kernels(dev) -> dict:
     from repro_torch.kernels.conv1x1 import conv1x1 as c1kern
     from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
     from repro_torch.kernels.coupling import coupling as ckern
-    from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_ref,
-                                                  coupling_fwd_rows_ref, coupling_inv_ref,
-                                                  coupling_inv_rows_ref)
+    from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_bwd_rows_ref,
+                                                  coupling_fwd_ref, coupling_fwd_rows_ref,
+                                                  coupling_inv_ref, coupling_inv_rows_ref)
     from repro_torch.kernels.flowstep import flowstep as kern
     from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref, spine_bwd_ref
 
@@ -1693,27 +1756,33 @@ def time_flow_kernels(dev) -> dict:
             for name, (k_fn, p_fn) in runs.items():
                 per_shape[name].append(time_kernel(name, shape, dtype, k_fn, p_fn,
                                                    **extra.get(name, {})))
-    for name in ("coupling_fwd_rows", "coupling_inv_rows", "coupling_fwd", "coupling_inv",
-                 "conv1x1_mm", "conv1x1_gw"):
+    for name in ("coupling_fwd_rows", "coupling_inv_rows", "coupling_bwd_rows", "coupling_fwd",
+                 "coupling_inv", "conv1x1_mm", "conv1x1_gw"):
         per_shape[name] = []
     for i in range(3):
         for dtype in (torch.float32, torch.bfloat16):
-            # the layer's coupling op on whole rows (the row stream), then
-            # the half kernels on the transformed half
+            # the layer's coupling op and its backward on whole rows (the
+            # row streams), then the half kernels on the transformed half
             shape = SHAPES[i]
             xr, hr = row_inputs(shape, dtype, dev, SEED + 13)
             yr = coupling_fwd_rows_ref(xr, hr)[0]
+            gr = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 23)).to(
+                dev, dtype)
+            gldr = torch.randn(shape[0], generator=torch.Generator().manual_seed(SEED + 24)).to(dev)
             c = shape[-1]
             path = ckern.coupling_path(xr, hr[..., : c // 2], hr[..., c // 2:])
-            for name, k_fn, p_fn in (
+            bwd_path = ckern.coupling_path(yr, hr[..., : c // 2], hr[..., c // 2:], gy=gr)
+            for name, k_fn, p_fn, pth in (
                     ("coupling_fwd_rows", lambda: ckern.coupling_fwd.rows(xr, hr),
-                     lambda: coupling_fwd_rows_ref(xr, hr)),
+                     lambda: coupling_fwd_rows_ref(xr, hr), path),
                     ("coupling_inv_rows", lambda: ckern.coupling_inv.rows(yr, hr),
-                     lambda: coupling_inv_rows_ref(yr, hr))):
+                     lambda: coupling_inv_rows_ref(yr, hr), path),
+                    ("coupling_bwd_rows", lambda: ckern.coupling_bwd.rows(yr, hr, gr, gldr),
+                     lambda: coupling_bwd_rows_ref(yr, hr, gr, gldr), bwd_path)):
                 kernel = name.removesuffix("_rows")
                 per_shape[name].append(time_kernel(
-                    name, shape, dtype, k_fn, p_fn, path=path, plan=ckern.COUPLING_PLAN,
-                    kernels_per_call=ckern.KERNELS_PER_CALL[kernel]))
+                    name, shape, dtype, k_fn, p_fn, path=pth, plan=ckern.COUPLING_PLAN,
+                    kernels_per_call=ckern.KERNELS_PER_CALL.get(kernel, 1)))
             shape = COUPLING_SHAPES[i]
             xc, rc, tc = coupling_inputs(shape, dtype, dev, SEED + 13)
             per_shape["coupling_fwd"].append(time_kernel(
@@ -1802,6 +1871,7 @@ def main() -> int:
     line("build", seconds=round(build_s, 3), libraries=[str(p) for p in built.values()],
          ptxas=ptxas, card=card, dynamic_smem_bytes={
              **{f"flash_attention_tc_kernel<{d}>": ak.tc_smem_bytes(d) for d in (64, 128)},
+             **{f"flash_attention_tf32_kernel<{d}>": ak.tf32_smem_bytes(d) for d in (32, 64, 128)},
              **{f"conv1x1_mm_stream_kernel<{t}, {c}>": c1k.stream_smem_bytes(c, es)
                 for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))},
              **{f"conv1x1_gw_cluster_kernel<{k}> at the model's rows": c1k.gw_cluster_smem_bytes(
@@ -1817,6 +1887,8 @@ def main() -> int:
              **{f"flowstep_{{fwd,inv}}_stream_kernel<{t}, {c}>": kern.flow_stream_smem_bytes(c, es)
                 for c in kern.FLOW_PLAN for t, es in (("float", 4), ("bf16", 2))},
              **{f"coupling_rows_kernel<{t}, {c}>": ck.coupling_rows_smem_bytes(c, es)
+                for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))},
+             **{f"coupling_bwd_rows_kernel<{t}, {c}>": ck.coupling_bwd_rows_smem_bytes(c, es)
                 for c in c1k.STREAM_WIDTHS for t, es in (("float", 4), ("bf16", 2))}},
          conv1x1_gw_plans=gw_plans, spine_bwd_plans=spine_plans)
     mark("build")
@@ -2046,10 +2118,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         mark(arch)
 
+    def by_path(*names):
+        """Each path's first ``[times]`` row of a kernel (its largest shape,
+        f32 first where timed): shape, dtype and the times beside the bound."""
+        out = {}
+        for row in (r for n in names for r in per_shape.get(n, [])):
+            path = row.get("path", "tile")
+            if path not in out:
+                out[path] = {k: row.get(k) for k in ("shape", "dtype", "ms", "plain_ms",
+                                                     "bound_ms", "library_ms",
+                                                     "f32_rate_bound_ms")
+                             if row.get(k) is not None or k == "library_ms"}
+        return out
+
     kernels = []
-    # the unrolled model's couplings run on the row stream: their entries
-    # are the row op's, at the model's (B, M, C)
-    timed_as = {"coupling_fwd": "coupling_fwd_rows", "coupling_inv": "coupling_inv_rows"}
+    # the couplings run on the row streams: their entries are the row op's,
+    # at the model's (B, M, C)
+    timed_as = {"coupling_fwd": "coupling_fwd_rows", "coupling_inv": "coupling_inv_rows",
+                "coupling_bwd": "coupling_bwd_rows"}
     sources = {
         "flowstep_fwd": ("flowstep.cu", "src/repro/kernels/flowstep/flowstep.py:121"),
         "flowstep_inv": ("flowstep.cu", "src/repro/kernels/flowstep/flowstep.py:150"),
@@ -2076,7 +2162,8 @@ def main() -> int:
             "bound_by": bound_by(timed_as.get(name, name), tuple(main["shape"]),
                                  getattr(torch, main["dtype"])),
             "library_ms": main.get("library_ms"), "shape": main["shape"], "dtype": main["dtype"],
-            "ms_from": main["ms_from"]["ms"],
+            "ms_from": main["ms_from"]["ms"], "path": main.get("path"),
+            "by_path": by_path(name, timed_as.get(name, name)),
         })
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,8 @@ tensors take the kernel's plain version and CUDA tensors the kernel:
 
 * ``kernel_training`` - the forward goes through ``fused_coupling_fwd_rows``
   (differentiable from its output side), which writes the layer's whole
-  output row, and :meth:`fused_bwd` through ``fused_coupling_bwd``;
+  output row, and :meth:`fused_bwd` through ``fused_coupling_bwd_rows``,
+  which writes the backward's whole rows;
 * ``kernel_inverse`` - the inverse (sampling) goes through
   ``fused_coupling_inv_rows``.
 
@@ -29,11 +30,11 @@ from torch import nn
 from repro_torch.core.types import Invertible, zero_logdet
 from repro_torch.kernels.common import flatten_bmc
 from repro_torch.kernels.coupling.ops import (
-    fused_coupling_bwd,
+    fused_coupling_bwd_rows,
     fused_coupling_fwd_rows,
     fused_coupling_inv_rows,
 )
-from repro_torch.kernels.coupling.ref import coupling_bwd_ref
+from repro_torch.kernels.coupling.ref import coupling_bwd_rows_ref
 
 
 class AffineCoupling(Invertible):
@@ -103,29 +104,33 @@ class AffineCoupling(Invertible):
     def fused_bwd(self, y, gy, gld, cond=None):
         """The fused reversible backward from the output side: ``(x, gx,
         {name: grad}, gcond)``.  The conditioner runs once, and one
-        ``autograd.grad`` through it takes the cotangents of ``(raw, t)``
-        that the coupling backward emits while it rebuilds the transformed
-        half (the kernel with ``kernel_training``, else its plain version)."""
+        ``autograd.grad`` through it takes the cotangent of h = ``(raw | t)``
+        that the coupling backward emits while it rebuilds the input row
+        (the kernel's op with ``kernel_training``, else its plain version);
+        the conditioner's cotangent of the pass-through half is added into
+        that half of the row cotangent in place."""
         ya, yb = self._split(y)
-        gya, gyb = self._split(gy)
         names, params = zip(*self.net.named_parameters())
         with torch.enable_grad():
             yb_ = yb.detach().requires_grad_()
             c_ = cond.detach().requires_grad_() if cond is not None and cond.is_floating_point() else None
             h = self.net(yb_, cond if c_ is None else c_)
-        hd = h.detach()
-        if self.additive:
-            xa, gxa, gh = ya - hd, gya, gya.to(h.dtype)
-        else:
-            ca = ya.shape[-1]
-            bwd = fused_coupling_bwd if self.kernel_training else coupling_bwd_ref
-            xa, gxa, graw, gt = (v.reshape(ya.shape) for v in bwd(
-                flatten_bmc(ya), flatten_bmc(hd[..., :ca]), flatten_bmc(hd[..., ca:]),
-                flatten_bmc(gya), gld, clamp=self.clamp))
-            gh = torch.cat([graw, gt], dim=-1).to(h.dtype)
         inputs = [*params, yb_, *([c_] if c_ is not None else [])]
-        grads = torch.autograd.grad(h, inputs, gh, allow_unused=True)
-        gxb = gyb.to(yb.dtype) + grads[len(params)].to(yb.dtype)
+        if self.additive:
+            gya, gyb = self._split(gy)
+            grads = torch.autograd.grad(h, inputs, gya.to(h.dtype), allow_unused=True)
+            gxb = gyb.to(yb.dtype) + grads[len(params)].to(yb.dtype)
+            x, gx = self._merge(ya - h.detach(), yb), self._merge(gya.to(y.dtype), gxb)
+        else:  # the whole rows: x, gx (gy's pass-through half) and gh
+            bwd = fused_coupling_bwd_rows if self.kernel_training else coupling_bwd_rows_ref
+            # contiguous rows, as the row stream takes them (a chain's last
+            # cotangent is a slice of the packed one)
+            x, gx, gh = bwd(flatten_bmc(y.contiguous()), flatten_bmc(h.detach()),
+                            flatten_bmc(gy.contiguous()), gld, flip=self.flip, clamp=self.clamp)
+            x, gx = x.reshape(y.shape), gx.reshape(y.shape)
+            grads = torch.autograd.grad(h, inputs, gh.reshape(h.shape).to(h.dtype),
+                                        allow_unused=True)
+            self._split(gx)[1].add_(grads[len(params)].to(gx.dtype))
         gcond = grads[-1] if c_ is not None else None
         gparams = {f"net.{n}": g for n, g in zip(names, grads)}
-        return self._merge(xa, yb), self._merge(gxa.to(y.dtype), gxb), gparams, gcond
+        return x, gx, gparams, gcond

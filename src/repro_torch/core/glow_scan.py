@@ -10,9 +10,10 @@ one fused flow-step launch given the conditioner's raw/t
 
 The ``grad_mode="coupled"`` backward of a step (``_step_bwd``) is the two
 backward kernels on either side of the conditioner's VJP: ``coupling_bwd``
-rebuilds the transformed half and emits graw/gt, autograd maps those through
-the conditioner, and ``spine_bwd`` walks back through the 1x1 conv and
-actnorm.  The stack offers the whole reverse walk as its ``fused_bwd`` hook,
+(on whole rows) rebuilds the conv output x2 and emits its cotangent gx2 and
+h's (graw | gt), autograd maps h's through the conditioner, whose cotangent
+of the pass-through half is added into gx2 in place, and ``spine_bwd`` walks
+back through the 1x1 conv and actnorm.  The stack offers the whole reverse walk as its ``fused_bwd`` hook,
 so it keeps that backward inside a coupled multiscale chain.
 """
 
@@ -45,7 +46,7 @@ from repro_torch.core.types import (
     tree_leaves,
 )
 from repro_torch.kernels.common import flatten_bmc
-from repro_torch.kernels.coupling.ops import fused_coupling_bwd
+from repro_torch.kernels.coupling.ops import fused_coupling_bwd_rows
 from repro_torch.kernels.flowstep.ops import (
     fused_flowstep_fwd,
     fused_flowstep_inv,
@@ -168,24 +169,20 @@ class GlowStepStack(Invertible):
             yb_ = yb.detach().requires_grad_()
             c_ = cond.detach().requires_grad_() if cond is not None and cond.is_floating_point() else None
             h = coupling_cnn_apply(p["net"], yb_, cond if c_ is None else c_)
-        half = y[..., :ca].shape
 
-        # stage 1: the coupling half, rebuilt and differentiated in one pass
-        xa, gxa, graw, gt = fused_coupling_bwd(
-            flatten_bmc(y[..., :ca]), flatten_bmc(h[..., :ca].detach()),
-            flatten_bmc(h[..., ca:].detach()), flatten_bmc(gy[..., :ca]), gld, clamp=self.clamp,
-        )
-        gh = torch.cat([graw.reshape(half), gt.reshape(half)], dim=-1).to(h.dtype)
+        # stage 1: the coupling, rebuilt and differentiated in one pass over
+        # whole rows: x2, gx2 (gy's pass-through half) and h's cotangent
+        x2, gx2, gh = fused_coupling_bwd_rows(
+            flatten_bmc(y), flatten_bmc(h.detach()), flatten_bmc(gy), gld, clamp=self.clamp)
         inputs = [v for _, v in net] + [yb_] + ([c_] if c_ is not None else [])
-        grads = torch.autograd.grad(h, inputs, gh, allow_unused=True)
+        grads = torch.autograd.grad(h, inputs, gh.reshape(h.shape).to(h.dtype),
+                                    allow_unused=True)
         g_net, gxb = grads[: len(net)], grads[len(net)]
         gcond = grads[-1] if c_ is not None else None
+        gx2.view(y.shape)[..., ca:] += gxb.to(gx2.dtype)
 
         # stage 2: conv1x1 + actnorm from the conv output side
-        x2 = torch.cat([xa.reshape(half), yb], dim=-1)
-        gx2 = torch.cat([gxa.reshape(half), gy[..., ca:] + gxb.to(gy.dtype)], dim=-1)
-        x, gx, gw, g_an_ls, g_an_b = fused_spine_bwd(
-            flatten_bmc(x2), flatten_bmc(gx2), w, w_inv, an_ls, an_b)
+        x, gx, gw, g_an_ls, g_an_b = fused_spine_bwd(x2, gx2, w, w_inv, an_ls, an_b)
 
         # the per-batch-constant logdets put their cotangent on the log-scales
         s_gld = self._spatial(y) * torch.sum(gld.float())

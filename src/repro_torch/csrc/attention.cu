@@ -1,8 +1,9 @@
 // Flash attention forward for Hopper (sm_90a): grouped-query attention with
 // an online softmax over key/value tiles.  Two kernels, one function:
 //
-// flash_attention_tc_kernel (bf16, head_dim a multiple of 16 up to 128) and
-// flash_attention_kernel (f32, and bf16 with any other head_dim) replace the
+// flash_attention_tc_kernel (bf16, head_dim a multiple of 16 up to 128),
+// flash_attention_tf32_kernel (f32, head_dim a multiple of 8 up to 128, rows
+// 16-byte aligned) and flash_attention_kernel (every other call) replace the
 // Pallas kernel
 //   src/repro/kernels/attention/attention.py::flash_attention (_flash_kernel)
 //
@@ -12,7 +13,8 @@
 // with the D axis contiguous; o in q's storage type.  The KV head of query
 // head h is h / (Hq / Hkv): K and V are never broadcast.  Causal masking keeps
 // the reference's top-left alignment (q_pos >= k_pos); masked scores take its
-// -1e30 in the CUDA-core kernel and -inf in the tensor-core one, which agree
+// -1e30 in the CUDA-core and TF32 kernels and -inf in the bf16 tensor-core
+// one, which agree
 // since every query row sees key 0; key rows past Skv take -inf; key tiles
 // wholly above the diagonal are skipped, so any Sq and Skv work.  No atomics:
 // every result is bitwise repeatable.
@@ -59,7 +61,44 @@
 //  on the tensor cores by named barriers, and issuing S_{t+1} before the
 //  softmax of S_t (ptxas serialises the wgmmas of that schedule).
 //
-// The CUDA-core kernel (f32, or bf16 with D % 16 != 0).  One block of 256
+// The TF32 kernel (f32, D % 8 == 0, D <= 128, every base and (b, h, s)
+// stride of q, k and v a multiple of 16 bytes).  Both products run on the
+// tensor cores by mma.sync.m16n8k8 in 3xTF32: each operand is split into a
+// TF32 hi and the TF32 lo of what hi leaves, and a_lo b_hi + a_hi b_lo +
+// a_hi b_hi is summed in f32 (common.cuh's split_tf32 / mma_3xtf32, as
+// ssd_scan and conv1x1_gw run them), which keeps f32's gate: no operand is
+// rounded to fewer bits anywhere, P included.  One block of 8 warps per
+// (128 query rows, query head, batch), q tiles launched heaviest first, each
+// warp 16 query rows.
+//  - Q is loaded once, split, and kept in registers as the A fragments of
+//    every k-step (hi and lo).
+//  - K and V come in tiles of 64 keys through a 2-stage cp.async ring (16-
+//    byte copies; keys past Skv and columns past D land as zeros), so one
+//    tile loads while one computes; one barrier a tile.  A tile's rows are
+//    D padded to 32, 64 or 128 (three instantiations) plus 4 floats, so each
+//    fragment read of K or V hits 32 distinct banks.  K and V are split as
+//    their fragments are read.
+//  - S = Q K^T lands in accumulator fragments (rows g and g + 8, keys 2t and
+//    2t + 1 of each 8); the online softmax runs on them in f32 with expf and
+//    the CUDA-core kernel's masks, the row max and sum across the 4 threads
+//    of a row by shuffles.  P feeds P V from those registers: the A fragment
+//    of a k-step takes keys (2t, 2t + 1) where it names columns (t, t + 4),
+//    and the B fragment reads V's rows 2t and 2t + 1 to match, so no value
+//    moves between threads.
+//  - O stays in accumulator fragments, is normalised by l at the end and
+//    stored once.
+// Bound: at yi-6b's prefill the two products are 275 GFLOP, 4.1 ms at the
+// card's f32 rate and 0.56 ms at its TF32 rate counted once (three TF32
+// products each make it 1.67 ms).  Registers bound the tile: at D = 128 the
+// split Q takes 128 registers a thread and O 64, so one block of 8 warps
+// fills an SM (255 registers, 192 bytes spilled).  The plan is the fastest of
+// tools/attention_sweep.py's candidates at yi-6b's prefill (PERF.md): 4
+// warps of 32-key tiles (two blocks an SM), Q split at each use, and each K
+// and V tile split once for the block into shared memory all measured
+// slower.
+//
+// The CUDA-core kernel (bf16 with D % 16 != 0, f32 that the TF32 kernel
+// does not take).  One block of 256
 // threads per (q tile of 64 rows, query head, batch).  The q tile lives in
 // shared memory, transposed to (D, 64), for the whole block.  For each key
 // tile of 64 rows: K is staged transposed to (D, 64); each thread forms a 4x4
@@ -251,6 +290,235 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   flash_attention_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], causal, scale);
+  return cudaGetLastError();
+}
+
+// ---- the TF32 tensor-core kernel (f32, 3xTF32) -------------------------------
+// The TF32 kernel's plan, KEYS * 10000 + STAGES * 100 + WARPS, kept equal to
+// TF32_PLAN in kernels/attention/attention.py: key rows of a K or V tile,
+// stages of the K/V ring, warps of a block (16 query rows each).  Set
+// otherwise only by tools/attention_sweep.py, which builds this file once
+// per candidate plan.
+#ifndef TF32_PLAN
+#define TF32_PLAN 640208
+#endif
+constexpr int kTfKeys = TF32_PLAN / 10000, kTfStages = TF32_PLAN / 100 % 100,
+              kTfWarps = TF32_PLAN % 100;
+constexpr int kTfRows = 16 * kTfWarps;     // query rows of a block
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfPad = 4;                  // floats past D_pad in a staged row
+static_assert(kTfKeys % 8 == 0 && kTfStages >= 2, "whole 8-key steps, a ring");
+
+// kept equal to tf32_smem_bytes() in kernels/attention/attention.py
+constexpr size_t tf32_smem_bytes(int dp) {
+  // each stage a K and a V tile of kTfKeys rows of dp + kTfPad floats
+  return (size_t)kTfStages * 2 * kTfKeys * (dp + kTfPad) * sizeof(float);
+}
+
+// 16 bytes from global into shared memory, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16_or_zero(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// One tile of K or V: rows k0 .. k0 + kTfKeys - 1, columns 0 .. DP - 1, into
+// dst with rows DP + kTfPad floats apart; rows past Skv and columns past D
+// as zeros (D and every row a whole number of 16-byte copies)
+template <int DP>
+__device__ __forceinline__ void stage_kv(float* dst, const float* __restrict__ src, long long ss,
+                                         int k0, int Skv, int D, int tid) {
+  constexpr int kChunks = DP / 4;  // 16-byte copies a row
+  static_assert(kTfKeys * kChunks % kTfThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < kTfKeys * kChunks / kTfThreads; ++i) {
+    const int c = tid + i * kTfThreads;
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    const bool ok = k0 + r < Skv && col < D;
+    cp_async16_or_zero(dst + r * (DP + kTfPad) + col, ok ? src + (k0 + r) * ss + col : src, ok);
+  }
+}
+
+// DP: D padded to 32, 64 or 128.  Grid (B * Hq, ceil(Sq / kTfRows)).  Q is
+// split once into hi and lo fragments kept in registers; each warp splits the
+// K and V values it reads from the staged f32 tile.
+template <int DP>
+__global__ void __launch_bounds__(kTfThreads, kTfWarps <= 4 ? 2 : 1)
+flash_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
+                            int Sq, int Skv, int D, long long q_sb, long long q_sh, long long q_ss,
+                            long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                            long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+                            long long o_ss, int causal, float scale) {
+  constexpr int KS = DP / 8;          // k-steps of Q K^T; 8-column tiles of O
+  constexpr int NS = kTfKeys / 8;     // 8-key tiles of S; k-steps of P V
+  constexpr int LD = DP + kTfPad;     // row stride of a staged tile
+  constexpr int kTile = kTfKeys * LD;  // floats of a staged tile
+  extern __shared__ __align__(16) float ring[];  // stage s: K tile, V tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;  // fragment row group, column pair
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTfRows;  // heaviest tiles first
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  const int hk = h / (Hq / Hkv);
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + hk * k_sh;
+  const float* vb = v + b * v_sb + hk * v_sh;
+  int n_tiles = (Skv + kTfKeys - 1) / kTfKeys;
+  if (causal) n_tiles = min(n_tiles, (q0 + kTfRows - 1) / kTfKeys + 1);
+
+#pragma unroll
+  for (int st = 0; st < kTfStages - 1; ++st) {  // tiles 0 .. stages - 2 in flight
+    if (st < n_tiles) {
+      stage_kv<DP>(ring + 2 * st * kTile, kb, k_ss, st * kTfKeys, Skv, D, tid);
+      stage_kv<DP>(ring + (2 * st + 1) * kTile, vb, v_ss, st * kTfKeys, Skv, D, tid);
+    }
+    cp_async_commit();
+  }
+
+  // this warp's 16 query rows, r0 and r0 + 8 in this thread's fragments:
+  // a0 (r0, 8kk + tq), a1 (r0 + 8, ..), a2 (r0, .. + 4), a3; split once
+  // into qh[kk] and ql[kk]
+  const int r0 = q0 + warp * 16 + g;
+  uint32_t qh[KS][4], ql[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e & 1) * 8, col = kk * 8 + tq + (e >> 1) * 4;
+      const float val = row < Sq && col < D ? qb[row * q_ss + col] : 0.f;
+      split_tf32<true>(val, qh[kk][e], ql[kk][e]);
+    }
+
+  float oacc[KS][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kTfStages - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();                 // and every thread's; tile t - 1 is no longer read
+    const int tn = t + kTfStages - 1;
+    if (tn < n_tiles) {
+      const int sn = tn % kTfStages;
+      stage_kv<DP>(ring + 2 * sn * kTile, kb, k_ss, tn * kTfKeys, Skv, D, tid);
+      stage_kv<DP>(ring + (2 * sn + 1) * kTile, vb, v_ss, tn * kTfKeys, Skv, D, tid);
+    }
+    cp_async_commit();
+    const float* ks = ring + 2 * (t % kTfStages) * kTile;
+    const float* vs = ks + kTile;
+    const int k0 = t * kTfKeys;
+
+    // S = Q K^T: s[n] holds rows (r0, r0 + 8) x keys k0 + 8n + 2tq + {0, 1}
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bh[2], bl[2];  // b0 = K[8n + g][8kk + tq], b1 = K[8n + g][8kk + tq + 4]
+        split_tf32<true>(ks[(8 * n + g) * LD + 8 * kk + tq], bh[0], bl[0]);
+        split_tf32<true>(ks[(8 * n + g) * LD + 8 * kk + tq + 4], bh[1], bl[1]);
+        mma_3xtf32<true, true>(s[n], qh[kk], ql[kk], bh, bl);
+      }
+
+    // the online softmax, as the CUDA-core kernel's: scale, masks, max, exp
+    const bool masked = k0 + kTfKeys > Skv || (causal && k0 + kTfKeys - 1 > q0 + warp * 16);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * tq + (e & 1);
+          if (key >= Skv) x = -INFINITY;
+          else if (causal && r0 + (e >> 1) * 8 < key) x = kNegInf;
+        }
+        s[n][e] = x;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      alpha[rr] = expf(m[rr] - m_new);
+      m[rr] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        ps[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + ps[rr];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
+
+    // O += P V: k-step j takes keys k0 + 8j + (2tq, 2tq + 1) as its columns
+    // (tq, tq + 4), so P's A fragment is s[j] reordered in place and V's B
+    // fragment reads rows 8j + 2tq and 8j + 2tq + 1
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ah[4], al[4];
+      split_tf32<true>(s[j][0], ah[0], al[0]);
+      split_tf32<true>(s[j][2], ah[1], al[1]);
+      split_tf32<true>(s[j][1], ah[2], al[2]);
+      split_tf32<true>(s[j][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32<true>(vs[(8 * j + 2 * tq) * LD + 8 * n + g], bh[0], bl[0]);
+        split_tf32<true>(vs[(8 * j + 2 * tq + 1) * LD + 8 * n + g], bh[1], bl[1]);
+        mma_3xtf32<true, true>(oacc[n], ah, al, bh, bl);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    inv[rr] = 1.f / l[rr];
+  }
+  float* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e >> 1) * 8, col = 8 * n + 2 * tq + (e & 1);
+      if (row < Sq && col < D) ob[row * o_ss + col] = oacc[n][e] * inv[e >> 1];
+    }
+}
+
+template <int DP>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                        int Hkv, int Sq, int Skv, int D, const long long* st, int causal,
+                        float scale, cudaStream_t s) {
+  constexpr size_t smem = tf32_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_tf32_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + kTfRows - 1) / kTfRows);
+  flash_attention_tf32_kernel<DP><<<grid, kTfThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hkv, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], causal, scale);
   return cudaGetLastError();
 }
@@ -662,6 +930,22 @@ int flash_attention_tc(const void* q, const void* k, const void* v, void* o, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = D <= 64 ? launch_tc<64>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s)
                 : launch_tc<128>(tq, tk, tv, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s);
+  return static_cast<int>(err);
+}
+
+// The TF32 path: q, k, v and o f32 with D % 8 == 0 and D <= 128; strides as
+// flash_attention's, every q, k, v base and (b, h, s) stride a multiple of
+// 16 bytes (the caller checks).  Returns the cudaError_t of the launch.
+int flash_attention_tf32(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                         int Hkv, int Sq, int Skv, int D, const long long* strides, int causal,
+                         float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* st = strides;
+  if (D <= 32) err = launch_tf32<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s);
+  else if (D <= 64) err = launch_tf32<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s);
+  else err = launch_tf32<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, st, causal, scale, s);
   return static_cast<int>(err);
 }
 

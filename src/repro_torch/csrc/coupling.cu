@@ -6,7 +6,7 @@
 //   src/repro/kernels/coupling/coupling.py::coupling_fwd (_fwd_kernel)
 // coupling_rows_kernel (inverse) and coupling_inv_kernel replace
 //   src/repro/kernels/coupling/coupling.py::coupling_inv (_inv_kernel)
-// coupling_bwd_kernel replaces
+// coupling_bwd_rows_kernel and coupling_bwd_kernel replace
 //   src/repro/kernels/coupling/coupling.py::coupling_bwd (_bwd_kernel)
 //
 // Per element (b, m, j < ca), with th = tanh(raw / clamp), log_s = clamp * th:
@@ -65,8 +65,29 @@
 // stream; and a whole coupled half a lane at C = 24 and 48, the reduce
 // with its loads made 8 ahead of its adds (no faster).
 //
-// The half kernels (coupling_fwd_kernel, coupling_inv_kernel, the "tile"
-// path) take every other call (the second half coupled, other widths, raw
+// The backward's row stream (coupling_bwd_rows_kernel, the "rows" path of
+// coupling_bwd; the same rule, with gy contiguous and aligned too) computes
+// the backward's whole rows from y, h and gy: x (the rebuilt coupled half,
+// y's pass-through half after it), gx (gy exp(log_s) on the coupled half,
+// gy's pass-through half as it is: the caller adds the conditioner's
+// cotangent into that half in place) and gh = (graw | gt), the cotangent of
+// h in h's layout.  So none of its callers joins halves (the half kernel's
+// callers paid three torch.cat a call for x, gx and gh, each about as much
+// device time as the kernel).  It reads 3 C-wide rows and writes 3: 24*B*M*C
+// bytes in f32 (11.27 us at 3.35 TB/s at (8, 16384, 12); 5.63 and 2.82 us
+// at (8, 4096, 24) and (8, 1024, 48)).  It is the forward's walk with a
+// third staged tile (RowWalk<..., 3>: y | h | gy a stage), the same lane
+// layout (K coupled columns of RPL rows a lane): a lane rewrites only the
+// slots it alone reads, x over its y slots, gx over its gy slots, graw and
+// gt over its raw and t slots, and the warp stores the three tiles as whole
+// rows.  The arithmetic is the half kernel's, in the same order (tanhf,
+// expf; graw from the f32 x), and nothing is summed (gld is an input), so
+// the output is bitwise repeatable.  Shared memory: 8 warps x 2 stages x 3
+// tiles x R*C*4 bytes = 72 KB a block in f32 at every width (R*C = 384), so
+// three blocks share an SM.
+//
+// The half kernels (coupling_fwd_kernel, coupling_inv_kernel,
+// coupling_bwd_kernel, the "tile" path) take every other call (the second half coupled, other widths, raw
 // and t that are not the halves of one h, a base off 16 bytes) on the
 // (B, M, ca) view of the transformed half, with the half-in / half-out
 // contract.  One element a thread, nothing staged: every value is read once
@@ -299,6 +320,108 @@ cudaError_t launch_coupling_rows_c(bool inverse, const void* in, const void* h, 
   }
 }
 
+// The backward's row stream (C = 12, 24, 48): y, h, gy in; x, gx, gh out,
+// each (B, M, C) contiguous.  Shared memory, kept equal to
+// coupling_bwd_rows_smem_bytes() in kernels/coupling/coupling.py: each
+// warp's ring, 2 stages of (y tile | h tile | gy tile), R * C elements of T
+// each.
+template <typename T, int C>
+__global__ void __launch_bounds__(kRowWarps * 32)
+coupling_bwd_rows_kernel(const T* __restrict__ y, const T* __restrict__ h,
+                         const T* __restrict__ gy, const float* __restrict__ gld,
+                         T* __restrict__ x, T* __restrict__ gx, T* __restrict__ gh, int B,
+                         int M, float clamp) {
+  constexpr int K = kRowK, RPL = kRowRpl;
+  constexpr int CA = C / 2;  // the coupled columns
+  constexpr int G = CA / K;  // lanes of a row
+  constexpr int R = coupling_rows_per_tile<C>();
+  constexpr int ES = (int)sizeof(T);
+  static_assert(CA % K == 0 && 32 % G == 0 && (K * ES) % 4 == 0, "a GLOW width");
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  RowWalk<T, C, R, kRowWarps, 3> walk(y, h, ring + warp * 6 * R * C * ES, B, M, warp, lane, gy);
+  walk.first();
+  const int row0 = (lane / G) * RPL;  // the lane's first row of the tile
+  const int j0 = (lane % G) * K;      // and its first coupled column
+  // each lane rewrites only the y, h and gy slots it alone reads
+  walk.template run<false>(
+      x, nullptr,
+      [&](unsigned char* yt, unsigned char* ht, unsigned char* gt, int rows, long long b) {
+        const float gl = gld[b];
+#pragma unroll
+        for (int u = 0; u < RPL; ++u) {
+          const int r = row0 + u;
+          if (r < rows) {
+            float v[K], rv[K], tv[K], g[K];
+            load_vals<T, K>(yt + (r * C + j0) * ES, v);
+            load_vals<T, K>(ht + (r * C + j0) * ES, rv);
+            load_vals<T, K>(ht + (r * C + CA + j0) * ES, tv);
+            load_vals<T, K>(gt + (r * C + j0) * ES, g);
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+              const float th = tanhf(rv[j] / clamp);
+              const float ls = clamp * th;
+              const float es = expf(ls);
+              const float xv = (v[j] - tv[j]) * expf(-ls);
+              v[j] = xv;                                           // x
+              rv[j] = (g[j] * xv * es + gl) * (1.f - th * th);     // graw
+              tv[j] = g[j];                                        // gt
+              g[j] = g[j] * es;                                    // gx
+            }
+            store_vals<T, K>(yt + (r * C + j0) * ES, v);
+            store_vals<T, K>(ht + (r * C + j0) * ES, rv);
+            store_vals<T, K>(ht + (r * C + CA + j0) * ES, tv);
+            store_vals<T, K>(gt + (r * C + j0) * ES, g);
+          }
+        }
+        return 0.f;
+      },
+      gh, gx);
+}
+
+// The backward row stream's launch: the grid from the occupancy, asked once
+// per instantiation and device.  Returns the cudaError_t of the launch.
+template <typename T, int C>
+cudaError_t launch_coupling_bwd_rows(const void* y, const void* h, const void* gy,
+                                     const float* gld, void* x, void* gx, void* gh, int B, int M,
+                                     float clamp, int device, cudaStream_t s) {
+  auto kernel = coupling_bwd_rows_kernel<T, C>;
+  constexpr int R = coupling_rows_per_tile<C>();
+  constexpr int threads = kRowWarps * 32;
+  const size_t smem = (size_t)kRowWarps * 2 * 3 * R * C * sizeof(T);
+  static int per_sm = 0, n_sm = 0, asked_on = -1;
+  if (asked_on != device) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    asked_on = device;
+  }
+  const int tpb = (M + R - 1) / R;
+  const unsigned grid = (unsigned)stream_grid((long long)B * tpb, kRowWarps, per_sm, n_sm);
+  kernel<<<grid, threads, smem, s>>>(static_cast<const T*>(y), static_cast<const T*>(h),
+                                     static_cast<const T*>(gy), gld, static_cast<T*>(x),
+                                     static_cast<T*>(gx), static_cast<T*>(gh), B, M, clamp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_coupling_bwd_rows_c(const void* y, const void* h, const void* gy,
+                                       const float* gld, void* x, void* gx, void* gh, int B,
+                                       int M, int C, float clamp, int device, cudaStream_t s) {
+  switch (C) {  // kept equal to STREAM_WIDTHS in kernels/common.py
+    case 12: return launch_coupling_bwd_rows<T, 12>(y, h, gy, gld, x, gx, gh, B, M, clamp,
+                                                    device, s);
+    case 24: return launch_coupling_bwd_rows<T, 24>(y, h, gy, gld, x, gx, gh, B, M, clamp,
+                                                    device, s);
+    case 48: return launch_coupling_bwd_rows<T, 48>(y, h, gy, gld, x, gx, gh, B, M, clamp,
+                                                    device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -414,6 +537,26 @@ int coupling_rows(int dtype, int inverse, const void* in, const void* h, void* o
   if (dtype == 1)
     return static_cast<int>(launch_coupling_rows_c<__nv_bfloat16>(
         inverse != 0, in, h, out, partial, ld, B, M, C, clamp, device, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's row stream: C in {12, 24, 48}; y, gy and the outputs x,
+// gx, gh (B, M, C) contiguous; h (B, M, C) contiguous, raw = h[..., :C/2]
+// and t = h[..., C/2:]; gld (B,) float32; y, h, gy and each batch's rows
+// (M * C elements) 16-byte aligned (the caller checks).  dtype as
+// coupling_bwd.  Returns the cudaError_t of the launch.
+int coupling_bwd_rows(int dtype, const void* y, const void* h, const void* gy, const float* gld,
+                      void* x, void* gx, void* gh, int B, int M, int C, float clamp, int device,
+                      void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_coupling_bwd_rows_c<float>(y, h, gy, gld, x, gx, gh, B, M, C,
+                                                              clamp, device, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_coupling_bwd_rows_c<__nv_bfloat16>(y, h, gy, gld, x, gx, gh,
+                                                                      B, M, C, clamp, device, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

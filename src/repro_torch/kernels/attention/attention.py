@@ -3,10 +3,13 @@
 ``flash_attention`` replaces the Pallas kernel of the same name in
 ``repro/kernels/attention/attention.py``.  It is bound by operations (two
 D-long products per visible (query, key) pair); the source note in
-``attention.cu`` gives the design.  Two kernels compute it, chosen by a shape
-rule (:func:`flash_path`), not by a fallback: bf16 with a head dim that is a
-multiple of 16 takes the tensor-core kernel (wgmma, TMA) when TMA can copy
-q, k and v; f32, and every other bf16 call, take the CUDA-core kernel.  The wrapper checks what the
+``attention.cu`` gives the design.  Three kernels compute it, chosen by a
+shape rule (:func:`flash_path`), not by a fallback: bf16 with a head dim that
+is a multiple of 16 takes the tensor-core kernel (wgmma, TMA) when TMA can
+copy q, k and v; f32 with a head dim that is a multiple of 8 takes the TF32
+tensor-core kernel (``mma.sync`` in 3xTF32, a ``cp.async`` ring) when its
+16-byte copies can take q, k and v; every other call takes the CUDA-core
+kernel.  The wrapper checks what the
 kernel takes, allocates the output with q's strides (so a (B, S, H, D) tensor
 viewed as (B, H, S, D) comes back in the same layout, and the caller's swap
 back costs no copy), launches on PyTorch's current stream, raises if the
@@ -26,6 +29,14 @@ from repro_torch.kernels.common import KERNEL_DTYPES, Kernel, bind, raise_on, st
 MAX_HEAD_DIM = 128
 #: the tensor-core kernel's bf16 head dims are multiples of this (wgmma's k)
 TC_HEAD_DIM_STEP = 16
+#: the TF32 kernel's f32 head dims are multiples of this (mma.sync's k)
+TF32_HEAD_DIM_STEP = 8
+#: the TF32 kernel's plan (``TF32_PLAN`` in ``attention.cu``): key rows of a
+#: K/V tile, stages of the K/V ring, warps of a block (16 query rows each);
+#: each staged row is the head dim padded to 32, 64 or 128 plus 4 floats
+TF32_PLAN = (64, 2, 8)
+TF32_KEYS, TF32_STAGES, TF32_WARPS = TF32_PLAN
+TF32_ROWS, TF32_PAD = 16 * TF32_WARPS, 4
 #: tensor-core tiles: 128 query rows a CTA, 128-row K/V tiles in a 3-stage
 #: ring, each tile in 64-column halves of 128-byte rows (``attention.cu``)
 TC_ROWS, TC_STAGES, TC_HALF_BYTES, TC_BARRIER_BYTES = 128, 3, 128 * 128, 128
@@ -40,6 +51,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURE = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _I, _P]
 _TC_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, ctypes.c_float, _I, _P]
+#: the paths :func:`flash_path` names, as ``launches_by_path`` counts them
+FLASH_PATHS = ("tensor_core", "tf32", "cuda_core")
 
 
 def tc_head_dim(d: int) -> int:
@@ -54,6 +67,19 @@ def tc_smem_bytes(d_pad: int) -> int:
     return (1 + 2 * TC_STAGES) * (d_pad // 64) * TC_HALF_BYTES + 1024 + TC_BARRIER_BYTES
 
 
+def tf32_head_dim(d: int) -> int:
+    """The head dim the TF32 kernel pads ``d`` to: 32, 64 or 128."""
+    return 32 if d <= 32 else 64 if d <= 64 else 128
+
+
+def tf32_smem_bytes(d_pad: int, plan=TF32_PLAN) -> int:
+    """Shared memory of one TF32 block (``tf32_smem_bytes`` in
+    ``attention.cu``) under ``plan``: every stage's K and V tile, rows of
+    ``d_pad`` plus the pad, in f32."""
+    keys, stages, _ = plan
+    return stages * 2 * keys * (d_pad + TF32_PAD) * 4
+
+
 def tma_strides(t: torch.Tensor) -> list[int]:
     """The (batch, head, row) element strides a tensor map is given; an axis
     of extent 1 is never stepped, so its stride is set to 16 bytes."""
@@ -62,26 +88,29 @@ def tma_strides(t: torch.Tensor) -> list[int]:
 
 
 def tma_takes(t: torch.Tensor) -> bool:
-    """Whether TMA can copy ``t``: a 16-byte-aligned base and (batch, head,
-    row) strides that are multiples of 16 bytes."""
+    """Whether TMA (or the TF32 kernel's 16-byte ``cp.async`` copies) can
+    copy ``t``: a 16-byte-aligned base and (batch, head, row) strides that
+    are multiples of 16 bytes."""
     es = t.element_size()
     return t.data_ptr() % TMA_ALIGN == 0 and all(s * es % TMA_ALIGN == 0 for s in tma_strides(t))
 
 
 def flash_path(q, k, v) -> str:
     """The kernel that computes ``flash_attention(q, k, v)``: "tensor_core"
-    for bf16 with a head dim that is a multiple of 16 and q, k, v that TMA
-    can copy (:func:`tma_takes`); "cuda_core", whose loads take any base and
-    strides, for f32 and for every other bf16 call."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] % TC_HEAD_DIM_STEP:
+    for bf16 with a head dim that is a multiple of 16, "tf32" for f32 with a
+    head dim that is a multiple of 8, each when q, k and v take 16-byte
+    copies (:func:`tma_takes`); "cuda_core", whose loads take any base and
+    strides, for every other call."""
+    step = {torch.bfloat16: TC_HEAD_DIM_STEP, torch.float32: TF32_HEAD_DIM_STEP}.get(q.dtype)
+    if step is None or q.shape[-1] % step or not all(tma_takes(t) for t in (q, k, v)):
         return "cuda_core"
-    return "tensor_core" if all(tma_takes(t) for t in (q, k, v)) else "cuda_core"
+    return "tensor_core" if q.dtype == torch.bfloat16 else "tf32"
 
 
 class _FlashAttention(Kernel):
     def __init__(self, name: str):
         super().__init__(name)
-        self.launches_by_path = {"tensor_core": 0, "cuda_core": 0}
+        self.launches_by_path = dict.fromkeys(FLASH_PATHS, 0)
 
     def __call__(self, q, k, v, causal: bool = True):
         """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), f32 or bf16, any
@@ -117,6 +146,12 @@ class _FlashAttention(Kernel):
             if err >= _MAP_ERROR:
                 raise RuntimeError(f"{self.name}: the driver refused a TMA tensor map "
                                    f"(CUresult {err - _MAP_ERROR}; 0: no cuTensorMapEncodeTiled)")
+        elif path == "tf32":
+            st = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+            err = bind("attention", "flash_attention_tf32", _TC_SIGNATURE)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, sq, skv, d,
+                (ctypes.c_longlong * 12)(*st), int(causal), d**-0.5, q.device.index, stream(q),
+            )
         else:
             st = [s for t in (q, k, v, o) for s in t.stride()[:3]]
             err = bind("attention", "flash_attention", _SIGNATURE)(

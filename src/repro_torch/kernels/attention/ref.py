@@ -5,11 +5,16 @@ is held against on the card, and the port of the reference's
 
 The math is in f32 whatever the inputs' type, and the output is in q's type.
 It forms the whole (Sq, Skv) score matrix of every head: nothing on the
-card's path calls it."""
+card's path calls it.  :func:`attention_tf32_ref` mirrors the TF32 kernel's
+arithmetic (3xTF32 products, the online softmax over 64-key tiles) in plain
+PyTorch, so that the CPU tests hold its design to the f32 gate."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.attention.attention import TF32_KEYS
+from repro_torch.kernels.common import product_3xtf32
 
 NEG_INF = -1e30
 
@@ -29,3 +34,39 @@ def attention_ref(q, k, v, causal: bool = True):
     p = p / p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_tf32_ref(q, k, v, causal: bool = True):
+    """The TF32 kernel's arithmetic (``csrc/attention.cu``,
+    ``flash_attention_tf32_kernel``) in plain PyTorch, f32 in and out: key
+    tiles of ``TF32_KEYS``; S = Q K^T and O += P V each as three TF32
+    products of split operands (``product_3xtf32``: hi and lo of both
+    operands, the lo x lo term dropped; the products summed exactly, where
+    the tensor cores sum in f32); S scaled by D^-1/2, causally hidden keys
+    at -1e30 (keys past Skv, the kernel's -inf, add nothing: the last tile
+    is short); the online softmax in f32 with the
+    running max, its rescale ``exp(m_old - m_new)`` of O and of the row sum,
+    and O / l at the end.  A tile wholly above the diagonal adds exactly
+    nothing here (P = 0, the rescale 1), so the kernel skips it."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(hq // hkv, dim=1)
+    v = v.float().repeat_interleave(hq // hkv, dim=1)
+    q = q.float()
+    pos_q = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, hq, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, sq, 1), device=q.device)
+    o = torch.zeros((b, hq, sq, d), device=q.device)
+    for k0 in range(0, skv, TF32_KEYS):
+        kt, vt = k[:, :, k0:k0 + TF32_KEYS], v[:, :, k0:k0 + TF32_KEYS]
+        s = product_3xtf32(q, kt.transpose(-1, -2)) * (d**-0.5)
+        if causal:
+            pos_k = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
+            s = torch.where(pos_q >= pos_k, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + product_3xtf32(p, vt)
+        m = m_new
+    return o / l

@@ -6,8 +6,7 @@ three are memory-bound (16 bytes an element in f32 for the forward and the
 inverse, 32 for the backward); the source note in ``coupling.cu`` gives the
 design.  Each wrapper checks what the kernel takes, allocates the outputs,
 launches on PyTorch's current stream, raises if the launch was refused, and
-adds one to its ``launches`` count (``coupling_fwd`` and ``coupling_inv``
-also to the path's in ``launches_by_path``).
+adds one to its ``launches`` count and to the path's in ``launches_by_path``.
 
 Two contracts.  Called as ``coupling_fwd(x, raw, t)`` / ``coupling_inv(y,
 raw, t)``, the half kernels (the "tile" path) take (B, M, ca) views with
@@ -19,6 +18,12 @@ in the input's dtype.  Called as ``coupling_fwd.rows(x, h, flip)`` /
 stream where :func:`coupling_path` allows it ("rows"), else on the half
 kernel, whose half is then joined to the pass-through half ("tile"); an h
 of width 2 C makes all of x the transformed half (:func:`row_halves`).
+``coupling_bwd(y, raw, t, gy, gld)`` is the backward's half kernel, and
+``coupling_bwd.rows(y, h, gy, gld, flip)`` the backward's whole rows ``(x,
+gx, gh)``: x the layer's input row, gx the cotangent of x with the
+pass-through half's taken as gy's (the caller adds the conditioner's), gh the
+cotangent of h, ``(graw | gt)``; on the backward's row stream where
+:func:`coupling_path` allows it, else the half kernel and the joins.
 """
 
 from __future__ import annotations
@@ -27,8 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import (KERNEL_DTYPES, STREAM_WIDTHS, Kernel, PathKernel, bind,
-                                        raise_on, stream)
+from repro_torch.kernels.common import KERNEL_DTYPES, STREAM_WIDTHS, PathKernel, bind, stream
 
 #: elements of one batch row a ``coupling_fwd`` block owns (8 a thread)
 TILE_ELEMS = 2048
@@ -38,7 +42,8 @@ COUPLING_PATHS = ("rows", "tile")
 #: ``coupling.cu``): (coupled columns, rows) a lane computes, warps a block
 COUPLING_PLAN = (6, 1, 8)
 #: CUDA kernels one call launches, on either path: the coupling's kernel and,
-#: forward, the fixed-order sum of its tiles' ld partials
+#: forward, the fixed-order sum of its tiles' ld partials (``coupling_bwd``
+#: launches one)
 KERNELS_PER_CALL = {"coupling_fwd": 2, "coupling_inv": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -48,6 +53,7 @@ _SIGNATURES = {
     "coupling_bwd": [_I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P,
                      _I, _I, _I, _F, _I, _P],
     "coupling_rows": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "coupling_bwd_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 
@@ -101,21 +107,29 @@ def coupling_walk(b: int, m: int, c: int, grid: int) -> list[list[tuple[int, int
             for g in range(step)]
 
 
-def coupling_rows_smem_bytes(c: int, elem_size: int) -> int:
+def coupling_rows_smem_bytes(c: int, elem_size: int, staged: int = 2) -> int:
     """Shared memory of one row-stream block: each warp's 2-stage ring of
-    (x | h) tiles in the storage type."""
-    return COUPLING_PLAN[2] * 2 * 2 * coupling_rows_per_tile(c) * c * elem_size
+    ``staged`` tiles in the storage type, (x | h) for the forward and the
+    inverse, (y | h | gy) for the backward (``staged=3``)."""
+    return COUPLING_PLAN[2] * 2 * staged * coupling_rows_per_tile(c) * c * elem_size
 
 
-def coupling_path(x, raw, t, flip: bool = False) -> str:
+def coupling_bwd_rows_smem_bytes(c: int, elem_size: int) -> int:
+    """Shared memory of one backward row-stream block (y | h | gy)."""
+    return coupling_rows_smem_bytes(c, elem_size, staged=3)
+
+
+def coupling_path(x, raw, t, flip: bool = False, gy=None) -> str:
     """The kernel that computes the coupling layer's output from its input x
-    (the output y for the inverse), (B, M, C), and the conditioner's raw and
-    t: "rows" (the row stream) for C = 2 ca in ``STREAM_WIDTHS`` when the
-    first half is the coupled one (no ``flip``), x is contiguous, raw and t
-    are the two halves of one contiguous (B, M, C) tensor (``t`` starts ca
-    elements after ``raw``, rows C apart), as the layer passes its
-    conditioner output, and x, raw and each batch's rows (M*C elements) are
-    16-byte aligned (its 16-byte copies); "tile" (the half kernel)
+    (the output y for the inverse and the backward), (B, M, C), and the
+    conditioner's raw and t: "rows" (the row stream) for C = 2 ca in
+    ``STREAM_WIDTHS`` when the first half is the coupled one (no ``flip``),
+    x is contiguous, raw and t are the two halves of one contiguous (B, M, C)
+    tensor (``t`` starts ca elements after ``raw``, rows C apart), as the
+    layer passes its conditioner output, and x, raw and each batch's rows
+    (M*C elements) are 16-byte aligned (its 16-byte copies); for the
+    backward, the row cotangent ``gy`` too is a contiguous (B, M, C) tensor
+    of x's dtype on a 16-byte boundary; "tile" (the half kernel)
     otherwise."""
     b, m, c = x.shape
     ca, es = raw.shape[-1], x.element_size()
@@ -124,8 +138,10 @@ def coupling_path(x, raw, t, flip: bool = False) -> str:
               and t.data_ptr() == raw.data_ptr() + ca * es)
     aligned = (x.data_ptr() % 16 == 0 and raw.data_ptr() % 16 == 0
                and (b == 1 or m * c * es % 16 == 0))
+    cotangent = gy is None or (gy.shape == x.shape and gy.dtype == x.dtype
+                               and gy.is_contiguous() and gy.data_ptr() % 16 == 0)
     return ("rows" if not flip and c in STREAM_WIDTHS and x.is_contiguous() and halves
-            and aligned else "tile")
+            and aligned and cotangent else "tile")
 
 
 def row_halves(v, h, flip: bool = False):
@@ -165,16 +181,27 @@ def unit_channels(v, raw, t):
     return v, raw, t
 
 
+def _check_rows(name, v, h, *more):
+    """Validate the row op's rows ``v``, its h and any further (B, M, C)
+    operands (the backward's gy) before any library is loaded."""
+    if v.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {v.dtype}")
+    if v.ndim != 3 or v.numel() == 0:
+        raise ValueError(f"{name}: rows must be non-empty (B, M, C), got {tuple(v.shape)}")
+    for what, u in (("h", h), *more):
+        if u.device != v.device:
+            raise ValueError(f"{name}: rows on {v.device}, {what} on {u.device}")
+    for what, u in more:
+        if u.shape != v.shape or u.dtype != v.dtype:
+            raise ValueError(f"{name}: {what} must be {tuple(v.shape)} {v.dtype}, got "
+                             f"{tuple(u.shape)} {u.dtype}")
+
+
 def _rows(kernel, inverse: int, v, h, flip, clamp):
     """The row op on the card: the row stream where :func:`coupling_path`
     allows it, else ``kernel``'s half kernel and the join.  Returns (out,
     ld or None)."""
-    if v.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{kernel.name} takes float32 or bfloat16, got {v.dtype}")
-    if v.ndim != 3 or v.numel() == 0:
-        raise ValueError(f"{kernel.name}: rows must be non-empty (B, M, C), got {tuple(v.shape)}")
-    if h.device != v.device:
-        raise ValueError(f"{kernel.name}: rows on {v.device}, h on {h.device}")
+    _check_rows(kernel.name, v, h)
     va, vb, raw, t = row_halves(v, h, flip)
     if coupling_path(v, raw, t, flip) == "tile":
         out = kernel(*unit_channels(va, raw, t), clamp)
@@ -240,10 +267,10 @@ class _CouplingInv(PathKernel):
         return _rows(self, 1, y, h, flip, clamp)[0]
 
 
-class _CouplingBwd(Kernel):
+class _CouplingBwd(PathKernel):
     def __call__(self, y, raw, t, gy, gld, clamp: float = 2.0):
         """y, raw, t, gy: (B, M, ca); gld: (B,) -> (x, gx, graw, gt),
-        contiguous (B, M, ca) in y's dtype."""
+        contiguous (B, M, ca) in y's dtype, on the half kernel."""
         b, m, ca = _check(self.name, y, raw, t, ("gy", gy))
         if tuple(gld.shape) != (b,):
             raise ValueError(f"gld must be ({b},), got {tuple(gld.shape)}")
@@ -256,12 +283,40 @@ class _CouplingBwd(Kernel):
             gy.stride(1), gld32.data_ptr(), x.data_ptr(), gx.data_ptr(), graw.data_ptr(),
             gt.data_ptr(), b, m, ca, clamp, y.device.index, stream(y),
         )
-        raise_on(err, self.name)
-        self.launches += 1
+        self.count(err, "tile")
         return x, gx, graw, gt
+
+    def rows(self, y, h, gy, gld, flip: bool = False, clamp: float = 2.0):
+        """y, gy: (B, M, C), the layer's output row and its cotangent; h:
+        the conditioner output (B, M, 2 n); gld: (B,) -> (x, gx, gh): x the
+        layer's input row, gx the cotangent of x with gy's pass-through half
+        (the caller adds the conditioner's cotangent into it), both (B, M,
+        C), and gh the cotangent of h, (graw | gt) in h's layout; each
+        contiguous in y's dtype."""
+        _check_rows(self.name, y, h, ("gy", gy))
+        b, m, c = y.shape
+        if tuple(gld.shape) != (b,):
+            raise ValueError(f"gld must be ({b},), got {tuple(gld.shape)}")
+        ya, yb, raw, t = row_halves(y, h, flip)
+        if coupling_path(y, raw, t, flip, gy) == "tile":
+            gya, gyb, _, _ = row_halves(gy, h, flip)
+            ya, raw, t = unit_channels(ya, raw, t)
+            xa, gxa, graw, gt = self(ya, raw, t, gya if gya.stride(-1) == 1 else gya.contiguous(),
+                                     gld, clamp)
+            return (join_rows(xa, yb, flip), join_rows(gxa, gyb.to(gxa.dtype), flip),
+                    torch.cat([graw, gt], dim=-1))
+        gld32 = gld.to(torch.float32).contiguous()
+        x, gx, gh = (torch.empty_like(y) for _ in range(3))
+        err = _fn("coupling_bwd_rows")(
+            KERNEL_DTYPES[y.dtype], y.data_ptr(), raw.data_ptr(), gy.data_ptr(),
+            gld32.data_ptr(), x.data_ptr(), gx.data_ptr(), gh.data_ptr(), b, m, c, clamp,
+            y.device.index, stream(y),
+        )
+        self.count(err, "rows")
+        return x, gx, gh
 
 
 coupling_fwd = _CouplingFwd("coupling_fwd", COUPLING_PATHS)
 coupling_inv = _CouplingInv("coupling_inv", COUPLING_PATHS)
-coupling_bwd = _CouplingBwd("coupling_bwd")
+coupling_bwd = _CouplingBwd("coupling_bwd", COUPLING_PATHS)
 KERNELS = (coupling_fwd, coupling_inv, coupling_bwd)

@@ -11,21 +11,25 @@ they lie on the CPU; nothing falls back from the card to the plain version.
   ``ref.py`` on the CPU, bit for bit the half's result joined to the
   pass-through half.  The forward is an ``autograd.Function``, as the
   reference's ``custom_vjp`` (``_fwd_fwd`` / ``_fwd_bwd``): it saves only
-  the output side ``(y, h)``; its backward splits the row cotangent into
-  the coupled half, for :func:`fused_coupling_bwd` (which rebuilds ``x`` in
-  the same pass that emits the cotangents), and the pass-through half, and
-  returns the cotangent of h as ``(graw | gt)``.  The inverse has no
-  gradient, as the reference's ``coupling_inv`` has no VJP; its backward
-  raises.
+  the output side ``(y, h)``; its backward is :func:`fused_coupling_bwd_rows`
+  (which rebuilds ``x`` in the same pass that emits the cotangents), whose
+  row cotangent and ``(graw | gt)`` it returns as they come.  The inverse
+  has no gradient, as the reference's ``coupling_inv`` has no VJP; its
+  backward raises.
 * ``fused_coupling_fwd`` / ``fused_coupling_inv`` keep the half contract,
   (B, M, ca) in and out: the same ops on h = ``(raw | t)``, whose width 2 ca
   makes all of x the transformed half.
-* :func:`fused_coupling_bwd` is the one home of the coupling-backward
-  dispatch: ``AffineCoupling.fused_bwd``, the forward's backward here and
-  the flow step's backward (``kernels/flowstep/ops.py``) all call it.  It
-  takes (B, M, ca) views of the transformed half; a view whose channels are
-  not adjacent (or a ``raw``/``t`` pair with different strides) is made
-  contiguous first, the layout the kernel takes.
+* :func:`fused_coupling_bwd_rows` is the coupling backward on whole rows,
+  ``(y, h, gy) -> (x, gx, gh)``: ``AffineCoupling.fused_bwd``, the scanned
+  step's ``_step_bwd``, the forward's backward here and the flow step's
+  backward (``kernels/flowstep/ops.py``) all call it, and none of them joins
+  halves.  On the card it is ``coupling_bwd.rows`` (the backward's row
+  stream at the GLOW widths; else the half kernel and the joins), on the CPU
+  ``coupling_bwd_rows_ref``.
+* :func:`fused_coupling_bwd` keeps the half contract, (B, M, ca) views of
+  the transformed half: the row op on h = ``(raw | t)``, whose width 2 ca
+  makes all of y the transformed half (so the half kernel on the card), with
+  gh split back into graw and gt.
 """
 
 from __future__ import annotations
@@ -34,8 +38,7 @@ import torch
 
 from repro_torch.kernels.common import use_plain
 from repro_torch.kernels.coupling import coupling as _k
-from repro_torch.kernels.coupling.coupling import join_rows, row_halves, unit_channels
-from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_rows_ref,
+from repro_torch.kernels.coupling.ref import (coupling_bwd_rows_ref, coupling_fwd_rows_ref,
                                               coupling_inv_rows_ref)
 
 
@@ -43,10 +46,20 @@ def fused_coupling_bwd(y, raw, t, gy, gld, clamp: float = 2.0):
     """The coupling backward from the output side: ``(x, gx, graw, gt)``
     for y, raw, t, gy (B, M, ca) and gld (B,); graw/gt feed the
     conditioner's VJP."""
-    if use_plain(y, raw, t, gy, gld):
-        return coupling_bwd_ref(y, raw, t, gy, gld, clamp=clamp)
-    y, raw, t = unit_channels(y, raw, t)
-    return _k.coupling_bwd(y, raw, t, gy if gy.stride(-1) == 1 else gy.contiguous(), gld, clamp)
+    ca = raw.shape[-1]
+    x, gx, gh = fused_coupling_bwd_rows(y, torch.cat([raw, t], dim=-1), gy, gld, clamp=clamp)
+    return x, gx, gh[..., :ca], gh[..., ca:]
+
+
+def fused_coupling_bwd_rows(y, h, gy, gld, flip: bool = False, clamp: float = 2.0):
+    """The coupling backward on whole rows, from the output side: y, gy (B,
+    M, C), h (B, M, 2 n), gld (B,) -> ``(x, gx, gh)``: the layer's input
+    row, the cotangent of x with gy's pass-through half (the caller adds the
+    conditioner's cotangent into that half), and h's cotangent ``(graw |
+    gt)``, for the conditioner's VJP."""
+    if use_plain(y, h, gy, gld):
+        return coupling_bwd_rows_ref(y, h, gy, gld, flip=flip, clamp=clamp)
+    return _k.coupling_bwd.rows(y, h, gy, gld, flip, clamp)
 
 
 class _FwdFn(torch.autograd.Function):
@@ -63,11 +76,8 @@ class _FwdFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gld):
         y, h = ctx.saved_tensors
-        ya, _, raw, t = row_halves(y, h, ctx.flip)
-        gya, gyb, _, _ = row_halves(gy, h, ctx.flip)
-        _x, gxa, graw, gt = fused_coupling_bwd(ya, raw, t, gya, gld, ctx.clamp)
-        gx = join_rows(gxa, gyb.to(gxa.dtype), ctx.flip)
-        return gx, torch.cat([graw, gt], dim=-1), None, None
+        _x, gx, gh = fused_coupling_bwd_rows(y, h, gy.contiguous(), gld, ctx.flip, ctx.clamp)
+        return gx, gh, None, None
 
 
 class _InvFn(torch.autograd.Function):

@@ -62,6 +62,21 @@ def coupling_inv_rows_ref(y, h, flip: bool = False, clamp: float = 2.0):
     return join_rows(coupling_inv_ref(ya, raw, t, clamp=clamp), yb, flip)
 
 
+def coupling_bwd_rows_ref(y, h, gy, gld, flip: bool = False, clamp: float = 2.0):
+    """The coupling backward on whole rows, from the output side: y, gy (B,
+    M, C), h (B, M, 2 n), gld (B,) -> ``(x, gx, gh)``.  x is the layer's
+    input row (the transformed half by :func:`coupling_bwd_ref`, the
+    pass-through half as it was), gx the cotangent of x with gy's
+    pass-through half (the caller adds the conditioner's cotangent into it),
+    gh = ``(graw | gt)`` the cotangent of h: bit for bit the joins the
+    callers made of the half's results."""
+    ya, yb, raw, t = row_halves(y, h, flip)
+    gya, gyb, _, _ = row_halves(gy, h, flip)
+    xa, gxa, graw, gt = coupling_bwd_ref(ya, raw, t, gya, gld, clamp=clamp)
+    return (join_rows(xa, yb, flip), join_rows(gxa, gyb.to(gxa.dtype), flip),
+            torch.cat([graw, gt], dim=-1))
+
+
 def coupling_stream_ref(x, h, clamp: float = 2.0, inverse: bool = False):
     """The row stream's arithmetic in plain PyTorch (``csrc/coupling.cu``,
     ``coupling_rows_kernel``; C in ``STREAM_WIDTHS``, the first half

@@ -5,7 +5,9 @@ norm, rotary and FFN primitives.  Inputs come from numpy with a seed;
 weights are drawn once and handed to both packages.
 
 Tolerances: ``flash_sdpa`` at the reference's own ``_tol``
-(``tests/test_kernels.py:43``: 2e-5 in f32, 2e-2 in bf16); ``attn_apply``
+(``tests/test_kernels.py:43``: 2e-5 in f32, 2e-2 in bf16), and so the
+TF32 kernel's CPU mirror (``attention_tf32_ref``: 3xTF32 products, the
+online softmax over 64-key tiles) in f32; ``attn_apply``
 at 1e-5 absolute in f32 (its outputs are O(1): two products of width 64 and
 a softmax, summed in another order) and 2e-2 in bf16 (one bf16 ulp of the
 O(1) outputs, with scores rounded to bf16 on both sides); the elementwise
@@ -29,6 +31,7 @@ from repro.nn.rotary import apply_rope as j_apply_rope
 from repro_torch.config import AttentionConfig
 from repro_torch.kernels.attention import attention as kern
 from repro_torch.kernels.attention.ops import flash_sdpa
+from repro_torch.kernels.attention.ref import attention_tf32_ref
 from repro_torch.nn.attention import attn_apply, make_cache
 from repro_torch.nn.mlp import ffn_apply
 from repro_torch.nn.norm import layernorm, rmsnorm
@@ -89,6 +92,55 @@ def test_flash_sdpa_matches_the_reference_kernel(interpret, shape, dtype, causal
     np.testing.assert_allclose(_np(o), _np(o_ref), **_tol(dtype))
     np.testing.assert_allclose(_np(o), _np(j_attention_ref(jq, jk, jv, causal=causal)),
                                **_tol(dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tf32_mirror_keeps_the_f32_gate(interpret, shape, causal):
+    """The TF32 kernel's design on the CPU (``attention_tf32_ref``) against
+    the reference's Pallas kernel in interpret mode, f32, at the reference's
+    own 2e-5: splitting every operand of both products into TF32 hi and lo
+    (P included) keeps f32's gate, before any card run."""
+    b, hq, hkv, sq, skv, d = shape
+    assert d % kern.TF32_HEAD_DIM_STEP == 0
+    rng = np.random.default_rng(SEED + 1)
+    (jq, q), (jk, k), (jv, v) = (_pair(rng.standard_normal(s, np.float32), "float32")
+                                 for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    assert kern.flash_path(q, k, v) == "tf32"
+    o = attention_tf32_ref(q, k, v, causal=causal)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    np.testing.assert_allclose(_np(o), _np(j_flash_sdpa(jq, jk, jv, causal=causal)),
+                               **_tol("float32"))
+
+
+def test_flash_path_rule_for_f32():
+    """f32 with a head dim that is a multiple of 8 takes the TF32 kernel when
+    its 16-byte copies can take q, k and v; other head dims, a base off 16
+    bytes and rows whose stride is no multiple of 16 bytes take the
+    CUDA-core kernel; the TF32 block's ring fits what a block may opt in to
+    at every padded head dim, each thread's copies whole."""
+    for d in (8, 16, 32, 64, 112, 128):
+        q = torch.zeros(2, 4, 64, d)
+        assert kern.flash_path(q, q, q) == "tf32"
+        # (B, S, H, D) viewed as (B, H, S, D), as attn_apply passes them
+        t = torch.zeros(2, 64, 4, d).transpose(1, 2)
+        assert kern.flash_path(t, t, t) == "tf32"
+    for d in (4, 12, 36, 100):
+        q = torch.zeros(2, 4, 64, d)
+        assert kern.flash_path(q, q, q) == "cuda_core"
+    q = torch.zeros(2, 4, 64, 64)
+    off = torch.zeros(2 * 4 * 64 * 64 + 1)[1:].view(2, 4, 64, 64)
+    assert kern.flash_path(off, q, q) == kern.flash_path(q, off, q) == "cuda_core"
+    padded = torch.zeros(2, 4, 64, 66)[..., :64]  # rows 264 bytes apart
+    assert kern.flash_path(q, padded, q) == "cuda_core"
+    assert kern.flash_path(q.double(), q.double(), q.double()) == "cuda_core"
+    assert [kern.tf32_head_dim(d) for d in (8, 32, 40, 64, 72, 128)] == [32, 32, 64, 64, 128, 128]
+    keys, stages, warps = kern.TF32_PLAN
+    assert kern.TF32_ROWS == 16 * warps and keys % 8 == 0 and stages >= 2
+    for dp in (32, 64, 128):
+        assert kern.tf32_smem_bytes(dp) <= 232448
+        assert keys * dp // 4 % (32 * warps) == 0
+    assert set(kern.flash_attention.launches_by_path) == {"tensor_core", "tf32", "cuda_core"}
 
 
 def test_flash_sdpa_takes_strided_heads():

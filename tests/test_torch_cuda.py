@@ -22,7 +22,8 @@ einsum path, as the reference pins it; ``wkv_scan`` and ``ssd_scan`` at the
 reference's kernel bound (``tests/test_kernels.py:305``: 2e-4 in f32, 5e-2
 in bf16, rtol = atol) against ``wkv_ref`` and ``ssd_ref`` on the same
 inputs, and the model's scans (``nn/ssm.py``) on the card against the same
-scans on the CPU at 2e-4.
+scans on the CPU at 2e-4; ``coupling_bwd`` on whole rows (x, gx, gh) at the
+per-element bounds above, its pass-through halves bit for bit.
 """
 
 import pytest
@@ -36,9 +37,10 @@ from repro_torch.kernels.conv1x1.ops import invertible_conv1x1
 from repro_torch.kernels.conv1x1.ref import conv1x1_gw_ref, conv1x1_mm_ref
 from repro_torch.kernels.coupling import coupling as ckern
 from repro_torch.kernels.coupling.ops import fused_coupling_fwd, fused_coupling_fwd_rows
-from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_ref,
-                                              coupling_fwd_rows_ref, coupling_inv_ref,
-                                              coupling_inv_rows_ref, coupling_stream_ref)
+from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_bwd_rows_ref,
+                                              coupling_fwd_ref, coupling_fwd_rows_ref,
+                                              coupling_inv_ref, coupling_inv_rows_ref,
+                                              coupling_stream_ref)
 from repro_torch.kernels.flowstep import flowstep as kern
 from repro_torch.kernels.flowstep.ops import fused_flowstep_fwd, fused_flowstep_inv
 from repro_torch.kernels.flowstep.ref import (flowstep_fwd_ref, flowstep_inv_ref,
@@ -367,13 +369,63 @@ def test_coupling_rows_gradient_on_the_card_matches_the_plain_path(dev):
         y, ld = fn(*leaves)
         return torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), leaves)
 
-    before = (ckern.coupling_bwd.launches, ckern.coupling_fwd.launches_by_path["rows"])
+    before = (ckern.coupling_bwd.launches_by_path["rows"],
+              ckern.coupling_fwd.launches_by_path["rows"])
     got, ref = grads(fused_coupling_fwd_rows), grads(coupling_fwd_rows_ref)
     torch.cuda.synchronize()
-    assert (ckern.coupling_bwd.launches, ckern.coupling_fwd.launches_by_path["rows"]) == (
-        before[0] + 1, before[1] + 1)
+    assert (ckern.coupling_bwd.launches_by_path["rows"],
+            ckern.coupling_fwd.launches_by_path["rows"]) == (before[0] + 1, before[1] + 1)
     for name, a, r in zip(("x", "h"), got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_coupling_bwd_rows_match_plain_version(dev, shape, dtype):
+    """The backward's row stream writes x, gx and gh as whole rows: each as
+    the plain row version computes it, the pass-through halves and gt bit
+    for bit gy's and y's, bitwise repeatable, one launch a call on "rows"."""
+    y, h = _rows(shape, dtype, dev, 15)
+    g = torch.Generator().manual_seed(16)
+    gy = torch.randn(shape, generator=g).to(dev, dtype)
+    gld = torch.randn(shape[0], generator=g).to(dev)
+    ca = shape[-1] // 2
+    assert ckern.coupling_path(y, h[..., :ca], h[..., ca:], gy=gy) == "rows"
+    before = dict(ckern.coupling_bwd.launches_by_path)
+    got = ckern.coupling_bwd.rows(y, h, gy, gld)
+    again = ckern.coupling_bwd.rows(y, h, gy, gld)
+    ref = coupling_bwd_rows_ref(y, h, gy, gld)
+    torch.cuda.synchronize()
+    assert ckern.coupling_bwd.launches_by_path == {**before, "rows": before["rows"] + 2}
+    for a, r, b in zip(got, ref, again):
+        assert a.shape == r.shape and a.dtype == r.dtype and a.is_contiguous()
+        _close(a, r, dtype)
+        assert torch.equal(a, b)  # nothing summed: bitwise repeatable
+    x, gx, gh = got
+    assert torch.equal(x[..., ca:], y[..., ca:]) and torch.equal(gx[..., ca:], gy[..., ca:])
+    assert torch.equal(gh[..., ca:], gy[..., :ca])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coupling_bwd_rows_off_the_rule_take_the_half_kernel(dev, dtype):
+    """The second half coupled, a width off the stream's, a gy that is a
+    transposed view: the half kernel and the joins, against the plain row
+    version."""
+    y, h = _rows((2, 300, 12), dtype, dev, 17)
+    y7, h7 = _rows((2, 300, 7), dtype, dev, 18)
+    g = torch.Generator().manual_seed(19)
+    gy = torch.randn(2, 300, 12, generator=g).to(dev, dtype)
+    gy7 = torch.randn(2, 300, 7, generator=g).to(dev, dtype)
+    gy_t = gy.transpose(1, 2).contiguous().transpose(1, 2)
+    gld = torch.randn(2, generator=g).to(dev)
+    for yy, hh, gg, flip in ((y, h, gy, True), (y7, h7[..., :6], gy7, False), (y, h, gy_t, False)):
+        before = dict(ckern.coupling_bwd.launches_by_path)
+        got = ckern.coupling_bwd.rows(yy, hh, gg, gld, flip)
+        ref = coupling_bwd_rows_ref(yy, hh, gg, gld, flip)
+        torch.cuda.synchronize()
+        assert ckern.coupling_bwd.launches_by_path == {**before, "tile": before["tile"] + 1}
+        for a, r in zip(got, ref):
+            _close(a, r, dtype)
 
 
 # the model's (B, M, C), the widest C the reference's tests take (conv1x1_gw's
@@ -454,9 +506,11 @@ def test_flash_attention_matches_plain_version(dev, shape, dtype, causal):
     before = akern.flash_attention.launches
     by_path = dict(akern.flash_attention.launches_by_path)
     # bf16 with a head dim that is a multiple of 16 takes the tensor-core
-    # kernel, f32 and the other bf16 head dims the CUDA-core one
+    # kernel, f32 with one that is a multiple of 8 the TF32 kernel, the
+    # other head dims the CUDA-core one
     path = akern.flash_path(q, k, v)
-    assert path == ("tensor_core" if dtype == torch.bfloat16 and d % 16 == 0 else "cuda_core")
+    assert path == ("tensor_core" if dtype == torch.bfloat16 and d % 16 == 0
+                    else "tf32" if dtype == torch.float32 and d % 8 == 0 else "cuda_core")
     o = akern.flash_attention(q, k, v, causal=causal)
     o2 = akern.flash_attention(q, k, v, causal=causal)
     ref = attention_ref(q, k, v, causal=causal)

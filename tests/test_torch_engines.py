@@ -129,8 +129,8 @@ def test_conditioner_evaluations_per_train_step(mode, coupled_bwd, per_step, fus
 
     monkeypatch.setattr(glow_scan, "coupling_cnn_apply",
                         counting("net", glow_scan.coupling_cnn_apply))
-    monkeypatch.setattr(glow_scan, "fused_coupling_bwd",
-                        counting("coupling_bwd", glow_scan.fused_coupling_bwd))
+    monkeypatch.setattr(glow_scan, "fused_coupling_bwd_rows",
+                        counting("coupling_bwd", glow_scan.fused_coupling_bwd_rows))
     flow = build_glow_scanned(**SMALL, grad_mode=mode, coupled_bwd=coupled_bwd, device="cpu")
     value_and_grad_nll(flow, torch.randn(SHAPE))
     steps = SMALL["n_scales"] * SMALL["k_steps"]

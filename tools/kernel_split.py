@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device time of ``flowstep_fwd``, ``flowstep_inv``, ``spine_bwd``, the
-coupling layer's op (``coupling_fwd``, ``coupling_inv``), ``coupling_bwd``
-and ``wkv_scan`` on one NVIDIA GPU, split by the CUDA kernels each call
-launches.
+coupling layer's op (``coupling_fwd``, ``coupling_inv``) and its backward
+(``coupling_bwd``), ``wkv_scan`` and ``flash_attention`` on one NVIDIA GPU,
+split by the CUDA kernels each call launches.
 
     python3 tools/kernel_split.py [--src DIR] [--label NAME] [--only KERNEL ...]
 
@@ -26,8 +26,12 @@ f32 and bf16, from the layer's input (or output) row and its conditioner
 output h to the merged (B, M, C) row (and ld), as the checkout's layer does
 it under ``no_grad``: where the checkout has the row op
 (``fused_coupling_fwd_rows``), that op; else the half kernel on the first
-half and ``torch.cat`` with the second.  ``coupling_bwd`` times the backward
-kernel on the transformed half (8, ·, 6 / 12 / 24).  Each point is read
+half and ``torch.cat`` with the second.  ``coupling_bwd`` times the
+backward as its callers run it, from the layer's output row y, h and the
+row cotangent gy to x, gx and gh = (graw | gt), each a whole (B, M, C) row:
+where the checkout has the backward's row op (``fused_coupling_bwd_rows``),
+that op; else the half kernel on the first half and the callers' three
+``torch.cat`` (x, gx and gh).  Each point is read
 twice, "warm" (the same inputs call after call, as far as they fit in the
 50 MB L2) and "flushed" (a 64 MB buffer read, by a sum, before each call, so
 that the call's inputs come from HBM and the lines left in L2 are clean),
@@ -36,6 +40,17 @@ and as the events' span of many calls queued back to back behind a spin
 kernel (``chip_smoke.queued_ms``; flushed: the span of flush-and-call
 pairs less that of the flushes alone, the median of three), which counts
 the gaps between a call's kernels.
+
+``flash_attention`` times the causal f32 kernel at yi-6b's prefill (8, 32,
+4, 2048, 128), whatever path the checkout gives it, beside
+``F.scaled_dot_product_attention`` on the same inputs (302 MB, more than
+the L2), by the summed device time of each (5 calls), and by
+``--flash-readings`` flushed readings of one call each, the kernel's and
+SDPA's taken in turn: each call's span between CUDA events after a 64 MB L2
+flush, with the SM clock just before and just after it, read as the cycles
+of a ``torch.cuda._sleep`` spin on the same stream over its events' span.
+The line gives each reading with its two clocks, and the median, least and
+greatest reading of each.
 
 Prints one JSON line per point, then the card's name and power limit.  With
 ``--spine-plans`` it times instead ``spine_bwd``'s cluster kernel at the
@@ -59,13 +74,16 @@ import chip_smoke as cs  # noqa: E402  (timing, inputs and tolerances as the smo
 
 SPINE_SHAPES = cs.SHAPES[:3]
 KERNELS = ("flowstep_fwd", "flowstep_inv", "spine_bwd", "coupling_fwd", "coupling_inv",
-           "coupling_bwd", "wkv_scan")
+           "coupling_bwd", "wkv_scan", "flash_attention")
 COUPLING_KERNELS = ("coupling_fwd", "coupling_inv", "coupling_bwd")
 #: bytes read before each call of a "flushed" reading: more than the L2;
 #: and the names of the kernels the flush's sum launches (its reduction and
 #: the memset of its output), which the summed reading leaves out
 FLUSH_BYTES = 64 << 20
 FLUSH_KERNELS = ("ReduceOp", "Memset")
+#: cycles of the spin that reads the SM clock beside a flushed reading
+#: (about 1 ms at the H100's 1980 MHz)
+PROBE_CYCLES = 2_000_000
 
 
 def spine_inputs(shape, dtype, dev):
@@ -161,7 +179,18 @@ def coupling_points(label, names, dev) -> None:
                            [cops.fused_coupling_fwd(x[..., :ca], raw, t)[0], x[..., ca:]], dim=-1),
                        "coupling_inv": lambda: torch.cat(
                            [cops.fused_coupling_inv(y[..., :ca], raw, t), y[..., ca:]], dim=-1)}
-            ops["coupling_bwd"] = lambda: ck.coupling_bwd(y[..., :ca], raw, t, gy[..., :ca], gld)
+            if hasattr(cops, "fused_coupling_bwd_rows"):
+                ops["coupling_bwd"] = lambda: cops.fused_coupling_bwd_rows(y, h, gy, gld)
+            else:  # the half kernel, then its callers' joins of x, gx and gh
+
+                def half_and_joins():
+                    xa, gxa, graw, gt = ck.coupling_bwd(y[..., :ca], raw, t, gy[..., :ca], gld)
+                    return (torch.cat([xa, y[..., ca:]], dim=-1),
+                            torch.cat([gxa, gy[..., ca:]], dim=-1),
+                            torch.cat([graw, gt], dim=-1))
+
+                ops["coupling_bwd"] = half_and_joins
+            bwd_rows = hasattr(cops, "fused_coupling_bwd_rows")
             with torch.no_grad():
                 y = ops["coupling_fwd"]()
                 y = y[0] if rows else y
@@ -184,16 +213,82 @@ def coupling_points(label, names, dev) -> None:
                             cs.queued_ms(flushed) - cs.queued_ms(flush) for _ in range(3))[1])
                         readings[reading] = {"summed_us": total, "span_us": span,
                                              "summed_us_by_kernel": split}
-                op = ("half kernel" if name == "coupling_bwd" else "row op" if rows
-                      else "half kernel + torch.cat")
-                bound_name = name if name == "coupling_bwd" else f"{name}_rows"
+                if name == "coupling_bwd":
+                    op = "row op" if bwd_rows else "half kernel + 3 torch.cat"
+                else:
+                    op = "row op" if rows else "half kernel + torch.cat"
                 print(json.dumps({
-                    "label": label, "kernel": name, "op": op,
-                    "shape": list(shape) if name != "coupling_bwd" else [b, m, ca],
+                    "label": label, "kernel": name, "op": op, "shape": list(shape),
                     "dtype": str(dtype).removeprefix("torch."),
                     "path": path[0] if len(path) == 1 else None,
-                    "bound_us": 1e3 * cs.bound_ms(bound_name, shape, dtype),
+                    "bound_us": 1e3 * cs.bound_ms(f"{name}_rows", shape, dtype),
                     **readings}), flush=True)
+
+
+def clocked_reading(fn, flush) -> tuple[float, float, float]:
+    """One call of ``fn`` after ``flush``: its span (µs) between CUDA events,
+    and the SM clock (MHz) just before and just after it, each from the
+    events' span of a ``PROBE_CYCLES`` spin on the same stream."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    flush()
+    ev[0].record()
+    torch.cuda._sleep(PROBE_CYCLES)
+    ev[1].record()
+    fn()
+    ev[2].record()
+    torch.cuda._sleep(PROBE_CYCLES)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return (1e3 * ev[1].elapsed_time(ev[2]), PROBE_CYCLES / (1e3 * ev[0].elapsed_time(ev[1])),
+            PROBE_CYCLES / (1e3 * ev[2].elapsed_time(ev[3])))
+
+
+def reading_stats(readings) -> dict:
+    """Median, least and greatest of ``clocked_reading`` results, and each
+    reading as [µs, MHz before, MHz after]."""
+    us = sorted(r[0] for r in readings)
+    n = len(us)
+    return {"median_us": (us[(n - 1) // 2] + us[n // 2]) / 2, "min_us": us[0], "max_us": us[-1],
+            "readings_us_mhz_before_after": [list(r) for r in readings]}
+
+
+def attention_point(label, dev, n_readings: int) -> None:
+    """The causal f32 ``flash_attention`` at yi-6b's prefill beside SDPA: the
+    summed device time of each, ``n_readings`` clocked flushed readings of
+    each taken in turn, the path the kernel took, both bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import attention as ak
+
+    shape = cs.ATTN_SHAPES[3]
+    q, k, v = cs.attention_inputs(shape, torch.float32, dev, cs.SEED + 22)
+    before = dict(ak.flash_attention.launches_by_path)
+    ak.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    path = [p for p, n in ak.flash_attention.launches_by_path.items() if n != before.get(p, 0)]
+    kernel_us, split = summed_us(lambda: ak.flash_attention(q, k, v), reps=5)
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    sdpa_us, _ = summed_us(sdpa, reps=5)
+    buf = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    readings = {"kernel": [], "sdpa": []}
+    for _ in range(n_readings):
+        readings["kernel"].append(clocked_reading(lambda: ak.flash_attention(q, k, v), buf.sum))
+        readings["sdpa"].append(clocked_reading(sdpa, buf.sum))
+    nbytes, flops = cs.cost("flash_attention", shape, torch.float32)
+    print(json.dumps({"label": label, "kernel": "flash_attention", "shape": list(shape),
+                      "dtype": "float32", "causal": True, "path": path[0] if path else None,
+                      "summed_us": kernel_us, "summed_us_by_kernel": split,
+                      "sdpa_summed_us": sdpa_us,
+                      "flushed": {k: reading_stats(v) for k, v in readings.items()},
+                      "bound_us_tf32_rate": 1e3 * cs.bound_ms("flash_attention", shape,
+                                                              torch.float32),
+                      "bound_us_f32_rate": 1e6 * max(nbytes / cs.H100_BYTES_PER_S,
+                                                     flops / cs.H100_F32_FLOPS)}), flush=True)
 
 
 def spine_plans(dev) -> None:
@@ -248,6 +343,8 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout", help="names the version in each line")
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=KERNELS,
                     help="time these kernels alone")
+    ap.add_argument("--flash-readings", type=int, default=15,
+                    help="clocked flushed readings of flash_attention and of SDPA")
     ap.add_argument("--spine-plans", action="store_true",
                     help="time spine_bwd's cluster kernel under candidate plans instead")
     args = ap.parse_args()
@@ -268,6 +365,8 @@ def main() -> int:
     coupling = [k for k in args.only if k in COUPLING_KERNELS]
     if coupling:
         coupling_points(args.label, coupling, dev)
+    if "flash_attention" in args.only:
+        attention_point(args.label, dev, args.flash_readings)
     for shape in SPINE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
