@@ -7,7 +7,9 @@ It serves and trains GLOW (3 scales x 8 steps, hidden 64, Haar squeeze) at
 full width on 256x256x3 images, batch 8, with random weights from a seed, in
 both of the port's builds: scanned (``GLOW_SCANNED``, the fused flow-step
 kernels) and unrolled (``GLOW_COUPLED``, the fused coupling kernels with the
-ActNorm and Conv1x1 hooks).  Then it serves the language models yi-6b (32
+ActNorm and Conv1x1 hooks).  It trains and samples the conditional HINT
+amortized posterior (``CHINT_COUPLED`` at the reference's ``seismic-uq``
+widths) through the supervised loop.  Then it serves the language models yi-6b (32
 layers, d_model 4096), rwkv6-7b (32 RWKV6 layers, d_model 4096; the
 ``wkv_scan`` kernel) and zamba2-7b (81 Mamba2 layers and a shared attention
 block, d_model 3584; the ``ssd_scan`` kernel), reversible, bf16
@@ -68,6 +70,25 @@ kernel against its plain PyTorch version.  Phases, one line each:
              scale, ``coupled`` (reversible) and ``autodiff``: the coupled
              peak must grow by less than a quarter of the autodiff peak's
              growth;
+5b. chint  - ``CHINT_COUPLED`` (depth 4, hidden 128, recursion 2) at
+             d_theta 32, d_y 32, a 64-wide summary net, batch 256, random
+             weights from a seed: (a) one coupled train step on the card
+             against the CPU (loss within 1e-4 relative, every gradient leaf
+             within 1e-4 of its largest entry, the summary net's included),
+             12 ``coupling_bwd`` on the half kernel ("tile") and no
+             ``coupling_fwd``; (b) ``posterior_sampler`` (n = 2048) and
+             ``sample`` (n = 20,000) through the ``kernel_inverse`` twin, 12
+             ``coupling_inv`` a call, within 1e-4 of the plain inverse of
+             the same z and cond, the same bits for the same seed, the round
+             trip; (c) ``train_conditional_flow`` for 12 steps, checkpoints
+             every 4, a failure at step 6 and no prefetch, bitwise equal to
+             an uninterrupted run with ``prefetch=2``, the final step saved
+             once; (d) the ``lg-posterior`` recipe (d_theta 8, d_y 16,
+             sigma 0.5, depth 3, hidden 64, 600 steps) on the card, then
+             20,000 draws against the analytic posterior (mean within 0.35,
+             std ratio in (0.5, 2)); wall and device-busy ms of a train
+             step and of the draws, and both kernels at this path's M = 1
+             shapes (``[chint]`` lines);
 6. op      - ``invertible_conv1x1`` forward and backward at the unrolled
              model's three widths, the path of ``conv1x1_mm``/``conv1x1_gw``
              (the model's ``Conv1x1`` layer computes its product with
@@ -333,6 +354,10 @@ def cost(name: str, shape, dtype):
     if name == "coupling_bwd":
         # y, raw, t, gy in; x, gx, graw, gt out; gld in
         return 8 * es * b * m * ca + 4 * b, 15 * b * m * ca
+    if name == "coupling_bwd_half":
+        # the half contract (B, M, ca) = shape, as a HINT cross node calls it:
+        # y, raw, t, gy in; x, gx, graw, gt out; gld in
+        return 8 * es * b * m * c + 4 * b, 15 * b * m * c
     if name == "coupling_bwd_rows":
         # the backward on whole rows (B, M, C) = shape: y, h (raw | t), gy in,
         # x, gx, gh (graw | gt) out, gld in; the same work on the ca coupled
@@ -340,8 +365,10 @@ def cost(name: str, shape, dtype):
         return 6 * es * b * m * c + 4 * b, 15 * b * m * ca
     if name in ("coupling_fwd", "coupling_inv"):
         # on the transformed half (B, M, ca) = shape: x|y, raw, t in, y|x out
-        # (ld out); tanh, divide, scale, exp, multiply, add (+ the ld sum)
-        return 4 * es * b * m * c + 4 * b, (7 if name == "coupling_fwd" else 6) * b * m * c
+        # (the forward's ld out); tanh, divide, scale, exp, multiply, add (+
+        # the ld sum)
+        fwd = name == "coupling_fwd"
+        return 4 * es * b * m * c + (4 * b if fwd else 0), (7 if fwd else 6) * b * m * c
     if name in ("coupling_fwd_rows", "coupling_inv_rows"):
         # the layer's op on whole rows (B, M, C) = shape: x|y and h (raw | t)
         # in, the merged y|x out (ld out); the same work on the ca coupled
@@ -508,6 +535,40 @@ def queued_ms(fn, reps: int = 20, spin_cycles: int = 20_000_000) -> float:
             return ev[1].elapsed_time(ev[2]) / reps
         spin_cycles *= 2
     raise SystemExit("chip_smoke: FAILED: the host could not queue the calls ahead of the card")
+
+
+def e2e_wall_ms(fn, reps=15):
+    """Median wall ms of ``fn`` (each call synchronised), and every run."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return sorted(out)[len(out) // 2], out
+
+
+def profile_call(fn, median_ms, name) -> tuple[float, float, list]:
+    """One profiled call of ``fn``: its device-busy ms (every kernel's
+    time), the idle share against the unprofiled median, and the profiler's
+    events; the table goes to ``chiprun_out/chip_smoke/profile_<name>.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    (OUT / f"profile_{name}.txt").write_text(
+        events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
+    busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
+    return busy_ms, max(0.0, 1 - busy_ms / median_ms), events
 
 
 def time_kernel(name, shape, dtype, k_fn, p_fn, lib_fn=None, plain_reps=None, **extra) -> dict:
@@ -1076,6 +1137,286 @@ def coupled_train_phase(dev, card) -> dict:
     return {"launches": launches, "flow": flow, "x": x}
 
 
+# cHINT (CHINT_COUPLED: depth 4, hidden 128, recursion 2) at the reference's
+# seismic-uq widths (src/repro/uq/scenarios.py:142): d_theta 32, d_y 32, a
+# summary of 64 out and 128 hidden, batch 256; a draw of 2048 posterior
+# samples and a sample of 20,000 for one observation
+CHINT_D_THETA, CHINT_D_Y, CHINT_SUMMARY, CHINT_SUMMARY_HIDDEN = 32, 32, 64, 128
+CHINT_BATCH, CHINT_DRAW, CHINT_SAMPLE = 256, 2048, 20_000
+# the cross nodes of one HINT block at c = 32, recursion 2: the root (cb 16)
+# and two c = 16 children (cb 8); 4 blocks, so 12 coupling_bwd a train step
+# and 12 coupling_inv a draw
+CHINT_CROSS_NODES = 12
+TOL_CHINT_LOSS_REL = 1e-4  # the train loss on the card against the CPU
+# the lg-posterior recipe (src/repro/uq/scenarios.py:104) and the bounds of
+# examples/amortized_inference.py:49-50
+LG = dict(d_theta=8, d_y=16, sigma=0.5, depth=3, hidden=64, summary=32, summary_hidden=64,
+          steps=600, batch=256, lr=2e-3)
+LG_MEAN_ERR, LG_STD_RATIO = 0.35, (0.5, 2.0)
+
+
+def build_chint_model(device, d_theta=CHINT_D_THETA, d_y=CHINT_D_Y, d_sum=CHINT_SUMMARY,
+                      sum_hidden=CHINT_SUMMARY_HIDDEN, depth=None, hidden=None, seed=SEED + 40,
+                      live=True):
+    """``CHINT_COUPLED`` (or its depth and hidden cut as given) with a
+    ``SummaryMLP`` and the ``kernel_inverse=True`` sampling twin, from the
+    seed on the CPU, then on ``device``; ``live`` perturbs the flow and the
+    summary (their last layers start at zero: every coupling the identity,
+    the summary's output 0 and its inner layers without a gradient)."""
+    import torch
+    from repro_torch.configs.flows import CHINT_COUPLED
+    from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
+
+    cfg = CHINT_COUPLED
+    depth, hidden = depth or cfg.depth, hidden or cfg.hidden
+    g = torch.Generator().manual_seed(seed)
+    flow = build_chint(d_theta, d_sum, depth=depth, hidden=hidden, grad_mode=cfg.grad_mode,
+                       generator=g, device="cpu")
+    twin = build_chint(d_theta, d_sum, depth=depth, hidden=hidden, kernel_inverse=True,
+                       generator=g, device="cpu")
+    summary = SummaryMLP(d_y, d_sum, sum_hidden, generator=g, device="cpu")
+    if live:
+        perturb(flow, seed + 1, stacked=False)
+        perturb(summary, seed + 2, stacked=False)
+    return ConditionalFlow(flow, summary, sample_flow=twin, device=device)
+
+
+def chint_phase(dev, card) -> dict:
+    """Phase 5b: cHINT amortized posteriors on the card.  (a) one coupled
+    train step at full width against the CPU, 12 ``coupling_bwd`` on the
+    half kernel and no ``coupling_fwd``; (b) ``posterior_sampler`` (n =
+    2048) and ``sample`` (n = 20,000) through the ``kernel_inverse`` twin,
+    12 ``coupling_inv`` a call, against the plain inverse of the same z and
+    cond, the same bits for the same seed, the round trip; (c) 12 steps
+    through ``train_conditional_flow`` with checkpoints every 4, a failure
+    at step 6 and no prefetch, bitwise against an uninterrupted run with
+    ``prefetch=2``, one save of the final step each; (d) the
+    ``lg-posterior`` recipe, 600 steps on the card, then 20,000 draws held
+    against the analytic posterior.  Then wall and device-busy ms of a train
+    step and a draw, and the two kernels at this path's shapes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import derive_key
+    from repro_torch.data.synthetic import SyntheticInverseProblem
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_bwd_rows_ref,
+                                                  coupling_inv_ref, coupling_inv_rows_ref)
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.loop import objective_value_and_grad, train_conditional_flow
+
+    out: dict = {"launches": {}}
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_chint_"))
+    try:
+        # (a) one train step, card against CPU --------------------------------
+        data = SyntheticInverseProblem(CHINT_D_THETA, CHINT_D_Y, sigma=0.02, batch=CHINT_BATCH,
+                                       seed=SEED)
+        batch_cpu = data.batch_at(0)
+        model_cpu = build_chint_model("cpu")
+        model = build_chint_model(dev)
+        check(model.flow.engine == "coupled",
+              "CHINT_COUPLED does not train through the coupled engine")
+        batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+        step_vg = objective_value_and_grad(model, model.train_loss)
+        reset(ck.KERNELS)
+        loss, grads = step_vg(batch)
+        torch.cuda.synchronize()
+        step_paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
+        check(step_paths == {"coupling_fwd": {"rows": 0, "tile": 0},
+                             "coupling_inv": {"rows": 0, "tile": 0},
+                             "coupling_bwd": {"rows": 0, "tile": CHINT_CROSS_NODES}},
+              f"cHINT train-step launches: {step_paths}")
+        loss_cpu, grads_cpu = objective_value_and_grad(model_cpu, model_cpu.train_loss)(batch_cpu)
+        loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+        grad_rel, grad_worst = max_rel_leaf_err(grads, grads_cpu)
+        check(torch.isfinite(loss).item() and loss_rel <= TOL_CHINT_LOSS_REL,
+              f"cHINT train loss vs cpu: {loss_rel}")
+        check(all(torch.isfinite(g).all().item() for g in grads.values()),
+              "cHINT gradients not finite")
+        check(grad_rel <= TOL_GRAD_REL, f"cHINT gradient vs cpu: {grad_rel} at {grad_worst}")
+        summary_rel, _ = max_rel_leaf_err({k: v for k, v in grads.items() if "summary" in k},
+                                          {k: v for k, v in grads_cpu.items() if "summary" in k})
+        check(any("summary" in k for k in grads) and all(
+            grads[k].abs().max().item() > 0 for k in grads if k.startswith("summary.layers.0")),
+            "the summary network got no gradient")
+        out["launches"]["coupling_bwd"] = step_paths["coupling_bwd"]["tile"]
+        line("chint", part="train_step_vs_cpu", model="CHINT_COUPLED",
+             widths={"d_theta": CHINT_D_THETA, "d_y": CHINT_D_Y, "summary": CHINT_SUMMARY,
+                     "summary_hidden": CHINT_SUMMARY_HIDDEN, "batch": CHINT_BATCH},
+             loss=loss.item(), loss_rel_err_vs_cpu=loss_rel, grad_max_rel_err_vs_cpu=grad_rel,
+             grad_worst_leaf_vs_cpu=grad_worst, summary_grad_max_rel_err_vs_cpu=summary_rel,
+             launches_by_path_per_train_step=step_paths,
+             n_params=sum(p.numel() for p in model.parameters()), card=card)
+
+        # (b) posterior sampling through the kernel_inverse twin --------------
+        y_obs = data.batch_at(10_000)["y"][:1]
+        sampler = model.posterior_sampler(y_obs, theta_dim=CHINT_D_THETA)
+        with torch.no_grad():
+            cond0 = model._cond(y_obs)
+        sampled = {}
+        for what, n, run in (("posterior_sampler", CHINT_DRAW, lambda g, n: sampler(g, n)),
+                             ("sample", CHINT_SAMPLE,
+                              lambda g, n: model.sample(g, y_obs, n, CHINT_D_THETA))):
+            gen = torch.Generator().manual_seed(SEED + 42)
+            reset(ck.KERNELS)
+            x = run(gen, n)
+            torch.cuda.synchronize()
+            paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
+            check(paths == {"coupling_fwd": {"rows": 0, "tile": 0},
+                            "coupling_inv": {"rows": 0, "tile": CHINT_CROSS_NODES},
+                            "coupling_bwd": {"rows": 0, "tile": 0}},
+                  f"cHINT {what} launches: {paths}")
+            again = run(torch.Generator().manual_seed(SEED + 42), n)
+            other = run(torch.Generator().manual_seed(SEED + 43), n)
+            with torch.no_grad():
+                z = torch.randn((n, CHINT_D_THETA), generator=derive_key(gen, 0, dev), device=dev)
+                cond = cond0.repeat_interleave(n, dim=0)
+                plain = model.flow.inverse(z, cond)
+                z_back, _ = model.flow(x, cond)
+            err = (x - plain).abs().max().item()
+            rt = (z_back - z).abs().max().item()
+            check(x.shape == (n, CHINT_D_THETA) and torch.isfinite(x).all().item(),
+                  f"cHINT {what}: shape {tuple(x.shape)} or not finite")
+            check(err <= TOL_F32, f"cHINT {what} vs the plain inverse: {err}")
+            check(torch.equal(x, again) and not torch.equal(x, other),
+                  f"cHINT {what}: the same seed gave other bits, or another seed the same")
+            check(rt <= TOL_ROUND_TRIP, f"cHINT {what} forward(inverse(z)) vs z: {rt}")
+            sampled[what] = {"n": n, "max_abs_err_vs_plain_inverse": err,
+                             "round_trip_max_abs_err": rt, "same_seed_bitwise_equal": True,
+                             "launches_by_path": paths}
+        out["launches"]["coupling_inv"] = CHINT_CROSS_NODES
+        line("chint", part="sampling", y_obs_index=10_000, **sampled, card=card)
+
+        # (c) a restart reproduces the uninterrupted run, bit for bit ----------
+        saves: list = []
+        real_save = ckpt.save
+
+        def counting_save(state, ckpt_dir, step, keep=3):
+            saves.append((Path(ckpt_dir).name, step))
+            return real_save(state, ckpt_dir, step, keep)
+
+        ckpt.save = counting_save
+        try:
+            runs = {}
+            for name, prefetch, injector in (("uninterrupted", 2, None),
+                                             ("restarted", 0, FailureInjector(fail_at=(6,)))):
+                cfg = TrainConfig(steps=12, lr=1e-3, warmup_steps=2, checkpoint_every=4,
+                                  checkpoint_dir=str(scratch / name), prefetch=prefetch)
+                runs[name] = train_conditional_flow(build_chint_model(dev), data, cfg,
+                                                    device=dev, injector=injector)
+        finally:
+            ckpt.save = real_save
+        a, b = runs["uninterrupted"], runs["restarted"]
+        same = (all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+                and all(torch.equal(a.opt_state[m][k], b.opt_state[m][k])
+                        for m in ("mu", "nu") for k in a.opt_state[m])
+                and a.opt_state["step"] == b.opt_state["step"] == 12)
+        unequal = [k for k in a.params if not torch.equal(a.params[k], b.params[k])]
+        by_run = {n: [s for d, s in saves if d == n] for n in runs}
+        check(b.restarts == 1 and a.restarts == 0, f"cHINT restarts: {a.restarts}, {b.restarts}")
+        check(same, f"cHINT restarted run differs from the uninterrupted one: {unequal[:5]}")
+        check(b.losses == a.losses[4:], "cHINT restarted losses differ")
+        check(all(v.count(11) == 1 for v in by_run.values()) and by_run["uninterrupted"]
+              == [3, 7, 11], f"cHINT checkpoint saves: {by_run}")
+        line("chint", part="restart", steps=12, checkpoint_every=4, fail_at=6,
+             restarts=b.restarts, final_state_bitwise_equal=same, saves=by_run,
+             uninterrupted_prefetch=2, restarted_prefetch=0, losses=a.losses, card=card)
+
+        # (d) the lg-posterior recipe against the analytic posterior ----------
+        lg_data = SyntheticInverseProblem(LG["d_theta"], LG["d_y"], sigma=LG["sigma"],
+                                          batch=LG["batch"], seed=0)
+        lg = build_chint_model(dev, d_theta=LG["d_theta"], d_y=LG["d_y"], d_sum=LG["summary"],
+                               sum_hidden=LG["summary_hidden"], depth=LG["depth"],
+                               hidden=LG["hidden"], seed=0, live=False)
+        steps = LG["steps"]
+        cfg = TrainConfig(steps=steps, lr=LG["lr"], warmup_steps=max(steps // 20, 2),
+                          checkpoint_every=max(steps // 4, 10),
+                          checkpoint_dir=str(scratch / "lg"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_conditional_flow(lg, lg_data, cfg, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        y_lg = lg_data.batch_at(10_000)["y"][:1]
+        mu, cov = lg_data.posterior(y_lg[0])
+        draws = lg.sample(torch.Generator().manual_seed(0), y_lg, CHINT_SAMPLE, LG["d_theta"])
+        draws = draws.double().cpu()
+        mean_err = (draws.mean(0) - mu).abs().max().item()
+        ratio = (draws.std(0) / cov.diagonal().sqrt()).tolist()
+        check(all(math.isfinite(v) for v in res.losses), "lg-posterior losses not finite")
+        check(mean_err < LG_MEAN_ERR, f"lg-posterior mean error {mean_err}")
+        check(all(LG_STD_RATIO[0] < r < LG_STD_RATIO[1] for r in ratio),
+              f"lg-posterior std ratio {ratio}")
+        line("chint", part="lg_posterior", recipe=LG, train_s=train_s,
+             train_step_wall_ms=1e3 * train_s / steps, first_loss=res.losses[0],
+             last_loss=res.losses[-1], posterior_mean_max_abs_err=mean_err,
+             posterior_std_ratio=ratio, draws=CHINT_SAMPLE, card=card)
+
+        # wall and device-busy ms of a train step and of the draws -----------
+        params = dict(model.named_parameters())
+        opt = adamw_init(params)
+        train_cfg = TrainConfig()
+
+        def train_step():
+            loss_, grads_ = step_vg(batch)
+            adamw_update(params, grads_, opt, train_cfg, 1e-5)
+            return loss_
+
+        gen = torch.Generator().manual_seed(SEED + 44)
+        for what, fn in (("train_step", train_step),
+                         ("posterior_sampler_draw", lambda: sampler(gen, CHINT_DRAW)),
+                         ("sample", lambda: model.sample(gen, y_obs, CHINT_SAMPLE,
+                                                         CHINT_D_THETA))):
+            median, runs_ms = e2e_wall_ms(fn)
+            busy_ms, idle, _ = profile_call(fn, median, f"chint_{what}")
+            line("chint", part="times", call=what, median_ms=median,
+                 q1_ms=sorted(runs_ms)[len(runs_ms) // 4],
+                 q3_ms=sorted(runs_ms)[(3 * len(runs_ms)) // 4], device_busy_ms=busy_ms,
+                 device_idle_share=idle, card=card)
+
+        # each kernel at this path's shapes: the half kernels (M = 1) --------
+        times = {"coupling_bwd": [], "coupling_inv": []}
+        for name, shapes in (("coupling_bwd", [(CHINT_BATCH, 1, 16), (CHINT_BATCH, 1, 8)]),
+                             ("coupling_inv", [(CHINT_SAMPLE, 1, 16), (CHINT_SAMPLE, 1, 8),
+                                               (CHINT_DRAW, 1, 16), (CHINT_DRAW, 1, 8)])):
+            for shape in shapes:
+                b, m, cb = shape
+                gt = torch.Generator().manual_seed(SEED + 45)
+                state = torch.randn(b, 2 * cb, generator=gt).to(dev)
+                h = torch.randn(b, m, 2 * cb, generator=gt).to(dev)
+                v = state[:, cb:].reshape(shape)  # a strided half, as a node passes it
+                raw, t = h[..., :cb], h[..., cb:]
+                check(ck.coupling_path(v, raw, t) == "tile", f"{name} at {shape} off the tile path")
+                if name == "coupling_bwd":
+                    gy = torch.randn(shape, generator=gt).to(dev)
+                    gld = torch.randn(b, generator=gt).to(dev)
+                    got = ck.coupling_bwd.rows(v, h, gy, gld)
+                    ref = coupling_bwd_rows_ref(v, h, gy, gld)
+                    k_fn = lambda: ck.coupling_bwd(v, raw, t, gy, gld)  # noqa: E731
+                    p_fn = lambda: coupling_bwd_ref(v, raw, t, gy, gld)  # noqa: E731
+                    op_fn = lambda: ck.coupling_bwd.rows(v, h, gy, gld)  # noqa: E731
+                else:
+                    got, ref = (ck.coupling_inv.rows(v, h),), (coupling_inv_rows_ref(v, h),)
+                    k_fn = lambda: ck.coupling_inv(v, raw, t)  # noqa: E731
+                    p_fn = lambda: coupling_inv_ref(v, raw, t)  # noqa: E731
+                    op_fn = lambda: ck.coupling_inv.rows(v, h)  # noqa: E731
+                err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+                check(err <= TOL_F32, f"{name} at {shape}: {err}")
+                op_ms, _, op_split = device_ms(op_fn)
+                times[name].append(time_kernel(
+                    f"{name}_half" if name == "coupling_bwd" else name, shape, torch.float32,
+                    k_fn, p_fn, path="tile", path_of="chint", max_abs_err=err,
+                    row_op_ms=op_ms, row_op_ms_by_kernel=op_split, card=card))
+        out["times"] = times
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
 def float64_oracle(dev, x_cpu, grads, grads_cpu) -> dict:
     """How far the unrolled model's f32 gradients sit from the truth: each
     leaf against plain autograd of the same model in float64 on the CPU, for
@@ -1391,9 +1732,6 @@ def lm_times(served, card, wall_ms, name: str = "yi-6b") -> None:
     and one decode step of the served LM ``name``, medians and quartiles,
     tokens/s, one profiled call of each with the device's idle share and its
     top ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     model, prompt = served["model"], served["prompt"]
     caches = model.make_caches(LM_BATCH, LM_PROMPT + LM_NEW)
     tok = prompt[:, -1:]
@@ -1405,20 +1743,12 @@ def lm_times(served, card, wall_ms, name: str = "yi-6b") -> None:
         line("times", model=name, e2e=what, batch=LM_BATCH, median_ms=median, q1_ms=q[len(q) // 4],
              q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms, tokens_per_s=n_tokens / (median * 1e-3),
              card=card)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        (OUT / f"profile_{name.replace('-', '')}_{what}.txt").write_text(
-            events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
-        busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
+        busy_ms, idle, events = profile_call(fn, median, f"{name.replace('-', '')}_{what}")
         by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
                         if not _is_device_event(e) and e.self_device_time_total > 0),
                        key=lambda r: -r[1])
         line("profile", model=name, call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
-             device_idle_share=max(0.0, 1 - busy_ms / median),
-             device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
+             device_idle_share=idle, device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
 
 def time_attention(dev) -> list:
@@ -2036,22 +2366,14 @@ def main() -> int:
     launches.update(conv1x1_op_phase(dev, card))
     mark("train, memory, op")
 
+    # 5b. cHINT amortized posteriors: train step, sampling, restart, recipe
+    chint = chint_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("chint")
+
     # 7. times -----------------------------------------------------------------
     per_shape = time_flow_kernels(dev)
-
-    def wall_ms(fn, reps=15):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(1e3 * (time.perf_counter() - t0))
-        return sorted(out)[len(out) // 2], out
-
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(SEED + 4)
 
@@ -2074,27 +2396,20 @@ def main() -> int:
             ("GLOW_COUPLED", "log_prob", lambda: c_engine.log_prob(coupled["x"])),
             ("GLOW_COUPLED", "sample", lambda: c_engine.sample(gen, coupled["like"])),
             ("GLOW_COUPLED", "train_step", train_step_of(coupled_train))):
-        median, runs_ms = wall_ms(fn)
+        median, runs_ms = e2e_wall_ms(fn)
         q = sorted(runs_ms)
         line("times", model=model, e2e=what, batch=BATCH, median_ms=median, q1_ms=q[len(q) // 4],
              q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms,
              images_per_s=BATCH / (median * 1e-3), card=card)
         # one profiled call: device time by the PyTorch op (or kernel wrapper)
         # that launched it; the idle share is against the unprofiled median
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        (OUT / f"profile_{model.lower()}_{what}.txt").write_text(
-            events.table(sort_by="self_cuda_time_total", row_limit=60, max_name_column_width=100))
-        busy_ms = sum(e.device_time_total for e in events if _is_device_event(e)) / 1e3
+        busy_ms, idle, events = profile_call(fn, median, f"{model.lower()}_{what}")
         by_op = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
                         if not _is_device_event(e) and e.self_device_time_total > 0),
                        key=lambda r: -r[1])
         cat_launches = sum(e.count for e in events if e.key == "aten::cat")
         line("profile", model=model, call=what, device_busy_ms=busy_ms, unprofiled_median_ms=median,
-             device_idle_share=max(0.0, 1 - busy_ms / median), aten_cat_launches=cat_launches,
+             device_idle_share=idle, aten_cat_launches=cat_launches,
              device_ms_by_op=[[k, round(v, 4), n] for k, v, n in by_op[:12]])
 
     mark("times")
@@ -2102,7 +2417,7 @@ def main() -> int:
     # 8. the language model: the flash kernel's op, yi-6b served, their times
     launches.update(attention_op_phase(dev, card))
     per_shape["flash_attention"] = attn_times
-    lm_times(lm_serve_phase(dev, card), card, wall_ms)
+    lm_times(lm_serve_phase(dev, card), card, e2e_wall_ms)
     gc.collect()
     torch.cuda.empty_cache()
     mark("yi-6b")
@@ -2112,7 +2427,7 @@ def main() -> int:
     for arch in ("rwkv6-7b", "zamba2-7b"):
         served = ssm_serve_phase(dev, card, arch)
         launches["wkv_scan" if arch == "rwkv6-7b" else "ssd_scan"] = served["launches"]
-        lm_times(served, card, wall_ms, name=arch)
+        lm_times(served, card, e2e_wall_ms, name=arch)
         del served
         gc.collect()
         torch.cuda.empty_cache()
@@ -2165,6 +2480,15 @@ def main() -> int:
             "ms_from": main["ms_from"]["ms"], "path": main.get("path"),
             "by_path": by_path(name, timed_as.get(name, name)),
         })
+        if name in chint["times"]:
+            # the cHINT path: its launches a train step (coupling_bwd) or a
+            # draw (coupling_inv), and the half kernel at its M = 1 shapes
+            kernels[-1]["chint"] = {
+                "launches_per_call": chint["launches"][name],
+                "call": "train step" if name == "coupling_bwd" else "posterior draw",
+                "by_shape": [{k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                  "library_ms", "row_op_ms")}
+                             for row in chint["times"][name]]}
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,10 +4,15 @@
 ``init`` returns, with every leaf already a numpy array (the caller maps
 ``np.asarray`` over it), into ``module``:
 
-* tuple index ``i`` maps to ``layers.{i}`` and dict keys to attribute names,
-  so ``state_dict()`` keys read like the tree's paths
-  (``layers.2.layer.lu.l``; ``OnFirst`` adds ``layer.``, since the reference's
-  ``OnFirst`` passes its layer's parameters through);
+* tuple index ``i`` maps to ``layers.{i}`` (a chain's layers; a list under a
+  dict key, such as ``CouplingMLP``'s ``{"layers": [...]}``, to that
+  ``nn.ModuleList``'s ``{key}.{i}``) and dict keys to attribute names, so
+  ``state_dict()`` keys read like the tree's paths (``layers.2.layer.lu.l``;
+  ``OnFirst`` adds ``layer.``, since the reference's ``OnFirst`` passes its
+  layer's parameters through);
+* a ``None`` leaf (a HINT identity leaf, ``{"leaf": None}``) holds no
+  parameter and stays ``None``; a ``ConditionalFlow``'s ``{"summary",
+  "flow"}`` maps onto its two submodules;
 * integer leaves land in integer buffers and keep their dtype;
 * it raises on a leaf left unmapped on either side, on a shape mismatch and on
   a float/integer mismatch.
@@ -24,26 +29,32 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.chain import OnFirst
 
 
 def _map_tree(module, tree, fn):
-    """``tree`` with each leaf replaced by ``fn(state_dict key, leaf)``."""
+    """``tree`` with each leaf replaced by ``fn(state_dict key, leaf)``;
+    ``None`` leaves stay ``None``."""
     def walk(mod, sub, prefix):
         while isinstance(mod, OnFirst):
             mod, prefix = mod.layer, prefix + "layer."
         if isinstance(sub, (tuple, list)):
-            return type(sub)(walk(mod.layers[i], leaf, f"{prefix}layers.{i}.")
-                             for i, leaf in enumerate(sub))
+            seq, prefix = (mod, prefix) if isinstance(mod, nn.ModuleList) else (
+                mod.layers, prefix + "layers.")
+            return type(sub)(walk(seq[i], leaf, f"{prefix}{i}.") for i, leaf in enumerate(sub))
         if isinstance(sub, Mapping):
             out = {}
             for key, leaf in sub.items():
-                child = getattr(mod, key, None) if isinstance(leaf, Mapping) else mod
+                if leaf is None:
+                    out[key] = None
+                    continue
+                nested = isinstance(leaf, (Mapping, tuple, list))
+                child = getattr(mod, key, None) if nested else mod
                 if child is None:
                     raise KeyError(f"no submodule {prefix}{key} for the tree's {key!r}")
-                out[key] = walk(child, leaf,
-                                f"{prefix}{key}." if isinstance(leaf, Mapping) else prefix + key)
+                out[key] = walk(child, leaf, f"{prefix}{key}." if nested else prefix + key)
             return out
         return fn(prefix, sub)
 

@@ -3,9 +3,14 @@
 ``ModelConfig``, the architecture registry), copied from the reference's
 ``repro/config.py`` with its fields and defaults.
 
-``TrainConfig`` holds the fields the port's ``train_flow`` reads.  There is
-no ``seed``: the flow arrives initialised, from the generator its builder was
-given.
+``TrainConfig`` holds the fields of the port's supervised loop
+(``train/loop.py``), with the reference's defaults but one:
+``checkpoint_dir`` is None, no checkpoints, unless a directory is named
+(the reference's default, ``"checkpoints"``, is relative to the working
+directory).  ``seed`` is kept for the reference's layout; a model arrives
+initialised from the generator its builder was given.  ``remat_policy`` and
+the pipeline fields are the reference's LM and mesh options and wait with
+them (``ROADMAP.md`` queue 1, items 6.3 and 7).
 
 ``ModelConfig`` keeps every field of the reference so a configuration reads
 the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers) is
@@ -33,6 +38,27 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.95
     eps: float = 1e-8
+    seed: int = 0
+    # fault tolerance
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None  # None: no checkpoints
+    keep_checkpoints: int = 3
+    max_restarts: int = 3
+    step_timeout_s: float = 0.0  # 0 = straggler watchdog off
+    # gradient compression: "none" only (topk / int8 come with the
+    # distribution slice, ROADMAP.md queue 1, item 7)
+    grad_compression: str = "none"
+    compression_ratio: float = 0.01
+    # gradient accumulation: microbatches per step; 1 = off
+    accum_steps: int = 1
+    # host input pipeline: batches built ahead of the running step; 0 = none
+    prefetch: int = 2
+
+    def __post_init__(self):
+        if self.grad_compression != "none":
+            raise NotImplementedError(
+                f"grad_compression={self.grad_compression!r} is not ported yet "
+                "(ROADMAP.md queue 1, item 7); use 'none'")
 
 
 @dataclass(frozen=True)

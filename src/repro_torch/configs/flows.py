@@ -1,6 +1,6 @@
-"""Flow configurations the port serves.
+"""Flow configurations the port serves and trains.
 
-``FlowConfig`` and the GLOW configurations are the reference's
+``FlowConfig``, the GLOW and the cHINT configurations are the reference's
 (``repro/configs/flows.py``); the port keeps its own copy.  The other kinds
 of the reference are not ported yet, and ``build_flow`` names where each
 waits in ROADMAP.md.
@@ -40,19 +40,31 @@ GLOW_SCANNED = FlowConfig(
     grad_mode="coupled",
 )
 
+# conditional HINT, the amortized-posterior flow (paper section 4)
+CHINT_POSTERIOR = FlowConfig(name="chint-posterior", kind="chint", depth=4, hidden=128)
+# cHINT on the fused recursive backward: one cross-conditioner evaluation a
+# node in the backward, each cross backward through coupling_bwd
+CHINT_COUPLED = FlowConfig(
+    name="chint-coupled", kind="chint", depth=4, hidden=128, grad_mode="coupled"
+)
+
 _NOT_PORTED = {
     "realnvp": "ROADMAP.md queue 1, item 3 (core/realnvp.py)",
-    "chint": "ROADMAP.md queue 1, item 3 (core/conditional.py::build_chint)",
     "hyperbolic": "ROADMAP.md queue 1, item 3 (core/hyperbolic.py)",
 }
 
 
 def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: str = "auto",
-               channels: int = 3, generator: torch.Generator | None = None, device=None):
+               channels: int = 3, d_theta: int = 32, d_cond: int = 64,
+               generator: torch.Generator | None = None, device=None):
     """The flow ``cfg`` describes, on ``device`` (``cuda`` unless named).
     ``coupled_bwd`` is the scanned stacks' backward strategy
     (``core/glow_scan.py::resolve_coupled_bwd``); the unrolled GLOW always
-    takes the fused reverse walk, as in the reference."""
+    takes the fused reverse walk, as in the reference.  A cHINT flow takes
+    its widths, ``d_theta`` features conditioned on ``d_cond`` (by default
+    the reference's ``seismic-uq`` scenario: 32 parameters, a 64-wide
+    summary), at the reference's ``build_chint`` recursion of 2."""
+    from repro_torch.core.conditional import build_chint
     from repro_torch.core.glow import build_glow
     from repro_torch.core.glow_scan import build_glow_scanned
 
@@ -68,6 +80,10 @@ def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: st
             grad_mode=grad_mode or cfg.grad_mode, coupled_bwd=coupled_bwd, channels=channels,
             generator=generator, device=device,
         )
+    if cfg.kind == "chint":
+        return build_chint(d_theta, d_cond, depth=cfg.depth, hidden=cfg.hidden,
+                           grad_mode=grad_mode or cfg.grad_mode, generator=generator,
+                           device=device)
     if cfg.kind in _NOT_PORTED:
         raise NotImplementedError(f"flow kind {cfg.kind!r} is not ported yet: {_NOT_PORTED[cfg.kind]}")
     raise ValueError(cfg.kind)

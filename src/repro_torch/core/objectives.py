@@ -1,4 +1,4 @@
-"""Training objectives for flows (maximum likelihood)."""
+"""Training objectives for flows (maximum likelihood, amortized VI)."""
 
 from __future__ import annotations
 
@@ -22,3 +22,12 @@ def nll_loss(flow, x, cond=None) -> torch.Tensor:
     z, logdet = flow(x, cond)
     d = flatten_state(z).shape[1]
     return -torch.mean(std_normal_logpdf(z) + logdet) / d
+
+
+def amortized_vi_loss(flow, theta, y_obs, summary=None) -> torch.Tensor:
+    """BayesFlow-style amortized posterior loss, -log q(theta | s(y)) per
+    dimension.  ``summary`` is an arbitrary (non-invertible) network, its
+    gradient taken by plain autograd, while the flow's comes from its own
+    memory-frugal engine (the paper's section 4)."""
+    cond = y_obs if summary is None else summary(y_obs)
+    return nll_loss(flow, theta, cond)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,6 +32,19 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def to_device(v, device):
+    """``v`` on ``device``: a tensor or a numpy array (float64 arrays become
+    float32, as the reference's ``jnp.asarray`` makes them), or a dict of
+    them; None stays None."""
+    if v is None:
+        return None
+    if isinstance(v, Mapping):
+        return {k: to_device(u, device) for k, u in v.items()}
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v)
+    return v.to(device)
 
 
 class Invertible(nn.Module):

@@ -8,6 +8,8 @@ both packages the same numpy batches instead.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -30,3 +32,34 @@ class SyntheticImages:
         img = torch.sigmoid(1.5 * img).permute(0, 2, 3, 1)
         deq = torch.rand(img.shape, generator=g) / 256
         return (img * 255 / 256 + deq).float().contiguous()
+
+
+class SyntheticInverseProblem:
+    """Linear-Gaussian inverse problem with a known posterior:
+    ``theta ~ N(0, I)``, ``y = theta A + sigma eps``, A (d_theta, d_y) drawn
+    once from the seed.  ``batch_at(step)`` is ``{"theta", "y"}`` float32 on
+    the CPU from the step's own generator; the learned posterior can be held
+    against :meth:`posterior`."""
+
+    def __init__(self, d_theta: int = 8, d_y: int = 16, sigma: float = 0.3, batch: int = 256,
+                 seed: int = 0):
+        self.d_theta, self.d_y, self.sigma, self.batch = d_theta, d_y, sigma, batch
+        self.seed = seed
+        g = torch.Generator().manual_seed(seed + 999)
+        self.a_mat = torch.randn((d_theta, d_y), generator=g) / math.sqrt(d_theta)
+
+    def batch_at(self, step: int) -> dict:
+        g = torch.Generator().manual_seed(self.seed * 1_000_003 + step * 131 + 7)
+        theta = torch.randn((self.batch, self.d_theta), generator=g)
+        y = theta @ self.a_mat + self.sigma * torch.randn((self.batch, self.d_y), generator=g)
+        return {"theta": theta, "y": y}
+
+    def posterior(self, y):
+        """The analytic posterior N(mu, Sigma) of theta for one observation
+        y (d_y,), in float64: ``Sigma^-1 = I + A A^T / sigma^2``,
+        ``mu = Sigma A y / sigma^2``."""
+        a = self.a_mat.double()
+        prec = torch.eye(self.d_theta, dtype=torch.float64) + (a @ a.T) / self.sigma**2
+        cov = torch.linalg.inv(prec)
+        mu = cov @ (a @ torch.as_tensor(y).double().reshape(-1).cpu()) / self.sigma**2
+        return mu, cov

@@ -8,11 +8,10 @@ prefill and decode, the port runs them eagerly.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.distributions import derive_key, std_normal_logpdf, std_normal_sample
-from repro_torch.core.types import resolve_device
+from repro_torch.core.types import resolve_device, to_device
 
 
 class ServeEngine:
@@ -41,7 +40,7 @@ class ServeEngine:
         default) feeds temperature sampling."""
         gen = generator if generator is not None else torch.Generator(self.device).manual_seed(0)
         with torch.inference_mode():
-            tokens = _to_device(batch["tokens"], self.device)
+            tokens = to_device(batch["tokens"], self.device)
             bsz, prompt_len = tokens.shape
             caches = self.model.make_caches(bsz, self.max_len)
             logits, caches = self.model.prefill({"tokens": tokens}, caches)
@@ -57,15 +56,6 @@ class ServeEngine:
                     break
                 logits, caches = self.model.decode_step(tok[:, None], caches, prompt_len + i)
             return torch.stack(out_tokens, dim=1), logits
-
-
-def _to_device(v, device):
-    """A tensor or numpy array on ``device``; None stays None."""
-    if v is None:
-        return None
-    if isinstance(v, np.ndarray):
-        v = torch.from_numpy(v)
-    return v.to(device)
 
 
 class FlowServeEngine:
@@ -91,7 +81,7 @@ class FlowServeEngine:
     def log_prob(self, x, cond=None) -> torch.Tensor:
         """Per-example log density ``log N(z; 0, I) + logdet`` of a batch."""
         with torch.inference_mode():
-            z, logdet = self.flow(_to_device(x, self.device), _to_device(cond, self.device))
+            z, logdet = self.flow(to_device(x, self.device), to_device(cond, self.device))
             return std_normal_logpdf(z) + logdet
 
     def sample(self, generator: torch.Generator, like, cond=None):
@@ -102,4 +92,4 @@ class FlowServeEngine:
         gen = derive_key(generator, self._TAG_SAMPLE, device=self.device)
         with torch.inference_mode():
             z = std_normal_sample(gen, like)
-            return self.sample_flow.inverse(z, _to_device(cond, self.device))
+            return self.sample_flow.inverse(z, to_device(cond, self.device))

@@ -23,7 +23,11 @@ reference's kernel bound (``tests/test_kernels.py:305``: 2e-4 in f32, 5e-2
 in bf16, rtol = atol) against ``wkv_ref`` and ``ssd_ref`` on the same
 inputs, and the model's scans (``nn/ssm.py``) on the card against the same
 scans on the CPU at 2e-4; ``coupling_bwd`` on whole rows (x, gx, gh) at the
-per-element bounds above, its pass-through halves bit for bit.
+per-element bounds above, its pass-through halves bit for bit; the cHINT
+cross couplings' half contract at M = 1 (batch 256 to 20,000) on the half
+kernels at the same bounds, and a full-width cHINT train step against the
+CPU (loss at 1e-5 relative, each gradient leaf at 1e-4 of its largest
+entry, as ``chip_smoke.py`` holds GLOW's).
 """
 
 import pytest
@@ -426,6 +430,104 @@ def test_coupling_bwd_rows_off_the_rule_take_the_half_kernel(dev, dtype):
         assert ckern.coupling_bwd.launches_by_path == {**before, "tile": before["tile"] + 1}
         for a, r in zip(got, ref):
             _close(a, r, dtype)
+
+
+# the cHINT path's cross couplings: M = 1, a cb-wide half under an h of
+# 2 cb = (raw | t), batch 256 (a train step), 2048 (a posterior draw) and
+# 20,000 (a sample), cb 16 (the root of d_theta 32) and 8 (its children)
+CHINT_SHAPES = [(256, 1, 16), (256, 1, 8), (2048, 1, 16), (20000, 1, 8)]
+
+
+def _half_rows(shape, dtype, dev, seed):
+    """v (B, 1, cb) and h (B, 1, 2 cb), as a HINT node passes them: v a
+    strided half of a (B, 2 cb) state, h one conditioner output."""
+    b, m, cb = shape
+    g = torch.Generator().manual_seed(seed)
+    state = torch.randn(b, 2 * cb, generator=g).to(dev, dtype)
+    h = torch.randn(b, 2 * cb, generator=g).to(dev, dtype)
+    return state[:, cb:].reshape(b, m, cb), h.reshape(b, m, 2 * cb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CHINT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_coupling_half_contract_at_m1_takes_the_tile_kernels(dev, shape, dtype):
+    """HINT's cross coupling on the row ops (h twice the half's width): the
+    inverse and the backward on the half kernels ("tile"), one launch each,
+    against the plain row versions, bitwise repeatable; gh = (graw | gt)
+    with gt bit for bit gy."""
+    v, h = _half_rows(shape, dtype, dev, 21)
+    g = torch.Generator().manual_seed(22)
+    gy = torch.randn(shape, generator=g).to(dev, dtype)
+    gld = torch.randn(shape[0], generator=g).to(dev)
+    cb = shape[-1]
+    assert ckern.coupling_path(v, h[..., :cb], h[..., cb:]) == "tile"
+    before_i = dict(ckern.coupling_inv.launches_by_path)
+    before_b = dict(ckern.coupling_bwd.launches_by_path)
+    x = ckern.coupling_inv.rows(v, h)
+    x_again = ckern.coupling_inv.rows(v, h)
+    got = ckern.coupling_bwd.rows(v, h, gy, gld)
+    again = ckern.coupling_bwd.rows(v, h, gy, gld)
+    torch.cuda.synchronize()
+    assert ckern.coupling_inv.launches_by_path == {**before_i, "tile": before_i["tile"] + 2}
+    assert ckern.coupling_bwd.launches_by_path == {**before_b, "tile": before_b["tile"] + 2}
+    _close(x, coupling_inv_rows_ref(v, h), dtype)
+    assert torch.equal(x, x_again) and x.shape == shape
+    for a, r, b in zip(got, coupling_bwd_rows_ref(v, h, gy, gld), again):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        _close(a, r, dtype)
+        assert torch.equal(a, b)
+    assert torch.equal(got[2][..., cb:], gy)
+
+
+def test_chint_train_step_and_draw_on_the_card(dev):
+    """A coupled cHINT train step at the full width of ``CHINT_COUPLED``
+    (d_theta 32, a 64-wide summary, batch 256) on the card against the same
+    parameters on the CPU: loss at 1e-5 relative, each gradient leaf at 1e-4
+    of its largest entry; 12 ``coupling_bwd`` launches on "tile" and no
+    ``coupling_fwd``; a draw through the ``kernel_inverse`` twin launches 12
+    ``coupling_inv`` and equals the plain inverse at 1e-4."""
+    import copy
+
+    from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
+
+    def build(device):
+        g = torch.Generator().manual_seed(5)
+        flow = build_chint(32, 64, grad_mode="coupled", generator=g, device="cpu")
+        twin = build_chint(32, 64, kernel_inverse=True, generator=g, device="cpu")
+        with torch.no_grad():
+            for p in flow.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g))
+        return ConditionalFlow(flow, SummaryMLP(32, 64, 128, generator=g, device="cpu"),
+                               sample_flow=twin, device=device)
+
+    model_cpu = build("cpu")
+    model = ConditionalFlow(copy.deepcopy(model_cpu.flow), copy.deepcopy(model_cpu.summary),
+                            sample_flow=copy.deepcopy(model_cpu.sample_flow), device=dev)
+    g = torch.Generator().manual_seed(6)
+    theta, y = torch.randn(256, 32, generator=g), torch.randn(256, 32, generator=g)
+
+    def step(m):
+        named = dict(m.named_parameters())
+        loss = m.loss(theta, y)
+        return loss, dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    for k in ckern.KERNELS:
+        k.launches_by_path = dict.fromkeys(k.launches_by_path, 0)
+    loss, grads = step(model)
+    torch.cuda.synchronize()
+    assert ckern.coupling_bwd.launches_by_path == {"rows": 0, "tile": 12}
+    assert sum(ckern.coupling_fwd.launches_by_path.values()) == 0
+    loss_cpu, grads_cpu = step(model_cpu)
+    assert abs(loss.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item())
+    for name, r in grads_cpu.items():
+        assert (grads[name].cpu() - r).abs().max() <= 1e-4 * r.abs().max(), name
+    z = torch.randn(2048, 32, generator=g).to(dev)
+    with torch.no_grad():
+        cond = model._cond(y[:1].repeat(2048, 1))
+        x = model.sample_flow.inverse(z, cond)
+        torch.cuda.synchronize()
+        assert ckern.coupling_inv.launches_by_path == {"rows": 0, "tile": 12}
+        torch.testing.assert_close(x, model.flow.inverse(z, cond), rtol=0, atol=1e-4)
 
 
 # the model's (B, M, C), the widest C the reference's tests take (conv1x1_gw's

@@ -164,6 +164,8 @@ def test_build_flow_ports_only_glow_scanned():
     assert flow.grad_mode == "coupled" and len(flow.layers) == 1 + 3 * 2 + 2
     # the unrolled GLOW is ported too (tests/test_torch_glow_coupled.py)
     assert build_flow(FlowConfig(name="glow", kind="glow"), device="cpu").grad_mode == "invertible"
-    for kind in ("realnvp", "chint", "hyperbolic"):
+    # and cHINT (tests/test_torch_conditional.py)
+    assert build_flow(FlowConfig(name="chint", kind="chint"), device="cpu").grad_mode == "invertible"
+    for kind in ("realnvp", "hyperbolic"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             build_flow(FlowConfig(name=kind, kind=kind), device="cpu")

@@ -1,7 +1,8 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
 unrolled GLOW; yi-6b, rwkv6-7b and zamba2-7b ``REDUCED`` prefill and decode
-through ``ServeEngine.generate``), and refuses to run quietly on the CPU when
+through ``ServeEngine.generate``; cHINT trained through the supervised loop
+with a restart, then sampled), and refuses to run quietly on the CPU when
 no device was named."""
 
 import os
@@ -61,6 +62,38 @@ def test_lm_serving_runs_without_loading_jax():
         "    tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
         "        {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
         "    assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_conditional_path_runs_without_loading_jax(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.config import TrainConfig\n"
+        "from repro_torch.configs.flows import CHINT_COUPLED, build_flow\n"
+        "from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint\n"
+        "from repro_torch.data.synthetic import SyntheticInverseProblem\n"
+        "from repro_torch.train.loop import train_conditional_flow\n"
+        "from repro_torch.train.fault import FailureInjector\n"
+        "flow = build_flow(CHINT_COUPLED, d_theta=8, d_cond=4, device='cpu')\n"
+        "twin = build_chint(8, 4, kernel_inverse=True, device='cpu')\n"
+        "model = ConditionalFlow(flow, SummaryMLP(6, 4, 16, device='cpu'), sample_flow=twin,\n"
+        "                        device='cpu')\n"
+        "data = SyntheticInverseProblem(8, 6, batch=4)\n"
+        f"cfg = TrainConfig(steps=3, checkpoint_every=1, checkpoint_dir={str(tmp_path)!r})\n"
+        "res = train_conditional_flow(model, data, cfg, device='cpu',\n"
+        "                             injector=FailureInjector(fail_at=(2,)))\n"
+        "assert res.restarts == 1 and res.final_step == 2\n"
+        "x = model.sample(torch.Generator().manual_seed(0), data.batch_at(9)['y'][:1], 5, 8)\n"
+        "assert x.shape == (5, 8) and bool(torch.isfinite(x).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"

@@ -5,6 +5,7 @@ coupling layer's op (``coupling_fwd``, ``coupling_inv``) and its backward
 split by the CUDA kernels each call launches.
 
     python3 tools/kernel_split.py [--src DIR] [--label NAME] [--only KERNEL ...]
+    python3 tools/kernel_split.py --chint
 
 ``flowstep_fwd``, ``flowstep_inv`` and ``spine_bwd`` at the scanned GLOW's
 three (B, M, C) in f32 and bf16, and ``wkv_scan`` at rwkv6-7b's prefill
@@ -51,6 +52,15 @@ flush, with the SM clock just before and just after it, read as the cycles
 of a ``torch.cuda._sleep`` spin on the same stream over its events' span.
 The line gives each reading with its two clocks, and the median, least and
 greatest reading of each.
+
+With ``--chint`` it times instead the cHINT path's cross couplings (HINT's
+half contract, h = (raw | t) twice the half's width, M = 1; the tile path):
+``coupling_bwd`` at a train step's (256, 1, 16) and (256, 1, 8) and
+``coupling_inv`` at a sample's (20000, 1, 16 / 8) and a draw's (2048, 1, 16
+/ 8), f32, each as HINT calls it (the row op: for the backward the half
+kernel and the join of gh) and as the half kernel alone, warm and flushed,
+summed and as the span, beside the plain version's summed time and the
+bound.
 
 Prints one JSON line per point, then the card's name and power limit.  With
 ``--spine-plans`` it times instead ``spine_bwd``'s cluster kernel at the
@@ -225,6 +235,55 @@ def coupling_points(label, names, dev) -> None:
                     **readings}), flush=True)
 
 
+def chint_points(label, dev) -> None:
+    """``--chint`` (module docstring): the cross couplings at M = 1."""
+    import torch
+
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_bwd_rows_ref,
+                                                  coupling_inv_ref, coupling_inv_rows_ref)
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def flush():
+        return flush_buf.sum()
+
+    points = [("coupling_bwd", (cs.CHINT_BATCH, 1, cb)) for cb in (16, 8)] + [
+        ("coupling_inv", (n, 1, cb)) for n in (cs.CHINT_SAMPLE, cs.CHINT_DRAW) for cb in (16, 8)]
+    for name, shape in points:
+        b, m, cb = shape
+        g = torch.Generator().manual_seed(cs.SEED + 45)
+        state = torch.randn(b, 2 * cb, generator=g).to(dev)
+        h = torch.randn(b, m, 2 * cb, generator=g).to(dev)
+        v = state[:, cb:].reshape(shape)  # a strided half, as a node passes it
+        raw, t = h[..., :cb], h[..., cb:]
+        if name == "coupling_bwd":
+            gy = torch.randn(shape, generator=g).to(dev)
+            gld = torch.randn(b, generator=g).to(dev)
+            calls = {"row op": lambda: ck.coupling_bwd.rows(v, h, gy, gld),
+                     "half kernel": lambda: ck.coupling_bwd(v, raw, t, gy, gld),
+                     "plain": lambda: coupling_bwd_rows_ref(v, h, gy, gld),
+                     "plain half": lambda: coupling_bwd_ref(v, raw, t, gy, gld)}
+            cost = "coupling_bwd_half"
+        else:
+            calls = {"row op": lambda: ck.coupling_inv.rows(v, h),
+                     "half kernel": lambda: ck.coupling_inv(v, raw, t),
+                     "plain": lambda: coupling_inv_rows_ref(v, h),
+                     "plain half": lambda: coupling_inv_ref(v, raw, t)}
+            cost = "coupling_inv"
+        readings = {}
+        for what, fn in calls.items():
+            for reading, fl in (("warm", None), ("flushed", flush)):
+                total, split = summed_us(fn, fl)
+                readings[f"{what}, {reading}"] = {"summed_us": total,
+                                                  "summed_us_by_kernel": split}
+            readings[f"{what}, warm"]["span_us"] = 1e3 * cs.queued_ms(fn)
+        print(json.dumps({"label": label, "kernel": name, "path": ck.coupling_path(v, raw, t),
+                          "shape": list(shape), "dtype": "float32",
+                          "bound_us": 1e3 * cs.bound_ms(cost, shape, torch.float32),
+                          **readings}), flush=True)
+
+
 def clocked_reading(fn, flush) -> tuple[float, float, float]:
     """One call of ``fn`` after ``flush``: its span (µs) between CUDA events,
     and the SM clock (MHz) just before and just after it, each from the
@@ -347,6 +406,8 @@ def main() -> int:
                     help="clocked flushed readings of flash_attention and of SDPA")
     ap.add_argument("--spine-plans", action="store_true",
                     help="time spine_bwd's cluster kernel under candidate plans instead")
+    ap.add_argument("--chint", action="store_true",
+                    help="time the cHINT path's cross couplings at M = 1 instead")
     args = ap.parse_args()
     import torch
 
@@ -358,8 +419,11 @@ def main() -> int:
     from repro_torch.kernels.rwkv import rwkv as rk
 
     dev = torch.device("cuda")
-    if args.spine_plans:
-        spine_plans(dev)
+    if args.spine_plans or args.chint:
+        if args.spine_plans:
+            spine_plans(dev)
+        else:
+            chint_points(args.label, dev)
         print(cs.smi())
         return 0
     coupling = [k for k in args.only if k in COUPLING_KERNELS]
