@@ -9,7 +9,9 @@ both of the port's builds: scanned (``GLOW_SCANNED``, the fused flow-step
 kernels) and unrolled (``GLOW_COUPLED``, the fused coupling kernels with the
 ActNorm and Conv1x1 hooks).  It trains and samples the conditional HINT
 amortized posterior (``CHINT_COUPLED`` at the reference's ``seismic-uq``
-widths) through the supervised loop.  Then it serves the language models yi-6b (32
+widths) through the supervised loop, then the rest of the flow zoo (RealNVP,
+the hyperbolic network) and the UQ layer: the ``seismic-uq`` and image-prior
+scenarios trained, restored and reported, and the launchers.  Then it serves the language models yi-6b (32
 layers, d_model 4096), rwkv6-7b (32 RWKV6 layers, d_model 4096; the
 ``wkv_scan`` kernel) and zamba2-7b (81 Mamba2 layers and a shared attention
 block, d_model 3584; the ``ssd_scan`` kernel), reversible, bf16
@@ -83,12 +85,39 @@ kernel against its plain PyTorch version.  Phases, one line each:
              trip; (c) ``train_conditional_flow`` for 12 steps, checkpoints
              every 4, a failure at step 6 and no prefetch, bitwise equal to
              an uninterrupted run with ``prefetch=2``, the final step saved
-             once; (d) the ``lg-posterior`` recipe (d_theta 8, d_y 16,
-             sigma 0.5, depth 3, hidden 64, 600 steps) on the card, then
-             20,000 draws against the analytic posterior (mean within 0.35,
-             std ratio in (0.5, 2)); wall and device-busy ms of a train
-             step and of the draws, and both kernels at this path's M = 1
-             shapes (``[chint]`` lines);
+             once; (d) the ``lg-posterior`` scenario (d_theta 8, d_y 16,
+             sigma 0.5, depth 3, hidden 64, 600 steps) through
+             ``train_scenario`` on the card, then 20,000 draws streamed by
+             ``posterior_report`` against the analytic posterior (mean
+             within 0.35, std ratio in (0.5, 2)); wall and device-busy ms
+             of a train step and of the draws, and both kernels at this
+             path's M = 1 shapes (``[chint]`` lines);
+5c. uq      - (a) RealNVP: ``REALNVP_2D`` (the ``invertible`` engine, no
+             kernel) at D = 2 and the kernel path (depth 8, hidden 128,
+             ``coupled``, ``kernel_training``) at D = 32, batch 4096: a
+             train step against the CPU (loss within 1e-4 relative, each
+             gradient leaf within 1e-4 of its largest entry), the round
+             trip, 8 ``coupling_fwd`` and 8 ``coupling_bwd`` on the half
+             kernels a kernel-path step; peak memory of a step at depth 2,
+             8 and 24, ``invertible`` against ``autodiff`` (the quarter
+             rule of ``[memory]``); (b) ``HYPERBOLIC_DEEP`` (16 leapfrog
+             layers, ``coupled``) on the pair state of 8 x 256x256x3
+             images: a train step against the CPU and against
+             ``autodiff`` on the card, the round trip, peak memory at
+             depth 16 and 32; (c) ``seismic-uq`` trained for its recipe's
+             1000 steps (12 ``coupling_bwd`` a step), restored bitwise,
+             ``posterior_report`` (20,000 draws in chunks of 2048, SBC and
+             coverage at 128 x 64: 12 ``coupling_inv`` a sampler call, the
+             streamed moments within 1e-6 of the chunks concatenated, every
+             statistic finite), wall and busy ms of a train step, a chunk
+             and the report; ``images-prior-scanned`` and
+             ``images-prior-coupled`` trained a few steps, restored
+             bitwise, 2048 samples streamed (the flow-step kernels or the
+             coupling row ops, counted per step and per chunk); (d) the
+             launchers as subprocesses (``--scenario lg-smoke`` trained and
+             served, ``--arch yi-6b --reduced`` served), each to exit 0; the
+             coupling and flow-step kernels at these paths' shapes
+             (``[uq]`` lines);
 6. op      - ``invertible_conv1x1`` forward and backward at the unrolled
              model's three widths, the path of ``conv1x1_mm``/``conv1x1_gw``
              (the model's ``Conv1x1`` layer computes its product with
@@ -772,10 +801,8 @@ def memory_phase(dev, card) -> dict:
     """Phase 5: peak device memory of one train step (value and gradient,
     then the AdamW update) at 4 and 8 steps a scale."""
     import torch
-    from repro_torch.config import TrainConfig
-    from repro_torch.core import build_glow_scanned, value_and_grad_nll
+    from repro_torch.core import build_glow_scanned
     from repro_torch.data.synthetic import SyntheticImages
-    from repro_torch.optim import adamw_init, adamw_update
 
     x = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED).batch_at(0).to(dev)
     peaks = {}
@@ -785,18 +812,9 @@ def memory_phase(dev, card) -> dict:
                                       coupled_bwd="reversible", channels=3,
                                       generator=torch.Generator().manual_seed(SEED), device=dev)
             perturb(flow, SEED + 1)
-            params = dict(flow.named_parameters())
-            opt = adamw_init(params)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.memory_allocated()
-            loss, grads = value_and_grad_nll(flow, x)
-            adamw_update(params, grads, opt, TrainConfig(), 1e-4)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
+            peak, start = peak_step_bytes(flow, x)
             peaks[f"{mode}_k{k}"] = {"peak_bytes": peak, "above_start_bytes": peak - start}
-            del flow, params, opt, loss, grads
+            del flow
     growth = {m: peaks[f"{m}_k8"]["peak_bytes"] - peaks[f"{m}_k4"]["peak_bytes"]
               for m in ("coupled", "autodiff")}
     line("memory", image=[BATCH, HW, HW, 3], peaks=peaks, growth_k4_to_k8_bytes=growth, card=card)
@@ -1148,36 +1166,29 @@ CHINT_BATCH, CHINT_DRAW, CHINT_SAMPLE = 256, 2048, 20_000
 # and 12 coupling_inv a draw
 CHINT_CROSS_NODES = 12
 TOL_CHINT_LOSS_REL = 1e-4  # the train loss on the card against the CPU
-# the lg-posterior recipe (src/repro/uq/scenarios.py:104) and the bounds of
-# examples/amortized_inference.py:49-50
-LG = dict(d_theta=8, d_y=16, sigma=0.5, depth=3, hidden=64, summary=32, summary_hidden=64,
-          steps=600, batch=256, lr=2e-3)
+# the bounds of examples/amortized_inference.py:49-50 on the lg-posterior
+# scenario (src/repro/uq/scenarios.py:100)
 LG_MEAN_ERR, LG_STD_RATIO = 0.35, (0.5, 2.0)
 
 
-def build_chint_model(device, d_theta=CHINT_D_THETA, d_y=CHINT_D_Y, d_sum=CHINT_SUMMARY,
-                      sum_hidden=CHINT_SUMMARY_HIDDEN, depth=None, hidden=None, seed=SEED + 40,
-                      live=True):
-    """``CHINT_COUPLED`` (or its depth and hidden cut as given) with a
-    ``SummaryMLP`` and the ``kernel_inverse=True`` sampling twin, from the
-    seed on the CPU, then on ``device``; ``live`` perturbs the flow and the
-    summary (their last layers start at zero: every coupling the identity,
-    the summary's output 0 and its inner layers without a gradient)."""
+def build_chint_model(device, seed=SEED + 40):
+    """``CHINT_COUPLED`` with a ``SummaryMLP`` and the ``kernel_inverse=True``
+    sampling twin, from the seed on the CPU, then on ``device``; the flow
+    and the summary perturbed (their last layers start at zero: every
+    coupling the identity, the summary's output 0 and its inner layers
+    without a gradient)."""
     import torch
     from repro_torch.configs.flows import CHINT_COUPLED
     from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
 
     cfg = CHINT_COUPLED
-    depth, hidden = depth or cfg.depth, hidden or cfg.hidden
     g = torch.Generator().manual_seed(seed)
-    flow = build_chint(d_theta, d_sum, depth=depth, hidden=hidden, grad_mode=cfg.grad_mode,
-                       generator=g, device="cpu")
-    twin = build_chint(d_theta, d_sum, depth=depth, hidden=hidden, kernel_inverse=True,
-                       generator=g, device="cpu")
-    summary = SummaryMLP(d_y, d_sum, sum_hidden, generator=g, device="cpu")
-    if live:
-        perturb(flow, seed + 1, stacked=False)
-        perturb(summary, seed + 2, stacked=False)
+    kw = dict(depth=cfg.depth, hidden=cfg.hidden, generator=g, device="cpu")
+    flow = build_chint(CHINT_D_THETA, CHINT_SUMMARY, grad_mode=cfg.grad_mode, **kw)
+    twin = build_chint(CHINT_D_THETA, CHINT_SUMMARY, kernel_inverse=True, **kw)
+    summary = SummaryMLP(CHINT_D_Y, CHINT_SUMMARY, CHINT_SUMMARY_HIDDEN, generator=g, device="cpu")
+    perturb(flow, seed + 1, stacked=False)
+    perturb(summary, seed + 2, stacked=False)
     return ConditionalFlow(flow, summary, sample_flow=twin, device=device)
 
 
@@ -1326,35 +1337,30 @@ def chint_phase(dev, card) -> dict:
              restarts=b.restarts, final_state_bitwise_equal=same, saves=by_run,
              uninterrupted_prefetch=2, restarted_prefetch=0, losses=a.losses, card=card)
 
-        # (d) the lg-posterior recipe against the analytic posterior ----------
-        lg_data = SyntheticInverseProblem(LG["d_theta"], LG["d_y"], sigma=LG["sigma"],
-                                          batch=LG["batch"], seed=0)
-        lg = build_chint_model(dev, d_theta=LG["d_theta"], d_y=LG["d_y"], d_sum=LG["summary"],
-                               sum_hidden=LG["summary_hidden"], depth=LG["depth"],
-                               hidden=LG["hidden"], seed=0, live=False)
-        steps = LG["steps"]
-        cfg = TrainConfig(steps=steps, lr=LG["lr"], warmup_steps=max(steps // 20, 2),
-                          checkpoint_every=max(steps // 4, 10),
-                          checkpoint_dir=str(scratch / "lg"))
+        # (d) the lg-posterior scenario against the analytic posterior -------
+        from repro_torch.uq import get_scenario, posterior_report, train_scenario
+
+        lg = get_scenario("lg-posterior")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = train_conditional_flow(lg, lg_data, cfg, device=dev)
+        run = train_scenario(lg, ckpt_dir=str(scratch / "lg"), device=dev)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        y_lg = lg_data.batch_at(10_000)["y"][:1]
-        mu, cov = lg_data.posterior(y_lg[0])
-        draws = lg.sample(torch.Generator().manual_seed(0), y_lg, CHINT_SAMPLE, LG["d_theta"])
-        draws = draws.double().cpu()
-        mean_err = (draws.mean(0) - mu).abs().max().item()
-        ratio = (draws.std(0) / cov.diagonal().sqrt()).tolist()
+        y_lg = run.problem.batch_at(10_000)["y"][:1]
+        mu, cov = run.problem.posterior(y_lg[0])
+        stats, report = posterior_report(run, y_obs=y_lg, n_samples=CHINT_SAMPLE)
+        mean_err = float(abs(stats.mean - mu).max())
+        ratio = (stats.std / cov.diagonal() ** 0.5).tolist()
+        res = run.result
         check(all(math.isfinite(v) for v in res.losses), "lg-posterior losses not finite")
         check(mean_err < LG_MEAN_ERR, f"lg-posterior mean error {mean_err}")
         check(all(LG_STD_RATIO[0] < r < LG_STD_RATIO[1] for r in ratio),
               f"lg-posterior std ratio {ratio}")
-        line("chint", part="lg_posterior", recipe=LG, train_s=train_s,
-             train_step_wall_ms=1e3 * train_s / steps, first_loss=res.losses[0],
+        line("chint", part="lg_posterior", scenario=lg.name, steps=lg.steps, train_s=train_s,
+             train_step_wall_ms=1e3 * train_s / lg.steps, first_loss=res.losses[0],
              last_loss=res.losses[-1], posterior_mean_max_abs_err=mean_err,
-             posterior_std_ratio=ratio, draws=CHINT_SAMPLE, card=card)
+             posterior_std_ratio=ratio, draws=stats.n, chunk=lg.chunk,
+             sbc_pvalue_min=float(report.pvalues.min()), coverage=report.coverage, card=card)
 
         # wall and device-busy ms of a train step and of the draws -----------
         params = dict(model.named_parameters())
@@ -1412,6 +1418,488 @@ def chint_phase(dev, card) -> dict:
                     k_fn, p_fn, path="tile", path_of="chint", max_abs_err=err,
                     row_op_ms=op_ms, row_op_ms_by_kernel=op_split, card=card))
         out["times"] = times
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
+
+
+# UQ (phase 5c).  (a) RealNVP: REALNVP_2D as the reference builds it (the
+# invertible engine, no kernel) at D = 2, and the kernel path (depth 8,
+# hidden 128, coupled, kernel_training) at D = 32, the tabular shape of
+# tests/test_autodiff.py:170, batch 4096; peak memory at depth 2, 8, 24.
+# (b) HYPERBOLIC_DEEP (16 leapfrog layers of 3x3 convolutions, coupled) on
+# the pair state of 8 x 256x256x3 images; peak memory at depth 16 and 32.
+# (c) the seismic-uq scenario (src/repro/uq/scenarios.py:129) trained,
+# restored and reported; the two image-prior scenarios at their widths, steps
+# cut to a few.  (d) the launchers as subprocesses.
+UQ_BATCH = 4096
+REALNVP_KERNEL = dict(d=32, depth=8, hidden=128)
+REALNVP_MEM_DEPTHS = (2, 8, 24)
+HYPER_MEM_DEPTHS = (16, 32)
+UQ_SCENARIO_STEPS = 1000    # the seismic-uq recipe's own
+# cut from the recipes' 300: the cut shrinks the warmup to 2 steps (a 20th
+# of the steps, at least 2), and at the full learning rate from step 2 on
+# both the reference and the port diverge (loss ~1e21 at step 3 at 16x16)
+PRIOR_STEPS = 2
+PRIOR_SAMPLES = 2048
+TOL_UQ_LOSS_REL = 1e-4      # the train loss on the card against the CPU
+TOL_STREAM_REL = 1e-6       # streamed moments against the chunks concatenated
+
+
+def peak_step_bytes(flow, x) -> tuple[int, int]:
+    """Peak device bytes of one train step of ``flow`` at ``x`` (the value
+    and gradient of the NLL, then the AdamW update), and the bytes allocated
+    when it started."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import value_and_grad_nll
+    from repro_torch.optim import adamw_init, adamw_update
+
+    params = dict(flow.named_parameters())
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    _loss, grads = value_and_grad_nll(flow, x)
+    adamw_update(params, grads, opt, TrainConfig(), 1e-4)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), start
+
+
+def memory_growth(phase_part, card, build, x, depths, modes) -> dict:
+    """Peak bytes of a train step at each depth under each engine, and the
+    reversible engine's growth against autodiff's (the quarter rule of the
+    ``[memory]`` phase)."""
+    import torch
+
+    peaks = {}
+    for mode in modes:
+        for depth in depths:
+            flow = build(depth, mode)
+            peaks[f"{mode}_depth{depth}"] = peak_step_bytes(flow, x)[0]
+            del flow
+            gc.collect()
+            torch.cuda.empty_cache()
+    growth = {m: peaks[f"{m}_depth{depths[-1]}"] - peaks[f"{m}_depth{depths[0]}"] for m in modes}
+    line("uq", part=phase_part, peaks_bytes=peaks,
+         growth_bytes={f"{m}_depth{depths[0]}_to_{depths[-1]}": g for m, g in growth.items()},
+         card=card)
+    check(growth[modes[0]] < 0.25 * growth["autodiff"],
+          f"{phase_part}: {modes[0]} peak grew {growth[modes[0]]} B, autodiff {growth['autodiff']} B")
+    return growth
+
+
+def step_vs_cpu(flow, flow_cpu, x, x_cpu):
+    """One train step on the card against the same weights on the CPU:
+    (loss, relative loss error, worst leaf's error of its largest entry, the
+    leaf, the card's gradients)."""
+    import torch
+    from repro_torch.core import value_and_grad_nll
+
+    loss, grads = value_and_grad_nll(flow, x)
+    torch.cuda.synchronize()
+    loss_cpu, grads_cpu = value_and_grad_nll(flow_cpu, x_cpu)
+    loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    grad_rel, worst = max_rel_leaf_err(grads, grads_cpu)
+    check(torch.isfinite(loss).item() and all(torch.isfinite(g).all().item()
+                                              for g in grads.values()), "loss or grads not finite")
+    return loss, loss_rel, grad_rel, worst, grads
+
+
+def uq_realnvp(dev, card, out):
+    """(a): both RealNVP builds, a train step on the card against the CPU,
+    the round trip, the launches; then the memory in depth."""
+    import torch
+    from repro_torch.configs.flows import REALNVP_2D, build_flow
+    from repro_torch.core import build_realnvp
+    from repro_torch.kernels.coupling import coupling as ck
+
+    builds = (
+        ("REALNVP_2D", 2, lambda device: build_flow(
+            REALNVP_2D, generator=torch.Generator().manual_seed(SEED + 60), device=device)),
+        ("realnvp_kernel_training", REALNVP_KERNEL["d"], lambda device: build_realnvp(
+            REALNVP_KERNEL["d"], depth=REALNVP_KERNEL["depth"], hidden=REALNVP_KERNEL["hidden"],
+            grad_mode="coupled", kernel_training=True,
+            generator=torch.Generator().manual_seed(SEED + 61), device=device)),
+    )
+    for label, d, build in builds:
+        flow_cpu = build("cpu")
+        perturb(flow_cpu, SEED + 62, stacked=False)
+        flow = copy.deepcopy(flow_cpu).to(dev)
+        kernel_path = label != "REALNVP_2D"
+        g = torch.Generator().manual_seed(SEED + 63)
+        x_cpu = torch.randn(UQ_BATCH, d, generator=g)
+        x = x_cpu.to(dev)
+        reset(ck.KERNELS)
+        loss, loss_rel, grad_rel, worst, _ = step_vs_cpu(flow, flow_cpu, x, x_cpu)
+        paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
+        n = REALNVP_KERNEL["depth"] if kernel_path else 0
+        want = {"coupling_fwd": {"rows": 0, "tile": n}, "coupling_inv": {"rows": 0, "tile": 0},
+                "coupling_bwd": {"rows": 0, "tile": n}}
+        check(paths == want, f"{label} train-step launches: {paths}")
+        check(loss_rel <= TOL_UQ_LOSS_REL, f"{label} loss vs cpu: {loss_rel}")
+        check(grad_rel <= TOL_GRAD_REL, f"{label} gradient vs cpu: {grad_rel} at {worst}")
+        with torch.no_grad():
+            z, _ = flow(x)
+            rt = (flow.inverse(z) - x).abs().max().item()
+        check(rt <= TOL_ROUND_TRIP, f"{label} inverse(forward(x)) vs x: {rt}")
+        if kernel_path:
+            out["launches"]["realnvp_train_step"] = {k: v["tile"] for k, v in paths.items()}
+        line("uq", part="realnvp", build=label, d=d, batch=UQ_BATCH, engine=flow.engine,
+             kernel_training=kernel_path, loss=loss.item(), loss_rel_err_vs_cpu=loss_rel,
+             grad_max_rel_err_vs_cpu=grad_rel, grad_worst_leaf_vs_cpu=worst,
+             round_trip_max_abs_err=rt, launches_by_path_per_train_step=paths, card=card)
+        del flow, flow_cpu
+    x = torch.randn(UQ_BATCH, REALNVP_KERNEL["d"],
+                    generator=torch.Generator().manual_seed(SEED + 64)).to(dev)
+    memory_growth("realnvp_memory", card, lambda depth, mode: build_realnvp(
+        REALNVP_KERNEL["d"], depth=depth, hidden=REALNVP_KERNEL["hidden"], grad_mode=mode,
+        generator=torch.Generator().manual_seed(SEED + 65), device=dev),
+        x, REALNVP_MEM_DEPTHS, ("invertible", "autodiff"))
+
+
+def uq_hyperbolic(dev, card):
+    """(b): ``HYPERBOLIC_DEEP`` on the pair state of the Fig. 1 input, a
+    train step against the CPU and against autodiff on the card, the round
+    trip; then the memory in depth."""
+    import torch
+    from repro_torch.configs.flows import HYPERBOLIC_DEEP, build_flow
+    from repro_torch.core import build_hyperbolic, value_and_grad_nll
+
+    def build(device, grad_mode=None):
+        return build_flow(HYPERBOLIC_DEEP, grad_mode, channels=3,
+                          generator=torch.Generator().manual_seed(SEED + 70), device=device)
+
+    g = torch.Generator().manual_seed(SEED + 71)
+    x_cpu = tuple(torch.rand((BATCH, HW, HW, 3), generator=g) - 0.5 for _ in range(2))
+    x = tuple(v.to(dev) for v in x_cpu)
+    flow = build(dev)
+    check(flow.engine == "coupled" and len(flow.layers) == HYPERBOLIC_DEEP.depth,
+          "HYPERBOLIC_DEEP does not train through the coupled engine")
+    t0 = time.perf_counter()
+    loss, loss_rel, grad_rel, worst, grads = step_vs_cpu(flow, build("cpu"), x, x_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_ad, grads_ad = value_and_grad_nll(build(dev, "autodiff"), x)
+    ad_rel, ad_worst = max_rel_leaf_err(grads, grads_ad)
+    ad_loss_rel = abs(loss.item() - loss_ad.item()) / abs(loss_ad.item())
+    check(loss_rel <= TOL_UQ_LOSS_REL and grad_rel <= TOL_GRAD_REL,
+          f"HYPERBOLIC_DEEP vs cpu: loss {loss_rel}, grad {grad_rel} at {worst}")
+    check(ad_loss_rel <= TOL_UQ_LOSS_REL and ad_rel <= TOL_GRAD_REL,
+          f"HYPERBOLIC_DEEP coupled vs autodiff: loss {ad_loss_rel}, grad {ad_rel} at {ad_worst}")
+    with torch.no_grad():
+        z, ld = flow(x)
+        rt = max((a - b).abs().max().item() for a, b in zip(flow.inverse(z), x))
+    check(rt <= TOL_ROUND_TRIP and not ld.any().item(), f"HYPERBOLIC_DEEP round trip: {rt}")
+    line("uq", part="hyperbolic", model="HYPERBOLIC_DEEP", state=[2, BATCH, HW, HW, 3],
+         loss=loss.item(), loss_rel_err_vs_cpu=loss_rel, grad_max_rel_err_vs_cpu=grad_rel,
+         grad_worst_leaf_vs_cpu=worst, loss_rel_err_vs_autodiff=ad_loss_rel,
+         grad_max_rel_err_vs_autodiff=ad_rel, round_trip_max_abs_err=rt,
+         z_max_abs=max(v.abs().max().item() for v in z), cpu_step_s=cpu_s, card=card)
+    del flow, grads, grads_ad
+    memory_growth("hyperbolic_memory", card, lambda depth, mode: build_hyperbolic(
+        3, depth=depth, grad_mode=mode, generator=torch.Generator().manual_seed(SEED + 70),
+        device=dev), x, HYPER_MEM_DEPTHS, ("coupled", "autodiff"))
+
+
+def count_calls(obj, attr):
+    """Wrap ``obj.attr`` with a call counter; returns the counter (a list)."""
+    calls = [0]
+    real = getattr(obj, attr)
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    setattr(obj, attr, counted)
+    return calls
+
+
+def uq_seismic(dev, card, scratch, out):
+    """(c), the conditional scenario: ``seismic-uq`` trained on the card,
+    restored bitwise, and its ``posterior_report`` (20,000 draws in chunks
+    of 2048, SBC and coverage at 128 x 64), the streamed moments against the
+    chunks concatenated, ``coupling_inv`` launches against the sampler
+    calls; wall and busy of a train step, a chunk and the report."""
+    import numpy as np
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import flatten_state
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train.loop import objective_value_and_grad
+    from repro_torch.uq import PosteriorEngine, get_scenario, posterior_report, restore_scenario
+    from repro_torch.uq import train_scenario
+
+    sc = get_scenario("seismic-uq")
+    steps = UQ_SCENARIO_STEPS
+    ckpt_dir = str(scratch / "seismic-uq")
+    reset(ck.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = train_scenario(sc, steps=steps, ckpt_dir=ckpt_dir, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
+    check(paths == {"coupling_fwd": {"rows": 0, "tile": 0}, "coupling_inv": {"rows": 0, "tile": 0},
+                    "coupling_bwd": {"rows": 0, "tile": CHINT_CROSS_NODES * steps}},
+          f"seismic-uq training launches: {paths}")
+    losses = run.result.losses
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          "seismic-uq losses not finite")
+    restored = restore_scenario(sc, ckpt_dir, device=dev)
+    unequal = [k for k, v in run.params.items() if not torch.equal(v, restored.params[k])]
+    check(not unequal and set(run.params) == set(restored.params),
+          f"restored parameters differ from the trained ones: {unequal[:5]}")
+    out["launches"]["seismic_train_step"] = {"coupling_bwd": CHINT_CROSS_NODES}
+    line("uq", part="seismic_train", scenario=sc.name, steps=steps, recipe_steps=sc.steps,
+         steps_cut=steps != sc.steps, train_s=train_s, train_step_wall_ms=1e3 * train_s / steps,
+         first_loss=losses[0], last_loss=losses[-1], launches_by_path=paths,
+         restored_bitwise_equal=True, n_params=sum(p.numel() for p in run.model.parameters()),
+         card=card)
+
+    model = restored.model
+    y_obs = restored.problem.batch_at(10_000)["y"][:1]
+    calls = count_calls(model.sample_flow, "inverse")
+    reset(ck.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, report = posterior_report(restored, y_obs=y_obs,
+                                     generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
+    n_calls = calls[0]
+    n_chunks = -(-sc.n_posterior // sc.chunk)
+    # SBC, then coverage: one sampler call for each 32 simulations
+    n_sim_calls = 2 * -(-sc.sbc_sims // 32)
+    check(n_calls == n_chunks + n_sim_calls, f"sampler calls {n_calls}")
+    check(paths == {"coupling_fwd": {"rows": 0, "tile": 0},
+                    "coupling_inv": {"rows": 0, "tile": CHINT_CROSS_NODES * n_calls},
+                    "coupling_bwd": {"rows": 0, "tile": 0}}, f"posterior_report launches: {paths}")
+    chunks = list(PosteriorEngine(model, y=y_obs, theta_dim=sc.make_operator().d_theta)
+                  .sample_chunks(torch.Generator().manual_seed(0), sc.n_posterior, sc.chunk))
+    flat = np.concatenate(chunks).astype(np.float64)
+    mean_rel = float(np.abs(stats.mean - flat.mean(0)).max() / np.abs(flat.mean(0)).max())
+    var_rel = float(np.abs(stats.var - flat.var(0, ddof=1)).max() / flat.var(0, ddof=1).max())
+    check(mean_rel <= TOL_STREAM_REL and var_rel <= TOL_STREAM_REL,
+          f"streamed moments vs the chunks concatenated: mean {mean_rel}, var {var_rel}")
+    finite = all(np.all(np.isfinite(v)) for v in (
+        stats.mean, stats.std, *stats.quantiles.values(), *stats.intervals[0.9],
+        report.pvalues, list(report.coverage.values())))
+    check(finite, "a posterior statistic is not finite")
+    mu, cov = restored.problem.posterior(y_obs[0])
+    ratio = stats.std / np.sqrt(np.diag(cov))
+    out["launches"]["sampler_call"] = {"coupling_inv": CHINT_CROSS_NODES}
+    line("uq", part="seismic_report", draws=stats.n, chunk=sc.chunk, chunks=n_chunks,
+         sbc=[sc.sbc_sims, sc.sbc_draws], sampler_calls=n_calls, launches_by_path=paths,
+         streamed_vs_concatenated_rel={"mean": mean_rel, "var": var_rel},
+         posterior_mean_max_abs_err=float(np.abs(stats.mean - mu).max()),
+         posterior_std_ratio_min_max=[float(ratio.min()), float(ratio.max())],
+         sbc_pvalue_min=float(report.pvalues.min()),
+         sbc_pvalues=[round(float(p), 4) for p in report.pvalues],
+         coverage=report.coverage, calibration_passed=report.passed,
+         peak_host_bytes=stats.peak_bytes, stream_bytes=stats.stream_bytes,
+         report_wall_s=report_s, card=card)
+
+    # wall and device-busy ms: a train step, one chunk, the whole report
+    batch = {k: v.to(dev) for k, v in restored.problem.batch_at(0).items()}
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    step_vg = objective_value_and_grad(model, model.train_loss)
+    draw = model.posterior_sampler(y_obs, theta_dim=restored.problem.d_theta)
+    gen = torch.Generator().manual_seed(SEED + 80)
+
+    def train_step():
+        loss_, grads_ = step_vg(batch)
+        adamw_update(params, grads_, opt, TrainConfig(), 1e-6)
+        return loss_
+
+    for what, fn in (("train_step", train_step),
+                     ("chunk", lambda: flatten_state(draw(gen, sc.chunk)).cpu())):
+        median, runs_ms = e2e_wall_ms(fn)
+        busy_ms, idle, _ = profile_call(fn, median, f"uq_{what}")
+        q = sorted(runs_ms)
+        line("uq", part="times", call=what, median_ms=median, q1_ms=q[len(q) // 4],
+             q3_ms=q[(3 * len(q)) // 4], device_busy_ms=busy_ms, device_idle_share=idle,
+             card=card)
+    report_fn = lambda: posterior_report(restored, y_obs=y_obs,  # noqa: E731
+                                         generator=torch.Generator().manual_seed(1))
+    busy_ms, idle, _ = profile_call(report_fn, 1e3 * report_s, "uq_report")
+    line("uq", part="times", call="posterior_report", wall_ms=1e3 * report_s,
+         device_busy_ms=busy_ms, device_idle_share=idle, card=card)
+
+
+def uq_priors(dev, card, scratch, out):
+    """(c), the prior scenarios at their widths, steps cut: trained,
+    restored bitwise, and ``PRIOR_SAMPLES`` samples streamed through
+    ``prior_report``, with the launches of each."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.flowstep import flowstep as kern
+    from repro_torch.uq import get_scenario, prior_report, restore_scenario, train_scenario
+
+    kernels = (*kern.KERNELS, *ck.KERNELS)
+    for name in ("images-prior-scanned", "images-prior-coupled"):
+        sc = get_scenario(name)
+        scanned = sc.flow.kind == "glow_scanned"
+        n_layers = sc.flow.n_scales * sc.flow.k_steps
+        ckpt_dir = str(scratch / name)
+        reset(kernels)
+        run = train_scenario(sc, steps=PRIOR_STEPS, ckpt_dir=ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        train_launches = {k.name: k.launches for k in kernels}
+        per_step = ({"flowstep_fwd": n_layers, "spine_bwd": n_layers, "coupling_bwd": n_layers}
+                    if scanned else {"coupling_fwd": n_layers, "coupling_bwd": n_layers})
+        want = {k.name: per_step.get(k.name, 0) * PRIOR_STEPS for k in kernels}
+        check(train_launches == want, f"{name} training launches: {train_launches}")
+        train_paths = {k.name: dict(k.launches_by_path) for k in kernels if k.launches}
+        restored = restore_scenario(sc, ckpt_dir, device=dev)
+        check(all(torch.equal(v, restored.params[k]) for k, v in run.params.items()),
+              f"{name}: restored parameters differ from the trained ones")
+        reset(kernels)
+        stats = prior_report(restored, n_samples=PRIOR_SAMPLES,
+                             generator=torch.Generator().manual_seed(SEED + 81))
+        torch.cuda.synchronize()
+        chunks = -(-PRIOR_SAMPLES // (sc.batch * 16))
+        sample_launches = {k.name: k.launches for k in kernels}
+        sampler = "flowstep_inv" if scanned else "coupling_inv"
+        want = {k.name: n_layers * chunks if k.name == sampler else 0 for k in kernels}
+        check(sample_launches == want, f"{name} sampling launches: {sample_launches}")
+        check(np.all(np.isfinite(stats.mean)) and np.all(np.isfinite(stats.std)),
+              f"{name}: sample statistics not finite")
+        out["launches"][f"{name}_train_step"] = per_step
+        out["launches"][f"{name}_chunk"] = {sampler: n_layers}
+        line("uq", part="prior", scenario=name, image=[sc.batch, sc.image_size, sc.image_size, 3],
+             steps=PRIOR_STEPS, recipe_steps=sc.steps, losses=run.result.losses,
+             launches_train=train_launches, launches_by_path_train=train_paths,
+             samples=stats.n, chunk=sc.batch * 16, launches_sampling=sample_launches,
+             launches_by_path_sampling={k.name: dict(k.launches_by_path) for k in kernels
+                                        if k.launches},
+             sample_mean_range=[float(stats.mean.min()), float(stats.mean.max())],
+             sample_std_range=[float(stats.std.min()), float(stats.std.max())],
+             restored_bitwise_equal=True, card=card)
+
+
+def uq_launchers(card, scratch):
+    """(d): the launchers as subprocesses on the card, each to exit 0."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ckpt_dir = str(scratch / "lg-smoke")
+    for argv in (["repro_torch.launch.train", "--scenario", "lg-smoke", "--ckpt", ckpt_dir],
+                 ["repro_torch.launch.serve", "--scenario", "lg-smoke", "--ckpt", ckpt_dir,
+                  "--samples", "4096"],
+                 ["repro_torch.launch.serve", "--arch", "yi-6b", "--reduced"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                              cwd=ROOT, env=env, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        line("uq", part="launcher", argv=argv, returncode=proc.returncode,
+             seconds=time.perf_counter() - t0, stdout=lines[-8:],
+             stderr_tail=proc.stderr.strip().splitlines()[-5:] if proc.returncode else [],
+             card=card)
+        check(proc.returncode == 0 and lines, f"launcher {' '.join(argv)} exited {proc.returncode}")
+
+
+def uq_times(dev, card) -> dict:
+    """The coupling kernels at the new paths' shapes, and the GLOW kernels
+    at the image priors' 16x16 ones (f32): RealNVP's half kernels at
+    (4096, 1, 16), the streaming chunk's and the calibration's inverse at
+    M = 1, and the scanned and unrolled priors' largest scale."""
+    import torch
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.coupling.ref import (coupling_bwd_ref, coupling_fwd_ref,
+                                                  coupling_fwd_rows_ref, coupling_inv_ref,
+                                                  coupling_inv_rows_ref)
+    from repro_torch.kernels.flowstep import flowstep as kern
+    from repro_torch.kernels.flowstep.ref import flowstep_fwd_ref, flowstep_inv_ref
+
+    times: dict = {}
+    f32 = torch.float32
+
+    def add(kernel, name, shape, k_fn, p_fn, got, ref, **extra):
+        err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+        check(err <= TOL_F32, f"{name} at {shape}: {err}")
+        times.setdefault(kernel, []).append(time_kernel(
+            name, shape, f32, k_fn, p_fn, path_of="uq", max_abs_err=err, card=card, **extra))
+
+    g = torch.Generator().manual_seed(SEED + 90)
+    for kernel, shapes in (("coupling_fwd", [(UQ_BATCH, 1, 16)]),
+                           ("coupling_bwd", [(UQ_BATCH, 1, 16)]),
+                           ("coupling_inv", [(2 * 2048, 1, 16), (2 * 2048, 1, 8),
+                                             (20_000 - 9 * 2048, 1, 16)])):
+        for shape in shapes:
+            b, m, n = shape
+            rows = torch.randn(b, 2 * n, generator=g).to(dev)
+            h = torch.randn(b, m, 2 * n, generator=g).to(dev)
+            v = rows[:, :n].reshape(shape)  # a strided half, as the row op passes it
+            raw, t = h[..., :n], h[..., n:]
+            check(ck.coupling_path(v, raw, t) == "tile", f"{kernel} at {shape} off the tile path")
+            if kernel == "coupling_fwd":
+                add(kernel, kernel, shape, lambda: ck.coupling_fwd(v, raw, t),
+                    lambda: coupling_fwd_ref(v, raw, t), ck.coupling_fwd(v, raw, t)[:1],
+                    coupling_fwd_ref(v, raw, t)[:1], path="tile", call="RealNVP forward")
+            elif kernel == "coupling_bwd":
+                gy = torch.randn(shape, generator=g).to(dev)
+                gld = torch.randn(b, generator=g).to(dev)
+                add(kernel, "coupling_bwd_half", shape,
+                    lambda: ck.coupling_bwd(v, raw, t, gy, gld),
+                    lambda: coupling_bwd_ref(v, raw, t, gy, gld),
+                    ck.coupling_bwd(v, raw, t, gy, gld), coupling_bwd_ref(v, raw, t, gy, gld),
+                    path="tile", call="RealNVP coupled backward")
+            else:
+                add(kernel, kernel, shape, lambda: ck.coupling_inv(v, raw, t),
+                    lambda: coupling_inv_ref(v, raw, t), (ck.coupling_inv(v, raw, t),),
+                    (coupling_inv_ref(v, raw, t),), path="tile",
+                    call="calibration" if b == 4096 else "ragged last chunk")
+    # the image priors at their largest scale: training batch 8, sampling 128
+    for shape, what in (((8, 64, 12), "train"), ((128, 64, 12), "sample")):
+        x_, ls, ab, w, raw, t = step_inputs(shape, f32, dev, SEED + 91)
+        xr, hr = row_inputs(shape, f32, dev, SEED + 92)
+        if what == "train":
+            add("flowstep_fwd", "flowstep_fwd", shape,
+                lambda: kern.flowstep_fwd(x_, ls, ab, w, raw, t),
+                lambda: flowstep_fwd_ref(x_, ls, ab, w, raw, t),
+                kern.flowstep_fwd(x_, ls, ab, w, raw, t), flowstep_fwd_ref(x_, ls, ab, w, raw, t),
+                path=kern.flowstep_path(x_, raw, t), call="images-prior-scanned train step")
+            add("coupling_fwd", "coupling_fwd_rows", shape, lambda: ck.coupling_fwd.rows(xr, hr),
+                lambda: coupling_fwd_rows_ref(xr, hr), ck.coupling_fwd.rows(xr, hr)[:1],
+                coupling_fwd_rows_ref(xr, hr)[:1],
+                path=ck.coupling_path(xr, hr[..., :6], hr[..., 6:]),
+                call="images-prior-coupled train step")
+        else:
+            w_inv = torch.linalg.inv(w)
+            add("flowstep_inv", "flowstep_inv", shape,
+                lambda: kern.flowstep_inv(x_, ls, ab, w_inv, raw, t),
+                lambda: flowstep_inv_ref(x_, ls, ab, w_inv, raw, t),
+                (kern.flowstep_inv(x_, ls, ab, w_inv, raw, t),),
+                (flowstep_inv_ref(x_, ls, ab, w_inv, raw, t),),
+                path=kern.flowstep_path(x_, raw, t), call="images-prior-scanned sample chunk")
+            add("coupling_inv", "coupling_inv_rows", shape, lambda: ck.coupling_inv.rows(xr, hr),
+                lambda: coupling_inv_rows_ref(xr, hr), (ck.coupling_inv.rows(xr, hr),),
+                (coupling_inv_rows_ref(xr, hr),),
+                path=ck.coupling_path(xr, hr[..., :6], hr[..., 6:]),
+                call="images-prior-coupled sample chunk")
+    return times
+
+
+def uq_phase(dev, card) -> dict:
+    """Phase 5c: the zoo and the UQ layer on the card, (a) to (d) above, then
+    the kernels at the new paths' shapes."""
+    import shutil
+    import tempfile
+
+    out: dict = {"launches": {}}
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_uq_"))
+    try:
+        uq_realnvp(dev, card, out)
+        uq_hyperbolic(dev, card)
+        uq_seismic(dev, card, scratch, out)
+        uq_priors(dev, card, scratch, out)
+        uq_launchers(card, scratch)
+        out["times"] = uq_times(dev, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     return out
@@ -2372,6 +2860,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("chint")
 
+    # 5c. the zoo and the UQ layer: RealNVP, hyperbolic, scenarios, launchers
+    uq = uq_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("uq")
+
     # 7. times -----------------------------------------------------------------
     per_shape = time_flow_kernels(dev)
 
@@ -2489,6 +2983,16 @@ def main() -> int:
                 "by_shape": [{k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                   "library_ms", "row_op_ms")}
                              for row in chint["times"][name]]}
+        if name in uq["times"]:
+            # the UQ paths: launches per call on each, and the kernel at their
+            # shapes (RealNVP's, the posterior stream's and the calibration's
+            # M = 1, the image priors' 16x16)
+            kernels[-1]["uq"] = {
+                "launches_per_call": {call: n[name] for call, n in uq["launches"].items()
+                                      if name in n},
+                "by_shape": [{k: row[k] for k in ("shape", "call", "path", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                             for row in uq["times"][name]]}
     print(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

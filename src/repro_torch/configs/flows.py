@@ -1,9 +1,8 @@
 """Flow configurations the port serves and trains.
 
-``FlowConfig``, the GLOW and the cHINT configurations are the reference's
-(``repro/configs/flows.py``); the port keeps its own copy.  The other kinds
-of the reference are not ported yet, and ``build_flow`` names where each
-waits in ROADMAP.md.
+``FlowConfig`` and every configuration of the reference
+(``repro/configs/flows.py``): GLOW, RealNVP, cHINT and the hyperbolic
+network; the port keeps its own copy.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ GLOW_SCANNED = FlowConfig(
     grad_mode="coupled",
 )
 
+REALNVP_2D = FlowConfig(name="realnvp-2d", kind="realnvp", depth=8, hidden=128)
 # conditional HINT, the amortized-posterior flow (paper section 4)
 CHINT_POSTERIOR = FlowConfig(name="chint-posterior", kind="chint", depth=4, hidden=128)
 # cHINT on the fused recursive backward: one cross-conditioner evaluation a
@@ -48,14 +48,15 @@ CHINT_COUPLED = FlowConfig(
     name="chint-coupled", kind="chint", depth=4, hidden=128, grad_mode="coupled"
 )
 
-_NOT_PORTED = {
-    "realnvp": "ROADMAP.md queue 1, item 3 (core/realnvp.py)",
-    "hyperbolic": "ROADMAP.md queue 1, item 3 (core/hyperbolic.py)",
-}
+# volume-preserving leapfrog net (paper section 3: hyperbolic networks);
+# depth is the layer count, O(1) activation memory at any depth
+HYPERBOLIC_DEEP = FlowConfig(
+    name="hyperbolic-deep", kind="hyperbolic", depth=16, grad_mode="coupled"
+)
 
 
 def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: str = "auto",
-               channels: int = 3, d_theta: int = 32, d_cond: int = 64,
+               channels: int = 3, d_theta: int | None = None, d_cond: int = 64,
                generator: torch.Generator | None = None, device=None):
     """The flow ``cfg`` describes, on ``device`` (``cuda`` unless named).
     ``coupled_bwd`` is the scanned stacks' backward strategy
@@ -63,10 +64,16 @@ def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: st
     takes the fused reverse walk, as in the reference.  A cHINT flow takes
     its widths, ``d_theta`` features conditioned on ``d_cond`` (by default
     the reference's ``seismic-uq`` scenario: 32 parameters, a 64-wide
-    summary), at the reference's ``build_chint`` recursion of 2."""
+    summary), at the reference's ``build_chint`` recursion of 2.  A RealNVP
+    flow is ``d_theta`` features wide, 2 by default (``REALNVP_2D``'s
+    two-dimensional densities); a hyperbolic network runs on the pair
+    state of ``channels``-channel images, with the reference's
+    ``build_hyperbolic`` defaults (alpha 0.25, 3x3 convolutions)."""
     from repro_torch.core.conditional import build_chint
     from repro_torch.core.glow import build_glow
     from repro_torch.core.glow_scan import build_glow_scanned
+    from repro_torch.core.hyperbolic import build_hyperbolic
+    from repro_torch.core.realnvp import build_realnvp
 
     if cfg.kind == "glow":
         return build_glow(
@@ -81,9 +88,14 @@ def build_flow(cfg: FlowConfig, grad_mode: str | None = None, *, coupled_bwd: st
             generator=generator, device=device,
         )
     if cfg.kind == "chint":
-        return build_chint(d_theta, d_cond, depth=cfg.depth, hidden=cfg.hidden,
+        return build_chint(d_theta or 32, d_cond, depth=cfg.depth, hidden=cfg.hidden,
                            grad_mode=grad_mode or cfg.grad_mode, generator=generator,
                            device=device)
-    if cfg.kind in _NOT_PORTED:
-        raise NotImplementedError(f"flow kind {cfg.kind!r} is not ported yet: {_NOT_PORTED[cfg.kind]}")
+    if cfg.kind == "realnvp":
+        return build_realnvp(d_theta or 2, depth=cfg.depth, hidden=cfg.hidden,
+                             grad_mode=grad_mode or cfg.grad_mode, generator=generator,
+                             device=device)
+    if cfg.kind == "hyperbolic":
+        return build_hyperbolic(channels, depth=cfg.depth, grad_mode=grad_mode or cfg.grad_mode,
+                                generator=generator, device=device)
     raise ValueError(cfg.kind)

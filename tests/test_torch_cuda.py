@@ -883,3 +883,124 @@ def test_model_scans_take_the_kernels_on_the_card(dev):
     assert skern.ssd_scan.launches == before + 1 and y.shape == (2, 128, 3, 64)
     torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(st.cpu(), st_cpu, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the flow zoo and the UQ layer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [2, 7, 24, 32])
+def test_realnvp_kernel_training_on_the_card(dev, d):
+    """RealNVP's kernel path (depth 4, hidden 32, ``coupled``,
+    ``kernel_training``) on (512, D): a train step on the card against the
+    same parameters on the CPU (loss at 1e-5 relative, each gradient leaf at
+    1e-4 of its largest entry), one ``coupling_fwd`` and one
+    ``coupling_bwd`` a coupling: at D = 24 the unflipped couplings on the
+    row stream (M = 1), every other on the half kernels; the round trip."""
+    import copy
+
+    from repro_torch.core import build_realnvp, value_and_grad_nll
+
+    g = torch.Generator().manual_seed(d)
+    flow_cpu = build_realnvp(d, depth=4, hidden=32, grad_mode="coupled", kernel_training=True,
+                             generator=g, device="cpu")
+    with torch.no_grad():
+        for p in flow_cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    flow = copy.deepcopy(flow_cpu).to(dev)
+    x_cpu = torch.randn(512, d, generator=g)
+    for k in ckern.KERNELS:
+        k.launches_by_path = dict.fromkeys(k.launches_by_path, 0)
+    loss, grads = value_and_grad_nll(flow, x_cpu.to(dev))
+    torch.cuda.synchronize()
+    rows = 2 if d == 24 else 0
+    assert ckern.coupling_fwd.launches_by_path == {"rows": rows, "tile": 4 - rows}
+    assert ckern.coupling_bwd.launches_by_path == {"rows": rows, "tile": 4 - rows}
+    assert sum(ckern.coupling_inv.launches_by_path.values()) == 0
+    loss_cpu, grads_cpu = value_and_grad_nll(flow_cpu, x_cpu)
+    assert abs(loss.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item())
+    for name, r in grads_cpu.items():
+        assert (grads[name].cpu() - r).abs().max() <= 1e-4 * r.abs().max(), name
+    with torch.no_grad():
+        z, _ = flow(x_cpu.to(dev))
+        torch.testing.assert_close(flow.inverse(z).cpu(), x_cpu, rtol=0, atol=1e-4)
+
+
+def test_hyperbolic_train_step_on_the_card(dev):
+    """A coupled leapfrog network (depth 6, 3x3 convolutions) on the pair
+    state of (2, 32, 32, 3) images: the card against the CPU (loss at 1e-5
+    relative, each gradient leaf at 1e-4 of its largest entry), and the
+    round trip."""
+    import copy
+
+    from repro_torch.core import build_hyperbolic, value_and_grad_nll
+
+    torch.backends.cudnn.allow_tf32 = False  # the convolutions in f32, as on the CPU
+    g = torch.Generator().manual_seed(7)
+    flow_cpu = build_hyperbolic(3, depth=6, grad_mode="coupled", generator=g, device="cpu")
+    flow = copy.deepcopy(flow_cpu).to(dev)
+    x_cpu = tuple(torch.rand(2, 32, 32, 3, generator=g) - 0.5 for _ in range(2))
+    x = tuple(v.to(dev) for v in x_cpu)
+    loss, grads = value_and_grad_nll(flow, x)
+    loss_cpu, grads_cpu = value_and_grad_nll(flow_cpu, x_cpu)
+    assert abs(loss.item() - loss_cpu.item()) <= 1e-5 * abs(loss_cpu.item())
+    for name, r in grads_cpu.items():
+        assert (grads[name].cpu() - r).abs().max() <= 1e-4 * r.abs().max(), name
+    with torch.no_grad():
+        back = flow.inverse(flow(x)[0])
+    for a, b in zip(back, x):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_uq_scenarios_on_the_card(dev, tmp_path):
+    """``lg-smoke`` trained a few steps on the card (one ``coupling_bwd`` a
+    cross node a step: depth 2, recursion 1 at d_theta 4, so one node a
+    block), restored bitwise, and reported (one ``coupling_inv`` a cross
+    node a sampler call), the streamed moments equal to the chunks
+    concatenated; a tiny scanned image prior sampled through its flow-step
+    kernels (one ``flowstep_inv`` a step a chunk)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import HINTCoupling
+    from repro_torch.kernels.flowstep import flowstep as fkern
+    from repro_torch.uq import (PosteriorEngine, get_scenario, posterior_report, prior_report,
+                                restore_scenario, train_scenario)
+    from repro_torch.uq.scenarios import build_conditional_model
+
+    sc = get_scenario("lg-smoke")
+    nodes = sum(1 for m in build_conditional_model(sc, device="cpu").flow.modules()
+                if isinstance(m, HINTCoupling) and not m.is_leaf)
+    assert nodes == 2
+    for k in ckern.KERNELS:
+        k.launches_by_path = dict.fromkeys(k.launches_by_path, 0)
+    run = train_scenario(sc, steps=3, ckpt_dir=str(tmp_path / "lg"), device=dev)
+    torch.cuda.synchronize()
+    assert ckern.coupling_bwd.launches_by_path == {"rows": 0, "tile": 3 * nodes}
+    restored = restore_scenario(sc, str(tmp_path / "lg"), device=dev)
+    for key, v in run.params.items():
+        assert torch.equal(v, restored.params[key]), key
+    y = restored.problem.batch_at(10_000)["y"][:1]
+    for k in ckern.KERNELS:
+        k.launches_by_path = dict.fromkeys(k.launches_by_path, 0)
+    stats, report = posterior_report(restored, y_obs=y, n_samples=2500, chunk=1000, sbc_sims=40,
+                                     sbc_draws=16)
+    torch.cuda.synchronize()
+    calls = 3 + 2 * 2  # three chunks, then two SBC and two coverage calls
+    assert ckern.coupling_inv.launches_by_path == {"rows": 0, "tile": calls * nodes}
+    chunks = list(PosteriorEngine(restored.model, y=y, theta_dim=4).sample_chunks(
+        torch.Generator().manual_seed(0), 2500, 1000))
+    flat = np.concatenate(chunks).astype(np.float64)
+    np.testing.assert_allclose(stats.mean, flat.mean(0), rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(stats.var, flat.var(0, ddof=1), rtol=1e-6)
+    assert report.ranks.shape == (40, 4) and np.all(np.isfinite(report.pvalues))
+    prior = get_scenario("images-prior-scanned")
+    tiny = dataclasses.replace(prior, flow=dataclasses.replace(prior.flow, n_scales=2, k_steps=2,
+                                                               hidden=8), image_size=8, batch=4)
+    prun = train_scenario(tiny, steps=2, ckpt_dir=str(tmp_path / "prior"), device=dev)
+    fkern.flowstep_inv.launches = 0
+    st = prior_report(prun, n_samples=128, chunk=64)
+    torch.cuda.synchronize()
+    assert fkern.flowstep_inv.launches == 2 * 4 and np.all(np.isfinite(st.mean))

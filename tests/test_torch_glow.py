@@ -166,6 +166,9 @@ def test_build_flow_ports_only_glow_scanned():
     assert build_flow(FlowConfig(name="glow", kind="glow"), device="cpu").grad_mode == "invertible"
     # and cHINT (tests/test_torch_conditional.py)
     assert build_flow(FlowConfig(name="chint", kind="chint"), device="cpu").grad_mode == "invertible"
+    # and RealNVP and the hyperbolic network (tests/test_torch_zoo.py): every
+    # kind of the reference builds, and an unknown one raises
     for kind in ("realnvp", "hyperbolic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            build_flow(FlowConfig(name=kind, kind=kind), device="cpu")
+        assert build_flow(FlowConfig(name=kind, kind=kind), device="cpu").grad_mode == "invertible"
+    with pytest.raises(ValueError):
+        build_flow(FlowConfig(name="nope", kind="nope"), device="cpu")

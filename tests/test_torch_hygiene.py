@@ -2,8 +2,9 @@
 package (serving and one ``coupled`` train step of the scanned and the
 unrolled GLOW; yi-6b, rwkv6-7b and zamba2-7b ``REDUCED`` prefill and decode
 through ``ServeEngine.generate``; cHINT trained through the supervised loop
-with a restart, then sampled), and refuses to run quietly on the CPU when
-no device was named."""
+with a restart, then sampled; RealNVP and the hyperbolic network trained a
+step; a UQ scenario trained, restored and reported, and the launchers),
+and refuses to run quietly on the CPU when no device was named."""
 
 import os
 import re
@@ -105,6 +106,39 @@ def test_conditional_path_runs_without_loading_jax(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+def test_uq_path_runs_without_loading_jax(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.configs.flows import HYPERBOLIC_DEEP, REALNVP_2D, build_flow\n"
+        "from repro_torch.core import build_realnvp, value_and_grad_nll\n"
+        "flow = build_realnvp(6, depth=2, hidden=8, grad_mode='coupled', kernel_training=True,\n"
+        "                     device='cpu')\n"
+        "loss, _ = value_and_grad_nll(flow, torch.randn(4, 6))\n"
+        "loss2, _ = value_and_grad_nll(build_flow(REALNVP_2D, device='cpu'), torch.randn(4, 2))\n"
+        "deep = build_flow(HYPERBOLIC_DEEP, device='cpu')\n"
+        "loss3, _ = value_and_grad_nll(deep, (torch.randn(1, 8, 8, 3), torch.randn(1, 8, 8, 3)))\n"
+        "assert all(bool(torch.isfinite(v)) for v in (loss, loss2, loss3))\n"
+        "from repro_torch.data import make_dataset\n"
+        "from repro_torch.uq import posterior_report, restore_scenario, train_scenario\n"
+        f"run = train_scenario('lg-smoke', steps=3, ckpt_dir={str(tmp_path)!r}, device='cpu')\n"
+        f"run = restore_scenario('lg-smoke', {str(tmp_path)!r}, device='cpu')\n"
+        "stats, report = posterior_report(run, n_samples=256, chunk=128, sbc_sims=8,\n"
+        "                                 sbc_draws=8)\n"
+        "assert stats.n == 256 and report.ranks.shape == (8, 4)\n"
+        "assert make_dataset('seismic', batch=2).batch_at(0)['y'].shape == (2, 32)\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     text = path.read_text()
@@ -138,6 +172,23 @@ def test_train_flow_without_device_raises_on_a_host_without_a_card():
     flow = build_flow(GLOW_SCANNED, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1))
+
+
+def test_zoo_and_uq_entry_points_without_device_raise_on_a_host_without_a_card(tmp_path):
+    from repro_torch.configs.flows import HYPERBOLIC_DEEP, REALNVP_2D, build_flow
+    from repro_torch.core import build_hyperbolic, build_realnvp
+    from repro_torch.uq import get_scenario, restore_scenario, train_scenario
+    from repro_torch.uq.scenarios import build_conditional_model
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device is cuda")
+    for build in (lambda: build_realnvp(4), lambda: build_hyperbolic(3),
+                  lambda: build_flow(REALNVP_2D), lambda: build_flow(HYPERBOLIC_DEEP),
+                  lambda: build_conditional_model(get_scenario("lg-smoke")),
+                  lambda: train_scenario("lg-smoke", steps=1, ckpt_dir=str(tmp_path)),
+                  lambda: restore_scenario("lg-smoke", str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_lm_entry_points_without_device_raise_on_a_host_without_a_card():
