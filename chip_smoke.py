@@ -11,14 +11,19 @@ ActNorm and Conv1x1 hooks).  It trains and samples the conditional HINT
 amortized posterior (``CHINT_COUPLED`` at the reference's ``seismic-uq``
 widths) through the supervised loop, then the rest of the flow zoo (RealNVP,
 the hyperbolic network) and the UQ layer: the ``seismic-uq`` and image-prior
-scenarios trained, restored and reported, and the launchers.  Then it serves the language models yi-6b (32
-layers, d_model 4096), rwkv6-7b (32 RWKV6 layers, d_model 4096; the
-``wkv_scan`` kernel) and zamba2-7b (81 Mamba2 layers and a shared attention
-block, d_model 3584; the ``ssd_scan`` kernel), reversible, bf16
+scenarios trained, restored and reported, and the launchers.  Then it
+serves the language models yi-6b (32 layers, d_model 4096), rwkv6-7b (32
+RWKV6 layers, d_model 4096; the ``wkv_scan`` kernel) and zamba2-7b (81
+Mamba2 layers and a shared attention block, d_model 3584; the ``ssd_scan``
+kernel), reversible, bf16
 activations, f32 weights from a seed, through ``ServeEngine.generate``, one
 model at a time, and drives the flash-attention kernel through
-``attn_apply(impl="flash")`` at yi-6b's width.  It holds every hand-written
-kernel against its plain PyTorch version.  Phases, one line each:
+``attn_apply(impl="flash")`` at yi-6b's width; then the rest of the dense
+family and the MoE family (glm4-9b whole, granite-34b and
+command-r-plus-104b at cut depths, granite-moe-1b-a400m whole), and trains
+granite-moe-1b-a400m at full width and depth through ``train_lm`` and the
+reversible scan engine.  It holds every hand-written kernel against its
+plain PyTorch version.  Phases, one line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together); each
@@ -160,6 +165,39 @@ kernel against its plain PyTorch version.  Phases, one line each:
              ``ssd_scan``: 81 and 0, Mamba2's decode being the plain
              recurrence, as in the reference); ``[times]``/``[profile]`` of
              prefill and the decode step.
+10. dense and MoE LMs - ``[serve]`` one model at a time, each freed before
+             the next: glm4-9b at full width and depth 2 in f32 against the
+             CPU, then at full depth (40) in bf16; granite-34b and
+             command-r-plus-104b at ``REDUCED`` against the CPU, then at full
+             width and a cut depth that keeps the f32 weights under 40 GB (24
+             and 4, named on the line); granite-moe-1b-a400m at full width and
+             depth 2 against the CPU, then at full width and depth;
+             llama4-maverick-400b-a17b at ``REDUCED`` against the CPU only
+             (one superblock is about 66 GB of f32 weights).  The card-side
+             runs: batch 8, a 2048-token prompt, 32 new tokens, 0
+             ``flash_attention`` launches a ``generate``, tokens/s, peak
+             memory, and ``[times]``/``[profile]`` of prefill and a decode
+             step;
+11. lm-train - granite-moe-1b-a400m through ``train_loss`` and ``train_lm``:
+             (a) full width, depth 2, f32, batch 2 x 256, loss and every
+             gradient leaf on the card against the CPU under ``invertible``,
+             ``coupled`` and ``autodiff`` (1e-5 relative, 1e-4 of each leaf's
+             largest entry), each step twice on the card bitwise, and the
+             routing choices that differ; in bf16, ``invertible`` against
+             ``autodiff``, every leaf within 1e-4 of its largest entry
+             unless the backward's re-routing flipped a routing choice (the
+             flips reported); (b) full width and depth, bf16 activations,
+             f32 master weights, AdamW, ``SyntheticTokens`` 8 x 2048, 8 steps
+             of ``train_lm`` under ``invertible``, profiled: per step wall,
+             busy, idle share, tokens/s, peak memory; the first loss in (0,
+             2 log V), every loss finite; a restart from the step-4
+             checkpoint reproduces step 8 bitwise; (c) peak memory of a step
+             at depth 4 and 16 (batch 2 x 2048) in each engine: the growth
+             above the step's start under ``invertible`` and ``coupled`` each
+             below a quarter of ``autodiff``'s; (d) ``repro_torch.launch.train
+             --arch granite-moe-1b-a400m --reduced --steps 4`` as a
+             subprocess, exit 0; (e) rwkv6-7b ``REDUCED``: ``train_lm`` raises
+             ``NotImplementedError`` naming item 6.3 before its first step.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
@@ -2528,6 +2566,481 @@ def ssm_serve_phase(dev, card, arch: str) -> dict:
     return {"model": model, "prompt": prompt, "launches": gen_launches[scan]}
 
 
+# ---------------------------------------------------------------------------
+# 10. the rest of the dense family and the MoE family served; 11. LM training
+# ---------------------------------------------------------------------------
+
+#: phase 10's models: (arch, the card-against-CPU model: "reduced" or a depth
+#: at full width, the depth served on the card at full width or None, why)
+LM_FAMILY = (
+    ("glm4-9b", 2, 40, "full depth: 37.6 GB of f32 weights"),
+    ("granite-34b", "reduced", 24, "depth 24 of 88: 38.9 GB of f32 weights (1.52 GB a layer)"),
+    ("command-r-plus-104b", "reduced", 4,
+     "depth 4 of 64: 37.7 GB of f32 weights (6.29 GB a layer, 12.58 GB the tied embedding)"),
+    ("granite-moe-1b-a400m", 2, 24, "full depth: 5.5 GB of f32 weights"),
+    ("llama4-maverick-400b-a17b", "reduced", None,
+     "REDUCED only: one superblock (two layers) holds about 66 GB of f32 weights, so full "
+     "width needs distribution (ROADMAP.md queue 1, item 7)"),
+)
+LM_TRAIN_ARCH = "granite-moe-1b-a400m"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 8
+LM_CMP_BATCH, LM_CMP_SEQ = 2, 256     # (a): full width, depth 2, f32
+LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (4, 16)  # (c): full width, bf16
+
+
+class RouteLog:
+    """Record the expert indices of every ``moe.route`` call while active."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self.mod, self.orig, self.calls = moe, moe.route, []
+
+        def route(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append(out[2].detach().cpu())
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def routing_flips(calls, n_moe: int, mode: str) -> int:
+    """(token, k) expert choices that the backward's re-routing (from the
+    rebuilt input) changed against the forward's, summed over its calls:
+    ``invertible`` routes each layer twice (inverse, then the VJP), last
+    layer first; ``coupled`` once; the others not at all."""
+    fwd, bwd = calls[:n_moe], calls[n_moe:]
+    order = {"invertible": [i for i in range(n_moe - 1, -1, -1) for _ in (0, 1)],
+             "coupled": list(range(n_moe - 1, -1, -1))}.get(mode, [])
+    return sum(int((b != fwd[i]).sum()) for b, i in zip(bwd, order))
+
+
+def lm_arch_serve(dev, card, arch, cmp, depth, why, seed) -> dict | None:
+    """Phase 10 for one architecture: (a) the card against the CPU in f32
+    (prefill logits within ``TOL_LM_LOGITS`` of the largest, 8 greedy tokens
+    equal) at ``cmp`` (``"reduced"`` or a depth at full width); (b) full
+    width at ``depth`` on the card in bf16, batch 8, a 2048-token prompt, 32
+    new tokens, 0 ``flash_attention`` launches a ``generate``.  Returns (b)'s
+    served model, prompt and ``flash_attention`` launches, or None."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    spec = get_arch(arch)
+    cfg_a = (spec.reduced if cmp == "reduced" else spec.config.replace(n_layers=cmp)).replace(
+        dtype="float32")
+    t0 = time.perf_counter()
+    model_cpu = Model(cfg_a, generator=torch.Generator().manual_seed(seed), device="cpu")
+    init_s = time.perf_counter() - t0
+    model_card = copy.deepcopy(model_cpu).to(dev)
+    tokens = torch.randint(0, cfg_a.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    max_len = LM_CPU_PROMPT + LM_CPU_NEW
+    with RouteLog() as r_card:
+        logits, _ = model_card.prefill({"tokens": tokens.to(dev)},
+                                       model_card.make_caches(LM_CPU_BATCH, max_len))
+    t0 = time.perf_counter()
+    with RouteLog() as r_cpu:
+        logits_cpu, _ = model_cpu.prefill({"tokens": tokens},
+                                          model_cpu.make_caches(LM_CPU_BATCH, max_len))
+    tok_cpu, _ = ServeEngine(model_cpu, max_len, device="cpu").generate({"tokens": tokens},
+                                                                         LM_CPU_NEW)
+    cpu_s = time.perf_counter() - t0
+    reset(ak.KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tok, _ = ServeEngine(model_card, max_len, device=dev).generate({"tokens": tokens}, LM_CPU_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    flips = sum(int((a != b).sum()) for a, b in zip(r_card.calls, r_cpu.calls))
+    rel = (logits.cpu() - logits_cpu).abs().max().item() / logits_cpu.abs().max().item()
+    line("serve", model=arch, width="reduced" if cmp == "reduced" else "full",
+         depth=cfg_a.n_layers, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
+         new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel,
+         greedy_tokens_equal=bool(torch.equal(tok.cpu(), tok_cpu)),
+         prefill_routing_flips_vs_cpu=flips, cpu_init_s=init_s, cpu_reference_s=cpu_s,
+         card_generate_s=gen_s,
+         card_generate_tokens_per_s=LM_CPU_BATCH * (LM_CPU_PROMPT + LM_CPU_NEW) / gen_s,
+         card_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         flash_attention_launches_per_generate=ak.flash_attention.launches, card=card)
+    check(ak.flash_attention.launches == 0, f"{arch} generate launched flash_attention")
+    check(torch.isfinite(logits).all().item() and rel <= TOL_LM_LOGITS,
+          f"{arch} {cfg_a.n_layers}-layer f32 prefill logits vs cpu: {rel} of the largest")
+    check(torch.equal(tok.cpu(), tok_cpu), f"{arch} greedy tokens differ: {tok} vs {tok_cpu}")
+    del model_cpu, model_card, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if depth is None:
+        line("serve", model=arch, full_width_on_the_card=False, why=why, card=card)
+        return None
+
+    cfg = spec.config.replace(n_layers=depth)
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(dev).manual_seed(seed + 2), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServeEngine(model, LM_PROMPT + LM_NEW, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(seed + 3), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset(ak.KERNELS)
+    t0 = time.perf_counter()
+    out, last = engine.generate({"tokens": prompt}, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = ak.flash_attention.launches
+    check(out.shape == (LM_BATCH, LM_NEW) and torch.isfinite(last).all().item(),
+          f"{arch} generate: tokens {tuple(out.shape)}, finite {torch.isfinite(last).all().item()}")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size, f"{arch} tokens outside vocab")
+    check(launches == 0, f"{arch} generate launched flash_attention {launches} times")
+    n_params = sum(p.numel() for p in model.parameters())
+    line("serve", model=arch, depth=depth, of_depth=spec.config.n_layers, why_this_depth=why,
+         dtype=cfg.dtype, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW, n_params=n_params,
+         f32_weight_bytes=4 * n_params, init_on_card_s=init_s, generate_s=gen_s,
+         generate_tokens_per_s=LM_BATCH * (LM_PROMPT + LM_NEW) / gen_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         flash_attention_launches_per_generate=launches,
+         first_tokens=out[:, :4].tolist(), distinct_tokens=int(out.unique().numel()), card=card)
+    return {"model": model, "prompt": prompt, "launches": launches}
+
+
+def lm_family_serve_phase(dev, card, wall_ms) -> dict:
+    """Phase 10: ``LM_FAMILY`` one model at a time, each freed before the
+    next; ``[times]``/``[profile]`` of each model served on the card.
+    Returns the ``flash_attention`` launches a ``generate`` by model."""
+    import torch
+
+    launches = {}
+    for i, (arch, cmp, depth, why) in enumerate(LM_FAMILY):
+        served = lm_arch_serve(dev, card, arch, cmp, depth, why, SEED + 60 + 10 * i)
+        if served is not None:
+            launches[arch] = served.pop("launches")
+            lm_times(served, card, wall_ms, name=arch)
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def lm_grads(model, batch, mode):
+    """``(loss, {name: grad})`` of ``model.train_loss`` under ``mode``."""
+    from repro_torch.train.loop import objective_value_and_grad
+
+    return objective_value_and_grad(model, lambda b: model.train_loss(b, grad_mode=mode))(batch)
+
+
+def lm_train_vs_cpu(dev, card) -> None:
+    """(a) granite-moe at full width and depth 2 in f32, batch 2 x 256: loss
+    and every gradient leaf on the card against the CPU under
+    ``invertible``, ``coupled`` and ``autodiff`` (``TOL_LOSS_REL``,
+    ``TOL_GRAD_REL``), each step twice on the card, bitwise; then in bf16
+    on the card, ``invertible`` against ``autodiff``: every leaf within
+    ``TOL_GRAD_REL`` unless the backward's re-routing flipped a routing
+    decision (the flips are reported either way)."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+
+    config = get_arch(LM_TRAIN_ARCH).config
+    cfg = config.replace(n_layers=2, dtype="float32")
+    model_cpu = Model(cfg, generator=torch.Generator().manual_seed(SEED + 70), device="cpu")
+    model_card = copy.deepcopy(model_cpu).to(dev)
+    batch = SyntheticTokens(cfg.vocab_size, LM_CMP_SEQ, LM_CMP_BATCH, seed=7).batch_at(0)
+    batch_dev = {k: v.to(dev) for k, v in batch.items()}
+    for mode in ("invertible", "coupled", "autodiff"):
+        t0 = time.perf_counter()
+        with RouteLog() as r_cpu:
+            loss_cpu, g_cpu = lm_grads(model_cpu, batch, mode)
+        cpu_s = time.perf_counter() - t0
+        with RouteLog() as r_card:
+            loss, grads = lm_grads(model_card, batch_dev, mode)
+        loss2, grads2 = lm_grads(model_card, batch_dev, mode)
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(loss, loss2)) and all(torch.equal(grads[k], grads2[k])
+                                                         for k in grads)
+        loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+        grad_rel, worst = max_rel_leaf_err(grads, g_cpu)
+        flips = sum(int((a != b).sum()) for a, b in zip(r_card.calls[:2], r_cpu.calls[:2]))
+        line("lm-train", part="a", model=LM_TRAIN_ARCH, depth=2, dtype="float32",
+             batch=[LM_CMP_BATCH, LM_CMP_SEQ], grad_mode=mode, loss=loss.item(),
+             loss_rel_err_vs_cpu=loss_rel, grad_max_rel_err_vs_cpu=grad_rel, worst_leaf=worst,
+             bitwise_repeatable=repeat, forward_routing_flips_vs_cpu=flips,
+             backward_routing_flips_card=routing_flips(r_card.calls, 2, mode), cpu_s=cpu_s,
+             card=card)
+        check(torch.isfinite(loss).item() and loss_rel <= TOL_LOSS_REL,
+              f"lm-train (a) {mode}: loss {loss.item()} vs cpu {loss_cpu.item()}")
+        check(grad_rel <= TOL_GRAD_REL, f"lm-train (a) {mode}: leaf {worst} at {grad_rel}")
+        check(repeat, f"lm-train (a) {mode}: two steps on the card differ")
+    del model_cpu, model_card
+    # bf16 activations on the card: invertible against autodiff
+    model = Model(config.replace(n_layers=2), generator=torch.Generator(dev).manual_seed(SEED + 71),
+                  device=dev)
+    res = {}
+    for mode in ("autodiff", "invertible"):
+        with RouteLog() as r:
+            res[mode] = lm_grads(model, batch_dev, mode) + (r.calls,)
+    grad_rel, worst = max_rel_leaf_err(res["invertible"][1], res["autodiff"][1])
+    flips = routing_flips(res["invertible"][2], 2, "invertible")
+    n_choices = sum(c.numel() for c in res["invertible"][2][:2])
+    line("lm-train", part="a-bf16", model=LM_TRAIN_ARCH, depth=2, dtype=config.dtype,
+         batch=[LM_CMP_BATCH, LM_CMP_SEQ], loss_invertible=res["invertible"][0].item(),
+         loss_autodiff=res["autodiff"][0].item(),
+         grad_max_rel_err_invertible_vs_autodiff=grad_rel, worst_leaf=worst,
+         within_gate=grad_rel <= TOL_GRAD_REL, backward_routing_flips=flips,
+         routing_choices_per_pass=n_choices, card=card)
+    check(abs(res["invertible"][0].item() - res["autodiff"][0].item())
+          <= TOL_LOSS_REL * abs(res["autodiff"][0].item()),
+          "lm-train (a-bf16): the invertible forward's loss differs from autodiff's")
+    check(grad_rel <= TOL_GRAD_REL or flips > 0,
+          f"lm-train (a-bf16): invertible vs autodiff leaf {worst} at {grad_rel} with no "
+          "routing flip")
+    del model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class StepClock:
+    """A ``FailureInjector`` stand-in that fails nothing: at each step's
+    start (and at ``finish``) it synchronises the card, reads the wall clock
+    and the peak memory since the last mark (then resets it), and under a
+    profiler opens a ``record_function`` range per step."""
+
+    def __init__(self, profiled: bool):
+        self.profiled, self.marks, self.peaks, self.range = profiled, [], [], None
+
+    def _mark(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+            self.range = None
+
+    def maybe_fail(self, step: int):
+        import torch
+
+        self._mark()
+        if self.profiled:
+            self.range = torch.profiler.record_function(f"lm_step_{step}")
+            self.range.__enter__()
+
+    def finish(self):
+        self._mark()
+
+
+def step_busy_ms(prof) -> dict[str, float]:
+    """Device-busy ms of each ``lm_step_<k>`` range: the durations of the
+    kernels that started inside it."""
+    events = prof.events()
+    # the ranges' own spans on the device timeline are no kernels
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith("lm_step_") and not _is_device_event(e)}
+    kernels = [(e.time_range.start, e.time_range.elapsed_us()) for e in events
+               if _is_device_event(e) and not e.name.startswith("lm_step_")]
+    return {name: sum(d for s, d in kernels if lo <= s < hi) / 1e3
+            for name, (lo, hi) in ranges.items()}
+
+
+def lm_train_full(dev, card) -> float:
+    """(b) granite-moe at full width and depth, bf16 activations, f32 master
+    weights, AdamW, ``SyntheticTokens`` 8 x 2048: 8 steps of ``train_lm``
+    under ``invertible`` (profiled: per step wall, busy, idle share,
+    tokens/s, peak memory; checkpoints after steps 4 and 8), then a restart
+    from the step-4 checkpoint that reproduces step 8 bit for bit.  Returns
+    the ``flash_attention`` launches a step of the first run."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train.loop import train_lm
+
+    cfg = get_arch(LM_TRAIN_ARCH).config
+    model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 72), device=dev)
+    data = SyntheticTokens(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=11)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    tcfg = TrainConfig(steps=LM_TRAIN_STEPS, lr=3e-4, warmup_steps=2, checkpoint_every=4,
+                       checkpoint_dir=str(scratch), keep_checkpoints=2)
+    saves = []
+    real_save = ckpt_mod.save
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    ckpt_mod.save = timed_save
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    try:
+        clock = StepClock(profiled=True)
+        reset(ak.KERNELS)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = train_lm(model, data, tcfg, grad_mode="invertible", device=dev, injector=clock)
+            clock.finish()
+        busy = step_busy_ms(prof)
+        flash = ak.flash_attention.launches
+        final = {k: v.clone() for k, v in model.state_dict().items()}
+        walls = [1e3 * (b - a) for a, b in zip(clock.marks, clock.marks[1:])]
+        save_ms = {3: 1e3 * saves[0], 7: 1e3 * saves[1]}
+        for step, (loss, window) in enumerate(zip(res.losses, walls)):
+            # wall_ms leaves out a checkpoint's write; busy and idle are over
+            # the whole window, the write's device-to-host copies included
+            step_ms = window - save_ms.get(step, 0.0)
+            b = busy.get(f"lm_step_{step}", 0.0)
+            line("lm-train", part="b", model=LM_TRAIN_ARCH, depth=cfg.n_layers, step=step + 1,
+                 loss=loss, wall_ms=step_ms, checkpoint_save_ms=save_ms.get(step),
+                 window_ms=window, busy_ms=b, idle_share=max(0.0, 1 - b / window),
+                 tokens_per_s=tokens / (step_ms * 1e-3), peak_memory_bytes=clock.peaks[step + 1],
+                 profiled=True, card=card)
+        check(len(res.losses) == LM_TRAIN_STEPS and all(math.isfinite(v) for v in res.losses),
+              f"lm-train (b): losses {res.losses}")
+        check(0 < res.losses[0] < 2 * math.log(cfg.vocab_size),
+              f"lm-train (b): first loss {res.losses[0]} outside (0, 2 log V)")
+        check(flash == 0, f"lm-train (b): {flash} flash_attention launches")
+        # the restart: drop the final checkpoint, resume from the step-4 one
+        shutil.rmtree(scratch / f"step_{LM_TRAIN_STEPS - 1:08d}")
+        check(ckpt_mod.latest_step(str(scratch)) == 3, "lm-train (b): no step-4 checkpoint")
+        clock2 = StepClock(profiled=False)
+        t0 = time.perf_counter()
+        res2 = train_lm(model, data, tcfg, grad_mode="invertible", device=dev, injector=clock2)
+        clock2.finish()
+        restart_s = time.perf_counter() - t0
+        same = all(torch.equal(final[k], v) for k, v in model.state_dict().items())
+        walls2 = [1e3 * (b - a) for a, b in zip(clock2.marks, clock2.marks[1:])]
+        walls2[-1] -= 1e3 * saves[-1]  # the final checkpoint's write
+        line("lm-train", part="b-restart", model=LM_TRAIN_ARCH, resumed_after_step=4,
+             steps_run=len(res2.losses), losses=res2.losses, step8_bitwise_equal=same,
+             losses_bitwise_equal=res2.losses == res.losses[4:],
+             unprofiled_wall_ms=walls2, checkpoint_save_s=saves,
+             restart_s_with_restore_and_save=restart_s,
+             n_params=sum(p.numel() for p in model.parameters()), card=card)
+        check(same and res2.losses == res.losses[4:], "lm-train (b): the restart differs")
+    finally:
+        ckpt_mod.save = real_save
+        shutil.rmtree(scratch, ignore_errors=True)
+    del model, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash / LM_TRAIN_STEPS
+
+
+def lm_train_memory(dev, card) -> None:
+    """(c) peak memory of one train step (loss, gradient, AdamW) of
+    granite-moe at full width, depth 4 and 16, batch 2 x 2048, bf16, under
+    each engine: the peak above the bytes held when the step starts (the
+    model and its AdamW state), whose growth with depth under
+    ``invertible`` and ``coupled`` must each stay below a quarter of
+    ``autodiff``'s (the quarter rule of ``[memory]``)."""
+    import torch
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init, adamw_update
+
+    config = get_arch(LM_TRAIN_ARCH).config
+    batch = {k: v.to(dev) for k, v in SyntheticTokens(
+        config.vocab_size, LM_TRAIN_SEQ, LM_MEM_BATCH, seed=13).batch_at(0).items()}
+    peaks, above = {}, {}
+    for mode in ("invertible", "coupled", "remat", "autodiff"):
+        for depth in LM_MEM_DEPTHS:
+            model = Model(config.replace(n_layers=depth),
+                          generator=torch.Generator(dev).manual_seed(SEED + 73), device=dev)
+            params = dict(model.named_parameters())
+            opt = adamw_init(params)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            _loss, grads = lm_grads(model, batch, mode)
+            adamw_update(params, grads, opt, TrainConfig(), 1e-4)
+            torch.cuda.synchronize()
+            key = f"{mode}_depth{depth}"
+            peaks[key] = torch.cuda.max_memory_allocated()
+            above[key] = peaks[key] - start
+            del model, params, opt, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+    lo, hi = LM_MEM_DEPTHS
+    growth = {m: above[f"{m}_depth{hi}"] - above[f"{m}_depth{lo}"]
+              for m in ("invertible", "coupled", "remat", "autodiff")}
+    line("lm-train", part="c", model=LM_TRAIN_ARCH, batch=[LM_MEM_BATCH, LM_TRAIN_SEQ],
+         dtype=config.dtype, peaks_bytes=peaks, above_step_start_bytes=above,
+         growth_bytes={f"{m}_depth{lo}_to_{hi}": g for m, g in growth.items()},
+         growth_vs_autodiff={m: g / growth["autodiff"] for m, g in growth.items()}, card=card)
+    for mode in ("invertible", "coupled"):
+        check(growth[mode] < 0.25 * growth["autodiff"],
+              f"lm-train (c): {mode} grew {growth[mode]} B, autodiff {growth['autodiff']} B")
+
+
+def lm_train_launcher_and_guard(dev, card) -> None:
+    """(d) ``repro_torch.launch.train --arch granite-moe-1b-a400m --reduced
+    --steps 4`` as a subprocess, to exit 0; (e) rwkv6-7b ``REDUCED`` on the
+    card: ``train_lm`` raises ``NotImplementedError`` naming item 6.3 before
+    its first step."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_lm
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_lm_launch_")
+    argv = ["repro_torch.launch.train", "--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "4",
+            "--ckpt", scratch]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300)
+    shutil.rmtree(scratch, ignore_errors=True)
+    lines = proc.stdout.strip().splitlines()
+    line("lm-train", part="d", argv=argv, returncode=proc.returncode,
+         seconds=time.perf_counter() - t0, stdout=lines[-4:],
+         stderr_tail=proc.stderr.strip().splitlines()[-5:] if proc.returncode else [], card=card)
+    check(proc.returncode == 0 and lines, f"launcher {' '.join(argv)} exited {proc.returncode}")
+
+    class Counting:
+        def __init__(self, data):
+            self.data, self.steps = data, []
+
+        def batch_at(self, step):
+            self.steps.append(step)
+            return self.data.batch_at(step)
+
+    model, cfg = build_model(get_arch("rwkv6-7b").reduced, device=dev)
+    data = Counting(SyntheticTokens(cfg.vocab_size, 16, 2))
+    try:
+        train_lm(model, data, TrainConfig(steps=2, prefetch=0), device=dev)
+        message = None
+    except NotImplementedError as exc:
+        message = str(exc)
+    line("lm-train", part="e", model="rwkv6-7b-reduced", raised=message is not None,
+         message=message, steps_run=len(data.steps), card=card)
+    check(message is not None and "item 6.3" in message and not data.steps,
+          f"lm-train (e): rwkv6-7b trained on the card ({message!r}, steps {data.steps})")
+    del model
+    torch.cuda.empty_cache()
+
+
 def time_flow_kernels(dev) -> dict:
     """Phase 7, ``[times]`` of the eight flow kernels: the scanned model's
     at its three (B, M, C), the unrolled model's at its transformed halves
@@ -2927,6 +3440,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         mark(arch)
 
+    # 10. the rest of the dense family and the MoE family, one model at a time
+    lm_family_launches = lm_family_serve_phase(dev, card, e2e_wall_ms)
+    mark("dense and MoE LMs")
+
+    # 11. LM training: card against CPU, full size, memory, launcher, guard
+    lm_train_vs_cpu(dev, card)
+    lm_train_flash_per_step = lm_train_full(dev, card)
+    lm_train_memory(dev, card)
+    lm_train_launcher_and_guard(dev, card)
+    mark("lm-train")
+
     def by_path(*names):
         """Each path's first ``[times]`` row of a kernel (its largest shape,
         f32 first where timed): shape, dtype and the times beside the bound."""
@@ -2974,6 +3498,11 @@ def main() -> int:
             "ms_from": main["ms_from"]["ms"], "path": main.get("path"),
             "by_path": by_path(name, timed_as.get(name, name)),
         })
+        if name == "flash_attention":
+            # the LM serving paths of phase 10 and LM training (phase 11)
+            # attend through the einsum path, as the reference's model does
+            kernels[-1]["lm_generate_launches"] = lm_family_launches
+            kernels[-1]["lm_train_step_launches"] = lm_train_flash_per_step
         if name in chint["times"]:
             # the cHINT path: its launches a train step (coupling_bwd) or a
             # draw (coupling_inv), and the half kernel at its M = 1 shapes

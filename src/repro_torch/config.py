@@ -1,22 +1,24 @@
-"""Configurations of the port: single-device flow training
-(``TrainConfig``) and the language models (``AttentionConfig``,
-``ModelConfig``, the architecture registry), copied from the reference's
-``repro/config.py`` with its fields and defaults.
+"""Configurations of the port: single-device training (``TrainConfig``)
+and the language models (``AttentionConfig``, ``MoEConfig``,
+``SSMConfig``, ``ModelConfig``, the architecture registry), copied from the
+reference's ``repro/config.py`` with its fields and defaults.
 
 ``TrainConfig`` holds the fields of the port's supervised loop
 (``train/loop.py``), with the reference's defaults but one:
 ``checkpoint_dir`` is None, no checkpoints, unless a directory is named
 (the reference's default, ``"checkpoints"``, is relative to the working
 directory).  ``seed`` is kept for the reference's layout; a model arrives
-initialised from the generator its builder was given.  ``remat_policy`` and
-the pipeline fields are the reference's LM and mesh options and wait with
-them (``ROADMAP.md`` queue 1, items 6.3 and 7).
+initialised from the generator it was built with.  The reference's
+``remat_policy`` is not kept (``train_lm`` takes the stack's engine as its
+``grad_mode``); the pipeline fields are mesh options and wait with the mesh
+(``ROADMAP.md`` queue 1, item 7).
 
 ``ModelConfig`` keeps every field of the reference so a configuration reads
-the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers) is
-ported; the ``moe`` and ``frontend`` sub-configs come with the slices that
-port those families (``ROADMAP.md`` queue 1); until then they stay ``None``,
-and ``models/blocks.py::decoder_layout`` refuses a family it cannot build.
+the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers) and
+``MoEConfig`` (the routed experts) are ported; the ``frontend`` sub-config
+comes with the slice that ports the vision and audio front ends
+(``ROADMAP.md`` queue 1, item 6.5); until then it stays ``None``, and
+``models/blocks.py::decoder_layout`` refuses a family it cannot build.
 Architectures register themselves from ``repro_torch.configs``; only ported
 ones are registered.
 """
@@ -82,6 +84,19 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    # MoE every ``interleave``-th block (1 = every block, 2 = alternating)
+    interleave: int = 1
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     kind: str  # "mamba2" | "rwkv6"
     d_state: int = 64
@@ -109,7 +124,7 @@ class ModelConfig:
     vocab_size: int
 
     attention: Optional[AttentionConfig] = None
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     frontend: Optional[object] = None
 
@@ -215,9 +230,11 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
 
 
 def get_arch(name: str) -> ArchSpec:
-    """The registered architecture ``name``.  An architecture of the
-    reference that the port does not build yet raises, naming its place in
-    ``ROADMAP.md``."""
+    """The registered architecture ``name``: yi-6b, glm4-9b, granite-34b,
+    command-r-plus-104b, granite-moe-1b-a400m, llama4-maverick-400b-a17b,
+    rwkv6-7b or zamba2-7b.  An architecture of the reference that the port
+    does not build yet (llava-next-34b, whisper-small) raises, naming its
+    place in ``ROADMAP.md``."""
     from repro_torch.configs import UNPORTED_ARCHS
 
     if name not in _REGISTRY:

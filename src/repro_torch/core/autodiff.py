@@ -12,7 +12,9 @@ Two engines:
 * :func:`make_chain_apply` - a chain of ``Invertible`` layers (the flow
   networks);
 * :func:`make_scan_apply` - a homogeneous stack whose parameters are stacked
-  along a leading ``k`` axis (``GlowStepStack``); the scan is a Python loop.
+  along a leading ``k`` axis (``GlowStepStack``; the LM's superblocks, on a
+  pair state ``(x1, x2)`` with a shared differentiable ``extra`` and the
+  per-sample aux in the logdet slot); the scan is a Python loop.
 
 Each takes a ``grad_mode``:
 
@@ -25,10 +27,16 @@ Each takes a ``grad_mode``:
   differentiates in one pass (one conditioner evaluation per coupling in the
   backward, against two for invert-then-VJP).
 * ``"autodiff"`` - plain autograd through the same forward.
+* ``"remat"`` - (scan engine) gradient checkpointing on each step
+  (``torch.utils.checkpoint``, non-reentrant): one carry stored a step, the
+  step's internals recomputed in the backward.
 
 Every parameter enters the ``autograd.Function`` as an explicit input, so
-autograd hands each its gradient; integer buffers do not.  The forward saves
-the output leaves through ``ctx.save_for_backward`` and nothing else.
+autograd hands each its gradient; integer buffers do not.  So does each leaf
+of a state that is a tuple and of a ``cond`` that is a nested dict of
+tensors (the LM's shared weights): autograd routes gradients only to tensor
+inputs.  The forward saves the output leaves through
+``ctx.save_for_backward`` and nothing else.
 Gradients of a layer's parameters travel as ``{name: grad}`` dicts keyed by
 ``layer.named_parameters()`` names.
 
@@ -41,14 +49,15 @@ of three) or store its activations.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import torch
 
 from repro_torch.core.objectives import nll_loss
 from repro_torch.core.types import tree_index, tree_leaves, zero_logdet
 
-GRAD_MODES = ("invertible", "coupled", "autodiff")
+CHAIN_MODES = ("invertible", "coupled", "autodiff")
+GRAD_MODES = CHAIN_MODES + ("remat",)
 
 
 def _leaves(v) -> list:
@@ -67,7 +76,33 @@ def _detach(v):
 def _add(a, b):
     if a is None:
         return b
-    return a if b is None else a + b
+    if b is None:
+        return a
+    if isinstance(a, dict):
+        return {k: _add(a.get(k), b.get(k)) for k in {**a, **b}}
+    return a + b
+
+
+def _cond_leaves(cond) -> list:
+    """The tensors of a ``cond``: none, itself, or a nested dict's floating
+    leaves in order."""
+    if cond is None:
+        return []
+    return [v for _, v in tree_leaves(cond)] if isinstance(cond, Mapping) else [cond]
+
+
+def _cond_like(cond, leaves):
+    """``cond`` with its tensors replaced by ``leaves`` (``_cond_leaves``'s
+    order)."""
+    if not isinstance(cond, Mapping):
+        return leaves[0] if leaves else cond
+    it = iter(leaves)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, Mapping) else (next(it) if v.is_floating_point()
+                                                           else v) for k, v in tree.items()}
+
+    return walk(cond)
 
 
 def _cast(g, like):
@@ -77,23 +112,26 @@ def _cast(g, like):
 def local_vjp(fwd: Callable, x, params: dict, cond, gy, gld):
     """Differentiate one forward ``fwd(x, cond) -> (y, logdet)`` at ``x``
     against the cotangents ``(gy, gld)``.  ``params`` maps names to the leaf
-    tensors ``fwd`` reads.  Returns ``(gx, {name: grad}, gcond)``."""
+    tensors ``fwd`` reads.  Returns ``(gx, {name: grad}, gcond)``; for a
+    ``cond`` that is a nested dict, ``gcond`` is ``{dotted name: grad}``."""
     with torch.enable_grad():
         xs = [v.detach().requires_grad_(v.is_floating_point()) for v in _leaves(x)]
-        c = cond.detach().requires_grad_() if cond is not None and cond.is_floating_point() else None
-        y, ld = fwd(_like(x, xs), cond if c is None else c)
+        cs = [v.detach().requires_grad_() for v in _cond_leaves(cond) if v.is_floating_point()]
+        y, ld = fwd(_like(x, xs), _cond_like(cond, cs) if cs else cond)
         outs, gouts = [], []
         for o, g in zip([*_leaves(y), ld], [*_leaves(gy), gld]):
             if o.requires_grad:
                 outs.append(o)
                 gouts.append(g.to(o.dtype))
-        inputs = [*xs, *params.values(), *([c] if c is not None else [])]
+        inputs = [*xs, *params.values(), *cs]
         grads = (torch.autograd.grad(outs, inputs, gouts, allow_unused=True) if outs
                  else [None] * len(inputs))
     gx = [g if g is not None else torch.zeros_like(v) for g, v in zip(grads, xs)]
     gp = dict(zip(params, grads[len(xs): len(xs) + len(params)]))
-    gcond = grads[-1] if c is not None else None
-    return _like(x, gx), gp, gcond
+    gc = grads[len(xs) + len(params):]
+    if isinstance(cond, Mapping):
+        return _like(x, gx), gp, dict(zip((n for n, _ in tree_leaves(cond)), gc))
+    return _like(x, gx), gp, gc[0] if gc else None
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +197,8 @@ def make_chain_apply(layers: Sequence, grad_mode: str = "invertible") -> Callabl
     """``apply(x, cond=None) -> (y, logdet)`` over a chain of layers, its
     gradient taken by the engine ``grad_mode`` names.  Without grad (serving)
     every mode is the plain composition."""
-    if grad_mode not in GRAD_MODES:
-        raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {grad_mode}")
+    if grad_mode not in CHAIN_MODES:
+        raise ValueError(f"grad_mode must be one of {CHAIN_MODES}, got {grad_mode}")
 
     def plain(x, cond=None):
         logdet = zero_logdet(x)
@@ -194,10 +232,12 @@ def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
     """Reverse walk over a stack from its output side.
 
     ``step_bwd(i, y, gy, gld, cond) -> (x, gx, {name: grad}, gcond)`` takes
-    step ``i`` back.  Each step's gradients are written into row ``i`` of
-    stacked gradients allocated once (``stacked`` maps each parameter name
-    to its ``(k, ...)`` tensor), so no step carries a full-size gradient.
-    Returns ``(x, gx, {name: stacked grad}, gcond)``.
+    step ``i`` back; ``y`` is a tensor or a tuple of them, and ``gcond`` a
+    tensor, a ``{dotted name: grad}`` dict for a dict ``cond``, or None.
+    Each step's gradients are written into row ``i`` of stacked gradients
+    allocated once (``stacked`` maps each parameter name to its ``(k, ...)``
+    tensor), so no step carries a full-size gradient; ``gcond`` is summed
+    over the steps.  Returns ``(x, gx, {name: stacked grad}, gcond)``.
     """
     gld = gld.float()
     gstacked = {n: torch.zeros(p.shape, dtype=p.dtype, device=p.device)
@@ -211,7 +251,7 @@ def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
                 if g is not None:
                     gstacked[name][i] = g
             gcond = _add(gcond, gc)
-            y, gy = x.detach(), gx.to(x.dtype)
+            y, gy = _detach(x), _cast(gx, x)
     return y, gy, gstacked, gcond
 
 
@@ -230,21 +270,33 @@ def invertible_step_bwd(module, step_fwd: Callable, step_inv: Callable) -> Calla
 
 
 class _ScanFn(torch.autograd.Function):
-    """The ``invertible`` / ``coupled`` stack: saves only the output."""
+    """The ``invertible`` / ``coupled`` stack: saves only the output.  The
+    state's leaves, ``cond``'s tensors and the stacked parameters arrive as
+    separate inputs; ``spec`` carries the state's and ``cond``'s structure."""
 
     @staticmethod
-    def forward(ctx, plain, step_bwd, names, cond, x, *params):
+    def forward(ctx, plain, step_bwd, names, spec, *args):
+        n_x, n_c = spec["n_x"], spec["n_cond"]
+        x = _like(spec["x"], list(args[:n_x]))
+        cond = _cond_like(spec["cond"], list(args[n_x:n_x + n_c]))
         y, ld = plain(x, cond)
-        ctx.save_for_backward(y)
-        ctx.step_bwd, ctx.cond = step_bwd, cond
-        ctx.stacked = dict(zip(names, params))
-        return y, ld
+        ctx.save_for_backward(*_leaves(y))
+        ctx.step_bwd, ctx.cond, ctx.spec = step_bwd, cond, spec
+        ctx.stacked = dict(zip(names, args[n_x + n_c:]))
+        return (*_leaves(y), ld)
 
     @staticmethod
-    def backward(ctx, gy, gld):
-        (y,) = ctx.saved_tensors
-        _x, gx, gstacked, gcond = scan_backward(ctx.step_bwd, ctx.stacked, y, gy, gld, ctx.cond)
-        return (None, None, None, gcond, gx, *gstacked.values())
+    def backward(ctx, *grads):
+        y = _like(ctx.spec["x"], list(ctx.saved_tensors))
+        gy = _like(y, list(grads[:-1]))
+        _x, gx, gstacked, gcond = scan_backward(ctx.step_bwd, ctx.stacked, y, gy, grads[-1],
+                                                ctx.cond)
+        cond = ctx.spec["cond"]
+        if isinstance(cond, Mapping):
+            gcond = [(gcond or {}).get(n) for n, _ in tree_leaves(cond)]
+        else:
+            gcond = [gcond] if cond is not None else []
+        return (None, None, None, None, *_leaves(gx), *gcond, *gstacked.values())
 
 
 def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
@@ -252,29 +304,52 @@ def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
     """``apply(x, cond=None) -> (y, logdet)`` over ``module``'s ``k`` stacked
     steps.  ``step_fwd(p, x, cond) -> (y, logdet_i)`` and ``step_inv(p, y,
     cond)`` take one step's parameters ``p`` (a nested dict of slices, as
-    ``tree_index`` gives).  ``grad_mode="coupled"`` needs ``step_bwd(i, y,
-    gy, gld, cond)``, the fused reversible step."""
+    ``tree_index`` gives).  ``x`` is a tensor or a tuple of them (the LM's
+    pair state, of one structure at every step); ``cond`` is None, a tensor,
+    or a nested dict of tensors shared by every step (the LM's shared
+    weights), whose gradient is summed over the steps.  ``grad_mode=
+    "coupled"`` needs ``step_bwd(i, y, gy, gld, cond)``, the fused
+    reversible step; ``"remat"`` checkpoints each step."""
     if grad_mode not in GRAD_MODES:
         raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {grad_mode}")
     if grad_mode == "coupled" and step_bwd is None:
         raise ValueError("grad_mode='coupled' requires step_bwd")
 
-    def plain(x, cond=None):
+    def run(step, x, cond):
         ld = zero_logdet(x)
         for i in range(next(module.parameters()).shape[0]):
-            x, ld_i = step_fwd(tree_index(module, i), x, cond)
+            x, ld_i = step(i, x, cond)
             ld = ld + ld_i.to(ld.dtype)
         return x, ld
 
+    def plain(x, cond=None):
+        return run(lambda i, x_, c_: step_fwd(tree_index(module, i), x_, c_), x, cond)
+
     if grad_mode == "autodiff":
         return plain
+    if grad_mode == "remat":
+        from torch.utils.checkpoint import checkpoint
+
+        def rematted(x, cond=None):
+            if not torch.is_grad_enabled():
+                return plain(x, cond)
+            return run(lambda i, x_, c_: checkpoint(
+                lambda x__, c__: step_fwd(tree_index(module, i), x__, c__), x_, c_,
+                use_reentrant=False), x, cond)
+
+        return rematted
     bwd = step_bwd if grad_mode == "coupled" else invertible_step_bwd(module, step_fwd, step_inv)
 
     def apply(x, cond=None):
         if not torch.is_grad_enabled():
             return plain(x, cond)
         names, params = zip(*module.named_parameters())
-        return _ScanFn.apply(plain, bwd, names, cond, x, *params)
+        xs, cs = _leaves(x), _cond_leaves(cond)
+        # the state's structure only: holding its tensors would keep them alive
+        spec = {"x": (None,) * len(xs) if isinstance(x, tuple) else None, "n_x": len(xs),
+                "cond": cond, "n_cond": len(cs)}
+        *y, ld = _ScanFn.apply(plain, bwd, names, spec, *xs, *cs, *params)
+        return _like(x, y), ld
 
     return apply
 

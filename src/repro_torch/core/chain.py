@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from repro_torch.core.autodiff import GRAD_MODES, chain_backward, make_chain_apply
+from repro_torch.core.autodiff import CHAIN_MODES, chain_backward, make_chain_apply
 from repro_torch.core.types import Invertible, zero_logdet
 
 
@@ -29,8 +29,8 @@ class InvertibleChain(Invertible):
                  engine: str | None = None):
         super().__init__()
         for mode in (grad_mode, engine or grad_mode):
-            if mode not in GRAD_MODES:
-                raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {mode}")
+            if mode not in CHAIN_MODES:
+                raise ValueError(f"grad_mode must be one of {CHAIN_MODES}, got {mode}")
         self.layers = nn.ModuleList(layers)
         self.grad_mode = grad_mode
         self.engine = engine or grad_mode

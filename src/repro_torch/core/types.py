@@ -118,6 +118,15 @@ def tree_index(tree, i: int, detach: bool = False) -> dict:
     return out
 
 
+def tree_dict(tree) -> dict:
+    """A module tree's parameters and buffers as a nested dict of the same
+    tensors (``tree_index`` without the slice)."""
+    out = {name: tree_dict(child) for name, child in tree.named_children()}
+    out.update(tree.named_parameters(recurse=False))
+    out.update(tree.named_buffers(recurse=False))
+    return out
+
+
 def tree_leaves(tree: Mapping, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
     """``(dotted name, tensor)`` of every floating leaf of a nested dict, in
     order; the names are those of ``named_parameters()`` on the module the

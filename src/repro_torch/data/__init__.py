@@ -2,17 +2,14 @@
 ``repro/data/__init__.py``.
 
 Every factory returns an object whose ``batch_at(step)`` is a pure function
-of ``(seed, step)``: the restart guarantee of the supervised loop.  The
+of ``(seed, step)``: the restart guarantee of the supervised loop.
+``"tokens"`` is the LM token stream (``SyntheticTokens``), ``"images"`` GLOW's
+training images.  The
 operator problems of ``repro_torch.uq.operators`` register here lazily, so
 importing ``repro_torch.data`` does not load the UQ layer.
 """
 
-from repro_torch.data.synthetic import SyntheticImages, SyntheticInverseProblem
-
-
-def _tokens(*args, **kw):
-    raise NotImplementedError("SyntheticTokens, the LM token stream, is not ported yet "
-                              "(ROADMAP.md queue 1, item 6.3)")
+from repro_torch.data.synthetic import SyntheticImages, SyntheticInverseProblem, SyntheticTokens
 
 
 def _operator_problem(op_name: str):
@@ -26,7 +23,7 @@ def _operator_problem(op_name: str):
 
 
 DATASETS = {
-    "tokens": _tokens,
+    "tokens": SyntheticTokens,
     "images": SyntheticImages,
     "linear_gaussian_legacy": SyntheticInverseProblem,
     # synthetic Bayesian inverse problems (repro_torch.uq.operators): each
@@ -45,4 +42,5 @@ def make_dataset(name: str, **kw):
     return factory(**kw)
 
 
-__all__ = ["DATASETS", "SyntheticImages", "SyntheticInverseProblem", "make_dataset"]
+__all__ = ["DATASETS", "SyntheticImages", "SyntheticInverseProblem", "SyntheticTokens",
+           "make_dataset"]

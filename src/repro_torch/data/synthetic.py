@@ -14,6 +14,34 @@ import torch
 import torch.nn.functional as F
 
 
+class SyntheticTokens:
+    """Token stream with learnable structure (a noisy affine next-token
+    rule), so training visibly brings the loss below log(V).  Each row starts
+    at a random token and steps by ``7 + start % 5`` mod V; each token is
+    replaced by a random one with probability ``noise``.  ``batch_at(step)``
+    is ``{"tokens", "labels"}`` (B, S) int32 on the CPU, labels the tokens
+    shifted by one, from the generator of ``(seed, step, shard)``."""
+
+    def __init__(self, vocab: int, seq_len: int, batch: int, seed: int = 0,
+                 noise: float = 0.05):
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.batch = batch
+        self.seed = seed
+        self.noise = noise
+
+    def batch_at(self, step: int, shard: int = 0, n_shards: int = 1) -> dict:
+        b = self.batch // n_shards
+        g = torch.Generator().manual_seed(self.seed * 1_000_003 + step * 131 + shard)
+        start = torch.randint(0, self.vocab, (b, 1), generator=g)
+        steps = torch.arange(self.seq_len + 1)
+        seq = (start + 7 * steps[None, :] + (start % 5) * steps[None, :]) % self.vocab
+        flip = torch.rand(seq.shape, generator=g) < self.noise
+        rand = torch.randint(0, self.vocab, seq.shape, generator=g)
+        seq = torch.where(flip, rand, seq).to(torch.int32)
+        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
 class SyntheticImages:
     """Smooth low-frequency images in [0, 1), dequantized: GLOW training
     data, (batch, size, size, channels) float32 on the CPU."""

@@ -8,9 +8,11 @@ trained ``repro_torch.uq`` scenario's posterior service.
         --ckpt checkpoints/uq [--samples 20000] [--no-calibration]
 
 ``--arch`` generates through ``ServeEngine`` (prefill, then cached decode
-steps) for the ported architectures (yi-6b, rwkv6-7b, zamba2-7b) with
-weights from seed 0 or from ``--ckpt``; another architecture raises, naming
-its place in ``ROADMAP.md``.  ``--scenario`` restores the scenario's
+steps) for the ported architectures (yi-6b, glm4-9b, granite-34b,
+command-r-plus-104b, granite-moe-1b-a400m, llama4-maverick-400b-a17b,
+rwkv6-7b, zamba2-7b) with weights from seed 0 or from ``--ckpt`` (written by
+``repro_torch.launch.train --arch``); llava-next-34b and whisper-small raise,
+naming their place in ``ROADMAP.md``.  ``--scenario`` restores the scenario's
 checkpoint: a conditional scenario streams posterior statistics for a
 held-out observation through ``PosteriorEngine`` and prints the SBC/coverage
 calibration report (``posterior_report``); a prior scenario streams sample
@@ -86,7 +88,9 @@ def _serve_arch(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     group = ap.add_mutually_exclusive_group(required=True)
-    group.add_argument("--arch", help="LM architecture id (yi-6b, rwkv6-7b, zamba2-7b)")
+    group.add_argument("--arch", help="LM architecture id (yi-6b, glm4-9b, granite-34b, "
+                                      "command-r-plus-104b, granite-moe-1b-a400m, "
+                                      "llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b)")
     group.add_argument("--scenario", help="repro_torch.uq scenario to serve (posterior "
                                           "statistics + calibration from --ckpt)")
     ap.add_argument("--samples", type=int, default=0,

@@ -1,14 +1,23 @@
 """Training launcher of the port.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \
+        --reduced --steps 50 --seq 128 --batch 8 [--grad-mode coupled] [--device cuda]
+
     PYTHONPATH=src python -m repro_torch.launch.train --scenario lg-smoke \
         --ckpt checkpoints/uq [--steps 50] [--device cuda]
 
-``--scenario`` trains a named ``repro_torch.uq`` scenario (an amortized
-posterior or an image-prior flow) through the supervised loop, with
-checkpoints in ``--ckpt``; serve the result with ``repro_torch.launch.serve
---scenario``.  It runs on one device, ``cuda`` unless ``--device`` names
-another.  LM training (``--arch``) and a device mesh (``--mesh``) are not
-ported yet and raise, naming their place in ``ROADMAP.md``.
+``--arch`` trains a language model (a ported architecture: yi-6b, glm4-9b,
+granite-34b, command-r-plus-104b, granite-moe-1b-a400m,
+llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b; ``--reduced`` for its
+smoke-scale config) on ``SyntheticTokens`` through ``train_lm``, weights
+from seed 0, with checkpoints in ``--ckpt``; rwkv6-7b and zamba2-7b train on
+the CPU only (their scan kernels have no backward on the card yet,
+``ROADMAP.md`` queue 1, item 6.3).  ``--scenario`` trains a named
+``repro_torch.uq`` scenario (an amortized posterior or an image-prior flow)
+through the supervised loop; serve the result with
+``repro_torch.launch.serve --scenario``.  It runs on one device, ``cuda``
+unless ``--device`` names another; a device mesh (``--mesh``) is not ported
+yet and raises, naming its place in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -16,14 +25,58 @@ from __future__ import annotations
 import argparse
 
 
+def _train_arch(args):
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.core.types import resolve_device
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import default_grad_mode
+    from repro_torch.train.loop import check_lm_trainable, train_lm
+
+    spec = get_arch(args.arch)  # raises for an architecture not ported yet
+    cfg = spec.reduced if args.reduced else spec.config
+    check_lm_trainable(cfg, resolve_device(args.device))  # before the weights are allocated
+    model, cfg = build_model(cfg, device=args.device)
+    print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M reversible={cfg.reversible} "
+          f"grad_mode={args.grad_mode or default_grad_mode(cfg)} device={args.device}", flush=True)
+    steps = args.steps or 100
+    data = SyntheticTokens(cfg.vocab_size, args.seq, args.batch, seed=0)
+    tcfg = TrainConfig(steps=steps, lr=args.lr, warmup_steps=max(steps // 20, 2),
+                       checkpoint_every=max(steps // 4, 10), checkpoint_dir=args.ckpt,
+                       step_timeout_s=args.step_timeout, accum_steps=args.accum,
+                       prefetch=args.prefetch)
+    res = train_lm(model, data, tcfg, grad_mode=args.grad_mode, device=args.device)
+    if res.losses:
+        print(f"done at step {res.final_step}: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; "
+              f"restarts={res.restarts}; straggler flags={len(res.flagged_steps)}; "
+              f"checkpoints in {args.ckpt}")
+    else:  # resumed a checkpoint already at the final step
+        print(f"nothing to do: checkpoint in {args.ckpt} already at step {res.final_step}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     group = ap.add_mutually_exclusive_group(required=True)
-    group.add_argument("--arch", help="LM architecture id (not ported: raises)")
+    group.add_argument("--arch", help="LM architecture id (LM training through train_lm)")
     group.add_argument("--scenario", help="repro_torch.uq scenario name (amortized posterior / "
                                           "image-prior flow training)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-scale config of the architecture's family")
     ap.add_argument("--steps", type=int, default=0,
-                    help="override the step count (0 = the scenario's recipe)")
+                    help="override the step count (0 = arch default 100 / the scenario's recipe)")
+    ap.add_argument("--seq", type=int, default=128, help="--arch: tokens per sequence")
+    ap.add_argument("--batch", type=int, default=8, help="--arch: sequences per step")
+    ap.add_argument("--lr", type=float, default=1e-3, help="--arch: peak learning rate")
+    ap.add_argument("--grad-mode", default=None,
+                    choices=[None, "invertible", "coupled", "remat", "autodiff"],
+                    help="--arch: the stack's gradient engine (default: invertible for a "
+                         "reversible stack)")
+    ap.add_argument("--accum", type=int, default=1,
+                    help="--arch: gradient-accumulation microbatches per step (1 = off)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="--arch: batches built ahead of the running step (0 = none)")
+    ap.add_argument("--step-timeout", type=float, default=0.0,
+                    help="--arch: the straggler watchdog's deadline in seconds (0 = off)")
     ap.add_argument("--ckpt", default="checkpoints/train")
     ap.add_argument("--mesh", default="", help="a device mesh (not ported: raises unless empty)")
     ap.add_argument("--device", default="cuda")
@@ -33,8 +86,8 @@ def main(argv=None):
         raise NotImplementedError("--mesh: a device mesh is not ported yet "
                                   "(ROADMAP.md queue 1, item 7); leave it empty")
     if args.arch:
-        raise NotImplementedError("--arch: LM training (train_lm) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6.3); train a --scenario")
+        _train_arch(args)
+        return
 
     from repro_torch.uq.scenarios import get_scenario, train_scenario
 

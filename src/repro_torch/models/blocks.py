@@ -1,9 +1,12 @@
 """Superblocks, the port of the reference's ``models/blocks.py`` for the
-dense, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
+dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
 
 A superblock is the smallest repeating parameter pattern of a model:
 
 * dense archs — 1 block (attention + FFN);
+* granite-moe (MoE interleave 1) — 1 block (attention + MoE);
+* llama4-maverick (interleave 2) — 2 blocks (attention + FFN, attention +
+  MoE) over ``n_layers // 2`` superblocks;
 * rwkv6 — 1 block (time-mix + channel-mix);
 * zamba2 (hybrid) — k Mamba2 blocks + one application of the *shared*
   attention and FFN (their weights live in ``Ctx.extra``; only each
@@ -15,16 +18,21 @@ coupling):
 
     x1 += u_0(x2);  x2 += u_1(x1);  x1 += u_2(x2);  ...
 
-In standard mode they apply in turn to one stream.  Units return their
-residual delta and write their caches in place (attention caches through
+which is exactly invertible (``inv_pair``), and ``bwd_pair_fused`` rebuilds
+each unit's input and differentiates it in one evaluation: the LM stack's
+steps in ``core/autodiff.py::make_scan_apply``.  In standard mode the units
+apply in turn to one stream.
+
+A unit returns ``(delta, aux)``: its residual delta and its per-sample (B,)
+aux (the MoE load-balance loss; None for the others), which the superblock
+sums over its units into the scan engine's logdet slot.  With caches
+(prefill and decode) a unit writes them in place (attention caches through
 ``nn/attention.py``; the SSM units ``copy_`` the mixers' new state into the
 cache views, in the reference's dtypes: shifts and conv states in the
-activation dtype, wkv and ssd states in f32); they run with caches
-(prefill and decode), the only stack runner serving needs.  What waits for
-later slices (``ROADMAP.md`` queue 1, item 6): the cacheless runner and the
-inverse and fused backward of the coupling that LM training needs, the MoE
-units with the per-sample aux channel they feed, cross attention, and the
-encoder layout.
+activation dtype, wkv and ssd states in f32) and serving ignores the aux;
+without (training, ``cache=None``) it is a pure function of its inputs.
+What waits for later slices (``ROADMAP.md`` queue 1, items 6.4 and 6.5):
+cross attention and the encoder layout.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.types import tree_leaves
 from repro_torch.nn.attention import attn_apply, attn_init, make_cache
 from repro_torch.nn.mlp import ffn_apply, ffn_init
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import rmsnorm
 from repro_torch.nn.ssm import (
     RWKV_CHAN_KEYS,
@@ -63,8 +73,9 @@ class Unit(NamedTuple):
     name: str
     # generator -> params, drawn on the generator's device
     init: Callable[[torch.Generator], dict]
-    # (params, x, cache, ctx) -> delta; the cache is written in place
-    apply: Callable[[dict, torch.Tensor, dict, Ctx], torch.Tensor]
+    # (params, x, cache or None, ctx) -> (delta, aux (B,) or None); a cache
+    # is written in place
+    apply: Callable[[dict, torch.Tensor, Optional[dict], Ctx], tuple]
     # (batch, max_len, device) -> cache ({} if stateless)
     make_cache: Callable[[int, int, object], dict]
 
@@ -89,7 +100,7 @@ def attention_unit(cfg: ModelConfig, name: str = "attn", *, shared: bool = False
         weights = ctx.extra["shared_attn"] if shared else p["attn"]
         out, _ = attn_apply(weights, h, acfg, ctx.positions, cache=cache, cache_pos=ctx.pos0,
                             seq_shard=cfg.attn_seq_shard)
-        return out
+        return out, None
 
     def mk_cache(batch, max_len, device):
         return make_cache(acfg, batch, max_len, dtype, device)
@@ -110,7 +121,22 @@ def ffn_unit(cfg: ModelConfig, name: str = "ffn", *, shared: bool = False) -> Un
 
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
-        return ffn_apply(ctx.extra["shared_ffn"] if shared else p["ffn"], h, kind)
+        return ffn_apply(ctx.extra["shared_ffn"] if shared else p["ffn"], h, kind), None
+
+    return Unit(name, init, apply, lambda batch, max_len, device: {})
+
+
+def moe_unit(cfg: ModelConfig, name: str = "moe") -> Unit:
+    """The routed experts with their norm; the only unit with an aux."""
+    d, mcfg, kind, dtype = cfg.d_model, cfg.moe, cfg.ffn_kind, _dtype(cfg.dtype)
+
+    def init(generator):
+        return {"norm": torch.ones(d, device=generator.device),
+                "moe": moe_init(generator, d, mcfg, kind)}
+
+    def apply(p, x, cache, ctx: Ctx):
+        h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
+        return moe_apply(p["moe"], h, mcfg, kind)
 
     return Unit(name, init, apply, lambda batch, max_len, device: {})
 
@@ -134,8 +160,9 @@ def mamba_unit(cfg: ModelConfig, name: str = "mamba") -> Unit:
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
         y, new_state = mamba2_apply(p["mamba"], h, scfg, cache)
-        _copy_state(cache, new_state)
-        return y
+        if cache is not None:
+            _copy_state(cache, new_state)
+        return y, None
 
     def mk_cache(batch, max_len, device):
         return mamba2_state(scfg, d, batch, dtype, device)
@@ -152,9 +179,11 @@ def rwkv_time_unit(cfg: ModelConfig) -> Unit:
 
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
-        y, new_state = rwkv6_time_mix(p["rwkv"], h, scfg, cache["time"])
-        _copy_state(cache["time"], new_state)
-        return y
+        state = None if cache is None else cache["time"]
+        y, new_state = rwkv6_time_mix(p["rwkv"], h, scfg, state)
+        if cache is not None:
+            _copy_state(state, new_state)
+        return y, None
 
     def mk_cache(batch, max_len, device):
         return {"time": rwkv6_state(scfg, d, batch, dtype, device)["time"]}
@@ -171,9 +200,11 @@ def rwkv_channel_unit(cfg: ModelConfig) -> Unit:
 
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
-        y, new_state = rwkv6_channel_mix(p["rwkv"], h, cache["chan"])
-        _copy_state(cache["chan"], new_state)
-        return y
+        state = None if cache is None else cache["chan"]
+        y, new_state = rwkv6_channel_mix(p["rwkv"], h, state)
+        if cache is not None:
+            _copy_state(state, new_state)
+        return y, None
 
     def mk_cache(batch, max_len, device):
         return {"chan": rwkv6_state(scfg, d, batch, dtype, device)["chan"]}
@@ -191,6 +222,17 @@ def _tree_copy_into(dst, src, i):
             _tree_copy_into(dst[k], v, i)
         else:
             dst[k][i] = v
+
+
+def _with_leaves(tree: dict, leaves: dict, prefix: str = "") -> dict:
+    """``tree``'s nested dicts with each floating leaf replaced by
+    ``leaves[dotted name]``."""
+    return {k: _with_leaves(v, leaves, f"{prefix}{k}.") if isinstance(v, dict)
+            else leaves.get(prefix + k, v) for k, v in tree.items()}
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
 
 
 @dataclass(frozen=True)
@@ -219,22 +261,95 @@ class SuperBlock:
 
     def fwd_pair(self, p, state, cache, ctx: Ctx):
         """Reversible coupling over ``(x1, x2)``: even units read x2 and add
-        into x1, odd units read x1 and add into x2."""
+        into x1, odd units read x1 and add into x2.  ``cache`` None runs
+        without caches.  Returns ``((x1, x2), aux)``, aux (B,) f32 summed
+        over the units."""
         x1, x2 = state
+        aux = _zero_aux(x1)
         for j, u in enumerate(self.units):
             src = x2 if j % 2 == 0 else x1
-            delta = u.apply(p[u.name], src, cache.get(u.name, {}), ctx)
+            delta, a = u.apply(p[u.name], src, None if cache is None else cache.get(u.name, {}),
+                               ctx)
+            if a is not None:
+                aux = aux + a
             if j % 2 == 0:
                 x1 = x1 + delta.to(x1.dtype)
             else:
                 x2 = x2 + delta.to(x2.dtype)
+        return (x1, x2), aux
+
+    def inv_pair(self, p, state, ctx: Ctx):
+        """``fwd_pair``'s inverse without caches: the units in reverse, each
+        delta subtracted from the stream it was added to."""
+        x1, x2 = state
+        for j in range(len(self.units) - 1, -1, -1):
+            u = self.units[j]
+            delta, _ = u.apply(p[u.name], x2 if j % 2 == 0 else x1, None, ctx)
+            if j % 2 == 0:
+                x1 = x1 - delta.to(x1.dtype)
+            else:
+                x2 = x2 - delta.to(x2.dtype)
         return x1, x2
 
+    def bwd_pair_fused(self, p, state, gstate, gld, ctx: Ctx):
+        """The fused reversible backward of one superblock from its output
+        ``state`` and cotangent ``gstate``: one ``torch.autograd.grad`` per
+        unit, in reverse, both rebuilds the unit's input stream (by
+        subtracting its delta) and gives the gradients of its parameters,
+        of its source stream and of the shared ``ctx.extra``.  ``gld`` is
+        the cotangent of the aux; a unit without aux gets none.  ``p`` holds
+        this superblock's parameters as leaves that require grad.
+
+        Returns ``((x1, x2), (g1, g2), {name: grad}, {extra name: grad} or
+        None)``, names dotted as ``named_parameters()``'s."""
+        x1, x2 = state
+        g1, g2 = gstate
+        gparams: dict = {}
+        gextra = None
+        extra_leaves = {n: v.detach().requires_grad_()
+                        for n, v in tree_leaves(ctx.extra or {})}
+        ectx = ctx._replace(extra=_with_leaves(ctx.extra, extra_leaves)) if extra_leaves else ctx
+        for j in range(len(self.units) - 1, -1, -1):
+            u = self.units[j]
+            leaves = tree_leaves(p[u.name], f"{u.name}.")
+            with torch.enable_grad():
+                src = (x2 if j % 2 == 0 else x1).detach().requires_grad_()
+                delta, aux = u.apply(p[u.name], src, None, ectx)
+                g_out = (g1 if j % 2 == 0 else g2).to(delta.dtype)
+                outs, gouts = [delta], [g_out]
+                if aux is not None and aux.requires_grad:
+                    outs.append(aux)
+                    gouts.append(gld.to(aux.dtype))
+                inputs = [src, *(v for _, v in leaves), *extra_leaves.values()]
+                grads = torch.autograd.grad(outs, inputs, gouts, allow_unused=True)
+            gsrc = grads[0]
+            delta = delta.detach()
+            if j % 2 == 0:  # read x2, wrote x1
+                x1 = x1 - delta.to(x1.dtype)
+                if gsrc is not None:
+                    g2 = g2 + gsrc.to(g2.dtype)
+            else:  # read x1, wrote x2
+                x2 = x2 - delta.to(x2.dtype)
+                if gsrc is not None:
+                    g1 = g1 + gsrc.to(g1.dtype)
+            for (name, v), g in zip(leaves, grads[1: 1 + len(leaves)]):
+                gparams[name] = g if g is not None else torch.zeros_like(v)
+            for (name, v), g in zip(extra_leaves.items(), grads[1 + len(leaves):]):
+                if g is not None:
+                    gextra = gextra or {}
+                    gextra[name] = gextra[name] + g if name in gextra else g
+        return (x1, x2), (g1, g2), gparams, gextra
+
     def fwd_std(self, p, x, cache, ctx: Ctx):
-        """Standard single-stream residual stack."""
+        """Standard single-stream residual stack; returns ``(x, aux)``."""
+        aux = _zero_aux(x)
         for u in self.units:
-            x = x + u.apply(p[u.name], x, cache.get(u.name, {}), ctx).to(x.dtype)
-        return x
+            delta, a = u.apply(p[u.name], x, None if cache is None else cache.get(u.name, {}),
+                               ctx)
+            if a is not None:
+                aux = aux + a
+            x = x + delta.to(x.dtype)
+        return x, aux
 
 
 @dataclass(frozen=True)
@@ -248,6 +363,16 @@ def decoder_layout(cfg: ModelConfig) -> StackLayout:
     """Superblock layout of the decoder stack."""
     if cfg.family in ("dense", "vlm"):
         return StackLayout(SuperBlock((attention_unit(cfg), ffn_unit(cfg)), cfg.n_layers))
+    if cfg.family == "moe":
+        if cfg.moe.interleave == 1:
+            return StackLayout(SuperBlock((attention_unit(cfg), moe_unit(cfg)), cfg.n_layers))
+        if cfg.moe.interleave != 2 or cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: MoE interleave {cfg.moe.interleave} over "
+                             f"{cfg.n_layers} layers has no layout (1, or 2 over an even depth)")
+        # the MoE unit is the fourth: it reads x1 and writes x2
+        units = (attention_unit(cfg, "attn0"), ffn_unit(cfg, "ffn0"),
+                 attention_unit(cfg, "attn1"), moe_unit(cfg, "moe1"))
+        return StackLayout(SuperBlock(units, cfg.n_layers // 2))
     if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
         return StackLayout(SuperBlock((rwkv_time_unit(cfg), rwkv_channel_unit(cfg)),
                                       cfg.n_layers))
@@ -265,4 +390,4 @@ def decoder_layout(cfg: ModelConfig) -> StackLayout:
             tail = SuperBlock(tuple(mamba_unit(cfg, f"mamba{i}") for i in range(n_tail)), 1)
         return StackLayout(SuperBlock(units, n_main), tail, has_shared_attn=True)
     raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-                              "(ROADMAP.md queue 1, item 6)")
+                              "(ROADMAP.md queue 1, items 6.4 and 6.5)")

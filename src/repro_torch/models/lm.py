@@ -1,28 +1,36 @@
-"""The language model served from its caches, the port of the reference's
-``models/lm.py::Model`` for the text-only decoder: the dense, ``ssm``
-(rwkv6) and ``hybrid`` (zamba2) families.
+"""The language model, the port of the reference's ``models/lm.py::Model``
+for the text-only decoder: the dense, ``moe``, ``ssm`` (rwkv6) and
+``hybrid`` (zamba2) families, trained and served.
 
 ``Model`` is a module whose parameters follow the reference's tree, so
 ``state_dict()`` keys read like its paths (``blocks.attn.attn.wq``,
-``blocks.time_mix.rwkv.mu``, ``tail_blocks.mamba0.mamba.wx``,
-``shared_attn.wq``) and ``bridge.params_from_numpy`` carries a reference
-tree across.  The stacked blocks keep their leading ``n_super`` axis; a
-hybrid model's tail blocks are one unstacked superblock, and its shared
-attention and FFN weights reach the units through ``Ctx.extra``.  The
-reference scans each stack with ``lax.scan``; here a Python loop walks it,
-indexing the parameters and the cache trees (nested: an RWKV unit's cache
-is ``{"time": {"shift", "wkv"}}``) by superblock.  Caches are written in
-place.
+``blocks.moe.moe.experts.w_gate``, ``blocks.time_mix.rwkv.mu``,
+``tail_blocks.mamba0.mamba.wx``, ``shared_attn.wq``) and
+``bridge.params_from_numpy`` carries a reference tree across.  The stacked
+blocks keep their leading ``n_super`` axis; a hybrid model's tail blocks are
+one unstacked superblock, and its shared attention and FFN weights reach the
+units through ``Ctx.extra``.  A tied model's head is ``embed.T``.  The
+reference scans each stack with ``lax.scan``; here a Python loop walks it.
 
-Entry points, run under ``torch.inference_mode``:
+Entry points:
 
-* ``prefill(batch, caches)`` — the prompt; returns last-position logits
-  (f32) and the filled caches;
-* ``decode_step(tokens, caches, pos0)`` — one token per sequence.
+* ``train_loss(batch, grad_mode=None)`` - ``(loss, {"xent", "aux"})`` of a
+  ``{"tokens", "labels"}`` batch; the main stack runs through
+  ``core/autodiff.py::make_scan_apply`` (``grad_mode`` ``"invertible"`` by
+  default when ``cfg.reversible``, the paper's recompute-by-inversion;
+  ``"coupled"``, the fused reversible backward; ``"remat"``, per-superblock
+  checkpointing and the default of a standard stack; ``"autodiff"``), a
+  hybrid model's tail by plain autograd, and the loss through the chunked
+  cross-entropy (``models/losses.py``); the MoE aux enters as
+  ``aux_loss_weight * sum(aux)``;
+* ``prefill(batch, caches)`` - the prompt; returns last-position logits
+  (f32) and the filled caches, under ``torch.inference_mode``;
+* ``decode_step(tokens, caches, pos0)`` - one token per sequence, the same.
+  Caches are nested (an RWKV unit's is ``{"time": {"shift", "wkv"}}``),
+  indexed by superblock and written in place.
 
-``train_loss``, the cacheless stack runner, tied or vision/audio inputs
-beyond the text embedding, and the other families wait for their slices
-(``ROADMAP.md`` queue 1, item 6).
+The vision and audio inputs wait for their slices (``ROADMAP.md`` queue 1,
+items 6.4 and 6.5).
 """
 
 from __future__ import annotations
@@ -31,11 +39,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.types import ParamTree, resolve_device, tree_index
+from repro_torch.core.autodiff import make_scan_apply
+from repro_torch.core.types import ParamTree, resolve_device, tree_dict, tree_index
 from repro_torch.models.blocks import Ctx, SuperBlock, decoder_layout, tree_map
+from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.nn.attention import attn_init
 from repro_torch.nn.mlp import ffn_init
 from repro_torch.nn.norm import rmsnorm
+
+
+def default_grad_mode(cfg: ModelConfig) -> str:
+    """The stack's gradient engine when ``train_loss`` names none:
+    ``invertible`` for a reversible stack, else ``remat``."""
+    return "invertible" if cfg.reversible else "remat"
 
 
 class Model(ParamTree):
@@ -93,7 +109,7 @@ class Model(ParamTree):
             state = h.to(getattr(torch, cfg.dtype))
         step = sb.fwd_pair if cfg.reversible else sb.fwd_std
         for i in range(sb.n_super):
-            state = step(params_at(i), state, tree_map(lambda v: v[i], caches), ctx)
+            state, _aux = step(params_at(i), state, tree_map(lambda v: v[i], caches), ctx)
         if cfg.reversible:
             x1, x2 = state
             return ((x1 + x2) * 0.5).to(getattr(torch, cfg.dtype))
@@ -104,17 +120,17 @@ class Model(ParamTree):
 
     def _extra(self):
         """The shared inputs of the units: a hybrid model's shared attention
-        and FFN weights, as the ``ParamTree`` modules that hold them (indexed
-        by key like the dicts of the main stack)."""
+        and FFN weights, as nested dicts of the parameters themselves."""
         if not self.layout.has_shared_attn:
             return None
-        return {"shared_attn": self.shared_attn, "shared_ffn": self.shared_ffn}
+        return {"shared_attn": tree_dict(self.shared_attn),
+                "shared_ffn": tree_dict(self.shared_ffn)}
 
     def _assemble(self, batch):
         """The text-only input: the embedded tokens and the shared inputs."""
         if self.cfg.frontend is not None or self.cfg.is_enc_dec:
             raise NotImplementedError("vision and audio front ends are not ported yet "
-                                      "(ROADMAP.md queue 1, item 6)")
+                                      "(ROADMAP.md queue 1, items 6.4 and 6.5)")
         return self._embed(batch["tokens"]), self._extra()
 
     def _head(self):
@@ -129,6 +145,83 @@ class Model(ParamTree):
                                   pos0, extra)
         return rmsnorm(h, self.final_norm, self.cfg.norm_eps), caches
 
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _grad_mode(self, override: str | None) -> str:
+        return override if override is not None else default_grad_mode(self.cfg)
+
+    def _stack_nocache(self, h, extra, grad_mode: str):
+        """Run the main stack of superblocks without caches through the scan
+        engine.  Reversible: the pair state ``(h, h)`` in the residual dtype,
+        each step ``fwd_pair``, inverted by ``inv_pair`` and fused by
+        ``bwd_pair_fused``; standard: ``fwd_std`` under ``"autodiff"`` or (any
+        other mode) ``"remat"``.  ``extra``, the
+        shared weights, enters as the engine's shared ``cond``.  Returns
+        ``(h, aux (B,))``, h in the activation dtype."""
+        cfg, sb, stacked = self.cfg, self.layout.main, self.blocks
+        positions = torch.arange(h.shape[1], device=h.device)
+        dtype = getattr(torch, cfg.dtype)
+
+        def ctx(ex):
+            return Ctx(positions, 0, ex)
+
+        if cfg.reversible:
+            def step_fwd(p, state, ex):
+                return sb.fwd_pair(p, state, None, ctx(ex))
+
+            def step_inv(p, state, ex):
+                return sb.inv_pair(p, state, ctx(ex))
+
+            def step_bwd(i, y, gy, gld, ex):
+                return sb.bwd_pair_fused(tree_index(stacked, i, detach=True), y, gy, gld, ctx(ex))
+
+            apply = make_scan_apply(stacked, step_fwd, step_inv, grad_mode, step_bwd=step_bwd)
+            rdt = getattr(torch, cfg.residual_dtype)
+            (x1, x2), aux = apply((h.to(rdt), h.to(rdt)), extra)
+            return ((x1 + x2) * 0.5).to(dtype), aux
+
+        def step_std(p, x, ex):
+            return sb.fwd_std(p, x, None, ctx(ex))
+
+        mode = grad_mode if grad_mode in ("autodiff", "remat") else "remat"
+        return make_scan_apply(stacked, step_std, None, mode)(h.to(dtype), extra)
+
+    def _run_decoder_nocache(self, h, extra, grad_mode: str):
+        """The decoder without caches: the main stack through the scan
+        engine, then a hybrid model's tail blocks by plain autograd (a
+        constant count, as in the reference)."""
+        h, aux = self._stack_nocache(h, extra, grad_mode)
+        if self.layout.tail is not None:
+            cfg = self.cfg
+            ctx = Ctx(torch.arange(h.shape[1], device=h.device), 0, extra)
+            p = tree_dict(self.tail_blocks)
+            if cfg.reversible:
+                rdt = getattr(torch, cfg.residual_dtype)
+                (x1, x2), aux_t = self.layout.tail.fwd_pair(p, (h.to(rdt), h.to(rdt)), None, ctx)
+                h = ((x1 + x2) * 0.5).to(getattr(torch, cfg.dtype))
+            else:
+                h, aux_t = self.layout.tail.fwd_std(p, h, None, ctx)
+            aux = aux + aux_t
+        return h, aux
+
+    def train_loss(self, batch: dict, grad_mode: str | None = None):
+        """``(loss, {"xent", "aux"})`` of ``batch`` (``{"tokens", "labels"}``,
+        (B, S) ids; label -1 is ignored): the mean next-token NLL plus, for
+        ``moe``, ``aux_loss_weight`` times the summed load-balance aux."""
+        cfg = self.cfg
+        h, extra = self._assemble(batch)
+        h, aux = self._run_decoder_nocache(h, extra, self._grad_mode(grad_mode))
+        h = rmsnorm(h, self.final_norm, cfg.norm_eps)
+        labels = batch["labels"].to(h.device)
+        xent = chunked_softmax_xent(h, self._head(), labels)
+        aux_total = aux.sum()
+        weight = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+        return xent + weight * aux_total, {"xent": xent, "aux": aux_total}
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
     def _logits(self, h):
         return (h[:, -1] @ self._head().to(h.dtype)).float()
 

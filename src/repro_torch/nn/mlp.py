@@ -40,8 +40,11 @@ def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int) -> dict:
 
 
 def gelu_mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu(x @ params["w_in"].to(x.dtype) + params["b_in"].to(x.dtype), approximate="tanh")
-    return h @ params["w_out"].to(x.dtype) + params["b_out"].to(x.dtype)
+    # the biases gain a row axis, so stacked experts' (E, F) biases broadcast
+    # over each expert's (E, N, F) rows as (F,) biases do over any rows
+    h = x @ params["w_in"].to(x.dtype) + params["b_in"].to(x.dtype).unsqueeze(-2)
+    return F.gelu(h, approximate="tanh") @ params["w_out"].to(x.dtype) + \
+        params["b_out"].to(x.dtype).unsqueeze(-2)
 
 
 def ffn_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str) -> dict:

@@ -8,7 +8,8 @@ type.  Integer leaves get no moments and no update.
 Parameters and gradients are ``{name: tensor}`` dicts (``named_parameters()``
 and the gradients of ``core/autodiff.py::value_and_grad_nll``).  Unlike the
 reference, which returns new arrays, the update writes the parameters in
-place.
+place, a large leaf in slices of its leading axis (the same bits), so the
+update's temporaries do not grow with an LM's depth.
 """
 
 from __future__ import annotations
@@ -46,9 +47,25 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig, l
     for n, p in params.items():
         if not _trainable(p):
             continue
-        g = grads[n].float() * scale
-        mu[n].mul_(b1).add_((1 - b1) * g)
-        nu[n].mul_(b2).add_((1 - b2) * torch.square(g))
-        delta = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps) + wd * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        # elementwise, so updating a large leaf in slices of its leading axis
+        # gives the same bits with temporaries of one slice
+        for sl in _slices(p):
+            pv, m, v = p[sl], mu[n][sl], nu[n][sl]
+            g = grads[n][sl].float() * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            delta = (m / c1) / (torch.sqrt(v / c2) + eps) + wd * pv.float()
+            pv.copy_((pv.float() - lr * delta).to(p.dtype))
     return {"mu": mu, "nu": nu, "step": step}, {"grad_norm": gnorm, "clip_scale": scale}
+
+
+#: a leaf past this many elements is updated in slices of its leading axis
+#: of about this many elements (an LM's layer-stacked weights, its embedding)
+_SLICE_ELEMS = 1 << 24
+
+
+def _slices(p: torch.Tensor) -> list:
+    if p.dim() == 0 or p.numel() <= _SLICE_ELEMS:
+        return [slice(None)]
+    rows = max(1, _SLICE_ELEMS // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]

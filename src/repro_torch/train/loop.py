@@ -1,8 +1,10 @@
 """The supervised training loop on one device, the port of the reference's
 ``repro/train/loop.py``: checkpoints and restarts, cooperative preemption,
 the straggler watchdog, gradient accumulation and an asynchronous input
-pipeline, under two front-ends:
+pipeline, under three front-ends:
 
+* ``train_lm(model, ...)`` - LM training (``Model.train_loss`` through the
+  reversible scan engine);
 * ``train_flow(flow, ...)`` - flow NLL training (the paper's native path);
 * ``train_conditional_flow(model, ...)`` - amortized posterior training of a
   ``ConditionalFlow``.
@@ -174,6 +176,38 @@ def _supervised_loop(
 # ---------------------------------------------------------------------------
 # front-ends
 # ---------------------------------------------------------------------------
+
+
+def check_lm_trainable(model_cfg, device: torch.device) -> None:
+    """Raise ``NotImplementedError`` for an ``ssm`` or ``hybrid`` model on
+    the card: its scan kernels have no backward there yet (ROADMAP.md queue
+    1, item 6.3).  Takes the config, so a caller can refuse before it builds
+    the model."""
+    if device.type == "cuda" and model_cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training {model_cfg.name} ({model_cfg.family}) on the card needs a backward for "
+            "the wkv_scan / ssd_scan kernels, not ported yet (ROADMAP.md queue 1, item 6.3); "
+            "train it with device='cpu'")
+
+
+def train_lm(model, data, cfg: TrainConfig, *, grad_mode: str | None = None, device=None,
+             injector=None) -> TrainResult:
+    """Train ``model`` (``models.lm.Model``) for ``cfg.steps`` steps on
+    ``device`` (``cuda`` unless named; raises without a card): its
+    ``train_loss(batch, grad_mode)`` is the objective and
+    ``data.batch_at(step)`` yields ``{"tokens", "labels"}`` (a
+    ``SyntheticTokens``).  ``grad_mode`` None takes the model's default
+    (``invertible`` for a reversible stack).
+
+    On the card an ``ssm`` or ``hybrid`` model raises before the first step:
+    its scan kernels have no backward there yet (ROADMAP.md queue 1, item
+    6.3); on the CPU their plain scans train."""
+    dev = resolve_device(device)
+    check_lm_trainable(model.cfg, dev)
+    model.to(dev).train()
+    objective = objective_value_and_grad(
+        model, lambda batch: model.train_loss(batch, grad_mode=grad_mode))
+    return _supervised_loop(objective, model, data.batch_at, cfg, device=dev, injector=injector)
 
 
 def train_flow(flow, data, cfg: TrainConfig, *, device=None, injector=None) -> TrainResult:

@@ -27,7 +27,10 @@ per-element bounds above, its pass-through halves bit for bit; the cHINT
 cross couplings' half contract at M = 1 (batch 256 to 20,000) on the half
 kernels at the same bounds, and a full-width cHINT train step against the
 CPU (loss at 1e-5 relative, each gradient leaf at 1e-4 of its largest
-entry, as ``chip_smoke.py`` holds GLOW's).
+entry, as ``chip_smoke.py`` holds GLOW's); an LM train step (granite-moe
+``REDUCED``, f32) against the CPU at the same bounds in each engine, and
+``moe_apply`` at granite-moe's expert widths bitwise repeatable and within
+1e-4 of the CPU in f32.
 """
 
 import pytest
@@ -1004,3 +1007,91 @@ def test_uq_scenarios_on_the_card(dev, tmp_path):
     st = prior_report(prun, n_samples=128, chunk=64)
     torch.cuda.synchronize()
     assert fkern.flowstep_inv.launches == 2 * 4 and np.all(np.isfinite(st.mean))
+
+
+def test_moe_dispatch_is_bitwise_repeatable_on_the_card(dev):
+    """``moe_apply`` at granite-moe-1b-a400m's expert widths (32 experts,
+    top-8, d_model 1024, expert d_ff 512), batch 2 x 256 in bf16, with a
+    capacity that drops tokens: output, aux and the gradients of x and the
+    router are the same bits on two runs (dispatch writes distinct slots,
+    combine gathers and sums over k in order: no atomics), and within 1e-4
+    (f32) of the CPU on the same inputs."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.nn.moe import moe_apply, moe_init
+
+    outs = {}
+    for dtype, cap in ((torch.bfloat16, 1.25), (torch.float32, 0.5)):
+        cfg = MoEConfig(n_experts=32, top_k=8, d_ff_expert=512, capacity_factor=cap)
+        p = moe_init(torch.Generator().manual_seed(0), 1024, cfg, "swiglu")
+        x = torch.randn(2, 256, 1024, generator=torch.Generator().manual_seed(1))
+
+        def run(device):
+            pd = {"router": p["router"].to(device).requires_grad_(),
+                  "experts": {k: v.to(device) for k, v in p["experts"].items()}}
+            xd = x.to(device, dtype).requires_grad_()
+            y, aux = moe_apply(pd, xd, cfg, "swiglu")
+            gx, gr = torch.autograd.grad((y.float().square().sum() + aux.sum()),
+                                         [xd, pd["router"]])
+            return [t.detach().float().cpu() for t in (y, aux, gx, gr)]
+
+        first, second = run(dev), run(dev)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), dtype
+        outs[dtype] = (first, run("cpu"))
+    card, cpu = outs[torch.float32]
+    for a, b in zip(card, cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_ssm_training_is_refused_on_the_card(dev):
+    """rwkv6-7b and zamba2-7b raise before the first step on the card: their
+    scan kernels have no backward there yet (ROADMAP.md queue 1, item 6.3)."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import train_lm
+
+    class Counting:
+        def __init__(self, data):
+            self.data, self.steps = data, []
+
+        def batch_at(self, step):
+            self.steps.append(step)
+            return self.data.batch_at(step)
+
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        model, cfg = build_model(get_arch(arch).reduced, device=dev)
+        data = Counting(SyntheticTokens(cfg.vocab_size, 16, 2))
+        with pytest.raises(NotImplementedError, match="item 6.3"):
+            train_lm(model, data, TrainConfig(steps=2, prefetch=0), device=dev)
+        assert data.steps == []
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(dev):
+    """granite-moe-1b-a400m ``REDUCED`` in f32: ``train_loss`` and every
+    gradient leaf on the card against the CPU under each engine (loss at
+    1e-5 relative, each leaf at 1e-4 of its largest entry), and bitwise
+    repeatable on the card."""
+    from repro_torch.config import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+
+    model, cfg = build_model(get_arch("granite-moe-1b-a400m").reduced, device="cpu",
+                             dtype="float32", generator=torch.Generator().manual_seed(0))
+    batch = SyntheticTokens(cfg.vocab_size, 64, 2, seed=2).batch_at(0)
+    card = build_model(cfg, device=dev)[0]
+    card.load_state_dict(model.state_dict())
+
+    def step(m, b, mode):
+        loss, _ = m.train_loss(b, grad_mode=mode)
+        return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, list(m.parameters()))]
+
+    for mode in ("invertible", "coupled", "remat", "autodiff"):
+        loss_c, g_c = step(model, batch, mode)
+        b_dev = {k: v.to(dev) for k, v in batch.items()}
+        loss_d, g_d = step(card, b_dev, mode)
+        again = step(card, b_dev, mode)
+        assert torch.equal(loss_d, again[0]) and all(torch.equal(a, b) for a, b in zip(g_d, again[1]))
+        assert abs(float(loss_d - loss_c)) <= 1e-5 * abs(float(loss_c)), mode
+        for a, b in zip(g_d, g_c):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), mode

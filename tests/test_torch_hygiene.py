@@ -1,7 +1,8 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
-unrolled GLOW; yi-6b, rwkv6-7b and zamba2-7b ``REDUCED`` prefill and decode
-through ``ServeEngine.generate``; cHINT trained through the supervised loop
+unrolled GLOW; every ported LM's ``REDUCED`` prefill and decode through
+``ServeEngine.generate``; granite-moe and llama4-maverick ``REDUCED`` trained
+through ``train_lm`` with a restart, and the chunked loss; cHINT trained through the supervised loop
 with a restart, then sampled; RealNVP and the hyperbolic network trained a
 step; a UQ scenario trained, restored and reported, and the launchers),
 and refuses to run quietly on the CPU when no device was named."""
@@ -58,11 +59,42 @@ def test_lm_serving_runs_without_loading_jax():
         "from repro_torch.config import get_arch\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.serve.engine import ServeEngine\n"
-        "for arch in ('yi-6b', 'rwkv6-7b', 'zamba2-7b'):\n"
+        "from repro_torch.config import list_archs\n"
+        "for arch in list_archs():\n"
         "    model, cfg = build_model(get_arch(arch).reduced, device='cpu')\n"
         "    tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
         "        {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
         "    assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_lm_training_runs_without_loading_jax(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.config import TrainConfig, get_arch\n"
+        "from repro_torch.data import make_dataset\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.train.fault import FailureInjector\n"
+        "from repro_torch.train.loop import train_lm\n"
+        "for i, arch in enumerate(('granite-moe-1b-a400m', 'llama4-maverick-400b-a17b')):\n"
+        "    model, cfg = build_model(get_arch(arch).reduced, device='cpu')\n"
+        "    data = make_dataset('tokens', vocab=cfg.vocab_size, seq_len=16, batch=2)\n"
+        f"    tcfg = TrainConfig(steps=3, checkpoint_every=1, checkpoint_dir={str(tmp_path)!r} + str(i))\n"
+        "    res = train_lm(model, data, tcfg, device='cpu', injector=FailureInjector(fail_at=(2,)))\n"
+        "    assert res.restarts == 1 and res.final_step == 2\n"
+        "    loss, m = model.train_loss(data.batch_at(9), grad_mode='coupled')\n"
+        "    loss.backward()\n"
+        "    assert bool(torch.isfinite(loss)) and float(m['aux']) > 0\n"
+        "import repro_torch.launch.train\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
@@ -199,9 +231,16 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device is cuda")
     cfg = get_arch("yi-6b").reduced
-    for arch in ("yi-6b", "rwkv6-7b", "zamba2-7b"):
+    from repro_torch.config import TrainConfig, list_archs
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.train.loop import train_lm
+
+    for arch in list_archs():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(get_arch(arch).reduced)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm(Model(cfg, device="cpu"), SyntheticTokens(cfg.vocab_size, 8, 1),
+                 TrainConfig(steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):

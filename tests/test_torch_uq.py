@@ -180,8 +180,8 @@ def test_dataset_registry():
         b = ds.batch_at(0)
         assert b["theta"].shape[0] == 4 and b["y"].shape[0] == 4 and hasattr(ds, "posterior")
     assert make_dataset("images", size=8, batch=2).batch_at(0).shape == (2, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        make_dataset("tokens", vocab=16, seq_len=8, batch=2)
+    tok = make_dataset("tokens", vocab=16, seq_len=8, batch=2).batch_at(0)
+    assert tok["tokens"].shape == (2, 8) and tok["labels"].shape == (2, 8)
     with pytest.raises(KeyError, match="unknown dataset"):
         make_dataset("nope")
 
@@ -522,14 +522,14 @@ def test_launchers_train_and_serve_a_scenario_on_the_cpu(tmp_path):
 def test_launchers_refuse_what_is_not_ported():
     from repro_torch.launch import serve, train
 
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        train.main(["--arch", "yi-6b", "--device", "cpu"])
+    with pytest.raises(KeyError, match="item 6"):
+        train.main(["--arch", "whisper-small", "--reduced", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         train.main(["--scenario", "lg-smoke", "--mesh", "auto", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         serve.main(["--arch", "yi-6b", "--mesh", "2,1", "--device", "cpu"])
     with pytest.raises(KeyError, match="item 6"):
-        serve.main(["--arch", "glm4-9b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "llava-next-34b", "--reduced", "--device", "cpu"])
 
 
 def test_serve_launcher_generates_with_a_reduced_lm(capsys):
