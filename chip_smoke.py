@@ -19,11 +19,15 @@ kernel), reversible, bf16
 activations, f32 weights from a seed, through ``ServeEngine.generate``, one
 model at a time, and drives the flash-attention kernel through
 ``attn_apply(impl="flash")`` at yi-6b's width; then the rest of the dense
-family and the MoE family (glm4-9b whole, granite-34b and
-command-r-plus-104b at cut depths, granite-moe-1b-a400m whole), and trains
-granite-moe-1b-a400m at full width and depth through ``train_lm`` and the
-reversible scan engine.  It holds every hand-written kernel against its
-plain PyTorch version.  Phases, one line each:
+family and the MoE family (glm4-9b, granite-34b and command-r-plus-104b at
+cut depths, granite-moe-1b-a400m whole), and trains granite-moe-1b-a400m
+at full width (12 of its 24 layers) through ``train_lm`` and the
+reversible scan engine, rwkv6-7b and zamba2-7b at full width and cut
+depths through their plain scans; then whisper-small (the audio front end,
+the encoder and cross attention) served and trained whole and
+llava-next-34b (the vision front end) served at a cut depth.  It holds
+every hand-written kernel against its plain PyTorch version.  Phases, one
+line each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together); each
@@ -167,10 +171,11 @@ plain PyTorch version.  Phases, one line each:
              prefill and the decode step.
 10. dense and MoE LMs - ``[serve]`` one model at a time, each freed before
              the next: glm4-9b at full width and depth 2 in f32 against the
-             CPU, then at full depth (40) in bf16; granite-34b and
+             CPU, then at depth 20 of 40 in bf16; granite-34b and
              command-r-plus-104b at ``REDUCED`` against the CPU, then at full
-             width and a cut depth that keeps the f32 weights under 40 GB (24
-             and 4, named on the line); granite-moe-1b-a400m at full width and
+             width and a cut depth (12 and 4, named on the line; the weights
+             the card-against-CPU models hold are drawn on the card and
+             copied to the CPU); granite-moe-1b-a400m at full width and
              depth 2 against the CPU, then at full width and depth;
              llama4-maverick-400b-a17b at ``REDUCED`` against the CPU only
              (one superblock is about 66 GB of f32 weights).  The card-side
@@ -184,20 +189,47 @@ plain PyTorch version.  Phases, one line each:
              ``coupled`` and ``autodiff`` (1e-5 relative, 1e-4 of each leaf's
              largest entry), each step twice on the card bitwise, and the
              routing choices that differ; in bf16, ``invertible`` against
-             ``autodiff``, every leaf within 1e-4 of its largest entry
-             unless the backward's re-routing flipped a routing choice (the
-             flips reported); (b) full width and depth, bf16 activations,
-             f32 master weights, AdamW, ``SyntheticTokens`` 8 x 2048, 8 steps
-             of ``train_lm`` under ``invertible``, profiled: per step wall,
-             busy, idle share, tokens/s, peak memory; the first loss in (0,
-             2 log V), every loss finite; a restart from the step-4
-             checkpoint reproduces step 8 bitwise; (c) peak memory of a step
-             at depth 4 and 16 (batch 2 x 2048) in each engine: the growth
+             ``autodiff`` rerun with the routing the ``invertible``
+             backward's VJPs chose (``nn/moe.py::pinned_routes``), every
+             leaf within 1e-4 of its largest entry, the flips reported and
+             the unpinned gap beside it; (b) full width, depth 12 of 24
+             (``LM_TRAIN_DEPTH``), bf16 activations, f32 master weights,
+             AdamW, ``SyntheticTokens`` 8 x 2048, 4 steps of ``train_lm``
+             under ``invertible``, profiled: per step wall, busy, idle
+             share, tokens/s, peak memory; the first loss in (0, 2 log V),
+             every loss finite; a restart from the step-2 checkpoint
+             reproduces step 4 bitwise; (c) peak memory of a step at depth
+             4 and 12 (batch 2 x 2048) in each engine: the growth
              above the step's start under ``invertible`` and ``coupled`` each
              below a quarter of ``autodiff``'s; (d) ``repro_torch.launch.train
              --arch granite-moe-1b-a400m --reduced --steps 4`` as a
-             subprocess, exit 0; (e) rwkv6-7b ``REDUCED``: ``train_lm`` raises
-             ``NotImplementedError`` naming item 6.3 before its first step.
+             subprocess, exit 0; then rwkv6-7b (depth 2) and zamba2-7b
+             (depth 7: one superblock and its one-block tail) at full width
+             through their plain scans, as the reference trains through
+             ``lax.scan``: (ssm-a) f32, 2 x 256, loss and every leaf against
+             the CPU under ``invertible`` and ``autodiff``, bitwise on a
+             repeat; (ssm-b) at one superblock (rwkv6-7b 1, zamba2-7b 6),
+             bf16, 2 x 512, ``SSM_TRAIN_STEPS`` steps of ``train_lm`` (wall,
+             tokens/s, peak memory), then the same run
+             failed at its last step and restarted from its checkpoint,
+             bitwise; (ssm-c) peak memory of a step at two depths (rwkv6-7b
+             2 and 4 at 2 x 1024, zamba2-7b 6 and 12 at 2 x 2048), the
+             quarter rule; 0 ``wkv_scan`` / ``ssd_scan`` launches in every
+             part, while phase 9's serving counts stay 32 + 32 and 81;
+12. front ends - whisper-small: (frontend-a) full width, 2 encoder and 2
+             decoder layers, f32, against the CPU (prefill logits, 8 greedy
+             tokens, the loss and every leaf under ``invertible`` and
+             ``autodiff``, bitwise on a repeat); whole in bf16, batch 8,
+             1500 frames, a 64-token prompt, 32 new tokens (the encoder run
+             once per ``generate``), ``[times]``/``[profile]`` of prefill
+             and a decode step; (frontend-b) ``train_lm`` whole at 8 x 448
+             decoder tokens with 1500 frames (wall, tokens/s, peak memory).
+             llava-next-34b: full width, depth 2, f32, against the CPU
+             (prefill, 8 greedy tokens); ``REDUCED`` f32, a train step
+             against the CPU; full width at depth 16 (``LLAVA_WHY``) in
+             bf16, batch 8, 576 patches and 1472 text tokens (2048
+             positions), 32 new tokens, with ``[times]``/``[profile]``.  No
+             kernel launches on these paths (reported), as in the reference.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
@@ -2204,9 +2236,9 @@ def lm_serve_phase(dev, card) -> dict:
     # (a) depth 2, f32: the card against the CPU
     cfg2 = CONFIG.replace(n_layers=2, dtype="float32")
     t0 = time.perf_counter()
-    model_cpu = Model(cfg2, generator=torch.Generator().manual_seed(SEED + 18), device="cpu")
+    model_card = Model(cfg2, generator=torch.Generator(dev).manual_seed(SEED + 18), device=dev)
+    model_cpu = copy.deepcopy(model_card).cpu()
     init_s = time.perf_counter() - t0
-    model_card = copy.deepcopy(model_cpu).to(dev)
     tokens = torch.randint(0, CONFIG.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
                            generator=torch.Generator().manual_seed(SEED + 19))
     max_len = LM_CPU_PROMPT + LM_CPU_NEW
@@ -2222,7 +2254,7 @@ def lm_serve_phase(dev, card) -> dict:
     check(torch.equal(tok.cpu(), tok_cpu), f"yi-6b depth-2 greedy tokens differ: {tok} vs {tok_cpu}")
     line("serve", model="yi-6b", depth=2, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
          new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel, greedy_tokens_equal=True,
-         cpu_init_s=init_s, cpu_reference_s=cpu_s, card=card)
+         init_and_copy_to_cpu_s=init_s, cpu_reference_s=cpu_s, card=card)
     del model_cpu, model_card, logits
     torch.cuda.empty_cache()
 
@@ -2259,10 +2291,16 @@ def lm_times(served, card, wall_ms, name: str = "yi-6b") -> None:
     tokens/s, one profiled call of each with the device's idle share and its
     top ops."""
     model, prompt = served["model"], served["prompt"]
-    caches = model.make_caches(LM_BATCH, LM_PROMPT + LM_NEW)
+    # a model with a front end: its whole prompt (features too), its
+    # positions before the first new token, the encoder output for decode
+    batch, pos = served.get("batch", {"tokens": prompt}), served.get("pos", LM_PROMPT)
+    caches = model.make_caches(prompt.shape[0], pos + LM_NEW)
     tok = prompt[:, -1:]
-    calls = {"prefill": (lambda: model.prefill({"tokens": prompt}, caches), 5, LM_BATCH * LM_PROMPT),
-             "decode_step": (lambda: model.decode_step(tok, caches, LM_PROMPT), 20, LM_BATCH)}
+    extra = served.get("extra")
+    calls = {"prefill": (lambda: model.prefill(batch, caches), 5,
+                         served.get("positions", prompt.numel())),
+             "decode_step": (lambda: model.decode_step(tok, caches, pos, extra), 20,
+                             prompt.shape[0])}
     for what, (fn, reps, n_tokens) in calls.items():
         median, runs_ms = wall_ms(fn, reps)
         q = sorted(runs_ms)
@@ -2497,9 +2535,9 @@ def ssm_serve_phase(dev, card, arch: str) -> dict:
     depth = SSM_CPU_DEPTH[arch]
     cfg_a = config.replace(n_layers=depth, dtype="float32")
     t0 = time.perf_counter()
-    model_cpu = Model(cfg_a, generator=torch.Generator().manual_seed(seed), device="cpu")
+    model_card = Model(cfg_a, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    model_cpu = copy.deepcopy(model_card).cpu()
     init_s = time.perf_counter() - t0
-    model_card = copy.deepcopy(model_cpu).to(dev)
     tokens = torch.randint(0, config.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
                            generator=torch.Generator().manual_seed(seed + 1))
     max_len = LM_CPU_PROMPT + LM_CPU_NEW
@@ -2521,7 +2559,8 @@ def ssm_serve_phase(dev, card, arch: str) -> dict:
     check(torch.equal(tok.cpu(), tok_cpu), f"{arch} depth-{depth} greedy tokens differ: {tok} vs {tok_cpu}")
     line("serve", model=arch, depth=depth, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
          new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel, greedy_tokens_equal=True,
-         launches_per_prefill=a_launches, cpu_init_s=init_s, cpu_reference_s=cpu_s, card=card)
+         launches_per_prefill=a_launches, init_and_copy_to_cpu_s=init_s, cpu_reference_s=cpu_s,
+         card=card)
     del model_cpu, model_card, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2573,8 +2612,10 @@ def ssm_serve_phase(dev, card, arch: str) -> dict:
 #: phase 10's models: (arch, the card-against-CPU model: "reduced" or a depth
 #: at full width, the depth served on the card at full width or None, why)
 LM_FAMILY = (
-    ("glm4-9b", 2, 40, "full depth: 37.6 GB of f32 weights"),
-    ("granite-34b", "reduced", 24, "depth 24 of 88: 38.9 GB of f32 weights (1.52 GB a layer)"),
+    ("glm4-9b", 2, 20, "depth 20 of 40 (21.3 GB of f32 weights; whole, 37.6 GB, fits the "
+                       "card but not the script's time limit)"),
+    ("granite-34b", "reduced", 12, "depth 12 of 88: 20.6 GB of f32 weights (1.52 GB a layer), "
+                                   "for the script's time limit"),
     ("command-r-plus-104b", "reduced", 4,
      "depth 4 of 64: 37.7 GB of f32 weights (6.29 GB a layer, 12.58 GB the tied embedding)"),
     ("granite-moe-1b-a400m", 2, 24, "full depth: 5.5 GB of f32 weights"),
@@ -2583,9 +2624,14 @@ LM_FAMILY = (
      "width needs distribution (ROADMAP.md queue 1, item 7)"),
 )
 LM_TRAIN_ARCH = "granite-moe-1b-a400m"
-LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 4
+#: (b)'s depth and steps, 12 of 24 layers and 4 steps: with the SSM parts of
+#: phase 11 and phase 12 the script must still end inside its time limit,
+#: and (b)'s three checkpoint writes take most of its time (all 24 layers:
+#: 16.6 GB each)
+LM_TRAIN_DEPTH = 12
 LM_CMP_BATCH, LM_CMP_SEQ = 2, 256     # (a): full width, depth 2, f32
-LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (4, 16)  # (c): full width, bf16
+LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (4, 12)  # (c): full width, bf16
 
 
 class RouteLog:
@@ -2636,9 +2682,9 @@ def lm_arch_serve(dev, card, arch, cmp, depth, why, seed) -> dict | None:
     cfg_a = (spec.reduced if cmp == "reduced" else spec.config.replace(n_layers=cmp)).replace(
         dtype="float32")
     t0 = time.perf_counter()
-    model_cpu = Model(cfg_a, generator=torch.Generator().manual_seed(seed), device="cpu")
+    model_card = Model(cfg_a, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    model_cpu = copy.deepcopy(model_card).cpu()
     init_s = time.perf_counter() - t0
-    model_card = copy.deepcopy(model_cpu).to(dev)
     tokens = torch.randint(0, cfg_a.vocab_size, (LM_CPU_BATCH, LM_CPU_PROMPT),
                            generator=torch.Generator().manual_seed(seed + 1))
     max_len = LM_CPU_PROMPT + LM_CPU_NEW
@@ -2664,7 +2710,7 @@ def lm_arch_serve(dev, card, arch, cmp, depth, why, seed) -> dict | None:
          depth=cfg_a.n_layers, dtype="float32", batch=LM_CPU_BATCH, prompt=LM_CPU_PROMPT,
          new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel,
          greedy_tokens_equal=bool(torch.equal(tok.cpu(), tok_cpu)),
-         prefill_routing_flips_vs_cpu=flips, cpu_init_s=init_s, cpu_reference_s=cpu_s,
+         prefill_routing_flips_vs_cpu=flips, init_and_copy_to_cpu_s=init_s, cpu_reference_s=cpu_s,
          card_generate_s=gen_s,
          card_generate_tokens_per_s=LM_CPU_BATCH * (LM_CPU_PROMPT + LM_CPU_NEW) / gen_s,
          card_peak_memory_bytes=torch.cuda.max_memory_allocated(),
@@ -2779,29 +2825,40 @@ def lm_train_vs_cpu(dev, card) -> None:
         check(grad_rel <= TOL_GRAD_REL, f"lm-train (a) {mode}: leaf {worst} at {grad_rel}")
         check(repeat, f"lm-train (a) {mode}: two steps on the card differ")
     del model_cpu, model_card
-    # bf16 activations on the card: invertible against autodiff
+    # bf16 activations on the card: invertible against autodiff, autodiff
+    # rerun with the routing the invertible backward's VJPs chose, so that a
+    # flipped choice compares like with like and every leaf is gated
+    from repro_torch.nn.moe import pinned_routes
+
     model = Model(config.replace(n_layers=2), generator=torch.Generator(dev).manual_seed(SEED + 71),
                   device=dev)
     res = {}
     for mode in ("autodiff", "invertible"):
         with RouteLog() as r:
             res[mode] = lm_grads(model, batch_dev, mode) + (r.calls,)
-    grad_rel, worst = max_rel_leaf_err(res["invertible"][1], res["autodiff"][1])
-    flips = routing_flips(res["invertible"][2], 2, "invertible")
-    n_choices = sum(c.numel() for c in res["invertible"][2][:2])
+    n_moe = 2
+    calls = res["invertible"][2]
+    # the backward routes each layer twice, last layer first: inverse, then VJP
+    vjp_routes = [calls[n_moe + 2 * (n_moe - 1 - i) + 1] for i in range(n_moe)]
+    with pinned_routes(vjp_routes):
+        pinned = lm_grads(model, batch_dev, "autodiff")
+    grad_rel, worst = max_rel_leaf_err(res["invertible"][1], pinned[1])
+    free_rel, free_worst = max_rel_leaf_err(res["invertible"][1], res["autodiff"][1])
+    flips = routing_flips(calls, n_moe, "invertible")
+    n_choices = sum(c.numel() for c in calls[:n_moe])
     line("lm-train", part="a-bf16", model=LM_TRAIN_ARCH, depth=2, dtype=config.dtype,
          batch=[LM_CMP_BATCH, LM_CMP_SEQ], loss_invertible=res["invertible"][0].item(),
-         loss_autodiff=res["autodiff"][0].item(),
-         grad_max_rel_err_invertible_vs_autodiff=grad_rel, worst_leaf=worst,
-         within_gate=grad_rel <= TOL_GRAD_REL, backward_routing_flips=flips,
-         routing_choices_per_pass=n_choices, card=card)
+         loss_autodiff=res["autodiff"][0].item(), loss_autodiff_pinned=pinned[0].item(),
+         grad_max_rel_err_invertible_vs_pinned_autodiff=grad_rel, worst_leaf=worst,
+         grad_max_rel_err_invertible_vs_autodiff=free_rel, worst_leaf_unpinned=free_worst,
+         backward_routing_flips=flips, routing_choices_per_pass=n_choices, card=card)
     check(abs(res["invertible"][0].item() - res["autodiff"][0].item())
           <= TOL_LOSS_REL * abs(res["autodiff"][0].item()),
           "lm-train (a-bf16): the invertible forward's loss differs from autodiff's")
-    check(grad_rel <= TOL_GRAD_REL or flips > 0,
-          f"lm-train (a-bf16): invertible vs autodiff leaf {worst} at {grad_rel} with no "
-          "routing flip")
-    del model, res
+    check(grad_rel <= TOL_GRAD_REL,
+          f"lm-train (a-bf16): invertible vs autodiff on its routing: leaf {worst} at {grad_rel} "
+          f"({flips} routing flips)")
+    del model, res, pinned
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2852,12 +2909,13 @@ def step_busy_ms(prof) -> dict[str, float]:
 
 
 def lm_train_full(dev, card) -> float:
-    """(b) granite-moe at full width and depth, bf16 activations, f32 master
-    weights, AdamW, ``SyntheticTokens`` 8 x 2048: 8 steps of ``train_lm``
-    under ``invertible`` (profiled: per step wall, busy, idle share,
-    tokens/s, peak memory; checkpoints after steps 4 and 8), then a restart
-    from the step-4 checkpoint that reproduces step 8 bit for bit.  Returns
-    the ``flash_attention`` launches a step of the first run."""
+    """(b) granite-moe at full width and depth ``LM_TRAIN_DEPTH``, bf16
+    activations, f32 master weights, AdamW, ``SyntheticTokens`` 8 x 2048:
+    ``LM_TRAIN_STEPS`` steps of ``train_lm`` under ``invertible`` (profiled:
+    per step wall, busy, idle share, tokens/s, peak memory; checkpoints after
+    the middle step and the last), then a restart from the middle checkpoint
+    that reproduces the last step bit for bit.  Returns the
+    ``flash_attention`` launches a step of the first run."""
     import shutil
     import tempfile
 
@@ -2871,11 +2929,12 @@ def lm_train_full(dev, card) -> float:
     from repro_torch.train import checkpoint as ckpt_mod
     from repro_torch.train.loop import train_lm
 
-    cfg = get_arch(LM_TRAIN_ARCH).config
+    cfg = get_arch(LM_TRAIN_ARCH).config.replace(n_layers=LM_TRAIN_DEPTH)
     model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 72), device=dev)
     data = SyntheticTokens(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=11)
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
-    tcfg = TrainConfig(steps=LM_TRAIN_STEPS, lr=3e-4, warmup_steps=2, checkpoint_every=4,
+    half = LM_TRAIN_STEPS // 2
+    tcfg = TrainConfig(steps=LM_TRAIN_STEPS, lr=3e-4, warmup_steps=2, checkpoint_every=half,
                        checkpoint_dir=str(scratch), keep_checkpoints=2)
     saves = []
     real_save = ckpt_mod.save
@@ -2899,7 +2958,7 @@ def lm_train_full(dev, card) -> float:
         flash = ak.flash_attention.launches
         final = {k: v.clone() for k, v in model.state_dict().items()}
         walls = [1e3 * (b - a) for a, b in zip(clock.marks, clock.marks[1:])]
-        save_ms = {3: 1e3 * saves[0], 7: 1e3 * saves[1]}
+        save_ms = {half - 1: 1e3 * saves[0], LM_TRAIN_STEPS - 1: 1e3 * saves[1]}
         for step, (loss, window) in enumerate(zip(res.losses, walls)):
             # wall_ms leaves out a checkpoint's write; busy and idle are over
             # the whole window, the write's device-to-host copies included
@@ -2915,9 +2974,10 @@ def lm_train_full(dev, card) -> float:
         check(0 < res.losses[0] < 2 * math.log(cfg.vocab_size),
               f"lm-train (b): first loss {res.losses[0]} outside (0, 2 log V)")
         check(flash == 0, f"lm-train (b): {flash} flash_attention launches")
-        # the restart: drop the final checkpoint, resume from the step-4 one
+        # the restart: drop the final checkpoint, resume from the middle one
         shutil.rmtree(scratch / f"step_{LM_TRAIN_STEPS - 1:08d}")
-        check(ckpt_mod.latest_step(str(scratch)) == 3, "lm-train (b): no step-4 checkpoint")
+        check(ckpt_mod.latest_step(str(scratch)) == half - 1,
+              f"lm-train (b): no step-{half} checkpoint")
         clock2 = StepClock(profiled=False)
         t0 = time.perf_counter()
         res2 = train_lm(model, data, tcfg, grad_mode="invertible", device=dev, injector=clock2)
@@ -2926,13 +2986,13 @@ def lm_train_full(dev, card) -> float:
         same = all(torch.equal(final[k], v) for k, v in model.state_dict().items())
         walls2 = [1e3 * (b - a) for a, b in zip(clock2.marks, clock2.marks[1:])]
         walls2[-1] -= 1e3 * saves[-1]  # the final checkpoint's write
-        line("lm-train", part="b-restart", model=LM_TRAIN_ARCH, resumed_after_step=4,
-             steps_run=len(res2.losses), losses=res2.losses, step8_bitwise_equal=same,
-             losses_bitwise_equal=res2.losses == res.losses[4:],
+        line("lm-train", part="b-restart", model=LM_TRAIN_ARCH, resumed_after_step=half,
+             steps_run=len(res2.losses), losses=res2.losses, last_step_bitwise_equal=same,
+             losses_bitwise_equal=res2.losses == res.losses[half:],
              unprofiled_wall_ms=walls2, checkpoint_save_s=saves,
              restart_s_with_restore_and_save=restart_s,
              n_params=sum(p.numel() for p in model.parameters()), card=card)
-        check(same and res2.losses == res.losses[4:], "lm-train (b): the restart differs")
+        check(same and res2.losses == res.losses[half:], "lm-train (b): the restart differs")
     finally:
         ckpt_mod.save = real_save
         shutil.rmtree(scratch, ignore_errors=True)
@@ -2944,7 +3004,7 @@ def lm_train_full(dev, card) -> float:
 
 def lm_train_memory(dev, card) -> None:
     """(c) peak memory of one train step (loss, gradient, AdamW) of
-    granite-moe at full width, depth 4 and 16, batch 2 x 2048, bf16, under
+    granite-moe at full width, ``LM_MEM_DEPTHS``, batch 2 x 2048, bf16, under
     each engine: the peak above the bytes held when the step starts (the
     model and its AdamW state), whose growth with depth under
     ``invertible`` and ``coupled`` must each stay below a quarter of
@@ -2990,20 +3050,12 @@ def lm_train_memory(dev, card) -> None:
               f"lm-train (c): {mode} grew {growth[mode]} B, autodiff {growth['autodiff']} B")
 
 
-def lm_train_launcher_and_guard(dev, card) -> None:
+def lm_train_launcher(dev, card) -> None:
     """(d) ``repro_torch.launch.train --arch granite-moe-1b-a400m --reduced
-    --steps 4`` as a subprocess, to exit 0; (e) rwkv6-7b ``REDUCED`` on the
-    card: ``train_lm`` raises ``NotImplementedError`` naming item 6.3 before
-    its first step."""
+    --steps 4`` as a subprocess, to exit 0."""
     import os
     import shutil
     import tempfile
-
-    import torch
-    from repro_torch.config import TrainConfig, get_arch
-    from repro_torch.data import SyntheticTokens
-    from repro_torch.models import build_model
-    from repro_torch.train.loop import train_lm
 
     scratch = tempfile.mkdtemp(prefix="chip_smoke_lm_launch_")
     argv = ["repro_torch.launch.train", "--arch", LM_TRAIN_ARCH, "--reduced", "--steps", "4",
@@ -3018,26 +3070,474 @@ def lm_train_launcher_and_guard(dev, card) -> None:
          stderr_tail=proc.stderr.strip().splitlines()[-5:] if proc.returncode else [], card=card)
     check(proc.returncode == 0 and lines, f"launcher {' '.join(argv)} exited {proc.returncode}")
 
-    class Counting:
-        def __init__(self, data):
-            self.data, self.steps = data, []
 
-        def batch_at(self, step):
-            self.steps.append(step)
-            return self.data.batch_at(step)
+# ---------------------------------------------------------------------------
+# 11, continued: the SSM models trained through their plain scans
+# ---------------------------------------------------------------------------
 
-    model, cfg = build_model(get_arch("rwkv6-7b").reduced, device=dev)
-    data = Counting(SyntheticTokens(cfg.vocab_size, 16, 2))
+#: (arch, cut depth at full width, why): the smallest depth that holds a
+#: whole superblock, for (a) and (b)
+SSM_TRAIN = (
+    ("rwkv6-7b", 2, "depth 2 of 32 (a superblock is one RWKV6 layer), as phase 9's CPU check; "
+                    "whole, weights, gradients and AdamW moments need 16 B x 7.52 B > 80 GB"),
+    ("zamba2-7b", 7, "depth 7 of 81: one superblock (six Mamba2 blocks, the shared attention "
+                     "and FFN) and a one-block tail; whole needs 16 B x 6.75 B > 80 GB"),
+)
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 512, 4   # (b), bf16
+#: (b)'s depths: one superblock each, the least checkpoint to write twice and
+#: read back (a checkpoint holds 12 B a parameter; the embedding and head are
+#: most of rwkv6-7b's)
+SSM_RESTART_DEPTH = {"rwkv6-7b": 1, "zamba2-7b": 6}
+#: (ssm-a) the gate on a leaf is the larger of TOL_GRAD_REL and this many
+#: times the step's own f32 sensitivity: how far the card's gradient moves
+#: when the embedding table moves by one f32 ulp (relative 2^-23, random
+#: signs).  The card and the CPU sum every product in another order (up to
+#: 14,336 terms, some tens of ulps a result) where the probe moves the input
+#: alone by one; a wrong gradient moves leaves by O(1) of their scale.
+SSM_NOISE_FACTOR = 8
+#: (c): (arch, depths, batch, seq): the plain per-token wkv loop under
+#: autograd saves about 3 (B, H, K, K) f32 states a token and layer
+SSM_MEM = (("rwkv6-7b", (2, 4), 2, 1024), ("zamba2-7b", (6, 12), 2, 2048))
+
+
+def scan_kernels():
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.ssd import ssd as sk
+
+    return (*rk.KERNELS, *sk.KERNELS)
+
+
+def one_ulp_sensitivity(model, batch, mode, grads, seed) -> tuple[float, str]:
+    """``max_rel_leaf_err`` between ``grads`` and the gradients of the same
+    step with ``model``'s embedding table scaled by ``1 + s 2^-23`` (s = +-1
+    at random), the table restored after."""
+    import torch
+
+    saved = model.embed.detach().clone()
+    gen = torch.Generator(saved.device).manual_seed(seed)
+    sign = torch.randint(0, 2, saved.shape, generator=gen, device=saved.device) * 2 - 1
+    with torch.no_grad():
+        model.embed.mul_(1 + 2.0**-23 * sign)
     try:
-        train_lm(model, data, TrainConfig(steps=2, prefetch=0), device=dev)
-        message = None
-    except NotImplementedError as exc:
-        message = str(exc)
-    line("lm-train", part="e", model="rwkv6-7b-reduced", raised=message is not None,
-         message=message, steps_run=len(data.steps), card=card)
-    check(message is not None and "item 6.3" in message and not data.steps,
-          f"lm-train (e): rwkv6-7b trained on the card ({message!r}, steps {data.steps})")
+        _loss, moved = lm_grads(model, batch, mode)
+    finally:
+        with torch.no_grad():
+            model.embed.copy_(saved)
+    return max_rel_leaf_err(moved, grads)
+
+
+def ssm_train_vs_cpu(dev, card) -> None:
+    """(ssm-a) rwkv6-7b at depth 2 and zamba2-7b at depth 7, full width, f32,
+    batch 2 x 256: loss and every gradient leaf on the card against the CPU
+    under ``invertible`` and ``autodiff``, each step twice on the card
+    bitwise, with the scan kernels' launches per train step (0: training
+    runs the plain scans).  The loss at ``TOL_LOSS_REL``; each leaf within
+    the larger of ``TOL_GRAD_REL`` and ``SSM_NOISE_FACTOR`` times the step's
+    one-ulp sensitivity (``one_ulp_sensitivity``, on the card): these
+    models' gradients are ill-conditioned in f32 (RWKV6's per-head group
+    norm at the first token, where the state is zero, sees variances far
+    below its eps; the reversible rebuild of the small embedding under O(1)
+    residual updates), so no two f32 evaluations agree to 1e-4 of a leaf's
+    scale; the CPU's own ``invertible`` against ``autodiff`` is reported
+    beside it."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+
+    kernels = scan_kernels()
+    for i, (arch, depth, why) in enumerate(SSM_TRAIN):
+        cfg = get_arch(arch).config.replace(n_layers=depth, dtype="float32")
+        model_card = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 80 + i),
+                           device=dev)
+        model_cpu = copy.deepcopy(model_card).cpu()
+        batch = SyntheticTokens(cfg.vocab_size, LM_CMP_SEQ, LM_CMP_BATCH, seed=17).batch_at(0)
+        batch_dev = {k: v.to(dev) for k, v in batch.items()}
+        g_cpu = {}
+        for mode in ("invertible", "autodiff"):
+            t0 = time.perf_counter()
+            loss_cpu, g_cpu[mode] = lm_grads(model_cpu, batch, mode)
+            cpu_s = time.perf_counter() - t0
+            reset(kernels)
+            t0 = time.perf_counter()
+            loss, grads = lm_grads(model_card, batch_dev, mode)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            loss2, grads2 = lm_grads(model_card, batch_dev, mode)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches / 2 for k in kernels}
+            repeat = bool(torch.equal(loss, loss2)) and all(torch.equal(grads[k], grads2[k])
+                                                             for k in grads)
+            del grads2
+            noise, noise_leaf = one_ulp_sensitivity(model_card, batch_dev, mode, grads, SEED + 82)
+            gate = max(TOL_GRAD_REL, SSM_NOISE_FACTOR * noise)
+            loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+            grad_rel, worst = max_rel_leaf_err(grads, g_cpu[mode])
+            extra = {}
+            if mode == "autodiff":
+                extra["cpu_invertible_vs_autodiff"] = max_rel_leaf_err(g_cpu["invertible"],
+                                                                       g_cpu["autodiff"])
+            line("lm-train", part="ssm-a", model=arch, depth=depth, why_this_depth=why,
+                 dtype="float32", batch=[LM_CMP_BATCH, LM_CMP_SEQ], grad_mode=mode,
+                 loss=loss.item(), loss_rel_err_vs_cpu=loss_rel, grad_max_rel_err_vs_cpu=grad_rel,
+                 worst_leaf=worst, one_ulp_sensitivity=noise, sensitivity_leaf=noise_leaf,
+                 leaf_gate=gate, bitwise_repeatable=repeat, scan_launches_per_step=launches,
+                 card_step_s=card_s, cpu_s=cpu_s, **extra, card=card)
+            check(torch.isfinite(loss).item() and loss_rel <= TOL_LOSS_REL,
+                  f"lm-train (ssm-a) {arch} {mode}: loss {loss.item()} vs cpu {loss_cpu.item()}")
+            check(grad_rel <= gate,
+                  f"lm-train (ssm-a) {arch} {mode}: leaf {worst} at {grad_rel} (gate {gate})")
+            check(repeat, f"lm-train (ssm-a) {arch} {mode}: two steps on the card differ")
+            check(not any(launches.values()), f"lm-train (ssm-a) {arch}: scans launched {launches}")
+            del grads
+        del g_cpu
+        del model_card, model_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ssm_train_restart(dev, card) -> None:
+    """(ssm-b) each of ``SSM_TRAIN`` at ``SSM_RESTART_DEPTH``, bf16 activations, f32
+    master weights, AdamW, ``SyntheticTokens`` 2 x 512: ``SSM_TRAIN_STEPS``
+    steps of ``train_lm`` under ``invertible`` without checkpoints (per step
+    wall, tokens/s, peak memory, scan launches: 0), then the same run from
+    the same seed with checkpoints, failed at its last step and restarted
+    from the checkpoint before it: the final weights and every loss bitwise
+    the first run's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.loop import train_lm
+
+    kernels = scan_kernels()
+    n = SSM_TRAIN_STEPS
+    for i, (arch, _depth, _why) in enumerate(SSM_TRAIN):
+        depth = SSM_RESTART_DEPTH[arch]
+        cfg = get_arch(arch).config.replace(n_layers=depth)
+        data = SyntheticTokens(cfg.vocab_size, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, seed=19)
+        seed = SEED + 84 + i
+        model = Model(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+        clock = StepClock(profiled=False)
+        reset(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        clean = train_lm(model, data, TrainConfig(steps=n, lr=3e-4, warmup_steps=1, prefetch=0),
+                         grad_mode="invertible", device=dev, injector=clock)
+        clock.finish()
+        launches = {k.name: k.launches / n for k in kernels}
+        final = {k: v.clone() for k, v in model.state_dict().items()}
+        walls = [1e3 * (b - a) for a, b in zip(clock.marks, clock.marks[1:])]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_"))
+        try:
+            model = Model(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+            tcfg = TrainConfig(steps=n, lr=3e-4, warmup_steps=1, prefetch=0,
+                               checkpoint_every=n - 1, checkpoint_dir=str(scratch),
+                               keep_checkpoints=1)
+            t0 = time.perf_counter()
+            res = train_lm(model, data, tcfg, grad_mode="invertible", device=dev,
+                           injector=FailureInjector(fail_at=(n - 1,)))
+            restart_s = time.perf_counter() - t0
+            same = all(torch.equal(final[k], v) for k, v in model.state_dict().items())
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        line("lm-train", part="ssm-b", model=arch, depth=depth,
+             dtype=cfg.dtype, batch=[SSM_TRAIN_BATCH, SSM_TRAIN_SEQ], steps=n, losses=clean.losses,
+             wall_ms=walls, tokens_per_s=[SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / (w * 1e-3)
+                                          for w in walls],
+             peak_memory_bytes=clock.peaks[1:], scan_launches_per_step=launches,
+             restarts=res.restarts, final_bitwise_equal=same,
+             resumed_losses=res.losses, losses_bitwise_equal=res.losses == clean.losses[-1:],
+             restart_run_s_with_saves_and_restore=restart_s, n_params=n_params, card=card)
+        check(len(clean.losses) == n and all(math.isfinite(v) for v in clean.losses)
+              and 0 < clean.losses[0] < 2 * math.log(cfg.vocab_size),
+              f"lm-train (ssm-b) {arch}: losses {clean.losses}")
+        check(not any(launches.values()), f"lm-train (ssm-b) {arch}: scans launched {launches}")
+        check(res.restarts == 1 and same and res.losses == clean.losses[-1:],
+              f"lm-train (ssm-b) {arch}: the restart differs")
+        del model, final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def ssm_train_memory(dev, card) -> None:
+    """(ssm-c) peak memory of one train step (loss, gradient, AdamW) of each
+    ``SSM_MEM`` model at two depths, full width, bf16, under ``invertible``
+    and ``autodiff``: the peak above the bytes held when the step starts,
+    whose growth with depth under ``invertible`` must stay below a quarter
+    of ``autodiff``'s (the quarter rule of ``[memory]``)."""
+    import torch
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init, adamw_update
+
+    kernels = scan_kernels()
+    for arch, depths, bsz, seq in SSM_MEM:
+        config = get_arch(arch).config
+        batch = {k: v.to(dev) for k, v in SyntheticTokens(
+            config.vocab_size, seq, bsz, seed=23).batch_at(0).items()}
+        above, steps_s = {}, {}
+        reset(kernels)
+        for mode in ("invertible", "autodiff"):
+            for depth in depths:
+                model = Model(config.replace(n_layers=depth),
+                              generator=torch.Generator(dev).manual_seed(SEED + 88), device=dev)
+                params = dict(model.named_parameters())
+                opt = adamw_init(params)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                _loss, grads = lm_grads(model, batch, mode)
+                adamw_update(params, grads, opt, TrainConfig(), 1e-4)
+                torch.cuda.synchronize()
+                key = f"{mode}_depth{depth}"
+                steps_s[key] = time.perf_counter() - t0
+                above[key] = torch.cuda.max_memory_allocated() - start
+                del model, params, opt, grads
+                gc.collect()
+                torch.cuda.empty_cache()
+        launches = {k.name: k.launches for k in kernels}
+        lo, hi = depths
+        growth = {m: above[f"{m}_depth{hi}"] - above[f"{m}_depth{lo}"]
+                  for m in ("invertible", "autodiff")}
+        line("lm-train", part="ssm-c", model=arch, depths=list(depths), batch=[bsz, seq],
+             dtype=config.dtype, above_step_start_bytes=above, step_s=steps_s,
+             growth_bytes={f"{m}_depth{lo}_to_{hi}": g for m, g in growth.items()},
+             growth_vs_autodiff=growth["invertible"] / max(growth["autodiff"], 1),
+             scan_launches=launches, card=card)
+        check(growth["invertible"] < 0.25 * growth["autodiff"],
+              f"lm-train (ssm-c) {arch}: invertible grew {growth['invertible']} B, "
+              f"autodiff {growth['autodiff']} B")
+        check(not any(launches.values()), f"lm-train (ssm-c) {arch}: scans launched {launches}")
+
+
+# ---------------------------------------------------------------------------
+# 12. the front ends: whisper-small (encoder, cross attention, audio frames)
+#     and llava-next-34b (vision patches before the text), served and trained
+# ---------------------------------------------------------------------------
+
+WHISPER_FRAMES = 1500                    # the config's n_frames, whisper's own
+WHISPER_PROMPT, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 64, 448, 4   # 448: its target limit
+LLAVA_DEPTH = 16
+LLAVA_WHY = ("depth 16 of 60: 39.4 GB of f32 weights (2.23 GB a layer, 3.67 GB embedding and "
+             "head), under phase 10's 40 GB rule")
+
+
+def frontend_inputs(cfg, batch: int, positions: int, kind: str, generator) -> dict:
+    """``batch_like(input_specs(...))``: tokens (and labels) with the model's
+    features, ``positions`` counting a vision model's patches."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.models.registry import batch_like, input_specs
+
+    return batch_like(input_specs(cfg, ShapeSpec(kind, positions, batch, kind)), generator,
+                      cfg.vocab_size)
+
+
+def frontend_vs_cpu(dev, card, arch, cfg, seed, train: bool) -> None:
+    """``cfg`` (f32) on the card against the same weights on the CPU: prefill
+    logits within ``TOL_LM_LOGITS`` of the largest and 8 greedy tokens equal
+    (batch 2, a 64-token prompt after the features); with ``train``, the loss
+    and every gradient leaf under ``invertible`` and ``autodiff`` at batch 2
+    x 256 (``TOL_LOSS_REL``, ``TOL_GRAD_REL``)."""
+    import torch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    model_card = Model(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    model_cpu = copy.deepcopy(model_card).cpu()
+    n_prefix = cfg.frontend.n_patches if cfg.frontend.kind == "vision" else 0
+    prompt = frontend_inputs(cfg, LM_CPU_BATCH, n_prefix + LM_CPU_PROMPT, "prefill",
+                             torch.Generator().manual_seed(seed + 1))
+    max_len = n_prefix + LM_CPU_PROMPT + LM_CPU_NEW
+    reset((*ak.KERNELS, *scan_kernels()))
+    logits, _ = model_card.prefill({k: v.to(dev) for k, v in prompt.items()},
+                                   model_card.make_caches(LM_CPU_BATCH, max_len))
+    tok, _ = ServeEngine(model_card, max_len, device=dev).generate(prompt, LM_CPU_NEW)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in (*ak.KERNELS, *scan_kernels())}
+    t0 = time.perf_counter()
+    logits_cpu, _ = model_cpu.prefill(prompt, model_cpu.make_caches(LM_CPU_BATCH, max_len))
+    tok_cpu, _ = ServeEngine(model_cpu, max_len, device="cpu").generate(prompt, LM_CPU_NEW)
+    cpu_s = time.perf_counter() - t0
+    rel = (logits.cpu() - logits_cpu).abs().max().item() / logits_cpu.abs().max().item()
+    depth = (f"{cfg.n_layers}" if not cfg.is_enc_dec
+             else f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder")
+    width = "reduced" if cfg.name.endswith("-reduced") else "full"
+    line("serve", model=arch, width=width, depth=depth, dtype="float32", batch=LM_CPU_BATCH,
+         features={k: list(v.shape) for k, v in prompt.items() if v.is_floating_point()},
+         prompt=LM_CPU_PROMPT, new_tokens=LM_CPU_NEW, prefill_logits_rel_err_vs_cpu=rel,
+         greedy_tokens_equal=bool(torch.equal(tok.cpu(), tok_cpu)), launches=launches,
+         cpu_reference_s=cpu_s, card=card)
+    check(torch.isfinite(logits).all().item() and rel <= TOL_LM_LOGITS,
+          f"{arch} {width} f32 prefill logits vs cpu: {rel} of the largest")
+    check(torch.equal(tok.cpu(), tok_cpu), f"{arch} greedy tokens differ: {tok} vs {tok_cpu}")
+    check(not any(launches.values()), f"{arch}: kernels launched {launches}")
+    if train:
+        seq = n_prefix + (LM_CMP_SEQ if width == "full" else 16)
+        batch = frontend_inputs(cfg, LM_CMP_BATCH, seq, "train",
+                                torch.Generator().manual_seed(seed + 2))
+        batch_dev = {k: v.to(dev) for k, v in batch.items()}
+        for mode in ("invertible", "autodiff"):
+            t0 = time.perf_counter()
+            loss_cpu, g_cpu = lm_grads(model_cpu, batch, mode)
+            cpu_s = time.perf_counter() - t0
+            loss, grads = lm_grads(model_card, batch_dev, mode)
+            loss2, grads2 = lm_grads(model_card, batch_dev, mode)
+            torch.cuda.synchronize()
+            repeat = bool(torch.equal(loss, loss2)) and all(torch.equal(grads[k], grads2[k])
+                                                             for k in grads)
+            loss_rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+            grad_rel, worst = max_rel_leaf_err(grads, g_cpu)
+            unused = sorted(k for k, g in g_cpu.items() if not g.abs().max().item())
+            line("lm-train", part="frontend-a", model=arch, width=width, depth=depth,
+                 dtype="float32", batch={k: list(v.shape) for k, v in batch.items()},
+                 grad_mode=mode, loss=loss.item(), loss_rel_err_vs_cpu=loss_rel,
+                 grad_max_rel_err_vs_cpu=grad_rel, worst_leaf=worst, bitwise_repeatable=repeat,
+                 n_leaves=len(grads), zero_leaves=unused, cpu_s=cpu_s, card=card)
+            check(torch.isfinite(loss).item() and loss_rel <= TOL_LOSS_REL,
+                  f"{arch} {mode}: loss {loss.item()} vs cpu {loss_cpu.item()}")
+            check(grad_rel <= TOL_GRAD_REL, f"{arch} {mode}: leaf {worst} at {grad_rel}")
+            check(repeat, f"{arch} {mode}: two steps on the card differ")
+            del grads, grads2, g_cpu
+    del model_card, model_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_serve(dev, card, arch, cfg, seed, n_prompt, why) -> dict:
+    """``cfg`` on the card in bf16: ``generate`` at batch 8 with the model's
+    features, ``n_prompt`` text tokens and 32 new ones, 0 kernel launches;
+    tokens/s, peak memory.  Returns what ``lm_times`` reads."""
+    import torch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_prefix = cfg.frontend.n_patches if cfg.frontend.kind == "vision" else 0
+    batch = frontend_inputs(cfg, LM_BATCH, n_prefix + n_prompt, "prefill",
+                            torch.Generator(dev).manual_seed(seed + 1))
+    engine = ServeEngine(model, n_prefix + n_prompt + LM_NEW, device=dev)
+    kernels = (*ak.KERNELS, *scan_kernels())
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    out, last = engine.generate(batch, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    check(out.shape == (LM_BATCH, LM_NEW) and torch.isfinite(last).all().item(),
+          f"{arch} generate: tokens {tuple(out.shape)}, finite {torch.isfinite(last).all().item()}")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size, f"{arch} tokens outside vocab")
+    check(not any(launches.values()), f"{arch} generate launched {launches}")
+    n_params = sum(p.numel() for p in model.parameters())
+    line("serve", model=arch, depth=cfg.n_layers, encoder_depth=cfg.encoder_layers or None,
+         why_this_depth=why, dtype=cfg.dtype, batch=LM_BATCH,
+         features={k: list(v.shape) for k, v in batch.items() if v.is_floating_point()},
+         prompt=n_prompt, positions_before_decode=n_prefix + n_prompt, new_tokens=LM_NEW,
+         n_params=n_params, f32_weight_bytes=4 * n_params, init_on_card_s=init_s,
+         generate_s=gen_s,
+         generate_tokens_per_s=LM_BATCH * (n_prefix + n_prompt + LM_NEW) / gen_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches_per_generate=launches,
+         first_tokens=out[:, :4].tolist(), distinct_tokens=int(out.unique().numel()), card=card)
+    served = {"model": model, "prompt": batch["tokens"], "batch": batch, "pos": n_prefix + n_prompt,
+              "positions": LM_BATCH * (n_prefix + n_prompt)}
+    if cfg.is_enc_dec:
+        with torch.inference_mode():
+            served["extra"] = {"enc": model.encode(batch["frames"])}
+    return served
+
+
+def whisper_train(dev, card) -> None:
+    """(frontend-b) whisper-small whole, bf16 activations, f32 master
+    weights, AdamW: ``WHISPER_TRAIN_STEPS`` steps of ``train_lm`` under
+    ``invertible`` at 8 x 448 decoder tokens with 1500 frames each
+    (``SpecBatches``): per step wall, tokens/s, peak memory; every loss
+    finite, the first in (0, 2 log V)."""
+    import torch
+    from repro_torch.config import ShapeSpec, TrainConfig, get_arch
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.models import Model
+    from repro_torch.models.registry import SpecBatches
+    from repro_torch.train.loop import train_lm
+
+    cfg = get_arch("whisper-small").config
+    model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 93), device=dev)
+    data = SpecBatches(cfg, ShapeSpec("train", WHISPER_TRAIN_SEQ, LM_BATCH, "train"), seed=29)
+    kernels = (*ak.KERNELS, *scan_kernels())
+    clock = StepClock(profiled=False)
+    reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    res = train_lm(model, data, TrainConfig(steps=WHISPER_TRAIN_STEPS, lr=3e-4, warmup_steps=1),
+                   grad_mode="invertible", device=dev, injector=clock)
+    clock.finish()
+    launches = {k.name: k.launches for k in kernels}
+    walls = [1e3 * (b - a) for a, b in zip(clock.marks, clock.marks[1:])]
+    line("lm-train", part="frontend-b", model="whisper-small", depth=cfg.n_layers,
+         encoder_depth=cfg.encoder_layers, dtype=cfg.dtype,
+         batch={k: list(v.shape) for k, v in data.specs.items()}, losses=res.losses,
+         wall_ms=walls, decoder_tokens_per_s=[LM_BATCH * WHISPER_TRAIN_SEQ / (w * 1e-3)
+                                              for w in walls],
+         peak_memory_bytes=clock.peaks[1:], launches=launches,
+         n_params=sum(p.numel() for p in model.parameters()), card=card)
+    check(len(res.losses) == WHISPER_TRAIN_STEPS and all(math.isfinite(v) for v in res.losses)
+          and 0 < res.losses[0] < 2 * math.log(cfg.vocab_size),
+          f"lm-train (frontend-b) whisper-small: losses {res.losses}")
+    check(not any(launches.values()), f"lm-train (frontend-b): kernels launched {launches}")
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_phase(dev, card, wall_ms) -> None:
+    """Phase 12: whisper-small (a) at full width, 2 encoder and 2 decoder
+    layers, f32, against the CPU: prefill logits, 8 greedy tokens, the loss
+    and every leaf; then whole in bf16: ``generate`` (batch 8, 1500 frames,
+    a 64-token prompt, 32 new tokens) with ``[times]``, then (b)
+    ``train_lm`` at 8 x 448.  llava-next-34b at full width, depth 2, f32,
+    against the CPU (serving); at ``LLAVA_DEPTH`` in bf16 (batch 8, 576
+    patches and 1472 text tokens, 2048 positions, 32 new tokens) with
+    ``[times]``; ``REDUCED`` in f32: a train step against the CPU."""
+    import torch
+    from repro_torch.config import get_arch
+
+    whisper = get_arch("whisper-small").config
+    frontend_vs_cpu(dev, card, "whisper-small",
+                    whisper.replace(n_layers=2, encoder_layers=2, dtype="float32"), SEED + 90,
+                    train=True)
+    served = frontend_serve(dev, card, "whisper-small", whisper, SEED + 91, WHISPER_PROMPT,
+                            "whole: 12 encoder and 12 decoder layers")
+    lm_times(served, card, wall_ms, name="whisper-small")
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_train(dev, card)
+    spec = get_arch("llava-next-34b")
+    frontend_vs_cpu(dev, card, "llava-next-34b", spec.config.replace(n_layers=2, dtype="float32"),
+                    SEED + 94, train=False)
+    frontend_vs_cpu(dev, card, "llava-next-34b", spec.reduced.replace(dtype="float32"),
+                    SEED + 95, train=True)
+    n_prefix = spec.config.frontend.n_patches
+    served = frontend_serve(dev, card, "llava-next-34b",
+                            spec.config.replace(n_layers=LLAVA_DEPTH), SEED + 96,
+                            LM_PROMPT - n_prefix, LLAVA_WHY)
+    lm_times(served, card, wall_ms, name="llava-next-34b")
+    del served
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3448,8 +3948,18 @@ def main() -> int:
     lm_train_vs_cpu(dev, card)
     lm_train_flash_per_step = lm_train_full(dev, card)
     lm_train_memory(dev, card)
-    lm_train_launcher_and_guard(dev, card)
+    lm_train_launcher(dev, card)
     mark("lm-train")
+
+    # 11, continued: rwkv6-7b and zamba2-7b trained through their plain scans
+    ssm_train_vs_cpu(dev, card)
+    ssm_train_restart(dev, card)
+    ssm_train_memory(dev, card)
+    mark("ssm-train")
+
+    # 12. the front ends: whisper-small and llava-next-34b served and trained
+    frontend_phase(dev, card, e2e_wall_ms)
+    mark("front ends")
 
     def by_path(*names):
         """Each path's first ``[times]`` row of a kernel (its largest shape,

@@ -14,13 +14,11 @@ initialised from the generator it was built with.  The reference's
 (``ROADMAP.md`` queue 1, item 7).
 
 ``ModelConfig`` keeps every field of the reference so a configuration reads
-the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers) and
-``MoEConfig`` (the routed experts) are ported; the ``frontend`` sub-config
-comes with the slice that ports the vision and audio front ends
-(``ROADMAP.md`` queue 1, item 6.5); until then it stays ``None``, and
-``models/blocks.py::decoder_layout`` refuses a family it cannot build.
-Architectures register themselves from ``repro_torch.configs``; only ported
-ones are registered.
+the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers),
+``MoEConfig`` (the routed experts) and ``FrontendConfig`` (the vision and
+audio front ends, which take precomputed embeddings) are ported, and
+``ShapeSpec`` names an input cell for ``models/registry.py::input_specs``.
+Architectures register themselves from ``repro_torch.configs``.
 """
 
 from __future__ import annotations
@@ -115,6 +113,17 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """A modality front end that takes precomputed embeddings."""
+
+    kind: str  # "audio" | "vision"
+    # vision: number of patch embeddings prepended to the text sequence
+    n_patches: int = 576
+    # audio: number of encoder frames produced by the (stubbed) conv front end
+    n_frames: int = 1500
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -126,7 +135,7 @@ class ModelConfig:
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    frontend: Optional[object] = None
+    frontend: Optional[FrontendConfig] = None
 
     # hybrid (zamba2): apply the shared attention block every k SSM blocks
     hybrid_attn_every: int = 0
@@ -208,6 +217,17 @@ class ModelConfig:
         return n
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input cell: a train, prefill or decode batch of ``global_batch``
+    sequences of ``seq_len`` positions."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
 _REGISTRY: dict[str, "ArchSpec"] = {}
 
 
@@ -232,15 +252,10 @@ def register_arch(spec: ArchSpec) -> ArchSpec:
 def get_arch(name: str) -> ArchSpec:
     """The registered architecture ``name``: yi-6b, glm4-9b, granite-34b,
     command-r-plus-104b, granite-moe-1b-a400m, llama4-maverick-400b-a17b,
-    rwkv6-7b or zamba2-7b.  An architecture of the reference that the port
-    does not build yet (llava-next-34b, whisper-small) raises, naming its
-    place in ``ROADMAP.md``."""
-    from repro_torch.configs import UNPORTED_ARCHS
+    rwkv6-7b, zamba2-7b, whisper-small or llava-next-34b."""
+    import repro_torch.configs  # noqa: F401
 
     if name not in _REGISTRY:
-        if name in UNPORTED_ARCHS:
-            raise KeyError(f"architecture {name!r} is not ported yet (ROADMAP.md queue 1, "
-                           f"item 6); ported: {sorted(_REGISTRY)}")
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 

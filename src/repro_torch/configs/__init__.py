@@ -1,21 +1,18 @@
 """Architecture registry of the port: importing this package registers every
-language-model architecture the port builds.  The flow configurations live
-in ``configs/flows.py``."""
+language-model architecture the port builds, all of the reference's.  The
+flow configurations live in ``configs/flows.py``."""
 
 import repro_torch.configs.command_r_plus_104b  # noqa: F401
 import repro_torch.configs.glm4_9b  # noqa: F401
 import repro_torch.configs.granite_34b  # noqa: F401
 import repro_torch.configs.granite_moe_1b_a400m  # noqa: F401
 import repro_torch.configs.llama4_maverick_400b_a17b  # noqa: F401
+import repro_torch.configs.llava_next_34b  # noqa: F401
 import repro_torch.configs.rwkv6_7b  # noqa: F401
+import repro_torch.configs.whisper_small  # noqa: F401
 import repro_torch.configs.yi_6b  # noqa: F401
 import repro_torch.configs.zamba2_7b  # noqa: F401
 from repro_torch.config import get_arch, list_archs  # noqa: F401
 
-#: the reference's architectures that the port does not build yet, in the
-#: order of ``ROADMAP.md`` queue 1, item 6: llava-next-34b waits for the
-#: vision front end (6.5), whisper-small for cross attention (6.4)
-UNPORTED_ARCHS = (
-    "llava-next-34b",
-    "whisper-small",
-)
+#: the reference's architectures that the port does not build: none
+UNPORTED_ARCHS = ()

@@ -247,11 +247,14 @@ def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
     with torch.no_grad():
         for i in range(k - 1, -1, -1):
             x, gx, gp, gc = step_bwd(i, y, gy, gld, cond)
-            for name, g in gp.items():
-                if g is not None:
-                    gstacked[name][i] = g
+            for name in gp:
+                if gp[name] is not None:
+                    gstacked[name][i] = gp[name]
             gcond = _add(gcond, gc)
             y, gy = _detach(x), _cast(gx, x)
+            # a step's gradients are copied: free them before the next step
+            # runs, or a step of many units holds two steps' at once
+            del x, gx, gp, gc
     return y, gy, gstacked, gcond
 
 

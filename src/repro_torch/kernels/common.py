@@ -166,9 +166,10 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            f"{ctx.name} has no backward on the card: its CUDA kernel computes the forward only "
-            "(the backward comes with LM training, ROADMAP.md queue 1, item 6.3); "
-            "differentiate through the plain version on the CPU instead")
+            f"{ctx.name} has no backward on the card: its CUDA kernel computes the forward only. "
+            "No training path launches it (the SSM mixers train through their plain scans, "
+            "nn/ssm.py::scan_on_kernel; no model selects flash_attention); differentiate "
+            "through the plain version instead")
 
 
 def forward_only(fn, name: str):

@@ -3,8 +3,10 @@
 
 CPU tensors take the plain version (``ref.py``), which autograd
 differentiates; CUDA tensors take the hand-written kernel, or raise.  The
-kernel has no backward yet: on the card it is called through
-``forward_only``, so a gradient through it raises.  Both keep the TPU kernel's contract: the
+kernel computes the forward only and serves the models' prefill and decode;
+on the card it is called through ``forward_only``, so a gradient through it
+raises.  The models train through the plain scans of ``nn/ssm.py``
+(``scan_on_kernel``), as the reference trains through ``lax.scan``.  Both keep the TPU kernel's contract: the
 chunk is ``min(chunk, S)`` and must divide S, and y comes back in x's
 dtype."""
 

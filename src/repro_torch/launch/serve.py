@@ -8,16 +8,19 @@ trained ``repro_torch.uq`` scenario's posterior service.
         --ckpt checkpoints/uq [--samples 20000] [--no-calibration]
 
 ``--arch`` generates through ``ServeEngine`` (prefill, then cached decode
-steps) for the ported architectures (yi-6b, glm4-9b, granite-34b,
+steps) for every architecture (yi-6b, glm4-9b, granite-34b,
 command-r-plus-104b, granite-moe-1b-a400m, llama4-maverick-400b-a17b,
-rwkv6-7b, zamba2-7b) with weights from seed 0 or from ``--ckpt`` (written by
-``repro_torch.launch.train --arch``); llava-next-34b and whisper-small raise,
-naming their place in ``ROADMAP.md``.  ``--scenario`` restores the scenario's
-checkpoint: a conditional scenario streams posterior statistics for a
-held-out observation through ``PosteriorEngine`` and prints the SBC/coverage
-calibration report (``posterior_report``); a prior scenario streams sample
-statistics through ``PosteriorEngine`` over a ``FlowServeEngine``
-(``prior_report``).  It runs
+rwkv6-7b, zamba2-7b, whisper-small, llava-next-34b) with weights from seed 0
+or from ``--ckpt`` (written by ``repro_torch.launch.train --arch``).  A
+vision model's prompt carries seeded patch embeddings and an
+encoder-decoder's seeded frames, as the reference's launcher feeds them; the
+caches hold ``n_patches + prompt_len + max_new`` positions (the reference
+sizes them ``prompt_len + max_new``, which a vision prefix overruns).
+``--scenario`` restores the scenario's checkpoint: a conditional scenario
+streams posterior statistics for a held-out observation through
+``PosteriorEngine`` and prints the SBC/coverage calibration report
+(``posterior_report``); a prior scenario streams sample statistics through
+``PosteriorEngine`` over a ``FlowServeEngine`` (``prior_report``).  It runs
 on one device, ``cuda`` unless ``--device`` names another; a device mesh
 (``--mesh``) is not ported yet and raises.
 """
@@ -59,23 +62,27 @@ def _serve_scenario(args):
 
 
 def _serve_arch(args):
-    from repro_torch.config import get_arch
+    from repro_torch.config import ShapeSpec, get_arch
     from repro_torch.models import build_model
+    from repro_torch.models.registry import batch_like, input_specs
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import checkpoint as ckpt
 
-    spec = get_arch(args.arch)  # raises for an architecture not ported yet
+    spec = get_arch(args.arch)
     model, cfg = build_model(spec.reduced if args.reduced else spec.config, device=args.device)
     if args.ckpt:
         state, step = ckpt.restore({"params": model.state_dict()}, args.ckpt)
         model.load_state_dict(state["params"])
         print(f"restored step {step} from {args.ckpt}")
-    engine = ServeEngine(model, max_len=args.prompt_len + args.max_new,
+    n_prefix = (cfg.frontend.n_patches
+                if cfg.frontend is not None and cfg.frontend.kind == "vision" else 0)
+    engine = ServeEngine(model, max_len=n_prefix + args.prompt_len + args.max_new,
                          temperature=args.temperature, device=args.device)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=torch.Generator().manual_seed(0), dtype=torch.int32)
+    shape = ShapeSpec("serve", n_prefix + args.prompt_len, args.batch, "prefill")
+    prompt = batch_like(input_specs(cfg, shape), torch.Generator().manual_seed(0),
+                        cfg.vocab_size)
     t0 = time.perf_counter()
-    toks, logits = engine.generate({"tokens": prompt}, max_new=args.max_new)
+    toks, logits = engine.generate(prompt, max_new=args.max_new)
     toks = toks.cpu()
     dt = time.perf_counter() - t0
     if not bool(torch.isfinite(logits).all()):
@@ -90,7 +97,8 @@ def main(argv=None):
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--arch", help="LM architecture id (yi-6b, glm4-9b, granite-34b, "
                                       "command-r-plus-104b, granite-moe-1b-a400m, "
-                                      "llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b)")
+                                      "llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b, "
+                                      "whisper-small, llava-next-34b)")
     group.add_argument("--scenario", help="repro_torch.uq scenario to serve (posterior "
                                           "statistics + calibration from --ckpt)")
     ap.add_argument("--samples", type=int, default=0,

@@ -6,13 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --scenario lg-smoke \
         --ckpt checkpoints/uq [--steps 50] [--device cuda]
 
-``--arch`` trains a language model (a ported architecture: yi-6b, glm4-9b,
+``--arch`` trains a language model (any architecture: yi-6b, glm4-9b,
 granite-34b, command-r-plus-104b, granite-moe-1b-a400m,
-llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b; ``--reduced`` for its
-smoke-scale config) on ``SyntheticTokens`` through ``train_lm``, weights
-from seed 0, with checkpoints in ``--ckpt``; rwkv6-7b and zamba2-7b train on
-the CPU only (their scan kernels have no backward on the card yet,
-``ROADMAP.md`` queue 1, item 6.3).  ``--scenario`` trains a named
+llama4-maverick-400b-a17b, rwkv6-7b, zamba2-7b, whisper-small,
+llava-next-34b; ``--reduced`` for its smoke-scale config) through
+``train_lm``, weights from seed 0, with checkpoints in ``--ckpt``: a
+text-only model on ``SyntheticTokens``; a model with a front end
+(whisper-small's frames, llava-next-34b's patches, whose 576 positions come
+out of ``--seq``) on ``SpecBatches``, its ``input_specs`` drawn by
+``batch_like``.  There the port goes past the reference's launcher, which
+builds ``SyntheticTokens`` alone and so cannot train those two.  rwkv6-7b
+and zamba2-7b train through their plain scans on either device.  ``--scenario`` trains a named
 ``repro_torch.uq`` scenario (an amortized posterior or an image-prior flow)
 through the supervised loop; serve the result with
 ``repro_torch.launch.serve --scenario``.  It runs on one device, ``cuda``
@@ -26,21 +30,22 @@ import argparse
 
 
 def _train_arch(args):
-    from repro_torch.config import TrainConfig, get_arch
-    from repro_torch.core.types import resolve_device
+    from repro_torch.config import ShapeSpec, TrainConfig, get_arch
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
     from repro_torch.models.lm import default_grad_mode
-    from repro_torch.train.loop import check_lm_trainable, train_lm
+    from repro_torch.models.registry import SpecBatches
+    from repro_torch.train.loop import train_lm
 
-    spec = get_arch(args.arch)  # raises for an architecture not ported yet
-    cfg = spec.reduced if args.reduced else spec.config
-    check_lm_trainable(cfg, resolve_device(args.device))  # before the weights are allocated
-    model, cfg = build_model(cfg, device=args.device)
+    spec = get_arch(args.arch)
+    model, cfg = build_model(spec.reduced if args.reduced else spec.config, device=args.device)
     print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M reversible={cfg.reversible} "
           f"grad_mode={args.grad_mode or default_grad_mode(cfg)} device={args.device}", flush=True)
     steps = args.steps or 100
-    data = SyntheticTokens(cfg.vocab_size, args.seq, args.batch, seed=0)
+    if cfg.frontend is None:
+        data = SyntheticTokens(cfg.vocab_size, args.seq, args.batch, seed=0)
+    else:
+        data = SpecBatches(cfg, ShapeSpec("train", args.seq, args.batch, "train"), seed=0)
     tcfg = TrainConfig(steps=steps, lr=args.lr, warmup_steps=max(steps // 20, 2),
                        checkpoint_every=max(steps // 4, 10), checkpoint_dir=args.ckpt,
                        step_timeout_s=args.step_timeout, accum_steps=args.accum,

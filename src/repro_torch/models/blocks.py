@@ -1,5 +1,6 @@
-"""Superblocks, the port of the reference's ``models/blocks.py`` for the
-dense, ``moe``, ``ssm`` (rwkv6) and ``hybrid`` (zamba2) families.
+"""Superblocks, the port of the reference's ``models/blocks.py`` for every
+family: dense, ``vlm``, ``moe``, ``ssm`` (rwkv6), ``hybrid`` (zamba2) and
+``audio`` (the whisper encoder and decoder).
 
 A superblock is the smallest repeating parameter pattern of a model:
 
@@ -12,6 +13,9 @@ A superblock is the smallest repeating parameter pattern of a model:
   attention and FFN (their weights live in ``Ctx.extra``; only each
   application's norms and KV cache are per superblock), then a tail of
   ``n_layers % k`` Mamba2 blocks run as a second stack.
+* whisper — the decoder: self attention, cross attention over the encoder
+  output (``Ctx.extra["enc"]``, no cache) and the MLP; the encoder
+  (``encoder_layout``): non-causal self attention and the MLP.
 
 In reversible mode the units alternate over two residual streams (additive
 coupling):
@@ -31,12 +35,11 @@ sums over its units into the scan engine's logdet slot.  With caches
 cache views, in the reference's dtypes: shifts and conv states in the
 activation dtype, wkv and ssd states in f32) and serving ignores the aux;
 without (training, ``cache=None``) it is a pure function of its inputs.
-What waits for later slices (``ROADMAP.md`` queue 1, items 6.4 and 6.5):
-cross attention and the encoder layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -44,7 +47,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.types import tree_leaves
-from repro_torch.nn.attention import attn_apply, attn_init, make_cache
+from repro_torch.nn.attention import attn_apply, attn_init, cross_kv, make_cache
 from repro_torch.nn.mlp import ffn_apply, ffn_init
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norm import rmsnorm
@@ -66,7 +69,9 @@ class Ctx(NamedTuple):
 
     positions: torch.Tensor  # (S,) absolute positions of this call's tokens
     pos0: int  # cache write offset
-    extra: Optional[dict] = None  # shared inputs: the shared attention's and FFN's weights
+    # shared differentiable inputs: the shared attention's and FFN's weights,
+    # the encoder output ("enc")
+    extra: Optional[dict] = None
 
 
 class Unit(NamedTuple):
@@ -84,10 +89,15 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def attention_unit(cfg: ModelConfig, name: str = "attn", *, shared: bool = False) -> Unit:
-    """Attention with its norm; ``shared`` reads the weights from
-    ``ctx.extra["shared_attn"]`` and holds only the norm."""
+def attention_unit(cfg: ModelConfig, name: str = "attn", *, causal: Optional[bool] = None,
+                   shared: bool = False, cross: bool = False) -> Unit:
+    """Attention with its norm.  ``causal`` overrides the config's;
+    ``shared`` reads the weights from ``ctx.extra["shared_attn"]`` and holds
+    only the norm; ``cross`` attends over ``ctx.extra["enc"]`` through
+    ``cross_kv`` and keeps no cache."""
     acfg, d, dtype = cfg.attention, cfg.d_model, _dtype(cfg.dtype)
+    if causal is not None:
+        acfg = dataclasses.replace(acfg, causal=causal)
 
     def init(generator):
         p = {"norm": torch.ones(d, device=generator.device)}
@@ -98,12 +108,15 @@ def attention_unit(cfg: ModelConfig, name: str = "attn", *, shared: bool = False
     def apply(p, x, cache, ctx: Ctx):
         h = rmsnorm(x.to(dtype), p["norm"], cfg.norm_eps)
         weights = ctx.extra["shared_attn"] if shared else p["attn"]
+        if cross:
+            kv = cross_kv(weights, ctx.extra["enc"].to(dtype), acfg)
+            return attn_apply(weights, h, acfg, ctx.positions, kv_override=kv)[0], None
         out, _ = attn_apply(weights, h, acfg, ctx.positions, cache=cache, cache_pos=ctx.pos0,
                             seq_shard=cfg.attn_seq_shard)
         return out, None
 
     def mk_cache(batch, max_len, device):
-        return make_cache(acfg, batch, max_len, dtype, device)
+        return {} if cross else make_cache(acfg, batch, max_len, dtype, device)
 
     return Unit(name, init, apply, mk_cache)
 
@@ -389,5 +402,14 @@ def decoder_layout(cfg: ModelConfig) -> StackLayout:
         if n_tail:
             tail = SuperBlock(tuple(mamba_unit(cfg, f"mamba{i}") for i in range(n_tail)), 1)
         return StackLayout(SuperBlock(units, n_main), tail, has_shared_attn=True)
-    raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-                              "(ROADMAP.md queue 1, items 6.4 and 6.5)")
+    if cfg.family == "audio":  # the whisper decoder
+        units = (attention_unit(cfg, "self_attn"),
+                 attention_unit(cfg, "cross_attn", cross=True), ffn_unit(cfg))
+        return StackLayout(SuperBlock(units, cfg.n_layers))
+    raise ValueError(f"no layout for family {cfg.family!r} ({cfg.name})")
+
+
+def encoder_layout(cfg: ModelConfig) -> StackLayout:
+    """The whisper encoder: non-causal attention and the MLP."""
+    units = (attention_unit(cfg, causal=False), ffn_unit(cfg))
+    return StackLayout(SuperBlock(units, cfg.encoder_layers))

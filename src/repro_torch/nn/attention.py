@@ -8,6 +8,14 @@ hand-written flash kernel (``kernels/attention``) when the caller asks for
 ``impl="flash"`` under the reference's own conditions.  The model never asks
 (``models/blocks.py``), as in the reference.
 
+Cross attention (the whisper decoder) takes its K/V from ``cross_kv`` of the
+encoder output through ``attn_apply(kv_override=)``, as the reference does,
+including three of its choices that the port keeps for parity: neither the
+cross K/V nor the cross query adds ``bq``/``bk``/``bv`` (with ``qkv_bias``
+they exist and get no gradient), RoPE turns the query at the decoder's
+positions and the keys at frame positions ``0..n_frames-1``, and a causal
+``AttentionConfig`` masks the cross scores by ``q_pos >= kv_pos``.
+
 One departure, for memory: a cache is written in place (the reference's
 ``dynamic_update_slice`` returns a new array), and ``attn_apply`` returns
 the same cache dict it was given.  A write that would run past the cache's
@@ -90,12 +98,16 @@ def attn_apply(
     positions: torch.Tensor,
     cache: Optional[dict] = None,
     cache_pos: Optional[int] = None,
+    kv_override: Optional[tuple] = None,
     impl: str = "xla",
     seq_shard: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """The full attention op.
 
-    Without ``cache``: self-attention over ``x`` (prefill without reuse);
+    ``kv_override=(k, v, kv_positions)`` (``cross_kv``'s) is cross
+    attention: the query alone is projected (no bias) and turned at
+    ``positions``, ``cache`` is returned untouched.  Without ``cache``:
+    self-attention over ``x`` (prefill without reuse);
     ``impl="flash"`` takes the flash kernel when, as in the reference, the
     sequence is longer than one token, a multiple of 128, and the window is
     off; otherwise the einsum path.  With ``cache``: write this call's K/V at
@@ -105,8 +117,14 @@ def attn_apply(
         raise NotImplementedError("sequence-parallel attention comes with the distribution "
                                   "slice (ROADMAP.md queue 1, item 7)")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
     pos1d = positions[0] if positions.ndim > 1 else positions
+    if kv_override is not None:
+        q = (x @ params["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k, v, kv_pos = kv_override
+        out = _sdpa(q, k, v, cfg, pos1d, kv_pos)
+        return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
+    q, k, v = _project_qkv(params, x, cfg, positions)
     if cache is None:
         if impl == "flash" and s > 1 and cfg.window == 0 and s % 128 == 0:
             from repro_torch.kernels.attention.ops import flash_sdpa
@@ -126,6 +144,17 @@ def attn_apply(
         kv_pos = torch.arange(cache["k"].shape[1], device=x.device)
         out = _sdpa(q, cache["k"], cache["v"], cfg, pos1d, kv_pos)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
+
+
+def cross_kv(params, enc: torch.Tensor, cfg: AttentionConfig) -> tuple:
+    """Cross-attention K/V of the encoder output ``enc`` (B, F, D):
+    ``(k, v, kv_positions)``, k turned by RoPE at frame positions
+    ``0..F-1``; no bias, as in the reference."""
+    b, s, _ = enc.shape
+    k = (enc @ params["wk"].to(enc.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc @ params["wv"].to(enc.dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    kv_pos = torch.arange(s, device=enc.device)
+    return apply_rope(k, kv_pos, cfg.rope_theta), v, kv_pos
 
 
 def make_cache(cfg: AttentionConfig, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -26,6 +26,9 @@ per-sample (B,) channel.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Iterator, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -58,12 +61,37 @@ def _capacity(tokens_per_group: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
+#: the expert choices ``route`` takes in place of its own top-k while
+#: ``pinned_routes`` is active, one per call in call order; None otherwise
+#: (no serving or training path sets it)
+_PINNED: Optional[Iterator] = None
+
+
+@contextmanager
+def pinned_routes(choices):
+    """Within the block, the n-th ``route`` call takes ``choices[n]`` (B, S,
+    K) as its expert indices, and the probabilities at them as its gate
+    values: a check reruns a pass with the routing another pass chose (the
+    card's bf16 gradient check holds ``autodiff`` to the choices the
+    ``invertible`` backward re-routed)."""
+    global _PINNED
+    _PINNED = iter(choices)
+    try:
+        yield
+    finally:
+        _PINNED = None
+
+
 def route(params, x: torch.Tensor, cfg: MoEConfig):
     """The routing of ``x`` (B, S, D): ``(probs (B, S, E) f32, gate values
     (B, S, K) renormalised, expert indices (B, S, K))``."""
     logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    if _PINNED is None:
+        gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    else:
+        expert_idx = next(_PINNED).to(probs.device)
+        gate_vals = probs.gather(-1, expert_idx)
     gate_vals = gate_vals / (gate_vals.sum(dim=-1, keepdim=True) + 1e-9)
     return probs, gate_vals, expert_idx
 

@@ -4,13 +4,23 @@ the reference's ``nn/ssm.py``.
 Each mixer is a function of its parameters, its input and an explicit
 recurrent ``state``, and returns the new state beside its output, as the
 reference does; the serving units (``models/blocks.py``) copy it into their
-caches.  The multi-token scans take the hand-written CUDA kernels on CUDA
-tensors (``_wkv_scan`` and ``_wkv_scan_chunked`` through
+caches.
+
+Which scan runs is one rule, :func:`scan_on_kernel`, that both mixers call:
+a mixer that carries a ``state`` (serving: prefill and decode, where the
+units pass their caches) on CUDA tensors launches the hand-written kernel
+(``_wkv_scan`` and ``_wkv_scan_chunked`` through
 ``kernels/rwkv/ops.py::rwkv6_wkv``, for every S including decode's S = 1;
-``_ssd_chunk_scan`` through ``kernels/ssd/ops.py::mamba2_ssd``) and on CPU
-tensors the reference's plain scans, written here as Python loops.  Mamba2's
-single-token decode step is the plain recurrence on either device, as in the
-reference.
+``_ssd_chunk_scan`` through ``kernels/ssd/ops.py::mamba2_ssd``); a mixer
+without one (training) runs the reference's plain scans, written here as
+Python loops that autograd differentiates, on either device, as the
+reference trains through ``lax.scan``; CPU tensors always take the plain
+scans.  The rule reads what the call is, not whether a gradient is asked
+for: the ``invertible`` engine runs its forward and inverse without grad and
+rebuilds each layer's input under grad, and all three must take one route,
+or each rebuilt input would carry the kernel's difference from the plain
+scan.  Mamba2's single-token decode step is the plain recurrence on either
+device, as in the reference.
 
 Weights stay f32 and are cast to the activations' dtype at each use; the
 scans and their states are f32, as in the reference.
@@ -25,7 +35,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SSMConfig
-from repro_torch.kernels.common import use_plain
 
 
 def _sigmoid(x):
@@ -88,19 +97,28 @@ def _causal_conv(x, w, b, state=None):
     return y + b.to(x.dtype), new_state
 
 
-def _ssd_chunk_scan(xh, da, dt, b_in, c_in, state0, chunk: int):
+def scan_on_kernel(state, device: torch.device) -> bool:
+    """The scans' route: True (launch the CUDA kernel) for a mixer that
+    carries a recurrent ``state`` on a CUDA ``device``; False (the plain
+    scan) for a mixer without one, or on any other device."""
+    return state is not None and device.type == "cuda"
+
+
+def _ssd_chunk_scan(xh, da, dt, b_in, c_in, state0, chunk: int, kernel: bool = False):
     """Chunked SSD scan (Mamba2 sec. 6, the 'minimal' algorithm).
 
     xh: (B, S, H, P); da: (B, S, H) log-decays (dt * A, negative); dt:
     (B, S, H); b_in, c_in: (B, S, N) (one group, shared by the heads);
     state0: (B, H, P, N).  Returns (y (B, S, H, P), state (B, H, P, N)).
-    Raises unless ``chunk`` divides S, where the reference asserts."""
+    ``kernel`` launches ``ssd_scan`` (``scan_on_kernel``'s choice), else the
+    plain scan runs.  Raises unless ``chunk`` divides S, where the reference
+    asserts."""
     bsz, s, h, p = xh.shape
     n = b_in.shape[-1]
     nc = s // chunk
     if nc * chunk != s:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    if not use_plain(xh, da, dt, b_in, c_in, state0):
+    if kernel:
         from repro_torch.kernels.ssd.ops import mamba2_ssd
 
         y, state = mamba2_ssd(xh.transpose(1, 2), da.transpose(1, 2), dt.transpose(1, 2),
@@ -162,7 +180,7 @@ def mamba2_apply(params, x, cfg: SSMConfig, state: Optional[dict] = None):
         y = y[:, None].to(x.dtype)  # (B, 1, H, P)
     else:
         y, new_ssd = _ssd_chunk_scan(xh.float(), da, dt, b_in.float(), c_in.float(), ssd_state0,
-                                     min(cfg.chunk, s))
+                                     min(cfg.chunk, s), kernel=scan_on_kernel(state, xh.device))
         y = y.to(x.dtype)
 
     y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xh
@@ -241,14 +259,16 @@ def _wkv_kernel(r, k, v, w, u, state0):
     return y.transpose(1, 2), state
 
 
-def _wkv_scan(r, k, v, w, u, state0):
+def _wkv_scan(r, k, v, w, u, state0, kernel: bool = False):
     """RWKV6 recurrence, per-token scan.
 
     r, k, v, w: (B, S, H, K); u: (H, K); state0: (B, H, K, K).
 
     y_t = r_t · (S_{t-1} + diag(u·k_t) v_t);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
-    (all f32).  Returns y (B, S, H, K) and the final state."""
-    if not use_plain(r, k, v, w, u, state0):
+    (all f32).  Returns y (B, S, H, K) and the final state.  ``kernel``
+    launches ``wkv_scan`` (``scan_on_kernel``'s choice), else the plain loop
+    runs."""
+    if kernel:
         return _wkv_kernel(r, k, v, w, u, state0)
     state, ys = state0, []
     for t in range(r.shape[1]):
@@ -258,12 +278,12 @@ def _wkv_scan(r, k, v, w, u, state0):
     return torch.stack(ys, dim=1), state
 
 
-def _wkv_scan_chunked(r, k, v, w, u, state0, chunk: int = 16):
+def _wkv_scan_chunked(r, k, v, w, u, state0, chunk: int = 16, kernel: bool = False):
     """Chunked wkv: the sequence padded to a multiple of ``chunk`` (w = 1 on
     the padding, so the state passes it unchanged), scanned chunk by chunk.
-    The same function as ``_wkv_scan``; on CUDA tensors both are the kernel,
+    The same function as ``_wkv_scan``; with ``kernel`` both are the kernel,
     which needs no padding."""
-    if not use_plain(r, k, v, w, u, state0):
+    if kernel:
         return _wkv_kernel(r, k, v, w, u, state0)
     s = r.shape[1]
     pad = (-s) % chunk
@@ -306,10 +326,11 @@ def rwkv6_time_mix(params, x, cfg: SSMConfig, state: Optional[dict] = None):
     state0 = (torch.zeros((bsz, h, k_dim, k_dim), dtype=torch.float32, device=x.device)
               if state is None else state["wkv"])
     rkv = (r.float(), k.float(), v.float())
+    kernel = scan_on_kernel(state, w.device)
     if cfg.wkv_chunk and s > 1:
-        y, new_wkv = _wkv_scan_chunked(*rkv, w, u, state0, chunk=cfg.wkv_chunk)
+        y, new_wkv = _wkv_scan_chunked(*rkv, w, u, state0, chunk=cfg.wkv_chunk, kernel=kernel)
     else:
-        y, new_wkv = _wkv_scan(*rkv, w, u, state0)  # (B, S, H, K) f32
+        y, new_wkv = _wkv_scan(*rkv, w, u, state0, kernel=kernel)  # (B, S, H, K) f32
 
     # per-head group norm, gate, project
     var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)

@@ -1,7 +1,8 @@
 """Serving engines, the port of the reference's ``serve/engine.py`` on one
 device: ``ServeEngine`` (an LM's prefill, then cached greedy or temperature
-decode steps) and ``FlowServeEngine`` (batched ``log_prob`` and ``sample``
-of a normalizing flow).  Sharding over a mesh comes with the distribution
+decode steps, with a vision model's patches or an encoder-decoder's frames)
+and ``FlowServeEngine`` (batched ``log_prob`` and ``sample`` of a
+normalizing flow).  Sharding over a mesh comes with the distribution
 slice.  Requests run under ``torch.inference_mode``; the reference jits
 prefill and decode, the port runs them eagerly.
 """
@@ -33,17 +34,26 @@ class ServeEngine:
 
     def generate(self, batch: dict, max_new: int, generator: torch.Generator | None = None,
                  eos_id: int | None = None):
-        """batch: ``{"tokens": (B, S)}`` prompt ids.  Returns (generated
-        tokens (B, n) int32, n <= max_new, and the last step's logits).  After
-        ``eos_id`` a sequence keeps emitting ``eos_id``; decoding stops when
-        every sequence has.  ``generator`` (on the engine's device; seed 0 by
-        default) feeds temperature sampling."""
+        """batch: ``{"tokens": (B, S)}`` prompt ids, with the model's
+        modality features (``"patches"`` for a vision model, whose n_patches
+        positions come before the text; ``"frames"`` for an encoder-decoder,
+        whose encoder output is computed once and handed to the prefill and
+        to every decode step).  Returns (generated tokens (B, n) int32, n <=
+        max_new, and the last step's logits).  After ``eos_id`` a sequence
+        keeps emitting ``eos_id``; decoding stops when every sequence has.
+        ``generator`` (on the engine's device; seed 0 by default) feeds
+        temperature sampling."""
         gen = generator if generator is not None else torch.Generator(self.device).manual_seed(0)
+        cfg = self.model.cfg
         with torch.inference_mode():
-            tokens = to_device(batch["tokens"], self.device)
-            bsz, prompt_len = tokens.shape
+            batch = {k: to_device(v, self.device) for k, v in batch.items()}
+            bsz, prompt_len = batch["tokens"].shape
             caches = self.model.make_caches(bsz, self.max_len)
-            logits, caches = self.model.prefill({"tokens": tokens}, caches)
+            extra = {"enc": self.model.encode(batch["frames"])} if cfg.is_enc_dec else None
+            logits, caches = self.model.prefill(batch, caches, extra)
+            n_prefix = (cfg.frontend.n_patches
+                        if cfg.frontend is not None and cfg.frontend.kind == "vision" else 0)
+            pos = prompt_len + n_prefix
             out_tokens = []
             done = torch.zeros(bsz, dtype=torch.bool, device=self.device)
             for i in range(max_new):
@@ -54,7 +64,7 @@ class ServeEngine:
                 out_tokens.append(tok)
                 if eos_id is not None and bool(done.all()):
                     break
-                logits, caches = self.model.decode_step(tok[:, None], caches, prompt_len + i)
+                logits, caches = self.model.decode_step(tok[:, None], caches, pos + i, extra)
             return torch.stack(out_tokens, dim=1), logits
 
 

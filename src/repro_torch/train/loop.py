@@ -178,18 +178,6 @@ def _supervised_loop(
 # ---------------------------------------------------------------------------
 
 
-def check_lm_trainable(model_cfg, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for an ``ssm`` or ``hybrid`` model on
-    the card: its scan kernels have no backward there yet (ROADMAP.md queue
-    1, item 6.3).  Takes the config, so a caller can refuse before it builds
-    the model."""
-    if device.type == "cuda" and model_cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training {model_cfg.name} ({model_cfg.family}) on the card needs a backward for "
-            "the wkv_scan / ssd_scan kernels, not ported yet (ROADMAP.md queue 1, item 6.3); "
-            "train it with device='cpu'")
-
-
 def train_lm(model, data, cfg: TrainConfig, *, grad_mode: str | None = None, device=None,
              injector=None) -> TrainResult:
     """Train ``model`` (``models.lm.Model``) for ``cfg.steps`` steps on
@@ -197,13 +185,12 @@ def train_lm(model, data, cfg: TrainConfig, *, grad_mode: str | None = None, dev
     ``train_loss(batch, grad_mode)`` is the objective and
     ``data.batch_at(step)`` yields ``{"tokens", "labels"}`` (a
     ``SyntheticTokens``).  ``grad_mode`` None takes the model's default
-    (``invertible`` for a reversible stack).
-
-    On the card an ``ssm`` or ``hybrid`` model raises before the first step:
-    its scan kernels have no backward there yet (ROADMAP.md queue 1, item
-    6.3); on the CPU their plain scans train."""
+    (``invertible`` for a reversible stack).  A model with a front end
+    takes its batch's modality features beside them (``frames`` for
+    whisper-small, ``patches`` for llava-next-34b; ``models/registry.py::
+    batch_like``).  An ``ssm`` or ``hybrid`` model trains through its plain
+    scans on either device (``nn/ssm.py::scan_on_kernel``)."""
     dev = resolve_device(device)
-    check_lm_trainable(model.cfg, dev)
     model.to(dev).train()
     objective = objective_value_and_grad(
         model, lambda batch: model.train_loss(batch, grad_mode=grad_mode))

@@ -864,26 +864,33 @@ def test_ssd_scan_takes_rising_decays_and_any_head_dim(dev, dtype):
 
 def test_model_scans_take_the_kernels_on_the_card(dev):
     """``_wkv_scan``, ``_wkv_scan_chunked`` and ``_ssd_chunk_scan`` on CUDA
-    tensors, (B, S, H, .) as the mixers pass them: one launch each, the
-    results equal to the same scans on the CPU, y back in (B, S, H, .)."""
+    tensors, (B, S, H, .) as the mixers pass them: with ``kernel=True`` (the
+    serving route) one launch each, the results equal to the same scans on
+    the CPU, y back in (B, S, H, .); with ``kernel=False`` (the training
+    route) the plain scans on the card, no launch."""
     r, k, v, w, u, state0 = _wkv_inputs((2, 4, 40, 64), torch.float32, dev)
     bshk = [t.transpose(1, 2).contiguous() for t in (r, k, v, w)]
     before = rkern.wkv_scan.launches
-    y, st = ssm._wkv_scan(*bshk, u, state0)
-    yc, stc = ssm._wkv_scan_chunked(*bshk, u, state0, chunk=16)
+    y, st = ssm._wkv_scan(*bshk, u, state0, kernel=True)
+    yc, stc = ssm._wkv_scan_chunked(*bshk, u, state0, chunk=16, kernel=True)
+    yp, stp = ssm._wkv_scan(*bshk, u, state0)
     y_cpu, st_cpu = ssm._wkv_scan(*(t.cpu() for t in bshk), u.cpu(), state0.cpu())
     torch.cuda.synchronize()
     assert rkern.wkv_scan.launches == before + 2
-    for a, b in ((y, y_cpu), (st, st_cpu), (yc, y_cpu), (stc, st_cpu)):
+    for a, b in ((y, y_cpu), (st, st_cpu), (yc, y_cpu), (stc, st_cpu), (yp, y_cpu),
+                 (stp, st_cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
     x, da, dt, b_in, c_in, s0 = _ssd_inputs((2, 3, 128, 64, 64), torch.float32, dev)
     args = (x.transpose(1, 2).contiguous(), da.transpose(1, 2).contiguous(),
             dt.transpose(1, 2).contiguous(), b_in, c_in, s0)
     before = skern.ssd_scan.launches
-    y, st = ssm._ssd_chunk_scan(*args, chunk=64)
+    y, st = ssm._ssd_chunk_scan(*args, chunk=64, kernel=True)
+    yp, stp = ssm._ssd_chunk_scan(*args, chunk=64)
     y_cpu, st_cpu = ssm._ssd_chunk_scan(*(t.cpu() for t in args), chunk=64)
     torch.cuda.synchronize()
     assert skern.ssd_scan.launches == before + 1 and y.shape == (2, 128, 3, 64)
+    torch.testing.assert_close(yp.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(stp.cpu(), st_cpu, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(st.cpu(), st_cpu, rtol=2e-4, atol=2e-4)
 
@@ -1043,28 +1050,43 @@ def test_moe_dispatch_is_bitwise_repeatable_on_the_card(dev):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
-def test_ssm_training_is_refused_on_the_card(dev):
-    """rwkv6-7b and zamba2-7b raise before the first step on the card: their
-    scan kernels have no backward there yet (ROADMAP.md queue 1, item 6.3)."""
+def test_ssm_training_on_the_card_launches_no_scan_kernel(dev):
+    """rwkv6-7b and zamba2-7b ``REDUCED`` train on the card through their
+    plain scans, as the reference trains through ``lax.scan``: ``train_lm``
+    runs its steps with 0 ``wkv_scan`` / ``ssd_scan`` launches, finite
+    losses; a train step's loss in f32 matches the CPU's at 1e-5 relative
+    under ``invertible`` and ``autodiff`` (the gradients' f32 conditioning
+    and their gate are ``chip_smoke.py``'s ssm-a); serving the same model
+    launches the kernels."""
     from repro_torch.config import TrainConfig, get_arch
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
     from repro_torch.train.loop import train_lm
 
-    class Counting:
-        def __init__(self, data):
-            self.data, self.steps = data, []
-
-        def batch_at(self, step):
-            self.steps.append(step)
-            return self.data.batch_at(step)
-
-    for arch in ("rwkv6-7b", "zamba2-7b"):
-        model, cfg = build_model(get_arch(arch).reduced, device=dev)
-        data = Counting(SyntheticTokens(cfg.vocab_size, 16, 2))
-        with pytest.raises(NotImplementedError, match="item 6.3"):
-            train_lm(model, data, TrainConfig(steps=2, prefetch=0), device=dev)
-        assert data.steps == []
+    for arch, kernel in (("rwkv6-7b", rkern.wkv_scan), ("zamba2-7b", skern.ssd_scan)):
+        model, cfg = build_model(get_arch(arch).reduced, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(0))
+        data = SyntheticTokens(cfg.vocab_size, 32, 2)
+        before = kernel.launches
+        res = train_lm(model, data, TrainConfig(steps=3, prefetch=0), device=dev)
+        torch.cuda.synchronize()
+        assert kernel.launches == before and len(res.losses) == 3
+        assert all(torch.isfinite(torch.tensor(res.losses)))
+        ServeEngine(model, 40, device=dev).generate({"tokens": data.batch_at(0)["tokens"]}, 2)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + cfg.n_layers * (1 + (2 if arch == "rwkv6-7b" else 0))
+        cpu, _ = build_model(cfg, device="cpu", dtype="float32")
+        card, _ = build_model(cfg, device=dev, dtype="float32")
+        card.load_state_dict(cpu.state_dict())
+        batch = data.batch_at(1)
+        for mode in ("invertible", "autodiff"):
+            loss_c, _ = cpu.train_loss(batch, grad_mode=mode)
+            b_dev = {k: v.to(dev) for k, v in batch.items()}
+            loss_d, _ = card.train_loss(b_dev, grad_mode=mode)
+            grads = torch.autograd.grad(loss_d, list(card.parameters()))
+            assert abs(float(loss_d.cpu() - loss_c)) <= 1e-5 * abs(float(loss_c)), (arch, mode)
+            assert all(bool(torch.isfinite(g).all()) for g in grads), (arch, mode)
 
 
 def test_lm_train_step_on_the_card_matches_the_cpu(dev):

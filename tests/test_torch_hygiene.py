@@ -1,8 +1,10 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
-unrolled GLOW; every ported LM's ``REDUCED`` prefill and decode through
-``ServeEngine.generate``; granite-moe and llama4-maverick ``REDUCED`` trained
-through ``train_lm`` with a restart, and the chunked loss; cHINT trained through the supervised loop
+unrolled GLOW; every LM's ``REDUCED`` prefill and decode through
+``ServeEngine.generate``, with whisper's frames and llava's patches;
+granite-moe and llama4-maverick ``REDUCED`` trained through ``train_lm``
+with a restart, and the chunked loss; whisper-small, llava-next-34b,
+rwkv6-7b and zamba2-7b trained with a restart; cHINT trained through the supervised loop
 with a restart, then sampled; RealNVP and the hyperbolic network trained a
 step; a UQ scenario trained, restored and reported, and the launchers),
 and refuses to run quietly on the CPU when no device was named."""
@@ -60,10 +62,14 @@ def test_lm_serving_runs_without_loading_jax():
         "from repro_torch.models import build_model\n"
         "from repro_torch.serve.engine import ServeEngine\n"
         "from repro_torch.config import list_archs\n"
+        "from repro_torch.config import ShapeSpec\n"
+        "from repro_torch.models.registry import batch_like, input_specs\n"
         "for arch in list_archs():\n"
         "    model, cfg = build_model(get_arch(arch).reduced, device='cpu')\n"
-        "    tok, logits = ServeEngine(model, 12, device='cpu').generate(\n"
-        "        {'tokens': torch.randint(0, cfg.vocab_size, (2, 8))}, 4)\n"
+        "    n = cfg.frontend.n_patches if cfg.family == 'vlm' else 0\n"
+        "    prompt = batch_like(input_specs(cfg, ShapeSpec('p', n + 8, 2, 'prefill')),\n"
+        "                        torch.Generator().manual_seed(0), cfg.vocab_size)\n"
+        "    tok, logits = ServeEngine(model, n + 12, device='cpu').generate(prompt, 4)\n"
         "    assert tok.shape == (2, 4) and bool(torch.isfinite(logits).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
@@ -95,6 +101,44 @@ def test_lm_training_runs_without_loading_jax(tmp_path):
         "    loss.backward()\n"
         "    assert bool(torch.isfinite(loss)) and float(m['aux']) > 0\n"
         "import repro_torch.launch.train\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_frontends_and_ssm_training_run_without_loading_jax(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from repro_torch.config import ShapeSpec, TrainConfig, get_arch\n"
+        "from repro_torch.data import SyntheticTokens\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.models.registry import SpecBatches, batch_like, input_specs\n"
+        "from repro_torch.serve.engine import ServeEngine\n"
+        "from repro_torch.train.fault import FailureInjector\n"
+        "from repro_torch.train.loop import train_lm\n"
+        "for i, arch in enumerate(('whisper-small', 'llava-next-34b', 'rwkv6-7b', 'zamba2-7b')):\n"
+        "    model, cfg = build_model(get_arch(arch).reduced, device='cpu')\n"
+        "    if cfg.frontend is None:\n"
+        "        data = SyntheticTokens(cfg.vocab_size, 16, 2)\n"
+        "    else:\n"
+        "        data = SpecBatches(cfg, ShapeSpec('t', 24, 2, 'train'))\n"
+        f"    tcfg = TrainConfig(steps=3, checkpoint_every=1, checkpoint_dir={str(tmp_path)!r} + str(i))\n"
+        "    res = train_lm(model, data, tcfg, device='cpu', injector=FailureInjector(fail_at=(2,)))\n"
+        "    assert res.restarts == 1 and res.final_step == 2\n"
+        "    if cfg.frontend is not None:\n"
+        "        n = cfg.frontend.n_patches if cfg.family == 'vlm' else 0\n"
+        "        prompt = batch_like(input_specs(cfg, ShapeSpec('p', n + 8, 2, 'prefill')),\n"
+        "                            torch.Generator().manual_seed(1), cfg.vocab_size)\n"
+        "        tok, _ = ServeEngine(model, n + 12, device='cpu').generate(prompt, 4)\n"
+        "        assert tok.shape == (2, 4)\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
@@ -238,6 +282,11 @@ def test_lm_entry_points_without_device_raise_on_a_host_without_a_card():
     for arch in list_archs():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(get_arch(arch).reduced)
+    whisper = Model(get_arch("whisper-small").reduced, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(whisper, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm(whisper, SyntheticTokens(cfg.vocab_size, 8, 1), TrainConfig(steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_lm(Model(cfg, device="cpu"), SyntheticTokens(cfg.vocab_size, 8, 1),
                  TrainConfig(steps=1))

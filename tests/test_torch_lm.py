@@ -136,15 +136,15 @@ def test_configs_and_registry_match_the_reference():
     assert dataclasses.asdict(REDUCED) == dataclasses.asdict(J_REDUCED)
     assert CONFIG.param_count() == J_CONFIG.param_count()
     assert list_archs() == ["command-r-plus-104b", "glm4-9b", "granite-34b",
-                            "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "rwkv6-7b",
-                            "yi-6b", "zamba2-7b"]
+                            "granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+                            "llava-next-34b", "rwkv6-7b", "whisper-small", "yi-6b", "zamba2-7b"]
     assert get_arch("yi-6b").reduced == REDUCED
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_arch("llava-next-34b")
+    llava, _ = build_model(get_arch("llava-next-34b").reduced, device="cpu")
+    assert llava.frontend.proj.shape == (1024, 64)
     with pytest.raises(KeyError, match="unknown architecture"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(REDUCED.replace(family="audio"), device="cpu")
+    with pytest.raises(ValueError, match="no layout"):
+        build_model(REDUCED.replace(family="no-such-family"), device="cpu")
     model, cfg = build_model("yi-6b", device="cpu", n_layers=1, d_model=32, d_ff=64,
                              vocab_size=64, attention=REDUCED.attention)
     assert cfg.n_layers == 1 and model.embed.shape == (64, 32)

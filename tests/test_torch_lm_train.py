@@ -28,11 +28,12 @@ import torch
 
 from repro.data.synthetic import SyntheticTokens as JSyntheticTokens
 from repro.models.losses import chunked_softmax_xent as j_xent
-from repro_torch.config import TrainConfig, get_arch
+from repro_torch.config import ShapeSpec, TrainConfig, get_arch
 from repro_torch.core.autodiff import make_chain_apply
 from repro_torch.data import SyntheticTokens, make_dataset
 from repro_torch.models import build_model
 from repro_torch.models.losses import chunked_softmax_xent
+from repro_torch.models.registry import SpecBatches
 from repro_torch.train.fault import FailureInjector
 from repro_torch.train.loop import train_lm
 from torch_lm_parity import (MODULES, SEED, leaf_errors, make_pair, port_loss_grad,
@@ -80,10 +81,19 @@ def test_reversible_matches_standard_gradients(name):
     autograd on the same reversible weights (``REDUCED``, f32)."""
     model, cfg = build_model(get_arch(name).reduced, device="cpu", dtype="float32",
                              residual_dtype="float32")
-    batch = SyntheticTokens(cfg.vocab_size, 16, 2, seed=SEED % 97).batch_at(0)
+    if cfg.frontend is None:
+        batch = SyntheticTokens(cfg.vocab_size, 16, 2, seed=SEED % 97).batch_at(0)
+    else:  # the modality features too, as the reference's input_specs name them
+        batch = SpecBatches(cfg, ShapeSpec("s", 16, 2, "train"), seed=SEED % 97).batch_at(0)
     params = list(model.parameters())
-    g_inv = torch.autograd.grad(model.train_loss(batch, grad_mode="invertible")[0], params)
-    g_ad = torch.autograd.grad(model.train_loss(batch, grad_mode="autodiff")[0], params)
+
+    def grads(mode):
+        # whisper's cross-attention biases are unused: None, zero in the reference
+        gs = torch.autograd.grad(model.train_loss(batch, grad_mode=mode)[0], params,
+                                 allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, params)]
+
+    g_inv, g_ad = grads("invertible"), grads("autodiff")
     worst = max(float((a - b).abs().max()) for a, b in zip(g_inv, g_ad))
     assert worst < 5e-3, f"{name}: worst grad diff {worst}"
 
@@ -220,14 +230,20 @@ def test_ssm_trains_on_the_cpu_and_accumulation_matches(tmp_path):
     assert worst < 1e-3
 
 
-def test_train_launcher_refuses_an_ssm_on_the_card_before_building_it(tmp_path):
-    """``--arch rwkv6-7b`` at full size on ``cuda`` raises the item-6.3
-    refusal from its config, before any weight is allocated (on a host
-    without a card, building first would raise another error)."""
+def test_train_launcher_refuses_an_ssm_on_the_card_before_building_it(tmp_path, capsys):
+    """The name is kept from when the launcher refused rwkv6-7b on the card.
+    Now the SSMs train on either device through their plain scans, so the
+    same path runs to the end: ``--arch rwkv6-7b --reduced --device cpu``
+    trains, checkpoints, and a second call resumes at its final step."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        train.main(["--arch", "rwkv6-7b", "--device", "cuda", "--ckpt", str(tmp_path)])
+    argv = ["--arch", "rwkv6-7b", "--reduced", "--steps", "3", "--seq", "16", "--batch", "2",
+            "--device", "cpu", "--ckpt", str(tmp_path)]
+    train.main(argv)
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-7b-reduced" in out and "done at step 2" in out
+    train.main(argv)
+    assert "already at step 2" in capsys.readouterr().out
 
 
 def test_scan_engine_modes():

@@ -39,7 +39,8 @@ from repro.nn.moe import moe_init as j_moe_init
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.config import MoEConfig, get_arch
 from repro_torch.models import build_model
-from repro_torch.nn.moe import _capacity, dispatch_slots, moe_apply, moe_init, route
+from repro_torch.nn.moe import (_capacity, dispatch_slots, moe_apply, moe_init, pinned_routes,
+                                route)
 from repro_torch.serve.engine import ServeEngine
 from torch_lm_parity import (SEED, configs, leaf_errors, make_pair, port_loss_grad,
                              ref_loss_grad, token_batch)
@@ -160,6 +161,33 @@ def test_moe_apply_is_bitwise_repeatable_and_keeps_dropped_tokens_out():
     all_dropped = ~keep.reshape(idx.shape).any(-1)
     assert bool(all_dropped.any())
     assert float(y1[all_dropped].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", ["granite", "llama4"])
+def test_pinned_routes_replay_a_routing(case):
+    """``pinned_routes`` with the choices a pass made gives that pass's bits
+    (output, aux and gradients); with other choices the gate values are the
+    probabilities at them, and the pin ends with its block."""
+    _, cfg, kind, _, p, x = _moe_pair(case, seed=SEED + 5)
+    leaves = [v.requires_grad_() for v in jax.tree_util.tree_leaves(p)]
+
+    def run(xt):
+        y, aux = moe_apply(p, xt, cfg, kind)
+        return [y, aux, *torch.autograd.grad(y.square().sum() + aux.sum(), leaves)]
+
+    xt = torch.from_numpy(x)
+    _, gates, idx = route(p, xt, cfg)
+    free = run(xt)
+    with pinned_routes([idx]):
+        pinned = run(xt)
+    assert all(torch.equal(a, b) for a, b in zip(free, pinned))
+    other = torch.roll(idx, 1, dims=-1) if cfg.top_k > 1 else (idx + 1) % cfg.n_experts
+    with pinned_routes([other]):
+        probs, g_other, i_other = route(p, xt, cfg)
+    assert torch.equal(i_other, other)
+    want = probs.gather(-1, other)
+    assert torch.allclose(g_other, want / (want.sum(-1, keepdim=True) + 1e-9), rtol=0, atol=0)
+    assert torch.equal(route(p, xt, cfg)[2], idx)
 
 
 def test_moe_init_shapes():

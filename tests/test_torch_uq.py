@@ -519,17 +519,22 @@ def test_launchers_train_and_serve_a_scenario_on_the_cpu(tmp_path):
     assert "posterior stats over n=2048 draws" in out and "calibration:" in out
 
 
-def test_launchers_refuse_what_is_not_ported():
+def test_launchers_refuse_what_is_not_ported(tmp_path, capsys):
+    """A device mesh is not ported and raises; whisper-small and
+    llava-next-34b, which raised here before they were ported, now train and
+    serve through the launchers at ``--reduced`` on the CPU."""
     from repro_torch.launch import serve, train
 
-    with pytest.raises(KeyError, match="item 6"):
-        train.main(["--arch", "whisper-small", "--reduced", "--device", "cpu"])
+    train.main(["--arch", "whisper-small", "--reduced", "--steps", "2", "--seq", "16",
+                "--batch", "2", "--device", "cpu", "--ckpt", str(tmp_path / "w")])
+    assert "arch=whisper-small-reduced" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 7"):
         train.main(["--scenario", "lg-smoke", "--mesh", "auto", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):
         serve.main(["--arch", "yi-6b", "--mesh", "2,1", "--device", "cpu"])
-    with pytest.raises(KeyError, match="item 6"):
-        serve.main(["--arch", "llava-next-34b", "--reduced", "--device", "cpu"])
+    serve.main(["--arch", "llava-next-34b", "--reduced", "--batch", "2", "--prompt-len", "8",
+                "--max-new", "4", "--device", "cpu"])
+    assert "arch=llava-next-34b-reduced device=cpu: generated (2, 4)" in capsys.readouterr().out
 
 
 def test_serve_launcher_generates_with_a_reduced_lm(capsys):

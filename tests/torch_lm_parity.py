@@ -1,5 +1,6 @@
 """Shared helpers of the LM parity tests (``test_torch_lm_dense.py``,
-``test_torch_moe.py``, ``test_torch_lm_train.py``): one perturbed
+``test_torch_moe.py``, ``test_torch_lm_train.py``,
+``test_torch_lm_frontends.py``, ``test_torch_ssm_train.py``): one perturbed
 parameter tree of the reference's ``init`` at an architecture's
 ``REDUCED`` width, loaded into both packages; the reference's and the
 port's ``train_loss`` with its gradient; and the per-leaf comparison."""
@@ -21,7 +22,7 @@ MODULES = {
     "yi-6b": "yi_6b", "glm4-9b": "glm4_9b", "granite-34b": "granite_34b",
     "command-r-plus-104b": "command_r_plus_104b", "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b", "rwkv6-7b": "rwkv6_7b",
-    "zamba2-7b": "zamba2_7b",
+    "zamba2-7b": "zamba2_7b", "whisper-small": "whisper_small", "llava-next-34b": "llava_next_34b",
 }
 
 
@@ -76,6 +77,7 @@ def port_loss_grad(m: Model, batch: dict, mode: str):
     """The port's ``(loss, {name: grad})`` of ``train_loss`` under ``mode``."""
     named = dict(m.named_parameters())
     loss, _ = m.train_loss({k: torch.from_numpy(v) for k, v in batch.items()}, grad_mode=mode)
+    # an unused leaf (whisper's cross-attention biases) gets None: zero, as in the reference
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     return loss.item(), {n: g if g is not None else torch.zeros_like(p)
                          for (n, p), g in zip(named.items(), grads)}
