@@ -21,13 +21,15 @@ model at a time, and drives the flash-attention kernel through
 ``attn_apply(impl="flash")`` at yi-6b's width; then the rest of the dense
 family and the MoE family (glm4-9b, granite-34b and command-r-plus-104b at
 cut depths, granite-moe-1b-a400m whole), and trains granite-moe-1b-a400m
-at full width (12 of its 24 layers) through ``train_lm`` and the
+at full width (6 of its 24 layers) through ``train_lm`` and the
 reversible scan engine, rwkv6-7b and zamba2-7b at full width and cut
 depths through their plain scans; then whisper-small (the audio front end,
 the encoder and cross attention) served and trained whole and
-llava-next-34b (the vision front end) served at a cut depth.  It holds
-every hand-written kernel against its plain PyTorch version.  Phases, one
-line each:
+llava-next-34b (the vision front end) served at a cut depth; last, the
+scanned GLOW trained, restarted and served data-parallel by two ranks that
+share the card over ``gloo``, and GPipe over two stages.  It holds every
+hand-written kernel against its plain PyTorch version.  Phases, one line
+each:
 
 1. build   - compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
              sm_90a, one process per source, all started together); each
@@ -192,18 +194,18 @@ line each:
              ``autodiff`` rerun with the routing the ``invertible``
              backward's VJPs chose (``nn/moe.py::pinned_routes``), every
              leaf within 1e-4 of its largest entry, the flips reported and
-             the unpinned gap beside it; (b) full width, depth 12 of 24
+             the unpinned gap beside it; (b) full width, depth 6 of 24
              (``LM_TRAIN_DEPTH``), bf16 activations, f32 master weights,
              AdamW, ``SyntheticTokens`` 8 x 2048, 4 steps of ``train_lm``
              under ``invertible``, profiled: per step wall, busy, idle
              share, tokens/s, peak memory; the first loss in (0, 2 log V),
              every loss finite; a restart from the step-2 checkpoint
              reproduces step 4 bitwise; (c) peak memory of a step at depth
-             4 and 12 (batch 2 x 2048) in each engine: the growth
+             2 and 6 (batch 2 x 2048) in each engine: the growth
              above the step's start under ``invertible`` and ``coupled`` each
              below a quarter of ``autodiff``'s; (d) ``repro_torch.launch.train
              --arch granite-moe-1b-a400m --reduced --steps 4`` as a
-             subprocess, exit 0; then rwkv6-7b (depth 2) and zamba2-7b
+             subprocess, exit 0; then rwkv6-7b (depth 1) and zamba2-7b
              (depth 7: one superblock and its one-block tail) at full width
              through their plain scans, as the reference trains through
              ``lax.scan``: (ssm-a) f32, 2 x 256, loss and every leaf against
@@ -213,7 +215,7 @@ line each:
              tokens/s, peak memory), then the same run
              failed at its last step and restarted from its checkpoint,
              bitwise; (ssm-c) peak memory of a step at two depths (rwkv6-7b
-             2 and 4 at 2 x 1024, zamba2-7b 6 and 12 at 2 x 2048), the
+             1 and 2 at 2 x 1024, zamba2-7b 6 and 12 at 2 x 2048), the
              quarter rule; 0 ``wkv_scan`` / ``ssd_scan`` launches in every
              part, while phase 9's serving counts stay 32 + 32 and 81;
 12. front ends - whisper-small: (frontend-a) full width, 2 encoder and 2
@@ -229,7 +231,32 @@ line each:
              against the CPU; full width at depth 16 (``LLAVA_WHY``) in
              bf16, batch 8, 576 patches and 1472 text tokens (2048
              positions), 32 new tokens, with ``[times]``/``[profile]``.  No
-             kernel launches on these paths (reported), as in the reference.
+             kernel launches on these paths (reported), as in the reference;
+13. dist    - two ranks share the card over ``gloo`` (NCCL refuses two
+             ranks on one device), each a process started here that loads
+             the kernels this process built: (a) ``GLOW_SCANNED`` at full
+             width, global batch 8 (4 a rank), f32, ``coupled``:
+             ``dp_value_and_grad_nll`` with the reduction overlapped into the
+             backward (``psum_axis="data"``) and trailing it, loss and every
+             leaf against the one-process step at batch 8 (1e-4 of each
+             leaf's largest entry), overlapped against trailing, the step
+             twice bitwise, 24 ``flowstep_fwd`` / ``coupling_bwd`` /
+             ``spine_bwd`` a rank a step, the step wall; one update dense,
+             ``topk`` (ratio 0.01) and ``int8`` with each one's wire bytes
+             (host-staged bytes apart: fewer compressed, no dense gradient
+             all-reduce); ``topk`` at ratio 1.0 against the dense sum; (b)
+             ``train_flow(mesh=...)`` int8-compressed, 3 steps with a
+             checkpoint each, killed at its last step and restarted, bitwise
+             the uninterrupted run; then here the elastic restore of that
+             checkpoint onto one process (the residuals re-zeroed, with the
+             warning); (c) ``FlowServeEngine(mesh=...)`` ``log_prob`` and
+             ``sample`` at batch 8 against the one-process engine (1e-4;
+             whether bitwise is reported), 24 launches a rank a call; (d) a
+             2-stage ``pipeline_forward`` and its gradient against the same
+             blocks in sequence on the card; (e) ``repro_torch.launch.train
+             --scenario lg-smoke --mesh auto`` (a world of 1: a (1, 1) mesh).
+             Two ranks on one card measure correctness and wire bytes, not
+             scaling.  Phases 11's depths were cut to pay for this one.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
@@ -344,7 +371,9 @@ TRAIN_STEPS = 5
 
 
 def line(phase: str, **kv):
-    print(f"[{phase}] " + json.dumps(kv, sort_keys=False), flush=True)
+    # one write a line: the ranks of phase 13 print to one stream at once
+    sys.stdout.write(f"[{phase}] {json.dumps(kv, sort_keys=False)}\n")
+    sys.stdout.flush()
 
 
 def check(ok: bool, what: str):
@@ -2621,17 +2650,17 @@ LM_FAMILY = (
     ("granite-moe-1b-a400m", 2, 24, "full depth: 5.5 GB of f32 weights"),
     ("llama4-maverick-400b-a17b", "reduced", None,
      "REDUCED only: one superblock (two layers) holds about 66 GB of f32 weights, so full "
-     "width needs distribution (ROADMAP.md queue 1, item 7)"),
+     "width needs the model-sharded meshes (ROADMAP.md queue 1, item 7 part 2)"),
 )
 LM_TRAIN_ARCH = "granite-moe-1b-a400m"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 4
-#: (b)'s depth and steps, 12 of 24 layers and 4 steps: with the SSM parts of
-#: phase 11 and phase 12 the script must still end inside its time limit,
-#: and (b)'s three checkpoint writes take most of its time (all 24 layers:
-#: 16.6 GB each)
-LM_TRAIN_DEPTH = 12
+#: (b)'s depth and steps, 6 of 24 layers and 4 steps: with the SSM parts of
+#: phase 11, phase 12 and phase 13 the script must still end inside its time
+#: limit, and (b)'s three checkpoint writes take most of its time (all 24
+#: layers: 16.6 GB each; 12 layers took 11-14 s a write)
+LM_TRAIN_DEPTH = 6
 LM_CMP_BATCH, LM_CMP_SEQ = 2, 256     # (a): full width, depth 2, f32
-LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (4, 12)  # (c): full width, bf16
+LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (2, 6)  # (c): full width, bf16
 
 
 class RouteLog:
@@ -3078,8 +3107,9 @@ def lm_train_launcher(dev, card) -> None:
 #: (arch, cut depth at full width, why): the smallest depth that holds a
 #: whole superblock, for (a) and (b)
 SSM_TRAIN = (
-    ("rwkv6-7b", 2, "depth 2 of 32 (a superblock is one RWKV6 layer), as phase 9's CPU check; "
-                    "whole, weights, gradients and AdamW moments need 16 B x 7.52 B > 80 GB"),
+    ("rwkv6-7b", 1, "depth 1 of 32 (a superblock is one RWKV6 layer; 2 until phase 13 needed "
+                    "the time); whole, weights, gradients and AdamW moments need "
+                    "16 B x 7.52 B > 80 GB"),
     ("zamba2-7b", 7, "depth 7 of 81: one superblock (six Mamba2 blocks, the shared attention "
                      "and FFN) and a one-block tail; whole needs 16 B x 6.75 B > 80 GB"),
 )
@@ -3097,7 +3127,7 @@ SSM_RESTART_DEPTH = {"rwkv6-7b": 1, "zamba2-7b": 6}
 SSM_NOISE_FACTOR = 8
 #: (c): (arch, depths, batch, seq): the plain per-token wkv loop under
 #: autograd saves about 3 (B, H, K, K) f32 states a token and layer
-SSM_MEM = (("rwkv6-7b", (2, 4), 2, 1024), ("zamba2-7b", (6, 12), 2, 2048))
+SSM_MEM = (("rwkv6-7b", (1, 2), 2, 1024), ("zamba2-7b", (6, 12), 2, 2048))
 
 
 def scan_kernels():
@@ -3127,7 +3157,7 @@ def one_ulp_sensitivity(model, batch, mode, grads, seed) -> tuple[float, str]:
 
 
 def ssm_train_vs_cpu(dev, card) -> None:
-    """(ssm-a) rwkv6-7b at depth 2 and zamba2-7b at depth 7, full width, f32,
+    """(ssm-a) rwkv6-7b at depth 1 and zamba2-7b at depth 7, full width, f32,
     batch 2 x 256: loss and every gradient leaf on the card against the CPU
     under ``invertible`` and ``autodiff``, each step twice on the card
     bitwise, with the scan kernels' launches per train step (0: training
@@ -3539,6 +3569,411 @@ def frontend_phase(dev, card, wall_ms) -> None:
     del served
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 13. distribution: two ranks share the card over gloo (data-parallel
+#     training, the supervised loop, sharded serving, GPipe, the launchers)
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+#: a rank that hangs fails its collectives after this many seconds, and the
+#: phase fails when its ranks have not finished by the join's limit
+DIST_PG_TIMEOUT_S, DIST_JOIN_TIMEOUT_S = 60.0, 240.0
+DIST_LOOP_STEPS = 3                    # (b): int8-compressed train_flow steps
+DIST_PIPE = (2, 2, 512, 4, 8)          # (d): stages, blocks a stage, width, M, microbatch
+TOL_DIST = 1e-4                        # of each leaf's (output's) largest entry
+
+
+def _dist_flow(dev, state, psum_axis=None):
+    """``GLOW_SCANNED`` (3 scales x 8 steps, hidden 64, Haar) holding
+    ``state``, with the chain's ``psum_axis``."""
+    from repro_torch.configs.flows import GLOW_SCANNED
+    from repro_torch.core import build_glow_scanned
+
+    flow = build_glow_scanned(n_scales=GLOW_SCANNED.n_scales, k_steps=GLOW_SCANNED.k_steps,
+                              hidden=GLOW_SCANNED.hidden, grad_mode="coupled",
+                              coupled_bwd="reversible", psum_axis=psum_axis, device=dev)
+    flow.load_state_dict(state)
+    return flow
+
+
+def dist_rank(rank: int, world: int, scratch: str):
+    """One rank of phase 13 (a process of its own on ``cuda:0``, the gloo
+    world of ``world`` ranks over a file store in ``scratch``): (a) the
+    data-parallel gradient and step, (b) the supervised loop with a restart,
+    (c) sharded serving, (d) GPipe.  Writes its results to
+    ``scratch/out<rank>.pt``, or its traceback to ``scratch/err<rank>.txt``."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's default weight-gradient convolutions add with atomics: the
+        # step is bitwise repeatable on its deterministic ones
+        torch.backends.cudnn.deterministic = True
+        from repro_torch.launch.mesh import init_world, make_auto_mesh
+
+        backend = init_world("cuda", init_method=f"file://{scratch}/store", rank=rank,
+                             world_size=world, timeout_s=DIST_PG_TIMEOUT_S)
+        check(backend == "gloo", f"rank {rank}: ranks sharing one card took {backend}")
+        mesh = make_auto_mesh((world, 1), device_type="cuda")
+        payload = torch.load(f"{scratch}/payload.pt", weights_only=False)
+        out = {"rank": rank, "backend": backend}
+        out.update(_dist_dp(rank, mesh, payload))
+        out.update(_dist_loop(rank, mesh, payload, scratch))
+        out.update(_dist_serve(rank, mesh, payload))
+        out.update(_dist_pipeline(rank, world))
+        torch.save(out, f"{scratch}/out{rank}.pt")
+    except BaseException:
+        Path(f"{scratch}/err{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as tdist
+
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _dist_kernels():
+    from repro_torch.kernels.coupling import coupling as ckern
+    from repro_torch.kernels.flowstep import flowstep as kern
+
+    return (*kern.KERNELS, *ckern.KERNELS)
+
+
+def _dist_dp(rank, mesh, payload) -> dict:
+    """(a) ``dp_value_and_grad_nll`` with the reduction overlapped into the
+    backward (``psum_axis="data"``) and trailing it, against the
+    one-process step at batch 8; the step twice bitwise; one
+    ``make_dp_train_step`` update dense, ``topk`` (ratio 0.01) and ``int8``
+    with their wire bytes; ``topk`` at ratio 1.0 against the dense sum."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.objectives import nll_loss
+    from repro_torch.dist import comm, dp_value_and_grad_nll, shard_batch
+    from repro_torch.dist.step import make_dp_train_step
+    from repro_torch.optim import adamw_init, compressed_allreduce, compression_init
+    from repro_torch.train.loop import objective_value_and_grad
+
+    dev = torch.device("cuda")
+    kernels = _dist_kernels()
+    x = payload["x"].to(dev)
+    flow_o = _dist_flow(dev, payload["state"], "data")
+    flow_t = _dist_flow(dev, payload["state"])
+    check(flow_o.psum_axis == "data" and flow_t.psum_axis is None, "psum_axis not in effect")
+    runs = []
+    for step in (1, 2):
+        reset(kernels)
+        comm.reset_wire_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = dp_value_and_grad_nll(flow_o, mesh)(x)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in kernels}
+        runs.append((loss, grads))
+        check(all(g.device.type == "cuda" for g in grads.values()), "gradients left the card")
+        check(launches == {"flowstep_fwd": 24, "flowstep_inv": 0, "spine_bwd": 24,
+                           "coupling_fwd": 0, "coupling_inv": 0, "coupling_bwd": 24},
+              f"rank {rank} dp step {step} launches: {launches}")
+        line("dist", part="a", rank=rank, step=step, reduction="overlapped", wall_ms=wall_ms,
+             launches=launches, wire=comm.wire_bytes(), card=payload["card"])
+    (loss, grads), (loss2, grads2) = runs
+    bitwise = bool(torch.equal(loss, loss2)) and all(torch.equal(grads[k], grads2[k])
+                                                     for k in grads)
+    loss_t, grads_t = dp_value_and_grad_nll(flow_t, mesh)(x)
+    ref_loss, ref_grads = payload["loss"], payload["grads"]
+    loss_rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+    grad_rel, worst = max_rel_leaf_err(grads, ref_grads)
+    ot_rel, ot_worst = max_rel_leaf_err(grads, grads_t)
+    check(loss_rel <= TOL_LOSS_REL and grad_rel <= TOL_DIST,
+          f"rank {rank}: dp step vs one process: loss {loss_rel}, grad {grad_rel} at {worst}")
+    check(ot_rel <= TOL_DIST, f"rank {rank}: overlapped vs trailing {ot_rel} at {ot_worst}")
+    check(bitwise, f"rank {rank}: the dp step run twice differs")
+    del runs, grads2, grads_t
+
+    # one update per reduction: dense (overlapped), topk and int8
+    wire, step_ms = {}, {}
+    for method, ratio in (("none", 0.01), ("topk", 0.01), ("int8", 0.01)):
+        f = flow_o if method == "none" else flow_t
+        f.load_state_dict(payload["state"])
+        cfg = TrainConfig(steps=4, grad_compression=method, compression_ratio=ratio)
+        step = make_dp_train_step(lambda b, f=f: (nll_loss(f, b), {}), f, cfg, mesh,
+                                  grads_reduced_by_vjp=method == "none")
+        params = dict(f.named_parameters())
+        err = {} if method == "none" else compression_init(params)
+        comm.reset_wire_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _state, metrics = step({"opt": adamw_init(params), "err": err}, shard_batch(x, mesh), 0)
+        torch.cuda.synchronize()
+        step_ms[method] = 1e3 * (time.perf_counter() - t0)
+        wire[method] = comm.wire_bytes()
+        check(math.isfinite(float(metrics["loss"])), f"rank {rank}: {method} step loss")
+    for method in ("topk", "int8"):
+        check(wire[method]["total"] < wire["none"]["total"]
+              and wire[method]["by_op"].get("all_reduce", 0) <= 8,
+              f"rank {rank}: {method} wire bytes {wire[method]} vs dense {wire['none']}")
+
+    # topk at ratio 1.0 sends everything: the dense sum
+    flow_t.load_state_dict(payload["state"])
+    local = objective_value_and_grad(flow_t, lambda b: (nll_loss(flow_t, b) / 2, {}))(
+        shard_batch(x, mesh))[1]
+    zeros = compression_init(dict(flow_t.named_parameters()))
+    with comm.bound(mesh):
+        dense, _ = compressed_allreduce(local, zeros, "none", "data")
+        full, residual = compressed_allreduce(local, zeros, "topk", "data", 1.0)
+    topk_rel, _ = max_rel_leaf_err(full, dense)
+    topk_bitwise = all(torch.equal(full[k], dense[k]) for k in dense)
+    check(topk_rel <= 1e-6 and all(float(r.abs().max()) == 0.0 for r in residual.values()),
+          f"rank {rank}: topk at ratio 1.0 vs dense {topk_rel}")
+    result = {"loss": loss.item(), "loss_rel_err_vs_one_process": loss_rel,
+              "grad_max_rel_err_vs_one_process": grad_rel, "worst_leaf": worst,
+              "overlapped_vs_trailing_max_rel_err": ot_rel, "bitwise_repeatable": bitwise,
+              "dp_step_launches": launches, "update_ms": step_ms, "wire": wire,
+              "topk_ratio1_vs_dense_max_rel_err": topk_rel, "topk_ratio1_bitwise": topk_bitwise}
+    line("dist", part="a", rank=rank, **result, card=payload["card"])
+    return {"a": result}
+
+
+def _dist_loop(rank, mesh, payload, scratch) -> dict:
+    """(b) ``train_flow(mesh=...)``, int8-compressed, ``DIST_LOOP_STEPS``
+    steps with a checkpoint each, uninterrupted and killed at its last step
+    and restarted: bitwise equal."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.loop import train_flow
+
+    dev = torch.device("cuda")
+    data = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 91)
+    runs = {}
+    for name, prefetch, injector in (("uninterrupted", 2, None),
+                                     ("restarted", 0,
+                                      FailureInjector(fail_at=(DIST_LOOP_STEPS - 1,)))):
+        flow = _dist_flow(dev, payload["state"])
+        cfg = TrainConfig(steps=DIST_LOOP_STEPS, lr=1e-4, warmup_steps=1, checkpoint_every=1,
+                          checkpoint_dir=f"{scratch}/ck_{name}", prefetch=prefetch,
+                          grad_compression="int8")
+        t0 = time.perf_counter()
+        res = train_flow(flow, data, cfg, device=dev, mesh=mesh, injector=injector)
+        runs[name] = (res, {k: v.detach().clone() for k, v in flow.state_dict().items()},
+                      time.perf_counter() - t0)
+    (a, sa, ta), (b, sb, tb) = runs["uninterrupted"], runs["restarted"]
+    same = (all(torch.equal(sa[k], sb[k]) for k in sa) and b.losses == a.losses[-1:]
+            and all(torch.equal(a.err_state[k], b.err_state[k]) for k in a.err_state))
+    check(b.restarts == 1 and same and all(math.isfinite(v) for v in a.losses),
+          f"rank {rank}: the restarted mesh run differs ({a.losses} vs {b.losses})")
+    result = {"losses": a.losses, "restarts": b.restarts, "bitwise_equal": same,
+              "uninterrupted_s": ta, "restarted_s": tb, "checkpoint": f"{scratch}/ck_uninterrupted"}
+    line("dist", part="b", rank=rank, **result, card=payload["card"])
+    return {"b": result}
+
+
+def _dist_serve(rank, mesh, payload) -> dict:
+    """(c) ``FlowServeEngine(mesh=...)`` ``log_prob`` and ``sample`` at batch
+    8 against the one-process engine, and each rank's launches."""
+    import torch
+    from repro_torch.serve.engine import FlowServeEngine
+
+    dev = torch.device("cuda")
+    kernels = _dist_kernels()
+    engine = FlowServeEngine(_dist_flow(dev, payload["state"]), device=dev, mesh=mesh)
+    like = tuple(torch.empty(s, device="meta") for s in payload["like"])
+    reset(kernels)
+    lp = engine.log_prob(payload["x"].to(dev))
+    torch.cuda.synchronize()
+    lp_launches = {k.name: k.launches for k in kernels if k.launches}
+    reset(kernels)
+    samples = engine.sample(torch.Generator(dev).manual_seed(SEED + 92), like)
+    torch.cuda.synchronize()
+    sample_launches = {k.name: k.launches for k in kernels if k.launches}
+    ref_lp, ref_s = payload["log_prob"], payload["samples"]
+    lp_rel = ((lp.cpu() - ref_lp).abs() / ref_lp.abs()).max().item()
+    s_err = (samples.cpu() - ref_s).abs().max().item() / ref_s.abs().max().item()
+    check(lp_launches == {"flowstep_fwd": 24} and sample_launches == {"flowstep_inv": 24},
+          f"rank {rank}: sharded serving launches {lp_launches}, {sample_launches}")
+    check(lp_rel <= TOL_DIST and s_err <= TOL_DIST,
+          f"rank {rank}: sharded log_prob {lp_rel}, sample {s_err}")
+    result = {"log_prob_max_rel_err": lp_rel, "sample_max_err_of_scale": s_err,
+              "log_prob_bitwise": bool(torch.equal(lp.cpu(), ref_lp)),
+              "sample_bitwise": bool(torch.equal(samples.cpu(), ref_s)),
+              "log_prob_launches": lp_launches, "sample_launches": sample_launches}
+    line("dist", part="c", rank=rank, **result, card=payload["card"])
+    return {"c": result}
+
+
+def _dist_pipeline(rank, world) -> dict:
+    """(d) a 2-stage ``pipeline_forward`` of tanh blocks on the card and its
+    gradient against the same blocks in sequence on the card."""
+    import torch
+    from repro_torch.dist import comm, pipeline_forward, pipeline_stage_fn
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    stages, l_per, d, m, mb = DIST_PIPE
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 93)
+    w = (torch.randn(stages, l_per, d, d, generator=g) / math.sqrt(d)).to(dev)
+    b = (0.1 * torch.randn(stages, l_per, d, generator=g)).to(dev)
+    x = torch.randn(m, mb, d, generator=g).to(dev)
+    gy = torch.randn(m, mb, d, generator=g).to(dev)
+
+    def block(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = make_auto_mesh((world,), ("pipe",), device_type="cuda")
+    wl, bl = w[rank].clone().requires_grad_(), b[rank].clone().requires_grad_()
+    comm.reset_wire_bytes()
+    out = pipeline_forward(pipeline_stage_fn(block, l_per), {"w": wl, "b": bl}, x, mesh)
+    gw, gb = torch.autograd.grad(out, [wl, bl], gy)
+    ws, bs = w.clone().requires_grad_(), b.clone().requires_grad_()
+    h = x
+    for s in range(stages):
+        for i in range(l_per):
+            h = block({"w": ws[s, i], "b": bs[s, i]}, h)
+    rw, rb = torch.autograd.grad(h, [ws, bs], gy)
+    errs = {"out": (out - h).abs().max().item() / h.abs().max().item(),
+            "gw": (gw - rw[rank]).abs().max().item() / rw[rank].abs().max().item(),
+            "gb": (gb - rb[rank]).abs().max().item() / rb[rank].abs().max().item()}
+    check(max(errs.values()) <= 1e-5, f"rank {rank}: pipeline vs sequence {errs}")
+    result = {"stages": stages, "blocks_per_stage": l_per, "width": d, "microbatches": m,
+              "max_rel_err": errs, "out_bitwise": bool(torch.equal(out, h)),
+              "wire": comm.wire_bytes()}
+    line("dist", part="d", rank=rank, **result)
+    return {"d": result}
+
+
+def dist_phase(dev, card) -> dict:
+    """Phase 13 ``[dist]``: ``DIST_WORLD`` ranks share ``cuda:0`` over
+    ``gloo`` (NCCL refuses two ranks on one device), each a process started
+    here with the kernels this process built; they check correctness and
+    count wire bytes, and measure no scaling.  Then, here: (b) the elastic
+    restore of the ranks' int8 checkpoint onto one process (the residuals
+    re-zeroed, with a warning) and (e) ``--mesh auto`` through the train
+    launcher (a world of 1: a (1, 1) mesh).  Returns the per-rank launches of
+    the DP step and of sharded serving."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs.flows import GLOW_SCANNED, build_flow
+    from repro_torch.core import value_and_grad_nll
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.serve.engine import FlowServeEngine
+    from repro_torch.train.loop import train_flow
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    launcher = None
+    try:
+        flow = build_flow(GLOW_SCANNED, channels=3, generator=torch.Generator().manual_seed(
+            SEED + 90), device=dev)
+        perturb(flow, SEED + 91)
+        x = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 90).batch_at(0)
+        loss, grads = value_and_grad_nll(flow, x.to(dev))
+        engine = FlowServeEngine(flow, device=dev)
+        with torch.inference_mode():
+            z, _ = engine.flow(x.to(dev))
+        like = tuple(torch.empty_like(v, device="meta") for v in z)
+        lp = engine.log_prob(x)
+        samples = engine.sample(torch.Generator(dev).manual_seed(SEED + 92), like)
+        torch.save({"state": {k: v.cpu() for k, v in flow.state_dict().items()}, "x": x,
+                    "loss": loss.item(), "grads": {k: v.cpu() for k, v in grads.items()},
+                    "log_prob": lp.cpu(), "samples": samples.cpu(),
+                    "like": [tuple(v.shape) for v in like], "card": card},
+                   f"{scratch}/payload.pt")
+        del flow, grads, engine
+
+        # (e) the train launcher with --mesh auto (a world of 1, a (1, 1)
+        # mesh), run beside the ranks: it trains lg-smoke, a small model
+        argv = ["repro_torch.launch.train", "--scenario", "lg-smoke", "--mesh", "auto",
+                "--steps", "8", "--ckpt", f"{scratch}/launcher"]
+        t0 = time.perf_counter()
+        with open(f"{scratch}/launcher.out", "w") as out, open(f"{scratch}/launcher.err", "w") as err:
+            launcher = subprocess.Popen([sys.executable, "-m", *argv], stdout=out, stderr=err,
+                                        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dist_rank, args=(r, DIST_WORLD, scratch))
+                 for r in range(DIST_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = {r: Path(f"{scratch}/err{r}.txt").read_text()[-3000:] for r in range(DIST_WORLD)
+                if Path(f"{scratch}/err{r}.txt").exists()}
+        check(not hung, f"dist: ranks {hung} still running after {DIST_JOIN_TIMEOUT_S} s: {errs}")
+        check(not errs and all(p.exitcode == 0 for p in procs),
+              f"dist: exit codes {[p.exitcode for p in procs]}: {errs}")
+        outs = [torch.load(f"{scratch}/out{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+        ranks_s = time.perf_counter() - t0
+
+        # (b) elastic restore: the 2-rank int8 checkpoint onto one process
+        ckdir = outs[0]["b"]["checkpoint"]
+        flow = build_flow(GLOW_SCANNED, channels=3, device=dev)
+        data = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 91)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = train_flow(flow, data, TrainConfig(
+                steps=DIST_LOOP_STEPS + 1, lr=1e-4, warmup_steps=1, checkpoint_every=1,
+                checkpoint_dir=ckdir, grad_compression="int8"), device=dev)
+        rezeroed = any("residuals re-zeroed" in str(w.message) for w in caught)
+        check(rezeroed and res.final_step == DIST_LOOP_STEPS and len(res.losses) == 1
+              and math.isfinite(res.losses[0]),
+              f"dist (b): elastic restore onto one process: {[str(w.message) for w in caught]}, "
+              f"losses {res.losses}")
+        line("dist", part="b-elastic", world_before=DIST_WORLD, world_after=1,
+             residuals_rezeroed_warning=rezeroed, resumed_at_step=DIST_LOOP_STEPS,
+             losses=res.losses, card=card)
+        del flow
+
+        try:
+            launcher.wait(timeout=DIST_JOIN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            launcher.kill()
+            launcher.wait()
+        stdout = Path(f"{scratch}/launcher.out").read_text()
+        stderr = Path(f"{scratch}/launcher.err").read_text()
+        out_lines = stdout.strip().splitlines()
+        line("dist", part="e", argv=argv, returncode=launcher.returncode,
+             seconds_since_start=time.perf_counter() - t0, stdout=out_lines[-4:],
+             stderr_tail=stderr.strip().splitlines()[-5:], card=card)
+        check(launcher.returncode == 0 and any("mesh=1x1 backend=" in ln for ln in out_lines)
+              and any("done at step 7" in ln for ln in out_lines),
+              f"dist (e): --mesh auto launcher: {stdout[-2000:]} {stderr[-2000:]}")
+    finally:
+        if launcher is not None and launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    a = [o["a"] for o in outs]
+    line("dist", part="summary", world=DIST_WORLD, backend=outs[0]["backend"],
+         ranks_s=ranks_s, grad_max_rel_err_vs_one_process=max(r["grad_max_rel_err_vs_one_process"]
+                                                              for r in a),
+         overlapped_vs_trailing=max(r["overlapped_vs_trailing_max_rel_err"] for r in a),
+         bitwise_repeatable=all(r["bitwise_repeatable"] for r in a),
+         wire_bytes={m: a[0]["wire"][m] for m in a[0]["wire"]},
+         sharded_serving={k: outs[0]["c"][k] for k in ("log_prob_bitwise", "sample_bitwise",
+                                                       "log_prob_max_rel_err",
+                                                       "sample_max_err_of_scale")},
+         note="two ranks share one card: correctness and wire bytes, not scaling", card=card)
+    return {"dp_step_per_rank": a[0]["dp_step_launches"],
+            "sharded_log_prob_per_rank": outs[0]["c"]["log_prob_launches"],
+            "sharded_sample_per_rank": outs[0]["c"]["sample_launches"]}
 
 
 def time_flow_kernels(dev) -> dict:
@@ -3961,6 +4396,10 @@ def main() -> int:
     frontend_phase(dev, card, e2e_wall_ms)
     mark("front ends")
 
+    # 13. distribution: two ranks on this card over gloo
+    dist_launches = dist_phase(dev, card)
+    mark("dist")
+
     def by_path(*names):
         """Each path's first ``[times]`` row of a kernel (its largest shape,
         f32 first where timed): shape, dtype and the times beside the bound."""
@@ -4013,6 +4452,13 @@ def main() -> int:
             # attend through the einsum path, as the reference's model does
             kernels[-1]["lm_generate_launches"] = lm_family_launches
             kernels[-1]["lm_train_step_launches"] = lm_train_flash_per_step
+        if name in ("flowstep_fwd", "coupling_bwd", "spine_bwd", "flowstep_inv"):
+            # phase 13: each rank's launches in a data-parallel step (two
+            # ranks, 4 rows each) and in a sharded sample / log_prob call
+            kernels[-1]["dist_launches_per_rank"] = {
+                "dp_step": dist_launches["dp_step_per_rank"].get(name, 0),
+                "sharded_log_prob": dist_launches["sharded_log_prob_per_rank"].get(name, 0),
+                "sharded_sample": dist_launches["sharded_sample_per_rank"].get(name, 0)}
         if name in chint["times"]:
             # the cHINT path: its launches a train step (coupling_bwd) or a
             # draw (coupling_inv), and the half kernel at its M = 1 shapes

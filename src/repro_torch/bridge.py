@@ -21,6 +21,18 @@
 module's leaves (or ``values``, such as the ``{name: grad}`` dict of
 ``core/autodiff.py::value_and_grad_nll``) in the layout of the reference's
 tree ``like``, every leaf a numpy array.
+
+Two trees carry across without a module of the reference's layout:
+
+* ``torch_tree(tree)`` - a nested dict of numpy leaves as the same dict of
+  tensors: the reference's stage-stacked pipeline parameters (``{"stages":
+  {...: (S, L, ...)}, ...}``), which ``train_pipeline``'s ``init_fn``
+  returns and ``ParamTree`` holds;
+* ``named_from_numpy(module, tree)`` - a tree in the layout of ``module``'s
+  reference tree, such as the error-feedback residuals of
+  ``optim/compression.py::compression_init`` (with or without the leading
+  shard axis a checkpoint gives them), as the port's ``{state key:
+  tensor}`` dict, its ``None`` leaves left out.
 """
 
 from __future__ import annotations
@@ -103,3 +115,21 @@ def params_from_numpy(module: torch.nn.Module, tree) -> torch.nn.Module:
                 raise TypeError(f"{key}: tree dtype {arr.dtype} vs module dtype {dst.dtype}")
             dst.copy_(torch.from_numpy(np.array(arr)).to(dst.dtype))
     return module
+
+
+def torch_tree(tree):
+    """A nested dict (or tuple) of numpy leaves as the same structure of
+    tensors (copies)."""
+    if isinstance(tree, Mapping):
+        return {k: torch_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(torch_tree(v) for v in tree)
+    return torch.from_numpy(np.array(tree))
+
+
+def named_from_numpy(module: torch.nn.Module, tree) -> dict[str, torch.Tensor]:
+    """``{state key: tensor}`` of ``tree``'s leaves laid over ``module`` (a
+    residual or gradient tree of the reference); ``None`` leaves are left
+    out."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree_paths(module, tree).items()
+            if v.dtype != object}

@@ -10,8 +10,8 @@ reference's ``repro/config.py`` with its fields and defaults.
 directory).  ``seed`` is kept for the reference's layout; a model arrives
 initialised from the generator it was built with.  The reference's
 ``remat_policy`` is not kept (``train_lm`` takes the stack's engine as its
-``grad_mode``); the pipeline fields are mesh options and wait with the mesh
-(``ROADMAP.md`` queue 1, item 7).
+``grad_mode``).  ``grad_compression`` (``optim/compression.py``) and the
+GPipe fields (``train_pipeline``) are the reference's.
 
 ``ModelConfig`` keeps every field of the reference so a configuration reads
 the same in both packages.  ``SSMConfig`` (Mamba2 and RWKV6 mixers),
@@ -45,20 +45,22 @@ class TrainConfig:
     keep_checkpoints: int = 3
     max_restarts: int = 3
     step_timeout_s: float = 0.0  # 0 = straggler watchdog off
-    # gradient compression: "none" only (topk / int8 come with the
-    # distribution slice, ROADMAP.md queue 1, item 7)
+    # error-feedback gradient compression: none | topk | int8
     grad_compression: str = "none"
-    compression_ratio: float = 0.01
-    # gradient accumulation: microbatches per step; 1 = off
+    compression_ratio: float = 0.01  # for topk
+    # gradient accumulation: microbatches per (per-rank) step; 1 = off
     accum_steps: int = 1
     # host input pipeline: batches built ahead of the running step; 0 = none
     prefetch: int = 2
+    # GPipe depth parallelism (train_pipeline): microbatches streamed
+    # through the "pipe" mesh axis per step; 0 = no pipeline mode
+    pipeline_microbatches: int = 0
+    pipeline_axis: str = "pipe"
 
     def __post_init__(self):
-        if self.grad_compression != "none":
-            raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 7); use 'none'")
+        if self.grad_compression not in ("none", "topk", "int8"):
+            raise ValueError(f"grad_compression must be none, topk or int8, got "
+                             f"{self.grad_compression!r}")
 
 
 @dataclass(frozen=True)

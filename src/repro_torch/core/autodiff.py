@@ -40,6 +40,17 @@ inputs.  The forward saves the output leaves through
 Gradients of a layer's parameters travel as ``{name: grad}`` dicts keyed by
 ``layer.named_parameters()`` names.
 
+Data parallelism (``psum_axis``, as in the reference): an engine built with
+``psum_axis`` names an axis of the mesh that ``dist/comm.py::bound`` makes
+current, and its backward sums the parameter gradients over it.  Each
+layer's gradients (each step's, in the scan engine) start an asynchronous
+``all_reduce`` as soon as they exist, so the collectives run while the walk
+goes on (the overlap the reference gets from XLA); all are waited for before
+the backward returns.  A chain's ``cond`` gradient stays per rank (``cond``
+is batch-aligned, split like ``x``); the scan engine's shared ``cond`` (the
+LM's shared weights, replicated) is summed.  ``"autodiff"`` and ``"remat"``
+have no custom backward to hook, as in the reference.
+
 A layer that holds a reverse walk of its own (the scan stack) also offers it
 as ``invertible_bwd``, which the chain takes in ``"invertible"`` mode in place
 of invert-then-VJP over the whole layer: differentiating the whole stack's
@@ -139,7 +150,7 @@ def local_vjp(fwd: Callable, x, params: dict, cond, gy, gld):
 # ---------------------------------------------------------------------------
 
 
-def chain_backward(layers: Sequence, y, gy, gld, cond, use_fused: bool):
+def chain_backward(layers: Sequence, y, gy, gld, cond, use_fused: bool, reducer=None):
     """Reverse pass over a chain from its output side.
 
     Returns ``(x, gx, gparams, gcond)``: the rebuilt chain input, its
@@ -147,6 +158,8 @@ def chain_backward(layers: Sequence, y, gy, gld, cond, use_fused: bool):
     of ``cond``.  With ``use_fused`` each layer's ``fused_bwd`` is taken where
     it has one; a layer without it takes its ``invertible_bwd``, else the
     generic step: rebuild by ``inverse``, then the layer's local VJP.
+    ``reducer`` (a ``dist.comm.GradReducer``) is handed each layer's
+    gradients as soon as the layer is done.
     """
     gld = gld.float()
     gparams: list[dict | None] = [None] * len(layers)
@@ -163,9 +176,19 @@ def chain_backward(layers: Sequence, y, gy, gld, cond, use_fused: bool):
                 gx, gp, gc = local_vjp(layer, x, dict(layer.named_parameters()), cond, gy, gld)
             x = _detach(x)
             gparams[k] = gp
+            if reducer is not None:
+                reducer.add(gp.values())
             gcond = _add(gcond, gc)
             y, gy = x, _cast(gx, x)
     return y, gy, gparams, gcond
+
+
+def _reducer(psum_axis):
+    if psum_axis is None:
+        return None
+    from repro_torch.dist.comm import GradReducer
+
+    return GradReducer(psum_axis)
 
 
 class _ChainFn(torch.autograd.Function):
@@ -178,6 +201,7 @@ class _ChainFn(torch.autograd.Function):
         y, ld = plain(x, cond)
         ctx.save_for_backward(*_leaves(y))
         ctx.layers, ctx.use_fused, ctx.cond = layers, use_fused, cond
+        ctx.psum_axis = out["psum_axis"]
         ctx.y_is_tuple = out["y_is_tuple"] = isinstance(y, tuple)
         return (*_leaves(y), ld)
 
@@ -186,17 +210,23 @@ class _ChainFn(torch.autograd.Function):
         y = ctx.saved_tensors
         y = tuple(y) if ctx.y_is_tuple else y[0]
         gy = _like(y, list(grads[:-1]))
+        reducer = _reducer(ctx.psum_axis)
         _x, gx, gparams, gcond = chain_backward(ctx.layers, y, gy, grads[-1], ctx.cond,
-                                                ctx.use_fused)
+                                                ctx.use_fused, reducer)
+        if reducer is not None:
+            reducer.wait()
         g_flat = [gp.get(name) for layer, gp in zip(ctx.layers, gparams)
                   for name, _ in layer.named_parameters()]
         return (None, None, None, None, gcond, None, *_leaves(gx), *g_flat)
 
 
-def make_chain_apply(layers: Sequence, grad_mode: str = "invertible") -> Callable:
+def make_chain_apply(layers: Sequence, grad_mode: str = "invertible",
+                     psum_axis: str | None = None) -> Callable:
     """``apply(x, cond=None) -> (y, logdet)`` over a chain of layers, its
     gradient taken by the engine ``grad_mode`` names.  Without grad (serving)
-    every mode is the plain composition."""
+    every mode is the plain composition.  ``psum_axis``: the backward sums
+    the parameter gradients over that axis of the bound mesh (no effect on
+    ``"autodiff"``)."""
     if grad_mode not in CHAIN_MODES:
         raise ValueError(f"grad_mode must be one of {CHAIN_MODES}, got {grad_mode}")
 
@@ -214,7 +244,7 @@ def make_chain_apply(layers: Sequence, grad_mode: str = "invertible") -> Callabl
         if not torch.is_grad_enabled():
             return plain(x, cond)
         xs = _leaves(x)
-        out = {"x_is_tuple": isinstance(x, tuple)}
+        out = {"x_is_tuple": isinstance(x, tuple), "psum_axis": psum_axis}
         params = [p for layer in layers for p in layer.parameters()]
         *y, ld = _ChainFn.apply(layers, plain, grad_mode == "coupled", out, cond, len(xs), *xs,
                                 *params)
@@ -228,7 +258,7 @@ def make_chain_apply(layers: Sequence, grad_mode: str = "invertible") -> Callabl
 # ---------------------------------------------------------------------------
 
 
-def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
+def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None, reducer=None):
     """Reverse walk over a stack from its output side.
 
     ``step_bwd(i, y, gy, gld, cond) -> (x, gx, {name: grad}, gcond)`` takes
@@ -237,7 +267,9 @@ def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
     Each step's gradients are written into row ``i`` of stacked gradients
     allocated once (``stacked`` maps each parameter name to its ``(k, ...)``
     tensor), so no step carries a full-size gradient; ``gcond`` is summed
-    over the steps.  Returns ``(x, gx, {name: stacked grad}, gcond)``.
+    over the steps.  ``reducer`` (a ``dist.comm.GradReducer``) is handed
+    each step's rows as soon as the step is done.  Returns ``(x, gx, {name:
+    stacked grad}, gcond)``.
     """
     gld = gld.float()
     gstacked = {n: torch.zeros(p.shape, dtype=p.dtype, device=p.device)
@@ -250,6 +282,8 @@ def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None):
             for name in gp:
                 if gp[name] is not None:
                     gstacked[name][i] = gp[name]
+            if reducer is not None:
+                reducer.add(g[i] for g in gstacked.values())
             gcond = _add(gcond, gc)
             y, gy = _detach(x), _cast(gx, x)
             # a step's gradients are copied: free them before the next step
@@ -285,6 +319,7 @@ class _ScanFn(torch.autograd.Function):
         y, ld = plain(x, cond)
         ctx.save_for_backward(*_leaves(y))
         ctx.step_bwd, ctx.cond, ctx.spec = step_bwd, cond, spec
+        ctx.psum_axis = spec["psum_axis"]
         ctx.stacked = dict(zip(names, args[n_x + n_c:]))
         return (*_leaves(y), ld)
 
@@ -292,18 +327,24 @@ class _ScanFn(torch.autograd.Function):
     def backward(ctx, *grads):
         y = _like(ctx.spec["x"], list(ctx.saved_tensors))
         gy = _like(y, list(grads[:-1]))
+        reducer = _reducer(ctx.psum_axis)
         _x, gx, gstacked, gcond = scan_backward(ctx.step_bwd, ctx.stacked, y, gy, grads[-1],
-                                                ctx.cond)
+                                                ctx.cond, reducer)
         cond = ctx.spec["cond"]
         if isinstance(cond, Mapping):
             gcond = [(gcond or {}).get(n) for n, _ in tree_leaves(cond)]
         else:
             gcond = [gcond] if cond is not None else []
+        if reducer is not None:
+            # the shared cond (replicated weights) sums like the parameters
+            reducer.add(gcond)
+            reducer.wait()
         return (None, None, None, None, *_leaves(gx), *gcond, *gstacked.values())
 
 
 def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
-                    grad_mode: str = "invertible", step_bwd: Callable | None = None) -> Callable:
+                    grad_mode: str = "invertible", step_bwd: Callable | None = None,
+                    psum_axis: str | None = None) -> Callable:
     """``apply(x, cond=None) -> (y, logdet)`` over ``module``'s ``k`` stacked
     steps.  ``step_fwd(p, x, cond) -> (y, logdet_i)`` and ``step_inv(p, y,
     cond)`` take one step's parameters ``p`` (a nested dict of slices, as
@@ -312,7 +353,9 @@ def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
     or a nested dict of tensors shared by every step (the LM's shared
     weights), whose gradient is summed over the steps.  ``grad_mode=
     "coupled"`` needs ``step_bwd(i, y, gy, gld, cond)``, the fused
-    reversible step; ``"remat"`` checkpoints each step."""
+    reversible step; ``"remat"`` checkpoints each step.  ``psum_axis``: as
+    in :func:`make_chain_apply`, the backward sums each step's parameter
+    gradients and the shared ``cond``'s over that axis of the bound mesh."""
     if grad_mode not in GRAD_MODES:
         raise ValueError(f"grad_mode must be one of {GRAD_MODES}, got {grad_mode}")
     if grad_mode == "coupled" and step_bwd is None:
@@ -350,7 +393,7 @@ def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
         xs, cs = _leaves(x), _cond_leaves(cond)
         # the state's structure only: holding its tensors would keep them alive
         spec = {"x": (None,) * len(xs) if isinstance(x, tuple) else None, "n_x": len(xs),
-                "cond": cond, "n_cond": len(cs)}
+                "cond": cond, "n_cond": len(cs), "psum_axis": psum_axis}
         *y, ld = _ScanFn.apply(plain, bwd, names, spec, *xs, *cs, *params)
         return _like(x, y), ld
 

@@ -23,10 +23,16 @@ from repro_torch.core.types import Invertible, zero_logdet
 class InvertibleChain(Invertible):
     """``grad_mode`` is the engine asked for; ``engine`` the one that runs,
     when it differs (``"autodiff"`` for a ``coupled`` flow whose backward
-    strategy is ``"stored"``, see ``core/glow_scan.py``)."""
+    strategy is ``"stored"``, see ``core/glow_scan.py``).
+
+    ``psum_axis`` (data parallelism, ``core/autodiff.py``): the backward
+    sums the parameter gradients over that mesh axis.  Only the engines with
+    a backward of their own reduce; ``self.psum_axis`` records the axis that
+    takes effect (None under ``"autodiff"``), which ``dist/flow.py`` and the
+    training loop read to skip a reduction of their own."""
 
     def __init__(self, layers: Sequence[Invertible], grad_mode: str = "invertible",
-                 engine: str | None = None):
+                 engine: str | None = None, psum_axis: str | None = None):
         super().__init__()
         for mode in (grad_mode, engine or grad_mode):
             if mode not in CHAIN_MODES:
@@ -34,9 +40,10 @@ class InvertibleChain(Invertible):
         self.layers = nn.ModuleList(layers)
         self.grad_mode = grad_mode
         self.engine = engine or grad_mode
+        self.psum_axis = psum_axis if self.engine in ("invertible", "coupled") else None
 
     def forward(self, x, cond=None):
-        return make_chain_apply(self.layers, self.engine)(x, cond)
+        return make_chain_apply(self.layers, self.engine, psum_axis=self.psum_axis)(x, cond)
 
     def inverse(self, y, cond=None):
         for layer in reversed(self.layers):

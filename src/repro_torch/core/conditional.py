@@ -1,5 +1,5 @@
 """Conditional flows for amortized Bayesian inference (the paper's section 4),
-the port of the reference's ``core/conditional.py`` on one device.
+the port of the reference's ``core/conditional.py``.
 
 ``ConditionalFlow`` pairs an invertible flow over parameters ``theta`` with an
 arbitrary (non-invertible) summary network over observations ``y``, the
@@ -20,6 +20,7 @@ from repro_torch.core.distributions import derive_key, std_normal_logpdf, std_no
 from repro_torch.core.hint import HINTCoupling
 from repro_torch.core.objectives import nll_loss
 from repro_torch.core.types import resolve_device, share_parameters, to_device
+from repro_torch.dist.flow import gather_batch, shard_batch
 from repro_torch.nn.nets import CouplingMLP
 
 
@@ -85,15 +86,23 @@ class ConditionalFlow(nn.Module):
     generator by ``derive_key`` with a tag of its own (0 for ``sample`` and
     ``posterior_sampler``, 1 for ``sample_like``), so the same generator
     seed gives the same draws on a device, and the two never alias.
+
+    ``mesh``: a data-parallel mesh (one process per rank, each calling with
+    the whole batch).  ``log_prob`` and the sampling paths run each rank's
+    rows and gather the outputs, so every rank returns the whole batch;
+    latent noise is drawn at the whole batch's extent before the rows are
+    taken, so the draws are the same on any mesh.  Training shards through
+    the loop (``train_conditional_flow(mesh=...)``), not here.
     """
 
     _TAG_SAMPLE = 0
     _TAG_SAMPLE_LIKE = 1
 
     def __init__(self, flow: InvertibleChain, summary: nn.Module | None = None,
-                 sample_flow: InvertibleChain | None = None, *, device=None):
+                 sample_flow: InvertibleChain | None = None, *, device=None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
+        object.__setattr__(self, "mesh", mesh)
         self.flow = flow
         self.summary = summary
         if sample_flow is not None:
@@ -126,8 +135,17 @@ class ConditionalFlow(nn.Module):
 
     def log_prob(self, theta, y) -> torch.Tensor:
         """log q(theta | y) per example."""
-        z, logdet = self.flow(to_device(theta, self.device), self._cond(y))
-        return std_normal_logpdf(z) + logdet
+        full = theta.shape[0]
+        theta, y = shard_batch((to_device(theta, self.device), to_device(y, self.device)),
+                               self.mesh)
+        z, logdet = self.flow(theta, self._cond(y))
+        return gather_batch(std_normal_logpdf(z) + logdet, self.mesh, full)
+
+    def _inverse(self, z, cond):
+        """``sample_flow.inverse`` over this rank's rows, gathered."""
+        full = z.shape[0]
+        z, cond = shard_batch((z, cond), self.mesh)
+        return gather_batch(self.sample_flow.inverse(z, cond), self.mesh, full)
 
     def loss(self, theta, y) -> torch.Tensor:
         """Mean negative log posterior density per dimension."""
@@ -152,7 +170,7 @@ class ConditionalFlow(nn.Module):
             cond = self._cond(y)
             z = std_normal_sample(derive_key(generator, self._TAG_SAMPLE_LIKE, self.device),
                                   theta_like)
-            return self.sample_flow.inverse(z, cond)
+            return self._inverse(z, cond)
 
     def posterior_sampler(self, y, *, theta_dim: int):
         """``draw(generator, n)`` -> ``n`` posterior draws per observation in
@@ -169,6 +187,6 @@ class ConditionalFlow(nn.Module):
                 cond = cond0.repeat_interleave(n, dim=0)
                 z = std_normal_sample(derive_key(generator, self._TAG_SAMPLE, self.device),
                                       torch.empty((cond.shape[0], theta_dim), device="meta"))
-                return self.sample_flow.inverse(z, cond)
+                return self._inverse(z, cond)
 
         return draw

@@ -87,11 +87,15 @@ class GlowStepStack(Invertible):
     ``grad_mode`` picks the engine of :meth:`forward`; with ``"coupled"``,
     ``coupled_bwd`` (:func:`resolve_coupled_bwd`, on the stack's device)
     picks the fused reverse walk or plain autograd.  The ``fused_bwd`` hook,
-    which an outer coupled chain takes, is the fused walk in every mode."""
+    which an outer coupled chain takes, is the fused walk in every mode.
+    ``psum_axis``: the stack's own backward sums each step's gradients over
+    that mesh axis (``core/autodiff.py``); the hooks never reduce (the outer
+    chain does)."""
 
     def __init__(self, c: int, k_steps: int, hidden: int = 64, clamp: float = 2.0,
                  grad_mode: str = "invertible", coupled_bwd: str = "auto", *,
-                 generator: torch.Generator | None = None, device=None):
+                 psum_axis: str | None = None, generator: torch.Generator | None = None,
+                 device=None):
         super().__init__()
         ca = c // 2
         if ca < 1:
@@ -103,6 +107,7 @@ class GlowStepStack(Invertible):
         self.grad_mode = grad_mode
         self.coupled_bwd = resolve_coupled_bwd(coupled_bwd, dev) if grad_mode == "coupled" else None
         self.engine = "autodiff" if self.coupled_bwd == "stored" else grad_mode
+        self.psum_axis = psum_axis if self.engine in ("invertible", "coupled") else None
         steps = [
             {
                 "an": {"log_s": torch.zeros(c), "b": torch.zeros(c)},
@@ -202,7 +207,7 @@ class GlowStepStack(Invertible):
     def forward(self, x, cond=None):
         step_bwd = self._step_bwd if self.engine == "coupled" else None
         return make_scan_apply(self, self._step_fwd, self._step_inv, self.engine,
-                               step_bwd=step_bwd)(x, cond)
+                               step_bwd=step_bwd, psum_axis=self.psum_axis)(x, cond)
 
     def inverse(self, y, cond=None):
         for i in reversed(range(self.k_steps)):
@@ -230,6 +235,7 @@ def build_glow_scanned(
     haar: bool = True,
     clamp: float = 2.0,
     coupled_bwd: str = "auto",
+    psum_axis: str | None = None,
     *,
     channels: int = 3,
     generator: torch.Generator | None = None,
@@ -245,7 +251,15 @@ def build_glow_scanned(
     ``coupled_bwd`` is the ``grad_mode="coupled"`` backward strategy
     (:func:`resolve_coupled_bwd`); with ``"stored"`` the whole chain
     differentiates by plain autograd, as in the reference (the chain's
-    output-only residuals would drop the stored activations)."""
+    output-only residuals would drop the stored activations).
+
+    ``psum_axis`` makes the chain's backward sum its parameter gradients over
+    that mesh axis (data parallelism, ``dist/flow.py``).  It goes on the
+    outermost chain only, as in the reference: the chain reduces every
+    layer's gradients once, and a stack-level reduction would reduce the
+    stacks' twice.  Under the ``"stored"`` strategy the chain is plain
+    autograd and the chain's ``psum_axis`` reads back None: the data-parallel
+    helpers reduce the gradients themselves."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     squeeze = HaarSqueeze if haar else Squeeze
@@ -263,4 +277,4 @@ def build_glow_scanned(
         if scale != n_scales - 1:
             layers.append(Split())
             c //= 2
-    return InvertibleChain(layers, grad_mode=grad_mode, engine=engine)
+    return InvertibleChain(layers, grad_mode=grad_mode, engine=engine, psum_axis=psum_axis)

@@ -21,8 +21,10 @@ streams posterior statistics for a held-out observation through
 ``PosteriorEngine`` and prints the SBC/coverage calibration report
 (``posterior_report``); a prior scenario streams sample statistics through
 ``PosteriorEngine`` over a ``FlowServeEngine`` (``prior_report``).  It runs
-on one device, ``cuda`` unless ``--device`` names another; a device mesh
-(``--mesh``) is not ported yet and raises.
+on ``cuda`` unless ``--device`` names another.  ``--mesh`` (``auto`` or
+``d,m``, ``launch/mesh.py``) shards a scenario's sampled chunks over the
+processes ``torch.distributed.run`` starts (alone, a world of 1); an LM on a
+mesh raises (ROADMAP.md queue 1, item 7 part 2).
 """
 
 from __future__ import annotations
@@ -32,23 +34,28 @@ import time
 
 import torch
 
+from repro_torch.dist import PART_2
 
-def _serve_prior(run, args):
+
+def _serve_prior(run, args, mesh):
     from repro_torch.uq.scenarios import prior_report
 
     t0 = time.perf_counter()
-    stats = prior_report(run, n_samples=args.samples or 2048, chunk=args.chunk or None)
+    stats = prior_report(run, n_samples=args.samples or 2048, chunk=args.chunk or None,
+                         mesh=mesh)
     dt = time.perf_counter() - t0
     print(stats.summary())
     print(f"streamed {stats.n} samples in {dt:.2f}s ({stats.n / dt:.0f} samples/s)")
 
 
 def _serve_scenario(args):
+    from repro_torch.launch.mesh import launcher_mesh
     from repro_torch.uq.scenarios import posterior_report, restore_scenario
 
-    run = restore_scenario(args.scenario, args.ckpt, device=args.device)
+    mesh = launcher_mesh(args.mesh, args.device)
+    run = restore_scenario(args.scenario, args.ckpt, device=args.device, mesh=mesh)
     if not run.scenario.conditional:
-        _serve_prior(run, args)
+        _serve_prior(run, args, mesh)
         return
     t0 = time.perf_counter()
     stats, report = posterior_report(run, n_samples=args.samples or None,
@@ -114,13 +121,14 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt", default="", help="the checkpoint directory to restore")
-    ap.add_argument("--mesh", default="", help="a device mesh (not ported: raises unless empty)")
+    ap.add_argument("--mesh", default="",
+                    help="'' (none), 'auto', or 'd,m' over the torch.distributed world "
+                         "(--scenario only)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: a device mesh is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7); leave it empty")
+    if args.arch and args.mesh:
+        raise NotImplementedError(f"--arch serving on a mesh: {PART_2}")
     if args.scenario:
         if not args.ckpt:
             ap.error("--scenario serving needs --ckpt (a directory written by "

@@ -4,7 +4,10 @@
         --reduced --steps 50 --seq 128 --batch 8 [--grad-mode coupled] [--device cuda]
 
     PYTHONPATH=src python -m repro_torch.launch.train --scenario lg-smoke \
-        --ckpt checkpoints/uq [--steps 50] [--device cuda]
+        --ckpt checkpoints/uq [--steps 50] [--device cuda] [--mesh auto]
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --scenario lg-smoke --ckpt ckpt/uq --mesh 2,1
 
 ``--arch`` trains a language model (any architecture: yi-6b, glm4-9b,
 granite-34b, command-r-plus-104b, granite-moe-1b-a400m,
@@ -19,9 +22,13 @@ builds ``SyntheticTokens`` alone and so cannot train those two.  rwkv6-7b
 and zamba2-7b train through their plain scans on either device.  ``--scenario`` trains a named
 ``repro_torch.uq`` scenario (an amortized posterior or an image-prior flow)
 through the supervised loop; serve the result with
-``repro_torch.launch.serve --scenario``.  It runs on one device, ``cuda``
-unless ``--device`` names another; a device mesh (``--mesh``) is not ported
-yet and raises, naming its place in ``ROADMAP.md``.
+``repro_torch.launch.serve --scenario``.  It runs on ``cuda`` unless
+``--device`` names another.  ``--mesh`` (``""`` none, ``auto``, or ``d,m``
+whose product is the world size; ``launch/mesh.py``) trains data-parallel
+over the processes ``torch.distributed.run`` starts (alone, a world of 1 and
+a (1, 1) mesh): one process per rank, ``nccl`` when each has a card of its
+own, ``gloo`` when they share one or run on the CPU.  A ``model`` axis > 1
+raises (ROADMAP.md queue 1, item 7 part 2).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from __future__ import annotations
 import argparse
 
 
-def _train_arch(args):
+def _train_arch(args, mesh):
     from repro_torch.config import ShapeSpec, TrainConfig, get_arch
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
@@ -39,8 +46,11 @@ def _train_arch(args):
 
     spec = get_arch(args.arch)
     model, cfg = build_model(spec.reduced if args.reduced else spec.config, device=args.device)
+    from repro_torch.launch.mesh import describe
+
     print(f"arch={cfg.name} params~{cfg.param_count() / 1e6:.1f}M reversible={cfg.reversible} "
-          f"grad_mode={args.grad_mode or default_grad_mode(cfg)} device={args.device}", flush=True)
+          f"grad_mode={args.grad_mode or default_grad_mode(cfg)} device={args.device} "
+          f"mesh={describe(mesh)}", flush=True)
     steps = args.steps or 100
     if cfg.frontend is None:
         data = SyntheticTokens(cfg.vocab_size, args.seq, args.batch, seed=0)
@@ -50,7 +60,7 @@ def _train_arch(args):
                        checkpoint_every=max(steps // 4, 10), checkpoint_dir=args.ckpt,
                        step_timeout_s=args.step_timeout, accum_steps=args.accum,
                        prefetch=args.prefetch)
-    res = train_lm(model, data, tcfg, grad_mode=args.grad_mode, device=args.device)
+    res = train_lm(model, data, tcfg, grad_mode=args.grad_mode, device=args.device, mesh=mesh)
     if res.losses:
         print(f"done at step {res.final_step}: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; "
               f"restarts={res.restarts}; straggler flags={len(res.flagged_steps)}; "
@@ -83,15 +93,16 @@ def main(argv=None):
     ap.add_argument("--step-timeout", type=float, default=0.0,
                     help="--arch: the straggler watchdog's deadline in seconds (0 = off)")
     ap.add_argument("--ckpt", default="checkpoints/train")
-    ap.add_argument("--mesh", default="", help="a device mesh (not ported: raises unless empty)")
+    ap.add_argument("--mesh", default="",
+                    help="'' (none), 'auto', or 'd,m' over the torch.distributed world")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: a device mesh is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7); leave it empty")
+    from repro_torch.launch.mesh import launcher_mesh
+
+    mesh = launcher_mesh(args.mesh, args.device)
     if args.arch:
-        _train_arch(args)
+        _train_arch(args, mesh)
         return
 
     from repro_torch.uq.scenarios import get_scenario, train_scenario
@@ -101,7 +112,7 @@ def main(argv=None):
     print(f"scenario={sc.name} ({kind}) flow={sc.flow.name} steps={args.steps or sc.steps} "
           f"device={args.device}", flush=True)
     res = train_scenario(sc, steps=args.steps or None, ckpt_dir=args.ckpt,
-                         device=args.device).result
+                         device=args.device, mesh=mesh).result
     if res.losses:
         print(f"done at step {res.final_step}: loss {res.losses[0]:.4f} -> {res.losses[-1]:.4f}; "
               f"restarts={res.restarts}; checkpoints in {args.ckpt}")

@@ -114,8 +114,8 @@ def attn_apply(
     ``cache_pos`` (an int) and attend over the whole cache.  ``impl`` names
     the reference's choices, ``"xla"`` being its einsum path."""
     if seq_shard:
-        raise NotImplementedError("sequence-parallel attention comes with the distribution "
-                                  "slice (ROADMAP.md queue 1, item 7)")
+        raise NotImplementedError("sequence-parallel attention needs the model-sharded meshes: "
+                                  "ROADMAP.md queue 1, item 7 part 2")
     b, s, _ = x.shape
     pos1d = positions[0] if positions.ndim > 1 else positions
     if kv_override is not None:

@@ -1,10 +1,13 @@
-"""Serving engines, the port of the reference's ``serve/engine.py`` on one
-device: ``ServeEngine`` (an LM's prefill, then cached greedy or temperature
-decode steps, with a vision model's patches or an encoder-decoder's frames)
-and ``FlowServeEngine`` (batched ``log_prob`` and ``sample`` of a
-normalizing flow).  Sharding over a mesh comes with the distribution
-slice.  Requests run under ``torch.inference_mode``; the reference jits
-prefill and decode, the port runs them eagerly.
+"""Serving engines, the port of the reference's ``serve/engine.py``:
+``ServeEngine`` (an LM's prefill, then cached greedy or temperature decode
+steps, with a vision model's patches or an encoder-decoder's frames) and
+``FlowServeEngine`` (batched ``log_prob`` and ``sample`` of a normalizing
+flow, batch-sharded over a mesh's data axes: each rank runs its rows and
+every rank gets the whole batch back).  An LM on a mesh (its parameters
+model-sharded, its caches batch-sharded) waits for the model-sharded meshes
+(ROADMAP.md queue 1, item 7 part 2).  Requests run under
+``torch.inference_mode``; the reference jits prefill and decode, the port
+runs them eagerly.
 """
 
 from __future__ import annotations
@@ -13,14 +16,19 @@ import torch
 
 from repro_torch.core.distributions import derive_key, std_normal_logpdf, std_normal_sample
 from repro_torch.core.types import resolve_device, to_device
+from repro_torch.dist import PART_2
+from repro_torch.dist.flow import gather_batch, shard_batch
 
 
 class ServeEngine:
     """Serve ``model`` (``models.lm.Model``) on ``device`` (``cuda`` unless
     named; raises without a card) with caches of ``max_len`` positions.
-    ``temperature`` 0 decodes greedily."""
+    ``temperature`` 0 decodes greedily.  A ``mesh`` raises: an LM on a mesh
+    waits for the model-sharded meshes."""
 
-    def __init__(self, model, max_len: int, temperature: float = 0.0, device=None):
+    def __init__(self, model, max_len: int, temperature: float = 0.0, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"ServeEngine on a mesh: {PART_2}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.max_len = max_len
@@ -78,28 +86,41 @@ class FlowServeEngine:
     holds ``flow``'s own parameters, made with
     ``core.types.share_parameters(twin, flow)``.  One parameter set, two
     builds: whatever trains or moves ``flow`` is seen by the twin.  Without
-    it, ``flow`` serves both calls."""
+    it, ``flow`` serves both calls.
+
+    ``mesh``: a data-parallel mesh (one process per rank, each calling with
+    the whole batch): each rank runs its rows of the batch and the outputs
+    are gathered, so every rank returns the whole batch.  Flows are
+    pointwise in the batch, so no other collective is needed."""
 
     # the sampling stream's tag, as in the reference
     _TAG_SAMPLE = 0
 
-    def __init__(self, flow, device=None, sample_flow=None):
+    def __init__(self, flow, device=None, sample_flow=None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.flow = flow.to(self.device).eval()
         self.sample_flow = self.flow if sample_flow is None else sample_flow.to(self.device).eval()
 
     def log_prob(self, x, cond=None) -> torch.Tensor:
         """Per-example log density ``log N(z; 0, I) + logdet`` of a batch."""
         with torch.inference_mode():
-            z, logdet = self.flow(to_device(x, self.device), to_device(cond, self.device))
-            return std_normal_logpdf(z) + logdet
+            full = x.shape[0]
+            x, cond = shard_batch((to_device(x, self.device), to_device(cond, self.device)),
+                                  self.mesh)
+            z, logdet = self.flow(x, cond)
+            return gather_batch(std_normal_logpdf(z) + logdet, self.mesh, full)
 
     def sample(self, generator: torch.Generator, like, cond=None):
         """Draws shaped like the latent prototype ``like`` (a tensor or the
         tuple state of a multiscale flow; only shapes and dtypes are read).
         The noise comes from the stream ``derive_key(generator, tag)`` on the
-        engine's device: the same generator seed gives the same draws."""
+        engine's device, drawn at the whole batch's extent before a rank
+        takes its rows: the same generator seed gives the same draws on any
+        mesh."""
         gen = derive_key(generator, self._TAG_SAMPLE, device=self.device)
         with torch.inference_mode():
             z = std_normal_sample(gen, like)
-            return self.sample_flow.inverse(z, to_device(cond, self.device))
+            full = (z[0] if isinstance(z, tuple) else z).shape[0]
+            z, cond = shard_batch((z, to_device(cond, self.device)), self.mesh)
+            return gather_batch(self.sample_flow.inverse(z, cond), self.mesh, full)

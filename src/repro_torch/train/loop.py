@@ -1,13 +1,15 @@
-"""The supervised training loop on one device, the port of the reference's
+"""The supervised training loop, the port of the reference's
 ``repro/train/loop.py``: checkpoints and restarts, cooperative preemption,
-the straggler watchdog, gradient accumulation and an asynchronous input
-pipeline, under three front-ends:
+the straggler watchdog, gradient accumulation, gradient compression and an
+asynchronous input pipeline, under four front-ends:
 
 * ``train_lm(model, ...)`` - LM training (``Model.train_loss`` through the
   reversible scan engine);
 * ``train_flow(flow, ...)`` - flow NLL training (the paper's native path);
 * ``train_conditional_flow(model, ...)`` - amortized posterior training of a
-  ``ConditionalFlow``.
+  ``ConditionalFlow``;
+* ``train_pipeline(...)`` - opt-in GPipe depth parallelism over a
+  ``("pipe",)`` mesh.
 
 Each step takes ``data.batch_at(step)``, the loss and its gradient (through
 the flow's ``grad_mode`` engine; averaged over ``cfg.accum_steps``
@@ -20,6 +22,15 @@ the host while step ``N`` runs; the loop's thread moves it to the device.
 The sources are pure functions of the step index, so this changes nothing in
 the result.
 
+All take an optional ``mesh`` (``launch/mesh.py``, one process per rank).  On
+a pure data-parallel mesh the step is ``dist/step.py``'s: each rank takes its
+rows of the whole batch ``data.batch_at(step)`` (so prefetch means the same
+on every rank), and the gradient sum is overlapped into the flow's backward
+(``psum_axis``), trailing, or error-feedback compressed before the wire
+(``cfg.grad_compression``).  Without a mesh, compression runs locally
+(``compress_grads``), nothing crossing a wire.  A mesh whose ``model`` axis
+is more than 1 raises (ROADMAP.md queue 1, item 7 part 2).
+
 Fault-tolerance contract (``tests/test_torch_train_loop.py``): a run killed
 at any step and restarted resumes from the latest checkpoint (or, before the
 first, from the model as it arrived) and reaches bit for bit the state of an
@@ -27,25 +38,38 @@ uninterrupted run, with no duplicate final save.  A SIGTERM (caught from
 the main thread only) saves the step just finished and ends the run early,
 with ``TrainResult.preempted`` set.  ``cfg.checkpoint_dir`` None keeps no
 checkpoints, restarts nothing and leaves SIGTERM alone: a failure or the
-signal ends the run as in a bare loop.  A mesh
-and gradient compression wait for the distribution slice (ROADMAP.md queue
-1, item 7).
+signal ends the run as in a bare loop.  On a mesh rank 0 writes the
+checkpoints, with the mesh's shape, and every rank's compression residuals
+in one ``(n_ranks, ...)`` leaf each; a restart on another data-parallel width
+warns and re-zeros the residuals (an optimization detail, not model state).
 """
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import threading
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.config import TrainConfig
-from repro_torch.core.autodiff import value_and_grad_nll
-from repro_torch.core.types import resolve_device, to_device
+from repro_torch.core.objectives import nll_loss
+from repro_torch.core.types import ParamTree, resolve_device, to_device
 from repro_torch.data.pipeline import Prefetcher
-from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
+from repro_torch.dist import PART_2, comm
+from repro_torch.dist.flow import shard_batch
+from repro_torch.dist.sharding import MODEL_AXIS, axis_size, data_index
+from repro_torch.dist.step import dp_axis, dp_size, is_pure_dp, make_dp_train_step
+from repro_torch.optim import (
+    adamw_init,
+    adamw_update,
+    compress_grads,
+    compression_init,
+    cosine_warmup,
+)
 from repro_torch.optim.accum import accumulate_grads
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault import FailureInjector, StragglerWatchdog, run_with_restarts
@@ -60,27 +84,140 @@ class TrainResult:
     restarts: int = 0
     flagged_steps: tuple = ()
     preempted: bool = False  # a SIGTERM ended the run before cfg.steps
+    err_state: dict = field(default_factory=dict)  # this rank's compression residuals
+
+
+def check_mesh(mesh):
+    """Raise on a mesh this port cannot run yet: a ``model`` axis > 1."""
+    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
+        raise NotImplementedError(f"a mesh with a model axis of {axis_size(mesh, MODEL_AXIS)} "
+                                  f"needs the model-sharded meshes: {PART_2}")
+
+
+def _dp_fast_path(mesh, cfg: TrainConfig) -> bool:
+    """True when the mesh runs the data-parallel step (``dist/step.py``)."""
+    if mesh is None:
+        return False
+    if not is_pure_dp(mesh):
+        if cfg.grad_compression != "none":
+            raise ValueError("grad_compression requires a pure data-parallel mesh (or none): "
+                             "on any other mesh no compressed payload would cross the wire")
+        return False
+    return True
+
+
+def _err_shards(mesh, cfg: TrainConfig) -> int | None:
+    """The leading shard axis of the residuals in a checkpoint (None =
+    one process's)."""
+    if cfg.grad_compression == "none":
+        return None
+    return dp_size(mesh) if _dp_fast_path(mesh, cfg) else None
+
+
+def _init_err(params: dict, cfg: TrainConfig) -> dict:
+    """This process's zero residuals; empty without compression, which
+    keeps the state and checkpoints free of dead zero trees."""
+    if cfg.grad_compression == "none":
+        return {}
+    return {n: e for n, e in compression_init(params).items() if e is not None}
+
+
+def _make_step(objective: Callable, module, cfg: TrainConfig, mesh=None, vjp_psum_axis=None):
+    """``(state, batch, step) -> (state, metrics)``: the data-parallel step
+    on a pure data-parallel mesh (:func:`repro_torch.dist.step.
+    make_dp_train_step`), else the one-process step with local compression.
+    ``vjp_psum_axis``: the objective's backward already sums the parameter
+    gradients over that mesh axis (a flow built with ``psum_axis``)."""
+    if _dp_fast_path(mesh, cfg):
+        if cfg.grad_compression != "none" and vjp_psum_axis is not None:
+            raise ValueError("grad_compression with a psum_axis flow: its backward would "
+                             "all-reduce dense gradients before compression; build the flow "
+                             "without psum_axis to train compressed")
+        return make_dp_train_step(objective, module, cfg, mesh,
+                                  grads_reduced_by_vjp=vjp_psum_axis is not None
+                                  and vjp_psum_axis == dp_axis(mesh))
+    params = dict(module.named_parameters())
+    value_and_grad = objective_value_and_grad(module, objective)
+    n_micro = max(int(cfg.accum_steps), 1)
+
+    def step_fn(state, batch, step: int):
+        # a mesh of one rank binds its axes (a psum_axis flow reduces over 1)
+        with comm.bound(mesh) if mesh is not None else contextlib.nullcontext():
+            loss, grads = accumulate_grads(value_and_grad, batch, n_micro)
+        # local error-feedback compression: nothing crosses a wire here
+        grads, err = compress_grads(grads, state["err"], cfg.grad_compression,
+                                    cfg.compression_ratio)
+        lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
+        opt, om = adamw_update(params, grads, state["opt"], cfg, lr)
+        return {"opt": opt, "err": err}, {"loss": loss, "lr": lr, **om}
+
+    return step_fn
+
+
+def _save_err(err: dict, mesh, cfg: TrainConfig) -> dict:
+    """The residuals as a checkpoint holds them: every rank's in one
+    ``(n_ranks, ...)`` leaf on a data-parallel mesh (a collective: every
+    rank calls it), else this process's."""
+    if _err_shards(mesh, cfg) is None:
+        return err
+    group = mesh.get_group(dp_axis(mesh))
+    return {n: comm.all_gather(e, group) for n, e in err.items()}
+
+
+def _restore_state(module, params, cfg: TrainConfig, mesh):
+    """``(module state, opt, err, step)`` of the latest checkpoint.  An
+    elastic restart onto another data-parallel width changes the residuals'
+    shapes: they are re-zeroed, with a warning, instead of failing."""
+    shards = _err_shards(mesh, cfg)
+    err_like = {}
+    if cfg.grad_compression != "none":
+        err_like = {n: e for n, e in compression_init(params, shards).items() if e is not None}
+    like = {"params": module.state_dict(), "opt": adamw_init(params), "err": err_like}
+    try:
+        state, step = ckpt.restore(like, cfg.checkpoint_dir, mesh=mesh)
+        err = state["err"]
+        if shards is not None:
+            err = {n: e[data_index(mesh)].clone() for n, e in err.items()}
+    except (ValueError, KeyError) as e:
+        if "err/" not in str(e):
+            raise
+        state, step = ckpt.restore({"params": like["params"], "opt": like["opt"]},
+                                   cfg.checkpoint_dir, mesh=mesh)
+        warnings.warn("error-feedback accumulator shape changed across restart (elastic "
+                      "data-parallel resize); residuals re-zeroed", stacklevel=2)
+        err = _init_err(params, cfg)
+    return state["params"], state["opt"], err, step
 
 
 def _supervised_loop(
-    value_and_grad: Callable,
+    objective: Callable,
     module: torch.nn.Module,
     data_fn: Callable[[int], object],
     cfg: TrainConfig,
     *,
     device: torch.device,
+    mesh=None,
     injector: Optional[FailureInjector] = None,
+    vjp_psum_axis: str | None = None,
+    step_fn: Callable | None = None,
 ) -> TrainResult:
     """Train ``module``'s parameters in place for ``cfg.steps`` steps.
-    ``value_and_grad(batch) -> (loss, {name: grad})`` over
-    ``module.named_parameters()``; ``data_fn(step)`` is the step's batch on
-    the host."""
+    ``objective(batch) -> (loss, aux)`` is the mean loss over the batch it
+    is given; ``data_fn(step)`` is the step's whole batch on the host.
+    ``step_fn`` (``train_pipeline``'s) replaces the step :func:`_make_step`
+    builds."""
+    check_mesh(mesh)
     params = dict(module.named_parameters())
+    step_fn = step_fn or _make_step(objective, module, cfg, mesh, vjp_psum_axis)
     # the state a restart returns to when no checkpoint was written yet
     initial = {k: v.detach().clone() for k, v in module.state_dict().items()}
     watchdog = StragglerWatchdog(cfg.step_timeout_s) if cfg.step_timeout_s > 0 else None
     restarts = {"n": 0}
-    n_micro = max(int(cfg.accum_steps), 1)
+
+    def batch_fn(step: int):
+        # the whole batch, then this rank's rows: built in the prefetch
+        # thread, the same on every rank
+        return shard_batch(data_fn(step), mesh)
 
     # cooperative preemption: checkpoint on SIGTERM, then stop cleanly
     preempted = {"flag": False}
@@ -98,18 +235,23 @@ def _supervised_loop(
             for key, v in module.state_dict(keep_vars=True).items():
                 v.copy_(values[key])
 
+    def save(state, step):
+        on_mesh = {} if mesh is None else {"mesh": mesh}
+        ckpt.save({"params": module.state_dict(), "opt": state["opt"],
+                   "err": _save_err(state["err"], mesh, cfg)},
+                  cfg.checkpoint_dir, step, cfg.keep_checkpoints, **on_mesh)
+
     def attempt_run(attempt: int) -> TrainResult:
         start = ckpt.latest_step(cfg.checkpoint_dir)
         if start is not None:
-            like = {"params": module.state_dict(), "opt": adamw_init(params)}
-            state, start = ckpt.restore(like, cfg.checkpoint_dir)
-            load(state["params"])
-            opt, start_step = state["opt"], start + 1
+            values, opt, err, start = _restore_state(module, params, cfg, mesh)
+            load(values)
+            state, start_step = {"opt": opt, "err": err}, start + 1
         else:
             load(initial)
-            opt, start_step = adamw_init(params), 0
+            state, start_step = {"opt": adamw_init(params), "err": _init_err(params, cfg)}, 0
 
-        prefetch = (Prefetcher(data_fn, start_step, lookahead=cfg.prefetch)
+        prefetch = (Prefetcher(batch_fn, start_step, lookahead=cfg.prefetch)
                     if cfg.prefetch > 0 else None)
         losses = []
         step = start_step
@@ -127,21 +269,17 @@ def _supervised_loop(
                             raise RuntimeError(f"prefetch out of order: wanted {step}, "
                                                f"got {got_step}")
                     else:
-                        batch = data_fn(step)
-                    loss, grads = accumulate_grads(value_and_grad, to_device(batch, device),
-                                                   n_micro)
-                    lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
-                    opt, _ = adamw_update(params, grads, opt, cfg, lr)
+                        batch = batch_fn(step)
+                    state, metrics = step_fn(state, to_device(batch, device), step)
                 finally:
                     # the deadline timer dies with the step: a step that
                     # raises would otherwise flag the restarted attempt
                     if watchdog is not None:
                         watchdog.end_step()
-                losses.append(float(loss))
+                losses.append(float(metrics["loss"]))
                 if resumable and (
                         (step + 1) % cfg.checkpoint_every == 0 or preempted["flag"]):
-                    ckpt.save({"params": module.state_dict(), "opt": opt}, cfg.checkpoint_dir,
-                              step, cfg.keep_checkpoints)
+                    save(state, step)
                     saved_at = step
                 if preempted["flag"]:
                     break
@@ -152,13 +290,12 @@ def _supervised_loop(
                 prefetch.close()
         if resumable and saved_at != step:
             # no second save of a step the loop has just saved
-            ckpt.save({"params": module.state_dict(), "opt": opt}, cfg.checkpoint_dir, step,
-                      cfg.keep_checkpoints)
+            save(state, step)
         return TrainResult(
-            params=module.state_dict(), opt_state=opt, final_step=step, losses=losses,
-            restarts=restarts["n"],
+            params=module.state_dict(), opt_state=state["opt"], final_step=step,
+            losses=losses, restarts=restarts["n"],
             flagged_steps=tuple(watchdog.flagged_steps) if watchdog else (),
-            preempted=preempted["flag"],
+            preempted=preempted["flag"], err_state=state["err"],
         )
 
     def on_restart(attempt, exc):
@@ -179,7 +316,7 @@ def _supervised_loop(
 
 
 def train_lm(model, data, cfg: TrainConfig, *, grad_mode: str | None = None, device=None,
-             injector=None) -> TrainResult:
+             mesh=None, injector=None) -> TrainResult:
     """Train ``model`` (``models.lm.Model``) for ``cfg.steps`` steps on
     ``device`` (``cuda`` unless named; raises without a card): its
     ``train_loss(batch, grad_mode)`` is the objective and
@@ -189,30 +326,36 @@ def train_lm(model, data, cfg: TrainConfig, *, grad_mode: str | None = None, dev
     takes its batch's modality features beside them (``frames`` for
     whisper-small, ``patches`` for llava-next-34b; ``models/registry.py::
     batch_like``).  An ``ssm`` or ``hybrid`` model trains through its plain
-    scans on either device (``nn/ssm.py::scan_on_kernel``)."""
+    scans on either device (``nn/ssm.py::scan_on_kernel``).  ``mesh``: a
+    pure data-parallel mesh splits each batch's sequences over the ranks
+    (an MoE's capacity is per sequence, so routing does not change)."""
     dev = resolve_device(device)
     model.to(dev).train()
-    objective = objective_value_and_grad(
-        model, lambda batch: model.train_loss(batch, grad_mode=grad_mode))
-    return _supervised_loop(objective, model, data.batch_at, cfg, device=dev, injector=injector)
+    return _supervised_loop(lambda batch: model.train_loss(batch, grad_mode=grad_mode), model,
+                            data.batch_at, cfg, device=dev, mesh=mesh, injector=injector)
 
 
-def train_flow(flow, data, cfg: TrainConfig, *, device=None, injector=None) -> TrainResult:
+def train_flow(flow, data, cfg: TrainConfig, *, device=None, mesh=None,
+               injector=None) -> TrainResult:
     """Train ``flow`` for ``cfg.steps`` steps on ``device`` (``cuda`` unless
     named; raises without a card).  ``data.batch_at(step)`` returns the
     batch, an array or a tensor.  Returns the trained ``state_dict``, the
-    optimizer state and each step's loss (before its update)."""
+    optimizer state and each step's loss (before its update).
+
+    On a data-parallel ``mesh`` a flow built with ``psum_axis`` equal to the
+    mesh's data axis sums its gradients inside its backward (the overlapped
+    reduction); the step then skips its own."""
     dev = resolve_device(device)
     flow.to(dev).train()
 
-    def value_and_grad(x):
-        return value_and_grad_nll(flow, x.to(dev, torch.float32))
+    def objective(x):
+        return nll_loss(flow, x.to(dev, torch.float32)), {}
 
-    return _supervised_loop(value_and_grad, flow, data.batch_at, cfg, device=dev,
-                            injector=injector)
+    return _supervised_loop(objective, flow, data.batch_at, cfg, device=dev, mesh=mesh,
+                            injector=injector, vjp_psum_axis=getattr(flow, "psum_axis", None))
 
 
-def train_conditional_flow(model, data, cfg: TrainConfig, *, device=None,
+def train_conditional_flow(model, data, cfg: TrainConfig, *, device=None, mesh=None,
                            injector=None) -> TrainResult:
     """Amortized posterior training of ``model``, a ``ConditionalFlow``, on
     ``device`` (``cuda`` unless named; raises without a card): its
@@ -221,8 +364,76 @@ def train_conditional_flow(model, data, cfg: TrainConfig, *, device=None,
     together: the flow's engine hands the summary output its cotangent."""
     dev = resolve_device(device)
     model.to(dev).train()
-    return _supervised_loop(objective_value_and_grad(model, model.train_loss), model,
-                            data.batch_at, cfg, device=dev, injector=injector)
+    return _supervised_loop(model.train_loss, model, data.batch_at, cfg, device=dev, mesh=mesh,
+                            injector=injector)
+
+
+def train_pipeline(block_apply: Callable, init_fn: Callable, data, cfg: TrainConfig, *, mesh,
+                   loss_head: Callable, n_layers_per_stage: int, device=None,
+                   injector=None) -> TrainResult:
+    """Opt-in GPipe depth parallelism (``dist/pipeline.py``) under the
+    supervised loop's contract.
+
+    ``init_fn()`` returns the parameters as a dict of tensors with a
+    ``"stages"`` entry whose leaves are stage-stacked ``(S,
+    n_layers_per_stage, ...)`` for the mesh's ``cfg.pipeline_axis`` (extent
+    ``S``); ``block_apply(p, h) -> h`` is one block; ``loss_head(params, h,
+    batch) -> scalar`` reads the pipeline's output (``params`` the same tree
+    of the trained tensors).  Each step cuts the batch ``{"x", ...}`` into
+    ``cfg.pipeline_microbatches`` microbatches, streams them through the
+    stages and differentiates through the schedule.
+
+    Every rank holds the whole tree (replicated, so the loop's AdamW and
+    checkpoints are the one-process ones); stage ``s`` reads only its slice
+    ``stages[s]``, so its gradient has only that row, and the rows are
+    summed over the axis before the update.  Returns the rank's
+    ``TrainResult``, the same on every rank."""
+    from repro_torch.dist.pipeline import pipeline_forward, pipeline_stage_fn
+
+    dev = resolve_device(device)
+    n_micro = cfg.pipeline_microbatches
+    if n_micro <= 0:
+        raise ValueError("train_pipeline needs cfg.pipeline_microbatches > 0")
+    if mesh is None or cfg.pipeline_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"train_pipeline needs a mesh with a {cfg.pipeline_axis!r} axis")
+    _dp_fast_path(mesh, cfg)  # compression needs a pure data-parallel mesh: raises
+    module = ParamTree(init_fn()).to(dev).train()
+    stage = pipeline_stage_fn(block_apply, n_layers_per_stage)
+    idx = mesh.get_local_rank(cfg.pipeline_axis)
+    group = mesh.get_group(cfg.pipeline_axis)
+
+    def tree(mod):
+        return {k: tree(v) for k, v in mod.named_children()} | dict(mod.named_parameters(
+            recurse=False)) | dict(mod.named_buffers(recurse=False))
+
+    def objective(batch):
+        x = batch["x"]
+        if x.shape[0] % n_micro:
+            raise ValueError(f"pipeline_microbatches={n_micro} does not divide the batch "
+                             f"{x.shape[0]}")
+        params = tree(module)
+        xm = x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])
+        h = pipeline_forward(stage, {k: v[idx] for k, v in params["stages"].items()}, xm,
+                             mesh, axis=cfg.pipeline_axis)
+        return loss_head(params, h.reshape(x.shape[0], *h.shape[2:]), batch), {}
+
+    params = dict(module.named_parameters())
+    value_and_grad = objective_value_and_grad(module, objective)
+    n_acc = max(int(cfg.accum_steps), 1)
+
+    def step_fn(state, batch, step: int):
+        loss, grads = accumulate_grads(value_and_grad, batch, n_acc)
+        # each stage's gradient lives in its own row: the sum over the axis
+        # is the whole stage-stacked gradient on every rank
+        for name, g in grads.items():
+            if name.startswith("stages."):
+                comm.all_reduce(g, group)
+        lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
+        opt, om = adamw_update(params, grads, state["opt"], cfg, lr)
+        return {"opt": opt, "err": state["err"]}, {"loss": loss, "lr": lr, **om}
+
+    return _supervised_loop(objective, module, data.batch_at, cfg, device=dev, mesh=mesh,
+                            injector=injector, step_fn=step_fn)
 
 
 def objective_value_and_grad(module, objective: Callable) -> Callable:

@@ -1,5 +1,5 @@
 """Streaming posterior statistics over kernel-backed amortized sampling, the
-port of the reference's ``repro/uq/posterior.py`` on one device.
+port of the reference's ``repro/uq/posterior.py``.
 
 A high-dimensional posterior explored with 10^5+ draws never materialises:
 ``PosteriorEngine`` pulls fixed-size chunks of draws through the flow's
@@ -17,7 +17,10 @@ folds it into O(d) accumulators (the reference's float64 numpy host math):
 
 Chunk k draws its latents from ``derive_key(generator, k)``: the statistics
 are a pure function of ``(generator seed, n_samples, chunk)``, so a resumed
-stream reproduces.
+stream reproduces.  On a mesh the sampler (a ``ConditionalFlow`` or
+``FlowServeEngine`` built with ``mesh=``) draws each chunk's latents whole,
+runs each rank's rows and gathers them, and the accumulators fold the
+gathered chunk: the statistics agree across mesh shapes.
 """
 
 from __future__ import annotations

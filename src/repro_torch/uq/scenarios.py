@@ -1,5 +1,5 @@
 """Named UQ scenarios: operator x flow configuration x training recipe, the
-port of the reference's ``repro/uq/scenarios.py`` on one device.
+port of the reference's ``repro/uq/scenarios.py``.
 
 A scenario is everything needed to reproduce one uncertainty-quantification
 workflow end to end: the forward operator, the flow (cHINT for conditional
@@ -18,9 +18,11 @@ Two kinds:
 * **prior** (``operator`` None): an unconditional image flow trained on
   ``SyntheticImages``, served as streamed sample statistics.
 
-Everything runs on ``device`` (``cuda`` unless named).  The reference's
-``mesh=`` arguments shard over a device mesh; distribution is not ported
-(``ROADMAP.md`` queue 1, item 7), so a mesh raises.
+Everything runs on ``device`` (``cuda`` unless named).  ``mesh=`` (a
+data-parallel mesh, ``launch/mesh.py``; one process per rank) shards training
+batches and the sampled chunks over the ranks, as the reference's does; a
+mesh whose ``model`` axis is more than 1 raises (ROADMAP.md queue 1, item 7
+part 2).
 """
 
 from __future__ import annotations
@@ -160,10 +162,10 @@ def _scenario(name_or_sc) -> UQScenario:
     return get_scenario(name_or_sc) if isinstance(name_or_sc, str) else name_or_sc
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP.md queue 1, item 7); "
-                                  "scenarios run on one device")
+def _check_mesh(mesh):
+    from repro_torch.train.loop import check_mesh
+
+    check_mesh(mesh)
 
 
 @dataclass
@@ -184,10 +186,11 @@ def build_conditional_model(sc: UQScenario, *, generator: torch.Generator | None
     ``grad_mode`` over the operator's ``d_theta``, its ``kernel_inverse=True``
     sampling twin (the fused coupling inverse), and a ``SummaryMLP`` from
     ``d_y`` to ``summary_dim``.  The flow's and then the summary's
-    parameters are drawn from ``generator`` on the CPU."""
+    parameters are drawn from ``generator`` on the CPU.  ``mesh``: its
+    ``log_prob`` and sampling run each rank's rows."""
     from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
 
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     op, cfg = sc.make_operator(), sc.flow
@@ -196,7 +199,7 @@ def build_conditional_model(sc: UQScenario, *, generator: torch.Generator | None
     summary = SummaryMLP(op.d_y, sc.summary_dim, sc.summary_hidden, generator=gen, device="cpu")
     # the twin's own draws are replaced by the flow's parameters
     twin = build_chint(op.d_theta, sc.summary_dim, kernel_inverse=True, **kw)
-    return ConditionalFlow(flow, summary, sample_flow=twin, device=dev)
+    return ConditionalFlow(flow, summary, sample_flow=twin, device=dev, mesh=mesh)
 
 
 def train_scenario(name_or_sc, *, steps: int | None = None, mesh=None,
@@ -209,10 +212,11 @@ def train_scenario(name_or_sc, *, steps: int | None = None, mesh=None,
     :func:`build_conditional_model` or ``build_flow`` for the scenario, with
     parameters of its own) or, for a conditional scenario, ``problem`` (an
     ``OperatorProblem`` of the scenario's widths: another operator matrix or
-    batch stream)."""
+    batch stream).  ``mesh``: a data-parallel mesh splits each batch over
+    the ranks (``train_flow`` / ``train_conditional_flow``)."""
     from repro_torch.train.loop import train_conditional_flow, train_flow
 
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     sc = _scenario(name_or_sc)
     dev = resolve_device(device)
     n = steps or sc.steps
@@ -222,33 +226,34 @@ def train_scenario(name_or_sc, *, steps: int | None = None, mesh=None,
     if sc.conditional:
         problem = problem if problem is not None else sc.make_problem(seed=seed)
         model = model if model is not None else build_conditional_model(
-            sc, generator=gen, device=dev)
-        res = train_conditional_flow(model, problem, cfg, device=dev)
+            sc, generator=gen, device=dev, mesh=mesh)
+        res = train_conditional_flow(model, problem, cfg, device=dev, mesh=mesh)
         return ScenarioRun(sc, model, res.params, problem=problem, result=res)
     from repro_torch.data.synthetic import SyntheticImages
 
     flow = model if model is not None else build_flow(sc.flow, generator=gen, device=dev)
     data = SyntheticImages(size=sc.image_size, batch=sc.batch, seed=seed)
-    res = train_flow(flow, data, cfg, device=dev)
+    res = train_flow(flow, data, cfg, device=dev, mesh=mesh)
     return ScenarioRun(sc, flow, res.params, result=res)
 
 
 def restore_scenario(name_or_sc, ckpt_dir: str, mesh=None, device=None) -> ScenarioRun:
     """Rebuild a scenario's model on ``device`` and load its latest
-    checkpoint's parameters."""
+    checkpoint's parameters (``mesh``: the conditional model's sampling runs
+    each rank's rows)."""
     from repro_torch.optim import adamw_init
     from repro_torch.train import checkpoint as ckpt
 
-    _no_mesh(mesh)
+    _check_mesh(mesh)
     sc = _scenario(name_or_sc)
     dev = resolve_device(device)
     if sc.conditional:
         problem = sc.make_problem()
-        model = build_conditional_model(sc, device=dev)
+        model = build_conditional_model(sc, device=dev, mesh=mesh)
     else:
         problem, model = None, build_flow(sc.flow, device=dev)
     like = {"params": model.state_dict(), "opt": adamw_init(dict(model.named_parameters()))}
-    state, _step = ckpt.restore(like, ckpt_dir)
+    state, _step = ckpt.restore(like, ckpt_dir, mesh=mesh)
     model.load_state_dict(state["params"])
     return ScenarioRun(sc, model, model.state_dict(), problem=problem)
 
@@ -268,14 +273,15 @@ def prior_latent_like(sc: UQScenario, n: int = 1) -> tuple:
 
 
 def prior_report(run: ScenarioRun, *, generator: torch.Generator | None = None,
-                 n_samples: int = 2048, chunk: int | None = None):
+                 n_samples: int = 2048, chunk: int | None = None, mesh=None):
     """Streamed sample statistics of a trained prior scenario, the image
     prior's counterpart of :func:`posterior_report`: ``n_samples`` images
     drawn through a ``FlowServeEngine`` in chunks of ``chunk`` (16 training
     batches by default), the maps in the images' (H, W, 3).  The unrolled
     GLOW samples through its ``kernel_inverse=True`` twin (the fused
     coupling inverse), the scanned one through its flow-step kernels.
-    Returns ``PosteriorStats``."""
+    ``mesh``: each chunk's rows split over the ranks, the samples gathered
+    before they are folded.  Returns ``PosteriorStats``."""
     from repro_torch.core import build_glow, share_parameters
     from repro_torch.serve.engine import FlowServeEngine
     from repro_torch.uq.posterior import PosteriorEngine
@@ -289,7 +295,7 @@ def prior_report(run: ScenarioRun, *, generator: torch.Generator | None = None,
         twin = share_parameters(build_glow(n_scales=sc.flow.n_scales, k_steps=sc.flow.k_steps,
                                            hidden=sc.flow.hidden, kernel_inverse=True,
                                            device=dev), run.model)
-    engine = FlowServeEngine(run.model, device=dev, sample_flow=twin)
+    engine = FlowServeEngine(run.model, device=dev, sample_flow=twin, mesh=mesh)
     size = sc.image_size
     return PosteriorEngine(engine, theta_like=prior_latent_like(sc),
                            theta_shape=(size, size, 3)).run(

@@ -248,7 +248,7 @@ def test_attn_apply_flash_switch(interpret, seq):
 def test_attn_apply_refuses_sequence_sharding_and_overlong_writes():
     _, cfg, _, p = _attn_case(ATTN_CASES["causal"])
     x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(NotImplementedError, match="item 7 part 2"):
         attn_apply(p, x, cfg, torch.arange(4), seq_shard=True)
     with pytest.raises(ValueError, match="past its length"):
         attn_apply(p, x, cfg, torch.arange(4), cache=make_cache(cfg, 1, 6, torch.float32),

@@ -1,6 +1,7 @@
 """The port stands alone: it never loads JAX, imports nothing of the JAX
 package (serving and one ``coupled`` train step of the scanned and the
-unrolled GLOW; every LM's ``REDUCED`` prefill and decode through
+unrolled GLOW, the distribution modules with a train step on a one-rank
+mesh and one with int8 compression; every LM's ``REDUCED`` prefill and decode through
 ``ServeEngine.generate``, with whisper's frames and llava's patches;
 granite-moe and llama4-maverick ``REDUCED`` trained through ``train_lm``
 with a restart, and the chunked loss; whisper-small, llava-next-34b,
@@ -43,6 +44,14 @@ def test_port_runs_without_loading_jax():
         "lp = FlowServeEngine(flow, device='cpu').log_prob(torch.randn(1, 8, 8, 3))\n"
         "res = train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1), device='cpu')\n"
         "assert bool(torch.isfinite(lp).all()) and len(res.losses) == 1\n"
+        "import repro_torch.dist, repro_torch.optim.compression, repro_torch.launch.mesh\n"
+        "from repro_torch.launch.mesh import make_test_mesh\n"
+        "flow = build_flow(GLOW_SCANNED, device='cpu')\n"
+        "res = train_flow(flow, SyntheticImages(8, batch=1), TrainConfig(steps=1), device='cpu',\n"
+        "                 mesh=make_test_mesh(1, 1))\n"
+        "res = train_flow(flow, SyntheticImages(8, batch=1),\n"
+        "                 TrainConfig(steps=1, grad_compression='int8'), device='cpu')\n"
+        "assert len(res.losses) == 1 and res.err_state\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"

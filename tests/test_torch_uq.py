@@ -380,8 +380,9 @@ def test_posterior_engine_flow_serve_path():
 # ---------------------------------------------------------------------------
 
 
-def test_scenario_registry():
+def test_scenario_registry(tmp_path):
     from repro.uq import SCENARIOS as J_SCENARIOS
+    from repro_torch.launch.mesh import make_test_mesh
 
     assert set(SCENARIOS) == set(J_SCENARIOS)
     for name, sc in SCENARIOS.items():
@@ -398,8 +399,11 @@ def test_scenario_registry():
             assert sc.flow.kind in ("glow", "glow_scanned")
     with pytest.raises(KeyError, match="unknown scenario"):
         get_scenario("nope")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_scenario("lg-smoke", mesh=object(), device="cpu")
+    # a one-rank mesh (a world of one process) trains the scenario
+    run = train_scenario("lg-smoke", steps=2, mesh=make_test_mesh(1, 1), device="cpu",
+                         ckpt_dir=str(tmp_path / "mesh"))
+    assert run.result.final_step == 1 and np.all(np.isfinite(run.result.losses))
+    assert run.model.mesh is not None
 
 
 def test_scenario_train_restore_round_trip(tmp_path):
@@ -520,7 +524,9 @@ def test_launchers_train_and_serve_a_scenario_on_the_cpu(tmp_path):
 
 
 def test_launchers_refuse_what_is_not_ported(tmp_path, capsys):
-    """A device mesh is not ported and raises; whisper-small and
+    """``--mesh auto`` trains ``lg-smoke`` (a world of one process: a (1, 1)
+    mesh); an LM served on a mesh still raises, naming the model-sharded
+    meshes (ROADMAP.md queue 1, item 7 part 2); whisper-small and
     llava-next-34b, which raised here before they were ported, now train and
     serve through the launchers at ``--reduced`` on the CPU."""
     from repro_torch.launch import serve, train
@@ -528,9 +534,11 @@ def test_launchers_refuse_what_is_not_ported(tmp_path, capsys):
     train.main(["--arch", "whisper-small", "--reduced", "--steps", "2", "--seq", "16",
                 "--batch", "2", "--device", "cpu", "--ckpt", str(tmp_path / "w")])
     assert "arch=whisper-small-reduced" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.main(["--scenario", "lg-smoke", "--mesh", "auto", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    train.main(["--scenario", "lg-smoke", "--mesh", "auto", "--steps", "2", "--device", "cpu",
+                "--ckpt", str(tmp_path / "mesh")])
+    out = capsys.readouterr().out
+    assert "mesh=1x1 backend=gloo rank=0/1" in out and "done at step 1" in out
+    with pytest.raises(NotImplementedError, match="item 7 part 2"):
         serve.main(["--arch", "yi-6b", "--mesh", "2,1", "--device", "cpu"])
     serve.main(["--arch", "llava-next-34b", "--reduced", "--batch", "2", "--prompt-len", "8",
                 "--max-new", "4", "--device", "cpu"])

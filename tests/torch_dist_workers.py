@@ -1,0 +1,309 @@
+"""Multi-process ``gloo`` runs of the port for the distribution tests
+(``test_torch_dist_*.py``): :func:`spawn` starts ``world`` processes over a
+``file://`` store in the test's ``tmp_path`` (no ports), each on one CPU
+thread, with a timeout on the process group and on the join, and returns
+what each rank's function returned.  The rank functions below import the
+port alone; the tests compute the reference's single-device oracles in
+their own process and hand numpy arrays in."""
+
+import os
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+#: a rank that hangs fails its collectives after this many seconds, and a
+#: group that has not finished by the join's limit is killed
+PG_TIMEOUT_S = 45.0
+JOIN_TIMEOUT_S = 90.0
+
+
+def _entry(fn, rank, world, tmp, args):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_world
+
+    try:
+        init_world("cpu", init_method=f"file://{os.path.join(tmp, 'store')}", rank=rank,
+                   world_size=world, timeout_s=PG_TIMEOUT_S)
+        out = fn(rank, world, tmp, *args)
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, tmp, *args) -> list:
+    """``[fn(rank, world, tmp, *args) for each rank]``, each in a process of
+    its own in one ``gloo`` world.  Raises with the failing ranks'
+    tracebacks, or when the group outlives ``JOIN_TIMEOUT_S``."""
+    import time
+
+    tmp = str(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, tmp, args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errs = {r: open(os.path.join(tmp, f"err{r}.txt")).read() for r in range(world)
+            if os.path.exists(os.path.join(tmp, f"err{r}.txt"))}
+    if hung:
+        raise TimeoutError(f"ranks {hung} did not finish in {JOIN_TIMEOUT_S} s; {errs}")
+    if errs or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"exit codes {[p.exitcode for p in procs]}:\n" +
+                           "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
+    return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _np(d: dict) -> dict:
+    return {k: v.detach().float().numpy() for k, v in d.items()}
+
+
+def _mesh(world):
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    return make_auto_mesh((world, 1), device_type="cpu")
+
+
+def _flow(kind: str, build_kw: dict, tree, psum_axis=None):
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.core import build_glow, build_glow_scanned
+
+    if kind == "scanned":
+        flow = build_glow_scanned(**build_kw, psum_axis=psum_axis, device="cpu")
+    else:
+        flow = build_glow(**build_kw, device="cpu")
+    return params_from_numpy(flow, tree)
+
+
+# ---------------------------------------------------------------------------
+# rank functions
+# ---------------------------------------------------------------------------
+
+
+def dp_grads(rank, world, tmp, kind, build_kw, tree, x, psum_axis):
+    """``dp_value_and_grad_nll`` of a flow built with ``psum_axis`` (the
+    overlapped reduction) and of one built without it (trailing)."""
+    from repro_torch.dist import comm, dp_value_and_grad_nll
+
+    mesh = _mesh(world)
+    out = {}
+    for name, axis in (("given", psum_axis), ("trailing", None)):
+        flow = _flow(kind, build_kw, tree, axis)
+        comm.reset_wire_bytes()
+        loss, grads = dp_value_and_grad_nll(flow, mesh)(torch.from_numpy(x))
+        out[name] = {"loss": float(loss), "grads": _np(grads), "psum_axis": flow.psum_axis,
+                     "wire": comm.wire_bytes()}
+    return out
+
+
+def compressed(rank, world, tmp, g_all, e_all, method, ratio):
+    """``compressed_allreduce`` of rank ``r``'s ``g_all[r]`` with residual
+    ``e_all[r]``."""
+    from repro_torch.dist import comm
+    from repro_torch.optim import compressed_allreduce
+
+    mesh = _mesh(world)
+    comm.reset_wire_bytes()
+    with comm.bound(mesh):
+        red, err = compressed_allreduce({"w": torch.from_numpy(g_all[rank])},
+                                        {"w": torch.from_numpy(e_all[rank])}, method, "data",
+                                        ratio)
+    return {"reduced": red["w"].numpy(), "err": err["w"].numpy(), "wire": comm.wire_bytes()}
+
+
+def step_wire_bytes(rank, world, tmp, build_kw, tree, x, methods):
+    """One data-parallel train step of a scanned GLOW per method: its wire
+    bytes and the updated parameters."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.objectives import nll_loss
+    from repro_torch.dist import comm, shard_batch
+    from repro_torch.dist.step import make_dp_train_step
+    from repro_torch.optim import adamw_init, compression_init
+
+    mesh = _mesh(world)
+    out = {}
+    for method in methods:
+        flow = _flow("scanned", build_kw, tree)
+        params = dict(flow.named_parameters())
+        cfg = TrainConfig(steps=4, grad_compression=method, compression_ratio=0.01)
+        step = make_dp_train_step(lambda b: (nll_loss(flow, b), {}), flow, cfg, mesh)
+        err = {} if method == "none" else {
+            k: v for k, v in compression_init(params).items() if v is not None}
+        comm.reset_wire_bytes()
+        state, metrics = step({"opt": adamw_init(params), "err": err},
+                              shard_batch(torch.from_numpy(x), mesh), 0)
+        out[method] = {"wire": comm.wire_bytes(), "loss": float(metrics["loss"]),
+                       "params": _np(dict(flow.named_parameters())),
+                       "err": _np(state["err"])}
+    return out
+
+
+class _Batches:
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def batch_at(self, step):
+        return torch.from_numpy(self.arrays[step % len(self.arrays)])
+
+
+def train_flow_dp(rank, world, tmp, build_kw, tree, batches, cfg_kw, psum_axis=None,
+                  ckpt_dir=None, fail_at=()):
+    """``train_flow`` of a scanned GLOW on a ``(world, 1)`` mesh."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.loop import train_flow
+
+    flow = _flow("scanned", build_kw, tree, psum_axis)
+    cfg = TrainConfig(**cfg_kw, checkpoint_dir=ckpt_dir)
+    res = train_flow(flow, _Batches(batches), cfg, device="cpu", mesh=_mesh(world),
+                     injector=FailureInjector(fail_at=tuple(fail_at)) if fail_at else None)
+    return {"losses": res.losses, "params": _np(dict(flow.named_parameters())),
+            "final_step": res.final_step, "restarts": res.restarts,
+            "err": _np(res.err_state)}
+
+
+class _Tokens:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def batch_at(self, step):
+        return {k: torch.from_numpy(v) for k, v in self.batches[step].items()}
+
+
+def train_lm_dp(rank, world, tmp, arch_cfg, tree, cfg_kw, batches):
+    """``train_lm`` of a ``REDUCED`` LM on a ``(world, 1)`` mesh over the
+    given token batches (``{"tokens", "labels"}`` numpy arrays a step)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train.loop import train_lm
+
+    model = params_from_numpy(Model(arch_cfg, device="cpu"), tree)
+    res = train_lm(model, _Tokens(batches), TrainConfig(**cfg_kw), device="cpu",
+                   mesh=_mesh(world))
+    return {"losses": res.losses, "params": _np(dict(model.named_parameters()))}
+
+
+def pipeline(rank, world, tmp, w, b, x, gy, n_layers):
+    """``pipeline_forward`` over a ``("pipe",)`` mesh of ``world`` stages
+    and its gradient against the cotangent ``gy``: this stage's ``w``,
+    ``b`` and (on stage 0) ``x`` gradients."""
+    from repro_torch.dist import pipeline_forward, pipeline_stage_fn
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    mesh = make_auto_mesh((world,), ("pipe",), device_type="cpu")
+    wl = torch.from_numpy(w[rank]).requires_grad_()
+    bl = torch.from_numpy(b[rank]).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    stage = pipeline_stage_fn(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), n_layers)
+    out = pipeline_forward(stage, {"w": wl, "b": bl}, xt, mesh)
+    gw, gb, gx = torch.autograd.grad(out, [wl, bl, xt], torch.from_numpy(gy),
+                                     allow_unused=True)
+    return {"out": out.detach().numpy(), "gw": gw.numpy(), "gb": gb.numpy(),
+            "gx": None if gx is None else gx.numpy()}
+
+
+class _RegressionData:
+    def __init__(self, xs, ys):
+        self.xs, self.ys = xs, ys
+
+    def batch_at(self, step):
+        i = step % len(self.xs)
+        return {"x": torch.from_numpy(self.xs[i]), "y": torch.from_numpy(self.ys[i])}
+
+
+def train_pipeline_run(rank, world, tmp, init, xs, ys, cfg_kw, n_layers):
+    """``train_pipeline`` of tanh blocks with a linear head over a
+    ``("pipe",)`` mesh."""
+    from repro_torch.bridge import torch_tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.train.loop import train_pipeline
+
+    mesh = make_auto_mesh((world,), ("pipe",), device_type="cpu")
+    res = train_pipeline(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), lambda: torch_tree(init),
+                         _RegressionData(xs, ys), TrainConfig(**cfg_kw), mesh=mesh,
+                         loss_head=lambda p, h, batch: torch.mean(
+                             (h @ p["head"] - batch["y"]) ** 2),
+                         n_layers_per_stage=n_layers, device="cpu")
+    return {"losses": res.losses,
+            "params": {k: v.numpy() for k, v in res.params.items()}}
+
+
+def serve_flow(rank, world, tmp, build_kw, tree, x, seed):
+    """``FlowServeEngine(mesh=...)``'s ``log_prob`` of ``x`` and ``sample``
+    from a generator seeded ``seed``."""
+    from repro_torch.serve.engine import FlowServeEngine
+
+    flow = _flow("scanned", build_kw, tree)
+    engine = FlowServeEngine(flow, device="cpu", mesh=_mesh(world))
+    lp = engine.log_prob(torch.from_numpy(x))
+    with torch.no_grad():
+        z, _ = flow(torch.from_numpy(x))
+    like = tuple(torch.empty_like(v, device="meta") for v in z)
+    samples = engine.sample(torch.Generator().manual_seed(seed), like)
+    return {"log_prob": lp.numpy(), "samples": samples.numpy()}
+
+
+def conditional(rank, world, tmp, model_kw, state, theta, y, y_obs, seed, n_draws,
+                stats_kw):
+    """A cHINT ``ConditionalFlow(mesh=...)``: ``log_prob``, posterior draws
+    and ``PosteriorEngine`` statistics."""
+    from repro_torch.uq.posterior import PosteriorEngine
+
+    model = build_conditional(model_kw, state, _mesh(world))
+    lp = model.log_prob(torch.from_numpy(theta), torch.from_numpy(y))
+    draws = model.sample(torch.Generator().manual_seed(seed), torch.from_numpy(y_obs), n_draws,
+                         model_kw["d_theta"])
+    stats = PosteriorEngine(model, y=torch.from_numpy(y_obs), theta_dim=model_kw["d_theta"]).run(
+        torch.Generator().manual_seed(seed + 1), **stats_kw)
+    return {"log_prob": lp.detach().numpy(), "draws": draws.numpy(), "mean": stats.mean,
+            "std": stats.std, "n": stats.n}
+
+
+def build_conditional(model_kw, state, mesh):
+    """A cHINT ``ConditionalFlow`` of ``model_kw``'s widths holding
+    ``state`` (a ``state_dict`` of numpy arrays)."""
+    from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
+
+    kw = dict(depth=model_kw["depth"], recursion=2, hidden=model_kw["hidden"], device="cpu")
+    flow = build_chint(model_kw["d_theta"], model_kw["d_summary"], grad_mode="coupled", **kw)
+    twin = build_chint(model_kw["d_theta"], model_kw["d_summary"], kernel_inverse=True, **kw)
+    summary = SummaryMLP(model_kw["d_y"], model_kw["d_summary"], model_kw["hidden"],
+                         device="cpu")
+    model = ConditionalFlow(flow, summary, sample_flow=twin, device="cpu", mesh=mesh)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+    return model
+
+
+def scenario_launcher(rank, world, tmp, ckpt):
+    """Both launchers with ``--mesh 2,1`` on the ``lg-smoke`` scenario."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve, train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--scenario", "lg-smoke", "--steps", "4", "--mesh", f"{world},1",
+                    "--device", "cpu", "--ckpt", ckpt])
+        serve.main(["--scenario", "lg-smoke", "--ckpt", ckpt, "--samples", "1024",
+                    "--chunk", "256", "--mesh", f"{world},1", "--device", "cpu",
+                    "--no-calibration"])
+    return buf.getvalue()
