@@ -27,7 +27,10 @@ depths through their plain scans; then whisper-small (the audio front end,
 the encoder and cross attention) served and trained whole and
 llava-next-34b (the vision front end) served at a cut depth; last, the
 scanned GLOW trained, restarted and served data-parallel by two ranks that
-share the card over ``gloo``, and GPipe over two stages.  It holds every
+share the card over ``gloo``, and GPipe over two stages; then the same two
+ranks on a model-sharded (1, 2) mesh: the scanned GLOW trained with every
+leaf stored as each rank's block, and granite-moe-1b-a400m served with
+expert-parallel MoE and sequence-parallel attention.  It holds every
 hand-written kernel against its plain PyTorch version.  Phases, one line
 each:
 
@@ -115,8 +118,8 @@ each:
              layers, ``coupled``) on the pair state of 8 x 256x256x3
              images: a train step against the CPU and against
              ``autodiff`` on the card, the round trip, peak memory at
-             depth 16 and 32; (c) ``seismic-uq`` trained for its recipe's
-             1000 steps (12 ``coupling_bwd`` a step), restored bitwise,
+             depth 16 and 32; (c) ``seismic-uq`` trained for
+             400 of its 1000 steps (12 ``coupling_bwd`` a step), restored bitwise,
              ``posterior_report`` (20,000 draws in chunks of 2048, SBC and
              coverage at 128 x 64: 12 ``coupling_inv`` a sampler call, the
              streamed moments within 1e-6 of the chunks concatenated, every
@@ -194,14 +197,14 @@ each:
              ``autodiff`` rerun with the routing the ``invertible``
              backward's VJPs chose (``nn/moe.py::pinned_routes``), every
              leaf within 1e-4 of its largest entry, the flips reported and
-             the unpinned gap beside it; (b) full width, depth 6 of 24
+             the unpinned gap beside it; (b) full width, depth 4 of 24
              (``LM_TRAIN_DEPTH``), bf16 activations, f32 master weights,
              AdamW, ``SyntheticTokens`` 8 x 2048, 4 steps of ``train_lm``
              under ``invertible``, profiled: per step wall, busy, idle
              share, tokens/s, peak memory; the first loss in (0, 2 log V),
              every loss finite; a restart from the step-2 checkpoint
              reproduces step 4 bitwise; (c) peak memory of a step at depth
-             2 and 6 (batch 2 x 2048) in each engine: the growth
+             2 and 4 (batch 2 x 2048) in each engine: the growth
              above the step's start under ``invertible`` and ``coupled`` each
              below a quarter of ``autodiff``'s; (d) ``repro_torch.launch.train
              --arch granite-moe-1b-a400m --reduced --steps 4`` as a
@@ -257,6 +260,33 @@ each:
              --scenario lg-smoke --mesh auto`` (a world of 1: a (1, 1) mesh).
              Two ranks on one card measure correctness and wire bytes, not
              scaling.  Phases 11's depths were cut to pay for this one.
+14. mesh    - two ranks share the card over ``gloo`` on a (1, 2) mesh, the
+             ``model`` axis 2: (a) ``GLOW_SCANNED`` at 256x256x3, batch 8,
+             f32, TF32 off, ``train_flow`` 3 steps with every parameter and
+             AdamW moment stored as each rank's block (``dist/model.py``),
+             twice (bitwise), loss and every trained leaf within 1e-4 of
+             scale of the one-process run on the card, 24 ``flowstep_fwd`` /
+             ``coupling_bwd`` / ``spine_bwd`` a rank a step, one step's wire
+             bytes by collective, each rank's stored bytes beside one
+             process's; ``sample`` (the inverse) on the sharded flow, 24
+             ``flowstep_inv``; the elastic restore of the (1, 2) checkpoint
+             onto a (2, 1) mesh, with its warning; (b) granite-moe-1b-a400m
+             at full width and ``MESH_LM_DEPTH`` layers with
+             ``attn_seq_shard`` served by ``ServeEngine(mesh=...)``, batch 2,
+             a 512-token prompt, 16 greedy new tokens, in f32 and bf16:
+             every step's logits (prefill and decode) within
+             ``MESH_LOGITS_TOL`` of the step's largest while the tokens
+             before it agree (bf16 decoded on the one-process engine's
+             routing of every step; the unpinned first step's routing flips
+             reported), f32 tokens equal to the one-process engine on the
+             card (bf16's can part only inside the logits gate; where they
+             part is reported), 16 experts a rank a call, prefill and
+             decode-step wall and wire bytes; (c) the launchers under
+             ``torch.distributed.run`` with ``--mesh 1,2``: ``train`` and
+             ``serve`` at ``--arch granite-moe-1b-a400m --reduced`` and
+             ``train --scenario images-prior-scanned``, beside the
+             one-process references and ended before the ranks start, so
+             no other process shares the card while (a) and (b) time.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
@@ -289,6 +319,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1535,7 +1566,11 @@ UQ_BATCH = 4096
 REALNVP_KERNEL = dict(d=32, depth=8, hidden=128)
 REALNVP_MEM_DEPTHS = (2, 8, 24)
 HYPER_MEM_DEPTHS = (16, 32)
-UQ_SCENARIO_STEPS = 1000    # the seismic-uq recipe's own
+# cut from the seismic-uq recipe's 1000 for the script's time limit (with
+# phase 14 it ran 1163 s on a slow host): its gates (finite losses, the
+# restore bitwise, 12 coupling_bwd a step, the report's sampler calls) do not
+# read how far it trained
+UQ_SCENARIO_STEPS = 400
 # cut from the recipes' 300: the cut shrinks the warmup to 2 steps (a 20th
 # of the steps, at least 2), and at the full learning rate from step 2 on
 # both the reference and the port diverge (loss ~1e21 at step 3 at 16x16)
@@ -1882,24 +1917,41 @@ def uq_priors(dev, card, scratch, out):
 
 
 def uq_launchers(card, scratch):
-    """(d): the launchers as subprocesses on the card, each to exit 0."""
+    """(d): the launchers as subprocesses on the card, each to exit 0: the
+    ``lg-smoke`` training, then its service, beside the ``yi-6b`` service
+    (two chains at once, for the script's time limit)."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     ckpt_dir = str(scratch / "lg-smoke")
-    for argv in (["repro_torch.launch.train", "--scenario", "lg-smoke", "--ckpt", ckpt_dir],
-                 ["repro_torch.launch.serve", "--scenario", "lg-smoke", "--ckpt", ckpt_dir,
-                  "--samples", "4096"],
-                 ["repro_torch.launch.serve", "--arch", "yi-6b", "--reduced"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
-                              cwd=ROOT, env=env, timeout=300)
+    chains = ([["repro_torch.launch.train", "--scenario", "lg-smoke", "--ckpt", ckpt_dir],
+               ["repro_torch.launch.serve", "--scenario", "lg-smoke", "--ckpt", ckpt_dir,
+                "--samples", "4096"]],
+              [["repro_torch.launch.serve", "--arch", "yi-6b", "--reduced"]])
+
+    def run(chain, results):
+        for argv in chain:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                                  cwd=ROOT, env=env, timeout=300)
+            results.append((argv, proc, time.perf_counter() - t0))
+            if proc.returncode:
+                return
+
+    results = [[] for _ in chains]
+    threads = [threading.Thread(target=run, args=(c, r)) for c, r in zip(chains, results)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for argv, proc, seconds in (x for r in results for x in r):
         lines = proc.stdout.strip().splitlines()
-        line("uq", part="launcher", argv=argv, returncode=proc.returncode,
-             seconds=time.perf_counter() - t0, stdout=lines[-8:],
+        line("uq", part="launcher", argv=argv, returncode=proc.returncode, seconds=seconds,
+             stdout=lines[-8:],
              stderr_tail=proc.stderr.strip().splitlines()[-5:] if proc.returncode else [],
              card=card)
         check(proc.returncode == 0 and lines, f"launcher {' '.join(argv)} exited {proc.returncode}")
+    check(sum(len(r) for r in results) == 3, "a launcher chain stopped early")
 
 
 def uq_times(dev, card) -> dict:
@@ -2649,18 +2701,18 @@ LM_FAMILY = (
      "depth 4 of 64: 37.7 GB of f32 weights (6.29 GB a layer, 12.58 GB the tied embedding)"),
     ("granite-moe-1b-a400m", 2, 24, "full depth: 5.5 GB of f32 weights"),
     ("llama4-maverick-400b-a17b", "reduced", None,
-     "REDUCED only: one superblock (two layers) holds about 66 GB of f32 weights, so full "
-     "width needs the model-sharded meshes (ROADMAP.md queue 1, item 7 part 2)"),
+     "REDUCED only: one superblock (two layers) holds about 66 GB of f32 weights; two ranks "
+     "that share this one card hold the same bytes as one, model-sharded or not"),
 )
 LM_TRAIN_ARCH = "granite-moe-1b-a400m"
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 4
-#: (b)'s depth and steps, 6 of 24 layers and 4 steps: with the SSM parts of
-#: phase 11, phase 12 and phase 13 the script must still end inside its time
-#: limit, and (b)'s three checkpoint writes take most of its time (all 24
-#: layers: 16.6 GB each; 12 layers took 11-14 s a write)
-LM_TRAIN_DEPTH = 6
+#: (b)'s depth and steps, 4 of 24 layers and 4 steps: with the SSM parts of
+#: phase 11, phases 12-14 the script must still end inside its time limit,
+#: and (b)'s checkpoint writes take most of its time (all 24 layers: 16.6 GB
+#: each; 12 layers took 11-14 s a write, 6 layers 7.2-8.6 s on a slow host)
+LM_TRAIN_DEPTH = 4
 LM_CMP_BATCH, LM_CMP_SEQ = 2, 256     # (a): full width, depth 2, f32
-LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (2, 6)  # (c): full width, bf16
+LM_MEM_BATCH, LM_MEM_DEPTHS = 2, (2, 4)  # (c): full width, bf16 (2 / 6 until phase 14)
 
 
 class RouteLog:
@@ -3976,6 +4028,496 @@ def dist_phase(dev, card) -> dict:
             "sharded_sample_per_rank": outs[0]["c"]["sample_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# 14. model-sharded meshes: two ranks share the card over gloo on a (1, 2)
+#     mesh (model-sharded training, expert-parallel and sequence-parallel
+#     serving, the launchers)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                         # (a): model-sharded train_flow steps
+MESH_LM = "granite-moe-1b-a400m"       # (b): served at full width, a cut depth
+MESH_LM_DEPTH = 2
+MESH_LM_WHY = ("depth 2 of 24: each rank gathers a superblock's 54 M f32 weights whole "
+               "(216 MB) at every prefill and decode step through gloo's host staging, "
+               "and the script must end inside its time limit (4 took 128 s on a slow host)")
+MESH_BATCH, MESH_PROMPT, MESH_NEW = 2, 512, 16
+
+
+def mesh_rank(rank: int, world: int, scratch: str):
+    """One rank of phase 14 (a process of its own on ``cuda:0``, the gloo
+    world of ``world`` ranks on a (1, 2) mesh over a file store in
+    ``scratch``): (a) model-sharded ``GLOW_SCANNED`` training, sampling and
+    the elastic restore, (b) ``ServeEngine`` on the model-sharded mesh.
+    Writes ``scratch/out<rank>.pt``, or its traceback to ``err<rank>.txt``."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.set_num_threads(2)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        from repro_torch.launch.mesh import init_world, make_auto_mesh
+
+        backend = init_world("cuda", init_method=f"file://{scratch}/store", rank=rank,
+                             world_size=world, timeout_s=DIST_PG_TIMEOUT_S)
+        check(backend == "gloo", f"rank {rank}: ranks sharing one card took {backend}")
+        mesh = make_auto_mesh((1, world), device_type="cuda")
+        payload = torch.load(f"{scratch}/payload.pt", weights_only=False)
+        out = {"rank": rank, "backend": backend}
+        out.update(_mesh_flow(rank, mesh, payload, scratch))
+        out.update(_mesh_serve(rank, mesh, payload))
+        torch.save(out, f"{scratch}/out{rank}.pt")
+    except BaseException:
+        Path(f"{scratch}/err{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as tdist
+
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _mesh_flow(rank, mesh, payload, scratch) -> dict:
+    """(a) ``train_flow`` of ``GLOW_SCANNED`` with every leaf stored as this
+    rank's block, ``MESH_STEPS`` steps twice (bitwise), against the
+    one-process run; the kernels' launches a step; one step's wire bytes by
+    collective; ``sample`` (the inverse) on the sharded flow; the elastic
+    restore of the (1, 2) checkpoint onto a (2, 1) mesh."""
+    import warnings
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.core.objectives import nll_loss
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.dist import comm
+    from repro_torch.dist.model import ModelSharding
+    from repro_torch.dist.step import make_sharded_train_step
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.loop import train_flow
+
+    dev = torch.device("cuda")
+    kernels = _dist_kernels()
+    data = SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 101)
+    ckdir = f"{scratch}/ck_mesh"
+    runs = []
+    for rep in (1, 2):
+        flow = _dist_flow(dev, payload["state"])
+        cfg = TrainConfig(steps=MESH_STEPS, lr=1e-4, warmup_steps=1, prefetch=0,
+                          checkpoint_dir=ckdir if rep == 2 else None,
+                          checkpoint_every=MESH_STEPS)
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_flow(flow, data, cfg, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        runs.append((res, {k: v.detach().clone() for k, v in flow.state_dict().items()},
+                     launches, wall_s))
+    (a, sa, la, ta), (b, sb, lb, tb) = runs
+    per_step = {k: n / MESH_STEPS for k, n in la.items() if n}
+    check(per_step == {"flowstep_fwd": 24, "spine_bwd": 24, "coupling_bwd": 24} and la == lb,
+          f"rank {rank}: model-sharded step launches {la}, {lb}")
+    bitwise = a.losses == b.losses and all(torch.equal(sa[k], sb[k]) for k in sa)
+    check(bitwise, f"rank {rank}: the model-sharded run repeated differs: {a.losses} {b.losses}")
+    ref_losses, ref_state = payload["train_losses"], payload["train_state"]
+    loss_rel = max(abs(x - r) / abs(r) for x, r in zip(a.losses, ref_losses))
+    leaf_rel, worst = max_rel_leaf_err({k: v for k, v in sa.items() if v.is_floating_point()},
+                                       {k: v for k, v in ref_state.items()
+                                        if v.is_floating_point()})
+    check(loss_rel <= TOL_DIST and leaf_rel <= TOL_DIST,
+          f"rank {rank}: model-sharded vs one process: loss {loss_rel}, leaf {leaf_rel} at {worst}")
+
+    # one step alone: its wire bytes by collective
+    flow = _dist_flow(dev, payload["state"])
+    sharding = ModelSharding(flow, mesh).shard()
+    params = dict(flow.named_parameters())
+    step = make_sharded_train_step(lambda x: (nll_loss(flow, x), {}), flow,
+                                   TrainConfig(steps=1, lr=1e-4), mesh, sharding)
+    comm.reset_wire_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step({"opt": adamw_init(params), "err": {}}, data.batch_at(0).to(dev), 0)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    step_wire = comm.wire_bytes()
+
+    # sample: the inverse on the sharded flow (a step's slice gathered at a
+    # time), from the one-process run's noise
+    flow.load_state_dict(sharding.local_tree(payload["state"]))
+    z = tuple(v.to(dev) for v in payload["z"])
+    reset(kernels)
+    with torch.inference_mode(), comm.bound(mesh):
+        samples = flow.inverse(z)
+    torch.cuda.synchronize()
+    sample_launches = {k.name: k.launches for k in kernels if k.launches}
+    s_err = ((samples.cpu() - payload["samples"]).abs().max().item()
+             / payload["samples"].abs().max().item())
+    check(sample_launches == {"flowstep_inv": 24} and s_err <= TOL_DIST,
+          f"rank {rank}: sharded sample launches {sample_launches}, err {s_err}")
+    sharding.unshard()
+    del flow, sharding
+
+    # elastic: the (1, 2) checkpoint restored onto a (2, 1) mesh, with the
+    # warning that the mesh changed
+    mesh21 = make_auto_mesh((2, 1), device_type="cuda")
+    flow = _dist_flow(dev, payload["state"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res21 = train_flow(flow, data, TrainConfig(steps=MESH_STEPS + 1, lr=1e-4, warmup_steps=1,
+                                                   prefetch=0, checkpoint_dir=ckdir,
+                                                   checkpoint_every=1), device=dev, mesh=mesh21)
+    warned = any("written under mesh [1, 2]" in str(w.message) for w in caught)
+    check(warned and res21.final_step == MESH_STEPS and len(res21.losses) == 1
+          and math.isfinite(res21.losses[0]),
+          f"rank {rank}: elastic (1, 2) -> (2, 1): {[str(w.message) for w in caught]}, "
+          f"{res21.losses}")
+    result = {"losses": a.losses, "loss_max_rel_err_vs_one_process": loss_rel,
+              "leaf_max_rel_err_vs_one_process": leaf_rel, "worst_leaf": worst,
+              "bitwise_repeatable": bitwise, "launches_per_step": per_step,
+              "run_s": [ta, tb], "one_step_ms": step_ms, "one_step_wire": step_wire,
+              "stored_bytes": a.shard_bytes, "sample_launches": sample_launches,
+              "sample_max_err_of_scale": s_err, "elastic_warned": warned,
+              "elastic_losses": res21.losses}
+    line("mesh", part="a", rank=rank, **result, card=payload["card"])
+    return {"a": result}
+
+
+def _mesh_serve(rank, mesh, payload) -> dict:
+    """(b) ``ServeEngine(mesh=...)`` of ``MESH_LM`` at full width and
+    ``MESH_LM_DEPTH`` layers with ``attn_seq_shard``, in f32 and in the
+    config's bf16: its parameters stored as this rank's blocks, expert
+    parallelism and sequence-parallel attention, against the one-process
+    engine on the card."""
+    return {"b": {dtype: _mesh_serve_one(rank, mesh, payload, dtype) for dtype in MESH_DTYPES}}
+
+
+def _mesh_serve_one(rank, mesh, payload, dtype: str) -> dict:
+    """(b) in one activation dtype.  Gates: every greedy step's logits,
+    prefill and decode, within ``MESH_LOGITS_TOL[dtype]`` of that step's
+    largest while the tokens before it are the one-process engine's (f32:
+    phase 10's ``TOL_LM_LOGITS``; bf16: ``TOL_BF16``, on the one-process
+    engine's routing of every step, since an expert choice at a near tie
+    flips under the sharded paths' f32 reordering and moves the logits past
+    rounding; the unpinned first step's flips and error are reported); in
+    f32 the greedy tokens equal to the one-process engine's (in bf16 they
+    can part only where the one-process margin is inside the logits gate,
+    and where they part is reported); 16 experts a rank."""
+    import contextlib
+
+    import torch
+    from repro_torch.dist import comm
+    from repro_torch.models import Model
+    from repro_torch.nn import moe
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = mesh_lm_config(dtype).replace(attn_seq_shard=True)
+    model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 102), device=dev)
+    n_whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    engine = ServeEngine(model, MESH_PROMPT + MESH_NEW, device=dev, mesh=mesh)
+    n_stored = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt = {"tokens": payload["prompt"].to(dev)}
+    ref = payload["lm"][dtype]
+    experts, steps = [], []
+    orig, sample = moe.ffn_apply, engine._sample
+
+    def counting(p, x, kind):
+        experts.append(int(x.shape[0]))
+        return orig(p, x, kind)
+
+    def recording(logits, gen):
+        steps.append(logits.float().cpu())
+        return sample(logits, gen)
+
+    # bf16 decodes on the one-process engine's routing of every step
+    routing = moe.pinned_routes(ref["routes"]) if dtype == "bfloat16" \
+        else contextlib.nullcontext()
+    moe.ffn_apply = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RouteLog() as routes:
+            _tok1, first = engine.generate(prompt, 1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        comm.reset_wire_bytes()
+        engine._sample = recording
+        t0 = time.perf_counter()
+        with routing:
+            toks, last = engine.generate(prompt, MESH_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        wire = comm.wire_bytes()
+    finally:
+        moe.ffn_apply, engine._sample = orig, sample
+    n_first = len(routes.calls)
+    flips = sum(int((a != b).sum()) for a, b in zip(routes.calls, ref["routes"][:n_first]))
+    # generate(prompt, 1) returns the logits after its one token: step 1's
+    scale = ref["step_logits"][1].abs().max().item()
+    err = (first.cpu().float() - ref["step_logits"][1]).abs().max().item() / scale
+    step_errs = step_logit_errors(toks.cpu(), ref["tokens"], steps, ref["step_logits"])
+    tokens_equal = bool(torch.equal(toks.cpu(), ref["tokens"]))
+    tie = near_tie(toks.cpu(), ref["tokens"], ref["step_logits"])
+    check(tokens_equal or dtype != "float32",
+          f"rank {rank} {dtype}: mesh tokens {toks.tolist()} vs one process "
+          f"{ref['tokens'].tolist()} ({tie})")
+    check(max(step_errs) <= MESH_LOGITS_TOL[dtype] and torch.isfinite(last).all().item()
+          and (dtype != "float32" or err <= MESH_LOGITS_TOL[dtype]),
+          f"rank {rank} {dtype}: step logits vs one process {step_errs} of each step's "
+          f"largest (first step unpinned {err})")
+    check(set(experts) == {cfg.moe.n_experts // 2},
+          f"rank {rank} {dtype}: experts run a call {sorted(set(experts))}")
+    result = {"model": MESH_LM, "depth": MESH_LM_DEPTH, "of_depth": 24, "why": MESH_LM_WHY,
+              "dtype": dtype, "batch": MESH_BATCH, "prompt": MESH_PROMPT,
+              "new_tokens": MESH_NEW, "routing": "one process's" if dtype == "bfloat16"
+              else "its own", "tokens_equal_one_process": tokens_equal,
+              "first_differing_token": tie,
+              "unpinned_first_logits_rel_err_of_largest": err,
+              "step_logits_rel_err_of_largest": step_errs,
+              "gate": MESH_LOGITS_TOL[dtype], "unpinned_first_step_routing_flips": flips,
+              "routing_choices": sum(c.numel() for c in routes.calls),
+              "experts_a_call": sorted(set(experts)),
+              "stored_param_bytes": n_stored, "whole_param_bytes": n_whole,
+              "prefill_s": prefill_s, "generate_s": gen_s,
+              "decode_step_ms": 1e3 * (gen_s - prefill_s) / (MESH_NEW - 1), "wire": wire}
+    line("mesh", part="b", rank=rank, **result, card=payload["card"])
+    del engine, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def step_logit_errors(toks, ref_toks, steps, ref_steps) -> list:
+    """Each greedy step's largest |logit| error against the one-process
+    engine, as a share of that step's largest |logit|, over the sequences
+    whose tokens before the step are all the one-process engine's; the
+    steps after every sequence has parted are not compared."""
+    import torch
+
+    same = torch.ones(toks.shape[0], dtype=torch.bool)
+    out = []
+    for i, (a, r) in enumerate(zip(steps, ref_steps)):
+        if not same.any():
+            break
+        out.append(((a[same] - r[same]).abs().max() / r[same].abs().max()).item())
+        same &= toks[:, i] == ref_toks[:, i]
+    return out
+
+
+def near_tie(toks, ref_toks, ref_step_logits) -> dict | None:
+    """Where two greedy decodes of one batch first part: the sequence, the
+    step, and the one-process engine's logit of the mesh's token below its
+    largest at that step, as a share of that step's largest |logit|; None
+    when every token is equal."""
+    diff = (toks != ref_toks).nonzero()
+    if not len(diff):
+        return None
+    b, i = (int(v) for v in diff[diff[:, 1].argmin()])
+    logits = ref_step_logits[i][b]
+    gap = (logits.max() - logits[int(toks[b, i])]).item()
+    return {"sequence": b, "step": i, "gap_of_largest": gap / logits.abs().max().item()}
+
+
+MESH_DTYPES = ("float32", "bfloat16")
+MESH_LOGITS_TOL = {"float32": TOL_LM_LOGITS, "bfloat16": TOL_BF16}
+
+
+def mesh_lm_config(dtype: str):
+    from repro_torch.config import get_arch
+
+    return get_arch(MESH_LM).config.replace(n_layers=MESH_LM_DEPTH, dtype=dtype)
+
+
+def _mesh_lm_reference(dev, prompt) -> dict:
+    """The one-process engine's greedy tokens, each step's logits and the
+    routing of every step, per dtype, on the card."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    out = {}
+    for dtype in MESH_DTYPES:
+        model = Model(mesh_lm_config(dtype), generator=torch.Generator(dev).manual_seed(SEED + 102),
+                      device=dev)
+        engine = ServeEngine(model, MESH_PROMPT + MESH_NEW, device=dev)
+        steps = []
+        sample = engine._sample
+
+        def recording(logits, gen):
+            steps.append(logits.float().cpu())
+            return sample(logits, gen)
+
+        engine._sample = recording
+        with RouteLog() as routes:
+            tokens, _ = engine.generate({"tokens": prompt}, MESH_NEW)
+        engine._sample = sample
+        out[dtype] = {"tokens": tokens.cpu(), "routes": routes.calls, "step_logits": steps}
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+MESH_LAUNCHERS = (
+    ("train-arch", ["repro_torch.launch.train", "--arch", MESH_LM, "--reduced", "--steps", "2",
+                    "--seq", "32", "--batch", "4", "--mesh", "1,2"]),
+    ("serve-arch", ["repro_torch.launch.serve", "--arch", MESH_LM, "--reduced", "--batch", "2",
+                    "--prompt-len", "16", "--max-new", "8", "--mesh", "1,2"]),
+    ("train-flow", ["repro_torch.launch.train", "--scenario", "images-prior-scanned",
+                    "--steps", "2", "--mesh", "1,2"]),
+)
+
+
+def mesh_phase(dev, card) -> dict:
+    """Phase 14 ``[mesh]``: two ranks share ``cuda:0`` over ``gloo`` on a
+    (1, 2) mesh (NCCL refuses two ranks on one device), each a process
+    started here with the kernels this process built; (c) the three
+    launchers with ``--mesh 1,2`` under ``torch.distributed.run`` run at
+    once from the phase's start, beside the one-process references (which
+    are not timed), and end before the ranks start, so that no other
+    process shares the card while the ranks time their steps.  They check
+    correctness and count bytes; they measure no scaling.  Returns the
+    per-rank launches of the model-sharded step and sample."""
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs.flows import GLOW_SCANNED, build_flow
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.train.loop import train_flow
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    launchers = []
+    t0 = time.perf_counter()
+    try:
+        # (c) the launchers on --mesh 1,2 (two processes each, over gloo on
+        # this card), all three at once: serve draws its weights from the
+        # seed (the CPU tests serve a checkpoint the --arch training wrote)
+        for i, (name, argv) in enumerate(MESH_LAUNCHERS):
+            ckpt = [] if name == "serve-arch" else ["--ckpt", f"{scratch}/{name}"]
+            with open(f"{scratch}/launch{i}.out", "w") as out, \
+                    open(f"{scratch}/launch{i}.err", "w") as err:
+                launchers.append(subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "2", "-m", *argv, *ckpt], stdout=out, stderr=err,
+                    cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}))
+
+        # the one-process references on the card, deterministic cuDNN as the
+        # ranks run it
+        torch.backends.cudnn.deterministic = True
+        flow = build_flow(GLOW_SCANNED, channels=3, generator=torch.Generator().manual_seed(
+            SEED + 100), device=dev)
+        perturb(flow, SEED + 101)
+        state = {k: v.detach().cpu().clone() for k, v in flow.state_dict().items()}
+        with torch.inference_mode():
+            z0, _ = flow(SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 103)
+                         .batch_at(0).to(dev))
+            z = std_normal_like(z0, SEED + 104)
+            samples = flow.inverse(z)
+        one = _dist_flow(dev, state)
+        res = train_flow(one, SyntheticImages(HW, channels=3, batch=BATCH, seed=SEED + 101),
+                         TrainConfig(steps=MESH_STEPS, lr=1e-4, warmup_steps=1, prefetch=0),
+                         device=dev)
+        train_state = {k: v.detach().cpu().clone() for k, v in one.state_dict().items()}
+        del flow, one
+        prompt = torch.randint(0, mesh_lm_config("float32").vocab_size,
+                               (MESH_BATCH, MESH_PROMPT),
+                               generator=torch.Generator().manual_seed(SEED + 105))
+        lm = _mesh_lm_reference(dev, prompt)
+        torch.backends.cudnn.deterministic = False
+        torch.save({"state": state, "z": tuple(v.cpu() for v in z), "samples": samples.cpu(),
+                    "train_losses": res.losses, "train_state": train_state, "prompt": prompt,
+                    "lm": lm, "card": card}, f"{scratch}/payload.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for launcher in launchers:
+            try:
+                launcher.wait(timeout=DIST_JOIN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                launcher.kill()
+                launcher.wait()
+        stdout = "".join(Path(f"{scratch}/launch{i}.out").read_text()
+                         for i in range(len(launchers)))
+        stderr = "".join(Path(f"{scratch}/launch{i}.err").read_text()
+                         for i in range(len(launchers)))
+        line("mesh", part="c", launchers=[" ".join(a) for _, a in MESH_LAUNCHERS],
+             returncodes=[x.returncode for x in launchers],
+             seconds_since_start=time.perf_counter() - t0,
+             stdout=[ln for ln in stdout.splitlines() if "mesh=" in ln or "done at" in ln
+                     or "generated" in ln], stderr_tail=stderr.strip().splitlines()[-5:],
+             card=card)
+        # the two ranks of a launcher print to one stream: count the phrases
+        check(all(x.returncode == 0 for x in launchers)
+              and stdout.count("mesh=1x2 backend=gloo") == 6
+              and stdout.count(f"arch={MESH_LM}-reduced device=cuda mesh=1x2: generated "
+                               "(2, 8)") == 2
+              and stdout.count("done at step 1") == 4,
+              f"mesh (c): launchers: {stdout[-3000:]} {stderr[-2000:]}")
+
+        t_ranks = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank, args=(r, DIST_WORLD, scratch))
+                 for r in range(DIST_WORLD)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errs = {r: Path(f"{scratch}/err{r}.txt").read_text()[-3000:] for r in range(DIST_WORLD)
+                if Path(f"{scratch}/err{r}.txt").exists()}
+        check(not hung, f"mesh: ranks {hung} still running after {DIST_JOIN_TIMEOUT_S} s: {errs}")
+        check(not errs and all(p.exitcode == 0 for p in procs),
+              f"mesh: exit codes {[p.exitcode for p in procs]}: {errs}")
+        outs = [torch.load(f"{scratch}/out{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+        ranks_s = time.perf_counter() - t_ranks
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for launcher in launchers:
+            if launcher.poll() is None:
+                launcher.kill()
+                launcher.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    a, b = [o["a"] for o in outs], [o["b"] for o in outs]
+    line("mesh", part="summary", world=DIST_WORLD, shape=[1, DIST_WORLD],
+         backend=outs[0]["backend"], ranks_s=ranks_s,
+         leaf_max_rel_err_vs_one_process=max(r["leaf_max_rel_err_vs_one_process"] for r in a),
+         bitwise_repeatable=all(r["bitwise_repeatable"] for r in a),
+         stored_bytes_rank0=a[0]["stored_bytes"], one_step_wire=a[0]["one_step_wire"],
+         serve_tokens_equal=all(r[t]["tokens_equal_one_process"] for r in b for t in r),
+         serve_stored_fraction=b[0]["bfloat16"]["stored_param_bytes"]
+         / b[0]["bfloat16"]["whole_param_bytes"],
+         prefill_s={t: [r[t]["prefill_s"] for r in b] for t in MESH_DTYPES},
+         decode_step_ms={t: [r[t]["decode_step_ms"] for r in b] for t in MESH_DTYPES},
+         serve_wire=b[0]["bfloat16"]["wire"],
+         note="two ranks share one card: correctness and wire bytes, not scaling", card=card)
+    return {"step_per_rank": a[0]["launches_per_step"],
+            "sample_per_rank": a[0]["sample_launches"]}
+
+
+def std_normal_like(z, seed):
+    """Standard-normal noise shaped like ``z`` (a tensor or a tuple), from a
+    seeded generator on ``z``'s device."""
+    import torch
+
+    leaves = z if isinstance(z, tuple) else (z,)
+    gen = torch.Generator(leaves[0].device).manual_seed(seed)
+    out = tuple(torch.randn(v.shape, generator=gen, device=v.device) for v in leaves)
+    return out if isinstance(z, tuple) else out[0]
+
+
 def time_flow_kernels(dev) -> dict:
     """Phase 7, ``[times]`` of the eight flow kernels: the scanned model's
     at its three (B, M, C), the unrolled model's at its transformed halves
@@ -4400,6 +4942,10 @@ def main() -> int:
     dist_launches = dist_phase(dev, card)
     mark("dist")
 
+    # 14. model-sharded meshes: two ranks on this card over gloo
+    mesh_launches = mesh_phase(dev, card)
+    mark("mesh")
+
     def by_path(*names):
         """Each path's first ``[times]`` row of a kernel (its largest shape,
         f32 first where timed): shape, dtype and the times beside the bound."""
@@ -4459,6 +5005,11 @@ def main() -> int:
                 "dp_step": dist_launches["dp_step_per_rank"].get(name, 0),
                 "sharded_log_prob": dist_launches["sharded_log_prob_per_rank"].get(name, 0),
                 "sharded_sample": dist_launches["sharded_sample_per_rank"].get(name, 0)}
+            # phase 14: each rank's launches in a model-sharded step (a (1, 2)
+            # mesh, every leaf stored as the rank's block) and sample
+            kernels[-1]["mesh_launches_per_rank"] = {
+                "model_sharded_step": mesh_launches["step_per_rank"].get(name, 0),
+                "model_sharded_sample": mesh_launches["sample_per_rank"].get(name, 0)}
         if name in chint["times"]:
             # the cHINT path: its launches a train step (coupling_bwd) or a
             # draw (coupling_inv), and the half kernel at its M = 1 shapes

@@ -65,7 +65,7 @@ from typing import Callable, Mapping, Sequence
 import torch
 
 from repro_torch.core.objectives import nll_loss
-from repro_torch.core.types import tree_index, tree_leaves, zero_logdet
+from repro_torch.core.types import StackSlices, stack_slices, tree_index, tree_leaves, zero_logdet
 
 CHAIN_MODES = ("invertible", "coupled", "autodiff")
 GRAD_MODES = CHAIN_MODES + ("remat",)
@@ -258,30 +258,31 @@ def make_chain_apply(layers: Sequence, grad_mode: str = "invertible",
 # ---------------------------------------------------------------------------
 
 
-def scan_backward(step_bwd: Callable, stacked: dict, y, gy, gld, cond=None, reducer=None):
+def scan_backward(step_bwd: Callable, slices: StackSlices, y, gy, gld, cond=None,
+                  reducer=None):
     """Reverse walk over a stack from its output side.
 
     ``step_bwd(i, y, gy, gld, cond) -> (x, gx, {name: grad}, gcond)`` takes
     step ``i`` back; ``y`` is a tensor or a tuple of them, and ``gcond`` a
     tensor, a ``{dotted name: grad}`` dict for a dict ``cond``, or None.
-    Each step's gradients are written into row ``i`` of stacked gradients
-    allocated once (``stacked`` maps each parameter name to its ``(k, ...)``
-    tensor), so no step carries a full-size gradient; ``gcond`` is summed
-    over the steps.  ``reducer`` (a ``dist.comm.GradReducer``) is handed
-    each step's rows as soon as the step is done.  Returns ``(x, gx, {name:
-    stacked grad}, gcond)``.
+    Each step's gradients are written, by ``slices.put_row``, into row
+    ``i`` of gradients shaped like the stack's parameters and allocated once
+    (``slices``: the stack's :func:`~repro_torch.core.types.stack_slices`),
+    so no step carries a full-size gradient; ``gcond`` is summed over the
+    steps.  ``reducer`` (a ``dist.comm.GradReducer``) is handed each step's
+    rows as soon as the step is done.  Returns ``(x, gx, {name: stacked
+    grad}, gcond)``.
     """
     gld = gld.float()
     gstacked = {n: torch.zeros(p.shape, dtype=p.dtype, device=p.device)
-                for n, p in stacked.items()}
-    k = next(iter(stacked.values())).shape[0]
+                for n, p in slices.module.named_parameters()}
     gcond = None
     with torch.no_grad():
-        for i in range(k - 1, -1, -1):
+        for i in range(len(slices) - 1, -1, -1):
             x, gx, gp, gc = step_bwd(i, y, gy, gld, cond)
             for name in gp:
                 if gp[name] is not None:
-                    gstacked[name][i] = gp[name]
+                    slices.put_row(name, gstacked[name], i, gp[name])
             if reducer is not None:
                 reducer.add(g[i] for g in gstacked.values())
             gcond = _add(gcond, gc)
@@ -312,7 +313,7 @@ class _ScanFn(torch.autograd.Function):
     separate inputs; ``spec`` carries the state's and ``cond``'s structure."""
 
     @staticmethod
-    def forward(ctx, plain, step_bwd, names, spec, *args):
+    def forward(ctx, plain, step_bwd, spec, *args):
         n_x, n_c = spec["n_x"], spec["n_cond"]
         x = _like(spec["x"], list(args[:n_x]))
         cond = _cond_like(spec["cond"], list(args[n_x:n_x + n_c]))
@@ -320,7 +321,6 @@ class _ScanFn(torch.autograd.Function):
         ctx.save_for_backward(*_leaves(y))
         ctx.step_bwd, ctx.cond, ctx.spec = step_bwd, cond, spec
         ctx.psum_axis = spec["psum_axis"]
-        ctx.stacked = dict(zip(names, args[n_x + n_c:]))
         return (*_leaves(y), ld)
 
     @staticmethod
@@ -328,8 +328,8 @@ class _ScanFn(torch.autograd.Function):
         y = _like(ctx.spec["x"], list(ctx.saved_tensors))
         gy = _like(y, list(grads[:-1]))
         reducer = _reducer(ctx.psum_axis)
-        _x, gx, gstacked, gcond = scan_backward(ctx.step_bwd, ctx.stacked, y, gy, grads[-1],
-                                                ctx.cond, reducer)
+        _x, gx, gstacked, gcond = scan_backward(ctx.step_bwd, ctx.spec["slices"], y, gy,
+                                                grads[-1], ctx.cond, reducer)
         cond = ctx.spec["cond"]
         if isinstance(cond, Mapping):
             gcond = [(gcond or {}).get(n) for n, _ in tree_leaves(cond)]
@@ -339,7 +339,7 @@ class _ScanFn(torch.autograd.Function):
             # the shared cond (replicated weights) sums like the parameters
             reducer.add(gcond)
             reducer.wait()
-        return (None, None, None, None, *_leaves(gx), *gcond, *gstacked.values())
+        return (None, None, None, *_leaves(gx), *gcond, *gstacked.values())
 
 
 def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
@@ -363,7 +363,7 @@ def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
 
     def run(step, x, cond):
         ld = zero_logdet(x)
-        for i in range(next(module.parameters()).shape[0]):
+        for i in range(len(stack_slices(module))):
             x, ld_i = step(i, x, cond)
             ld = ld + ld_i.to(ld.dtype)
         return x, ld
@@ -389,12 +389,13 @@ def make_scan_apply(module, step_fwd: Callable, step_inv: Callable,
     def apply(x, cond=None):
         if not torch.is_grad_enabled():
             return plain(x, cond)
-        names, params = zip(*module.named_parameters())
+        params = [p for _, p in module.named_parameters()]
         xs, cs = _leaves(x), _cond_leaves(cond)
         # the state's structure only: holding its tensors would keep them alive
         spec = {"x": (None,) * len(xs) if isinstance(x, tuple) else None, "n_x": len(xs),
-                "cond": cond, "n_cond": len(cs), "psum_axis": psum_axis}
-        *y, ld = _ScanFn.apply(plain, bwd, names, spec, *xs, *cs, *params)
+                "cond": cond, "n_cond": len(cs), "psum_axis": psum_axis,
+                "slices": stack_slices(module)}
+        *y, ld = _ScanFn.apply(plain, bwd, spec, *xs, *cs, *params)
         return _like(x, y), ld
 
     return apply

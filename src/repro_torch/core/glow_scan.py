@@ -41,6 +41,7 @@ from repro_torch.core.types import (
     Invertible,
     ParamTree,
     resolve_device,
+    stack_slices,
     stack_trees,
     tree_index,
     tree_leaves,
@@ -202,6 +203,10 @@ class GlowStepStack(Invertible):
         }
         return x.reshape(y.shape), gx.reshape(y.shape), gp, gcond
 
+    def scan_stacks(self) -> list:
+        """The stacks the scan engine walks one step at a time: this one."""
+        return [self]
+
     # -- Invertible surface -------------------------------------------------
 
     def forward(self, x, cond=None):
@@ -219,12 +224,12 @@ class GlowStepStack(Invertible):
     def fused_bwd(self, y, gy, gld, cond=None):
         """The fused reversible backward of the whole stack (the ``coupled``
         hook)."""
-        return scan_backward(self._step_bwd, dict(self.named_parameters()), y, gy, gld, cond)
+        return scan_backward(self._step_bwd, stack_slices(self), y, gy, gld, cond)
 
     def invertible_bwd(self, y, gy, gld, cond=None):
         """Step by step invert-then-VJP (the ``invertible`` engine's walk)."""
         step_bwd = invertible_step_bwd(self, self._step_fwd, self._step_inv)
-        return scan_backward(step_bwd, dict(self.named_parameters()), y, gy, gld, cond)
+        return scan_backward(step_bwd, stack_slices(self), y, gy, gld, cond)
 
 
 def build_glow_scanned(

@@ -105,17 +105,57 @@ def share_parameters(dst: nn.Module, src: nn.Module) -> nn.Module:
     return dst
 
 
+class StackSlices:
+    """Per-step access to a module whose leaves are stacked along their
+    first axis (a scan's steps): the number of steps, step ``i``'s slice of
+    every leaf as a nested dict (:func:`tree_index`), and where step ``i``'s
+    gradient goes in a gradient shaped like the parameters as stored
+    (``core/autodiff.py::scan_backward``).  This class reads the parameters
+    as they are stored; a layout that stores a stack otherwise sets its own
+    subclass as the module's ``step_slices`` attribute (``dist/model.py``
+    does, on a model-sharded mesh)."""
+
+    def __init__(self, module: nn.Module):
+        self.module = module
+
+    def __len__(self) -> int:
+        return next(self.module.parameters()).shape[0]
+
+    def leaf(self, name: str, p: torch.Tensor, i: int, detach: bool) -> torch.Tensor:
+        """Step ``i``'s slice of the parameter ``name`` (dotted, from the
+        stack's root)."""
+        return p[i].detach().requires_grad_() if detach else p[i]
+
+    def put_row(self, name: str, g_stacked: torch.Tensor, i: int, g: torch.Tensor):
+        """Write step ``i``'s gradient ``g`` of ``name`` into ``g_stacked``."""
+        g_stacked[i] = g
+
+    def index(self, i: int, detach: bool = False) -> dict:
+        def walk(tree, prefix):
+            out = {n: walk(child, f"{prefix}{n}.") for n, child in tree.named_children()}
+            for n, p in tree.named_parameters(recurse=False):
+                out[n] = self.leaf(prefix + n, p, i, detach)
+            for n, b in tree.named_buffers(recurse=False):
+                out[n] = b[i]
+            return out
+
+        return walk(self.module, "")
+
+
+def stack_slices(module: nn.Module) -> StackSlices:
+    """``module``'s ``step_slices`` accessor, or one that reads its
+    parameters as stored."""
+    slices = getattr(module, "step_slices", None)
+    return StackSlices(module) if slices is None else slices
+
+
 def tree_index(tree, i: int, detach: bool = False) -> dict:
     """Slice ``i`` of every leaf of a stacked module tree (the counterpart
-    of the reference's per-step scan slice), as a nested dict.  With
-    ``detach`` each parameter slice is a detached leaf that requires grad, so
-    a step's VJP reaches it without a gradient the size of the whole stack."""
-    out = {name: tree_index(child, i, detach) for name, child in tree.named_children()}
-    for name, p in tree.named_parameters(recurse=False):
-        out[name] = p[i].detach().requires_grad_() if detach else p[i]
-    for name, b in tree.named_buffers(recurse=False):
-        out[name] = b[i]
-    return out
+    of the reference's per-step scan slice), as a nested dict, through the
+    module's :func:`stack_slices`.  With ``detach`` each parameter slice is a
+    detached leaf that requires grad, so a step's VJP reaches it without a
+    gradient the size of the whole stack."""
+    return stack_slices(tree).index(i, detach)
 
 
 def tree_dict(tree) -> dict:

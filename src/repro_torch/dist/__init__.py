@@ -1,35 +1,44 @@
-"""``repro_torch.dist``: data parallelism and GPipe on ``torch.distributed``,
-the port of the reference's ``repro.dist`` for meshes whose ``model`` axis
-is 1.
+"""``repro_torch.dist``: data parallelism, model-sharded meshes and GPipe on
+``torch.distributed``, the port of the reference's ``repro.dist``.
 
 * :mod:`repro_torch.dist.comm` - every collective the port issues, with the
-  bytes it hands to the wire, and mesh axes by name (``bound``);
-* :mod:`repro_torch.dist.sharding` - which batch leaves split over the data
-  axes;
+  bytes it hands to the wire, and mesh axes by name (``bound``), one axis
+  or several (a multi-pod mesh's ``("pod", "data")``);
+* :mod:`repro_torch.dist.sharding` - the reference's rules: where each
+  parameter, optimizer moment, batch and cache leaf lives, and a leaf's
+  block on this rank (``local_shard``) and the leaf whole again
+  (``gather_shard``);
+* :mod:`repro_torch.dist.model` - a module stored as each rank's blocks on
+  a mesh whose ``model`` axis is more than 1, gathered where it is used;
 * :mod:`repro_torch.dist.flow` - data-parallel flow gradients and
   batch-sharded flow serving;
 * :mod:`repro_torch.dist.step` - the data-parallel training step (overlapped
-  or trailing reduction, or error-feedback compression before the wire);
+  or trailing reduction, or error-feedback compression before the wire) and
+  the model-sharded step;
 * :mod:`repro_torch.dist.pipeline` - the GPipe schedule over a ``("pipe",)``
   mesh.
 
 One process per rank; a mesh is a ``torch.distributed.device_mesh.
-DeviceMesh`` (``launch/mesh.py``).  The model-sharded half (the parameter,
-optimizer and cache rules on DTensor/FSDP placements) is ROADMAP.md queue 1,
-item 7 part 2.
+DeviceMesh`` (``launch/mesh.py``).  Parameters are plain local tensors and
+every gather is explicit, so the hand-written kernels and the MoE dispatch
+see ordinary tensors.  The rules' ``fsdp``, ``zero1``, per-layer-slice and
+sequence-fallback options are ported as functions; their runtime uses come
+with the dry run (``ITEM_8``).
 """
 
-from repro_torch.dist import comm, flow, pipeline, sharding, step
+from repro_torch.dist import comm, flow, model, pipeline, sharding, step
 from repro_torch.dist.flow import dp_value_and_grad_nll, gather_batch, shard_batch
 from repro_torch.dist.pipeline import pipeline_forward, pipeline_stage_fn
 from repro_torch.dist.sharding import batch_pspecs, batch_sharding, data_axis_names
 from repro_torch.dist.step import dp_axis, dp_size, is_pure_dp, make_dp_train_step
 
-#: the message of everything that waits for the model-sharded meshes
-PART_2 = "ROADMAP.md queue 1, item 7 part 2 (model-sharded meshes)"
+#: the message of what waits for the dry run: the runtime uses of the rules'
+#: fsdp, zero1, layer-slice and sequence-fallback options
+ITEM_8 = "ROADMAP.md queue 1, item 8 (launch/dryrun.py and the runtime uses of fsdp, zero1, " \
+    "layer_slice_pspecs and seq_fallback_model)"
 
 __all__ = [
-    "PART_2",
+    "ITEM_8",
     "batch_pspecs",
     "batch_sharding",
     "comm",
@@ -41,6 +50,7 @@ __all__ = [
     "gather_batch",
     "is_pure_dp",
     "make_dp_train_step",
+    "model",
     "pipeline",
     "pipeline_forward",
     "pipeline_stage_fn",

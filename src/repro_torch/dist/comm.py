@@ -16,14 +16,18 @@ counted apart as ``host_staged`` (each direction once).  Nothing is computed
 on the host here: the copies carry the values, and every sum of gathered
 values runs on the tensors' own device.
 
-Mesh axes are named as in the reference (``psum_axis="data"``): :func:`bound`
-makes a mesh current for the engines' backward passes, and
-:func:`axis_group` resolves a name against it.
+Mesh axes are named as in the reference (``psum_axis="data"``, or
+``("pod", "data")`` for the two data axes of a multi-pod mesh): :func:`bound`
+makes a mesh current for the engines' backward passes and the model-sharded
+layers, and :func:`axis_group` resolves a name, or a tuple of names, against
+it.  A tuple's group is the ranks that differ only along those axes, ranked
+row-major over them (:func:`mesh_group`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from collections import Counter
 
 import torch
@@ -81,11 +85,12 @@ def _to_host(op: str, t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def all_reduce(t: torch.Tensor, group=None, async_op: bool = False):
-    """Sum ``t`` in place over ``group``; returns the work handle when
-    ``async_op``."""
+def all_reduce(t: torch.Tensor, group=None, async_op: bool = False, op: str = "sum"):
+    """Reduce ``t`` in place over ``group`` (``op`` ``"sum"`` or ``"max"``);
+    returns the work handle when ``async_op``."""
     _count("all_reduce", t)
-    return dist.all_reduce(t, group=group, async_op=async_op)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    return dist.all_reduce(t, op=red, group=group, async_op=async_op)
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -140,16 +145,55 @@ def bound(mesh):
         _BOUND.pop()
 
 
-def axis_group(axis: str):
-    """``(group, size)`` of the current mesh's axis ``axis``; raises when no
-    mesh is bound or the mesh has no such axis."""
+def current_mesh():
+    """The mesh :func:`bound` made current, or None."""
+    return _BOUND[-1] if _BOUND else None
+
+
+def axis_group(axis):
+    """``(group, size)`` of the current mesh's axis ``axis`` (a name, or a
+    tuple of names: their combined group); raises when no mesh is bound or
+    the mesh has no such axis."""
     if not _BOUND:
         raise RuntimeError(f"axis {axis!r} is not bound: reduce over a mesh axis only inside "
                            "repro_torch.dist.comm.bound(mesh) (the data-parallel step binds it)")
     mesh = _BOUND[-1]
-    if axis not in (mesh.mesh_dim_names or ()):
-        raise ValueError(f"mesh {mesh.mesh_dim_names} has no axis {axis!r}")
-    return mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(axis))
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in names:
+        if a not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh {mesh.mesh_dim_names} has no axis {a!r}")
+    size = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in names)
+    return mesh_group(mesh, names), size
+
+
+#: the combined groups made so far, by the mesh's id and the axes' names
+_GROUPS: dict = {}
+
+
+def mesh_group(mesh, names):
+    """The process group of the ranks that differ from this one only along
+    the mesh axes ``names`` (a name or a tuple), ranked row-major over them.
+    One axis is the mesh's own group; a tuple's groups are made on first use
+    with ``new_group``, which every rank of the world calls in the same
+    order (every rank takes the same code path to it)."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    key = (id(mesh), names)
+    if key not in _GROUPS:
+        dims = [mesh.mesh_dim_names.index(a) for a in names]
+        layout = mesh.mesh.cpu()
+        rest = [d for d in range(layout.ndim) if d not in dims]
+        blocks = layout.permute(*rest, *dims).reshape(-1, math.prod(layout.shape[d]
+                                                                    for d in dims))
+        mine = None
+        for ranks in blocks.tolist():
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                mine = group
+        # the mesh is kept alive with its groups, so its id is not reused
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1]
 
 
 class GradReducer:

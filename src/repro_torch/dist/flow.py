@@ -26,7 +26,14 @@ from typing import Mapping
 import torch
 
 from repro_torch.dist import comm
-from repro_torch.dist.sharding import BatchSharding, batch_sharding, data_axis_names, data_size
+from repro_torch.dist.sharding import (
+    BatchSharding,
+    batch_sharding,
+    data_axis_names,
+    data_size,
+    entry_index,
+    entry_size,
+)
 
 
 def _take(tree, sharding: BatchSharding):
@@ -69,11 +76,9 @@ def gather_batch(out, mesh, full: int):
 
 
 def _data_group(mesh):
-    names = data_axis_names(mesh)
-    if len(names) != 1:
-        raise NotImplementedError("a multi-pod mesh (several data axes) comes with the "
-                                  "model-sharded meshes (ROADMAP.md queue 1, item 7 part 2)")
-    return mesh.get_group(names[0])
+    """The group of the combined data axes (``("pod", "data")`` on a
+    multi-pod mesh), ranked as :func:`shard_batch` splits the rows."""
+    return comm.mesh_group(mesh, data_axis_names(mesh))
 
 
 def _nll(flow, x, cond, scale: float):
@@ -85,21 +90,21 @@ def _nll(flow, x, cond, scale: float):
     return nll_loss(flow, x, cond) * scale
 
 
-def dp_value_and_grad_nll(flow, mesh, axis: str = "data"):
+def dp_value_and_grad_nll(flow, mesh, axis="data"):
     """``vg(x, cond=None) -> (loss, {name: grad})``: the data-parallel twin
     of ``core.autodiff.value_and_grad_nll``.
 
     Every rank passes the whole batch; each takes its rows of ``x`` (and of
-    ``cond``) over ``mesh[axis]`` and differentiates its own mean NLL scaled
+    ``cond``) over ``mesh[axis]`` (``axis`` a name, or a tuple of names such
+    as a multi-pod mesh's ``("pod", "data")``) and differentiates its own mean NLL scaled
     by ``1 / n_ranks``.  When the flow's ``psum_axis`` is ``axis`` its
     backward sums the gradients; otherwise (plain-autograd flows, or the
     CPU ``"stored"`` coupled strategy) they are summed here.  The loss is
     summed over the ranks.  Integer buffers (permutations, signs) are no
     parameters in the port, so no gradient of theirs needs filling in (the
     reference's ``_densify_float0``)."""
-    names = mesh.mesh_dim_names
-    n = mesh.size(names.index(axis))
-    sharding = BatchSharding(n, mesh.get_local_rank(axis))
+    n = entry_size(mesh, axis)
+    sharding = BatchSharding(n, entry_index(mesh, axis))
     vjp_reduces = getattr(flow, "psum_axis", None) == axis
     named = dict(flow.named_parameters())
 

@@ -17,6 +17,11 @@ its rows of the batch, and the reduction over the ranks is explicit:
 
 Gradient accumulation (``cfg.accum_steps`` microbatches per rank) and the
 replicated AdamW update (the same bits on every rank) run in the same step.
+
+On a mesh whose ``model`` axis is more than 1, :func:`make_sharded_train_step`
+is the step: the parameters and moments are stored as each rank's blocks
+(``dist/model.py``), gathered where the step uses them, and each rank
+updates its blocks.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ from repro_torch.optim.schedule import cosine_warmup
 
 
 def dp_axis(mesh):
-    """The mesh's data-parallel axis name for collectives, or ``None`` when
-    it has none.  (A multi-pod mesh's two data axes come with the
-    model-sharded meshes, ROADMAP.md queue 1, item 7 part 2.)"""
+    """The mesh's data-parallel axis name(s) for collectives: one name, the
+    tuple ``("pod", "data")`` on a multi-pod mesh (``comm.axis_group`` takes
+    either), or ``None`` when the mesh has none."""
     names = data_axis_names(mesh)
     if not names:
         return None
@@ -95,16 +100,13 @@ def make_dp_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainC
     n = dp_size(mesh)
     if axis is None or n <= 1:
         raise ValueError("make_dp_train_step needs a mesh with data axes")
-    if not isinstance(axis, str):
-        raise NotImplementedError("a multi-pod mesh (several data axes) comes with the "
-                                  "model-sharded meshes (ROADMAP.md queue 1, item 7 part 2)")
     compression = cfg.grad_compression
     if compression != "none":
         # the backward's dense reduction would put full-precision bytes on
         # the wire before compression ran: take each rank's own gradients
         grads_reduced_by_vjp = False
     n_micro = max(int(cfg.accum_steps), 1)
-    group = mesh.get_group(axis)
+    group = comm.mesh_group(mesh, axis)
     params = dict(module.named_parameters())
 
     def step_fn(state, batch, step: int):
@@ -137,5 +139,59 @@ def make_dp_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainC
         lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
         opt, om = adamw_update(params, grads, state["opt"], cfg, lr)
         return {"opt": opt, "err": err}, {"loss": loss, "lr": lr, **om, **aux}
+
+    return step_fn
+
+
+def make_sharded_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainConfig, mesh,
+                            sharding, *, grads_reduced_by_vjp: bool = False) -> Callable:
+    """The ``(state, local_batch, step) -> (state, metrics)`` update of a
+    module laid out on a model-sharded mesh by ``sharding`` (a
+    ``dist.model.ModelSharding``, already sharded).
+
+    Every rank runs the single-device step on its rows (the data axes split
+    the batch; the ranks of one ``model`` row hold the same rows): the
+    scan-stacked leaves are gathered a step's slice at a time, the others
+    whole for the step (``sharding.materialized``).  Each rank keeps its
+    block of the gradient, sums it over the data axes (unless the flow's
+    backward did, ``grads_reduced_by_vjp``), and updates its blocks of the
+    parameters and AdamW moments, the clip taken on the whole gradient's
+    norm.  Compression raises, as in the reference: on a model-sharded mesh
+    no compressed payload would cross the wire alone."""
+    if cfg.grad_compression != "none":
+        raise ValueError("grad_compression requires a pure data-parallel mesh (or none): "
+                         "on any other mesh no compressed payload would cross the wire")
+    axis, n = dp_axis(mesh), dp_size(mesh)
+    group = comm.mesh_group(mesh, axis) if axis is not None and n > 1 else None
+    n_micro = max(int(cfg.accum_steps), 1)
+    params = dict(module.named_parameters())
+
+    def step_fn(state, batch, step: int):
+        auxes = []
+
+        def value_and_grad(b):
+            loss, aux = objective(b)
+            auxes.append(aux)
+            grads = torch.autograd.grad(loss / n, list(params.values()), allow_unused=True)
+            return (loss / n).detach(), {
+                k: sharding.local_grad(k, g) if g is not None else torch.zeros_like(
+                    sharding.local_grad(k, p.detach())) for (k, p), g in zip(params.items(), grads)}
+
+        with comm.bound(mesh):
+            with sharding.materialized():
+                loss, grads = accumulate_grads(value_and_grad, batch, n_micro)
+            aux = {}  # as the one-process step: no aux without data axes
+            if group is not None:
+                if not grads_reduced_by_vjp:
+                    reducer = comm.GradReducer(axis)
+                    reducer.add(grads.values())
+                    reducer.wait()
+                loss = loss.clone()
+                comm.all_reduce(loss, group)
+                aux = _mean_aux(auxes, n, group)
+            gnorm = sharding.grad_norm(grads)
+        lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
+        opt, om = adamw_update(params, grads, state["opt"], cfg, lr, grad_norm=gnorm)
+        return {"opt": opt, "err": state["err"]}, {"loss": loss, "lr": lr, **om, **aux}
 
     return step_fn

@@ -2,8 +2,8 @@
 ``launch/mesh.py``.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
-``mesh_dim_names`` ``("data", "model")`` (``("pipe",)`` for GPipe), over one
-process per rank.  The world comes from the ``torchrun`` environment
+``mesh_dim_names`` ``("data", "model")`` (``("pod", "data", "model")`` for
+the multi-pod layout, ``("pipe",)`` for GPipe), over one process per rank.  The world comes from the ``torchrun`` environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
 or, without it, is a world of one process (an in-memory store, no network).
 
@@ -145,8 +145,9 @@ def make_auto_mesh(shape: tuple[int, ...] | None = None,
 
 def parse_mesh_arg(value: str, device_type: str = "cuda"):
     """Parse a launcher ``--mesh`` value: ``""`` -> no mesh, ``"auto"`` ->
-    the auto factoring, ``"d,m"`` -> an explicit (data, model) shape whose
-    product must equal the world size."""
+    the auto factoring, ``"d,m"`` -> an explicit ``("data", "model")``
+    shape, ``"p,d,m"`` -> the multi-pod ``("pod", "data", "model")`` shape;
+    the product must equal the world size."""
     if not value:
         return None
     if value == "auto":
@@ -155,10 +156,11 @@ def parse_mesh_arg(value: str, device_type: str = "cuda"):
         shape = tuple(int(t) for t in value.split(","))
     except ValueError:
         shape = ()
-    if len(shape) != 2:
-        raise ValueError(f"--mesh must be 'auto' or 'd,m' (two comma-separated ints whose "
+    if len(shape) not in (2, 3):
+        raise ValueError(f"--mesh must be 'auto', 'd,m' or 'p,d,m' (comma-separated ints whose "
                          f"product is the world size), got {value!r}")
-    return make_auto_mesh(shape, device_type=device_type)
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return make_auto_mesh(shape, axes, device_type=device_type)
 
 
 def make_test_mesh(n_data: int | None = None, n_model: int | None = None,
@@ -171,7 +173,7 @@ def make_test_mesh(n_data: int | None = None, n_model: int | None = None,
 
 
 def describe(mesh) -> str:
-    """``"DxM"`` of a mesh's shape, or ``"none"``."""
+    """``"DxM"`` (``"PxDxM"``) of a mesh's shape, or ``"none"``."""
     return "none" if mesh is None else "x".join(str(s) for s in mesh.shape)
 
 

@@ -21,10 +21,13 @@ streams posterior statistics for a held-out observation through
 ``PosteriorEngine`` and prints the SBC/coverage calibration report
 (``posterior_report``); a prior scenario streams sample statistics through
 ``PosteriorEngine`` over a ``FlowServeEngine`` (``prior_report``).  It runs
-on ``cuda`` unless ``--device`` names another.  ``--mesh`` (``auto`` or
-``d,m``, ``launch/mesh.py``) shards a scenario's sampled chunks over the
-processes ``torch.distributed.run`` starts (alone, a world of 1); an LM on a
-mesh raises (ROADMAP.md queue 1, item 7 part 2).
+on ``cuda`` unless ``--device`` names another.  ``--mesh`` (``auto``,
+``d,m`` or ``p,d,m``, ``launch/mesh.py``) runs over the processes
+``torch.distributed.run`` starts (alone, a world of 1): a scenario's
+sampled chunks split over the data axes; an LM's ``ServeEngine`` stores its
+parameters split over the ``model`` axis and runs its rows of the batch
+(``serve/engine.py``), and the launcher prints the whole batch's tokens on
+every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import time
 
 import torch
 
-from repro_torch.dist import PART_2
 
 
 def _serve_prior(run, args, mesh):
@@ -70,11 +72,13 @@ def _serve_scenario(args):
 
 def _serve_arch(args):
     from repro_torch.config import ShapeSpec, get_arch
+    from repro_torch.launch.mesh import describe, launcher_mesh
     from repro_torch.models import build_model
     from repro_torch.models.registry import batch_like, input_specs
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import checkpoint as ckpt
 
+    mesh = launcher_mesh(args.mesh, args.device)
     spec = get_arch(args.arch)
     model, cfg = build_model(spec.reduced if args.reduced else spec.config, device=args.device)
     if args.ckpt:
@@ -84,7 +88,7 @@ def _serve_arch(args):
     n_prefix = (cfg.frontend.n_patches
                 if cfg.frontend is not None and cfg.frontend.kind == "vision" else 0)
     engine = ServeEngine(model, max_len=n_prefix + args.prompt_len + args.max_new,
-                         temperature=args.temperature, device=args.device)
+                         temperature=args.temperature, device=args.device, mesh=mesh)
     shape = ShapeSpec("serve", n_prefix + args.prompt_len, args.batch, "prefill")
     prompt = batch_like(input_specs(cfg, shape), torch.Generator().manual_seed(0),
                         cfg.vocab_size)
@@ -95,8 +99,9 @@ def _serve_arch(args):
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("generate: the last step's logits are not finite")
     print(toks[:, :16])
-    print(f"arch={cfg.name} device={args.device}: generated {tuple(toks.shape)} tokens in "
-          f"{dt:.2f}s ({toks.numel() / dt:.1f} tok/s)")
+    on_mesh = "" if mesh is None else f" mesh={describe(mesh)}"
+    print(f"arch={cfg.name} device={args.device}{on_mesh}: generated {tuple(toks.shape)} "
+          f"tokens in {dt:.2f}s ({toks.numel() / dt:.1f} tok/s)")
 
 
 def main(argv=None):
@@ -122,13 +127,11 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt", default="", help="the checkpoint directory to restore")
     ap.add_argument("--mesh", default="",
-                    help="'' (none), 'auto', or 'd,m' over the torch.distributed world "
-                         "(--scenario only)")
+                    help="'' (none), 'auto', 'd,m' or 'p,d,m' over the torch.distributed "
+                         "world")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.arch and args.mesh:
-        raise NotImplementedError(f"--arch serving on a mesh: {PART_2}")
     if args.scenario:
         if not args.ckpt:
             ap.error("--scenario serving needs --ckpt (a directory written by "

@@ -23,12 +23,13 @@ and zamba2-7b train through their plain scans on either device.  ``--scenario`` 
 ``repro_torch.uq`` scenario (an amortized posterior or an image-prior flow)
 through the supervised loop; serve the result with
 ``repro_torch.launch.serve --scenario``.  It runs on ``cuda`` unless
-``--device`` names another.  ``--mesh`` (``""`` none, ``auto``, or ``d,m``
-whose product is the world size; ``launch/mesh.py``) trains data-parallel
+``--device`` names another.  ``--mesh`` (``""`` none, ``auto``, ``d,m`` or
+``p,d,m`` whose product is the world size; ``launch/mesh.py``) trains
 over the processes ``torch.distributed.run`` starts (alone, a world of 1 and
 a (1, 1) mesh): one process per rank, ``nccl`` when each has a card of its
 own, ``gloo`` when they share one or run on the CPU.  A ``model`` axis > 1
-raises (ROADMAP.md queue 1, item 7 part 2).
+stores each parameter and AdamW moment as each rank's block
+(``train/loop.py``); ``p,d,m`` is the multi-pod layout.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def main(argv=None):
                     help="--arch: the straggler watchdog's deadline in seconds (0 = off)")
     ap.add_argument("--ckpt", default="checkpoints/train")
     ap.add_argument("--mesh", default="",
-                    help="'' (none), 'auto', or 'd,m' over the torch.distributed world")
+                    help="'' (none), 'auto', 'd,m' or 'p,d,m' over the torch.distributed world")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 

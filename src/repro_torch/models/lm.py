@@ -41,6 +41,13 @@ Entry points:
   sequence, the same; an encoder-decoder takes ``{"enc": encode(frames)}``.
   Caches are nested (an RWKV unit's is ``{"time": {"shift", "wkv"}}``),
   indexed by superblock and written in place.
+
+On a model-sharded mesh (``dist/model.py``) the stacks that
+:meth:`Model.scan_stacks` names (``blocks``, ``encoder``) give
+``tree_index`` one superblock's leaves gathered whole where the stack takes
+them, once in the forward and again in the rebuild of the ``invertible`` /
+``coupled`` backward (the same bits), and the other split leaves are
+gathered whole for the step or the request.
 """
 
 from __future__ import annotations
@@ -103,14 +110,21 @@ class Model(ParamTree):
             params["enc_norm"] = torch.ones(d, device=dev)
         return params
 
+    def scan_stacks(self) -> list:
+        """The stacks the scan engine walks one superblock at a time."""
+        return [self.blocks] + ([self.encoder] if self.enc_layout is not None else [])
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def make_caches(self, batch: int, max_len: int) -> dict:
-        caches = {"blocks": self.layout.main.make_caches(batch, max_len, self.device)}
+    def make_caches(self, batch: int, max_len: int, device=None) -> dict:
+        """Zero caches on ``device`` (the model's by default; ``"meta"`` for
+        their shapes alone)."""
+        dev = self.device if device is None else device
+        caches = {"blocks": self.layout.main.make_caches(batch, max_len, dev)}
         if self.layout.tail is not None:
-            caches["tail"] = self.layout.tail.make_caches(batch, max_len, self.device)
+            caches["tail"] = self.layout.tail.make_caches(batch, max_len, dev)
         return caches
 
     def _stack_cache(self, sb: SuperBlock, params_at, caches, h, pos0: int, extra):

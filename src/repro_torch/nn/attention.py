@@ -20,6 +20,11 @@ One departure, for memory: a cache is written in place (the reference's
 ``dynamic_update_slice`` returns a new array), and ``attn_apply`` returns
 the same cache dict it was given.  A write that would run past the cache's
 end raises, where the reference would clamp the write offset.
+
+Sequence-parallel attention (``seq_shard``) splits the work over a
+model-sharded mesh's ``model`` axis where the reference places sharding
+constraints: the query rows of a prefill without a cache, the cache's
+positions of a cached call (``attn_apply``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from typing import Optional
 import torch
 
 from repro_torch.config import AttentionConfig
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import MODEL_AXIS, model_size
 from repro_torch.nn.rotary import apply_rope
 
 NEG_INF = -1e30
@@ -91,6 +98,89 @@ def _sdpa(q, k, v, cfg: AttentionConfig, q_positions, kv_positions):
     return out.reshape(b, sq, hq, dh)
 
 
+def _seq_mesh(n: int):
+    """The bound mesh when its ``model`` axis (m > 1) divides ``n``
+    sequence positions, else None (one process, or no mesh bound: the
+    sequence stays whole, as the reference's constraint is a no-op there)."""
+    mesh = comm.current_mesh()
+    m = model_size(mesh)
+    return mesh if m > 1 and n % m == 0 else None
+
+
+def _block(mesh, n: int) -> tuple[int, int]:
+    m, r = model_size(mesh), mesh.get_local_rank(MODEL_AXIS)
+    return r * n // m, (r + 1) * n // m
+
+
+class _SeqShardPrefill(torch.autograd.Function):
+    """Sequence-parallel attention without a cache: model rank r takes its
+    block of query rows against the whole K/V and the rows are gathered.
+    The backward takes its rows' VJP (the cotangent is the same on every
+    rank), gathers the query's gradient and sums K's and V's over the
+    ranks, so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, pos, mesh):
+        lo, hi = _block(mesh, q.shape[1])
+        out = _sdpa(q[:, lo:hi], k, v, cfg, pos[lo:hi], pos)
+        ctx.save_for_backward(q, k, v, pos)
+        ctx.cfg, ctx.mesh = cfg, mesh
+        group = comm.mesh_group(mesh, MODEL_AXIS)
+        return torch.cat(comm.all_gather(out.contiguous(), group).unbind(0), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, pos = ctx.saved_tensors
+        lo, hi = _block(ctx.mesh, q.shape[1])
+        with torch.enable_grad():
+            ql = q[:, lo:hi].detach().requires_grad_()
+            kk, vv = k.detach().requires_grad_(), v.detach().requires_grad_()
+            out = _sdpa(ql, kk, vv, ctx.cfg, pos[lo:hi], pos)
+            gq, gk, gv = torch.autograd.grad(out, [ql, kk, vv], g[:, lo:hi])
+        group = comm.mesh_group(ctx.mesh, MODEL_AXIS)
+        gq = torch.cat(comm.all_gather(gq.contiguous(), group).unbind(0), dim=1)
+        comm.all_reduce(gk, group)
+        comm.all_reduce(gv, group)
+        return gq, gk, gv, None, None, None
+
+
+def _seq_shard_cached(q, k, v, cfg: AttentionConfig, q_positions, kv_positions, mesh):
+    """Attention over a cache whose positions split over the ``model``
+    axis (flash-decode): rank r scores its block of cache positions; the
+    softmax is combined across the ranks by the max of the block maxima,
+    then by the sum of the exponentials, and only then is each block's
+    weighted V summed over the ranks.  The rounding follows ``_sdpa``: the
+    scores in the inputs' dtype widened to f32, the probabilities cast to
+    V's dtype; the weighted sums run in f32 and are cast to V's dtype at the
+    end.  No gradient (a cache is a serving path)."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    lo, hi = _block(mesh, k.shape[1])
+    kl, vl, kvp = k[:, lo:hi], v[:, lo:hi], kv_positions[lo:hi]
+    group = comm.mesh_group(mesh, MODEL_AXIS)
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kl).float().mul_(dh**-0.5)
+    mask = None
+    if cfg.causal:
+        mask = q_positions[:, None] >= kvp[None, :]
+    if cfg.window:
+        w_ok = q_positions[:, None] - kvp[None, :] < cfg.window
+        mask = w_ok if mask is None else (mask & w_ok)
+    if mask is not None:
+        scores.masked_fill_(~mask, NEG_INF)
+    mx = scores.amax(dim=-1, keepdim=True)
+    comm.all_reduce(mx, group, op="max")
+    e = torch.exp(scores - mx)
+    del scores
+    denom = e.sum(dim=-1, keepdim=True)
+    comm.all_reduce(denom, group)
+    probs = (e / denom).to(v.dtype).float()
+    del e
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vl.float()).contiguous()
+    comm.all_reduce(out, group)
+    return out.to(v.dtype).reshape(b, sq, hq, dh)
+
+
 def attn_apply(
     params,
     x: torch.Tensor,
@@ -112,10 +202,19 @@ def attn_apply(
     sequence is longer than one token, a multiple of 128, and the window is
     off; otherwise the einsum path.  With ``cache``: write this call's K/V at
     ``cache_pos`` (an int) and attend over the whole cache.  ``impl`` names
-    the reference's choices, ``"xla"`` being its einsum path."""
-    if seq_shard:
-        raise NotImplementedError("sequence-parallel attention needs the model-sharded meshes: "
-                                  "ROADMAP.md queue 1, item 7 part 2")
+    the reference's choices, ``"xla"`` being its einsum path.
+
+    ``seq_shard`` (the config's ``attn_seq_shard``), inside
+    ``dist.comm.bound(mesh)`` with a ``model`` axis m > 1 that divides the
+    sequence: without a cache each model rank attends its block of query
+    rows over the whole K/V and the rows are gathered
+    (:class:`_SeqShardPrefill`, differentiable); with a cache each rank
+    scores its block of cache positions (:func:`_seq_shard_cached`).  The
+    result is the unsharded one up to the order of f32 sums.  With no mesh
+    bound, or m = 1, it changes nothing, as the reference's sharding
+    constraint changes nothing on one device.  Where ``impl="flash"`` takes
+    the kernel, ``seq_shard`` keeps it: every rank runs the kernel on the
+    whole query, as the reference's constrained call to its kernel does."""
     b, s, _ = x.shape
     pos1d = positions[0] if positions.ndim > 1 else positions
     if kv_override is not None:
@@ -126,12 +225,15 @@ def attn_apply(
         return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
     q, k, v = _project_qkv(params, x, cfg, positions)
     if cache is None:
+        mesh = _seq_mesh(s) if seq_shard and s > 1 else None
         if impl == "flash" and s > 1 and cfg.window == 0 and s % 128 == 0:
             from repro_torch.kernels.attention.ops import flash_sdpa
 
             of = flash_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=cfg.causal)
             out = of.transpose(1, 2)
+        elif mesh is not None:
+            out = _SeqShardPrefill.apply(q, k, v, cfg, pos1d, mesh)
         else:
             out = _sdpa(q, k, v, cfg, pos1d, pos1d)
     else:
@@ -142,7 +244,11 @@ def attn_apply(
         cache["k"][:, cache_pos:end] = k.to(cache["k"].dtype)
         cache["v"][:, cache_pos:end] = v.to(cache["v"].dtype)
         kv_pos = torch.arange(cache["k"].shape[1], device=x.device)
-        out = _sdpa(q, cache["k"], cache["v"], cfg, pos1d, kv_pos)
+        mesh = _seq_mesh(cache["k"].shape[1]) if seq_shard else None
+        if mesh is not None:
+            out = _seq_shard_cached(q, cache["k"], cache["v"], cfg, pos1d, kv_pos, mesh)
+        else:
+            out = _sdpa(q, cache["k"], cache["v"], cfg, pos1d, kv_pos)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype), cache
 
 

@@ -5,7 +5,11 @@ Each batch row is a group: it numbers its own tokens' places in each
 expert (a cumsum over its own sequence) and fills its own ``capacity``
 slots of the dispatch buffer.  Experts are stacked along a leading E axis
 and run as one batched ``torch.matmul`` over E, as the reference runs them
-through XLA, outside any kernel.
+through XLA, outside any kernel.  On a model-sharded mesh (inside
+``dist.comm.bound``) the experts split over the ``model`` axis, each rank
+running its block and the outputs gathered (expert parallelism,
+:func:`run_experts`), where the reference constrains the buffer to
+``P("model", ...)``.
 
 Dispatch and combine run without atomics, so a result is the same bits on
 every run:
@@ -33,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
+from repro_torch.dist import comm
+from repro_torch.dist.sharding import MODEL_AXIS, model_size
 from repro_torch.nn.mlp import ffn_apply, ffn_init
 
 
@@ -115,6 +121,64 @@ def dispatch_slots(expert_idx: torch.Tensor, cfg: MoEConfig, cap: int):
     return slot, keep
 
 
+def _expert_mesh(n_experts: int):
+    """The bound mesh when its ``model`` axis (m > 1) divides the experts,
+    else None."""
+    mesh = comm.current_mesh()
+    return mesh if model_size(mesh) > 1 and n_experts % model_size(mesh) == 0 else None
+
+
+def _expert_block(mesh, n_experts: int) -> tuple[int, int]:
+    m, r = model_size(mesh), mesh.get_local_rank(MODEL_AXIS)
+    return r * n_experts // m, (r + 1) * n_experts // m
+
+
+def _gather_experts(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every model rank's block of experts, in expert order (axis 0)."""
+    return torch.cat(comm.all_gather(t.contiguous(), comm.mesh_group(mesh, MODEL_AXIS)).unbind(0))
+
+
+class _ExpertParallel(torch.autograd.Function):
+    """Model rank r runs experts ``[r E/m, (r+1) E/m)`` on the dispatched
+    buffer and the outputs are gathered along the expert axis.  The
+    backward takes its block's VJP (the cotangent is the same on every
+    rank) and gathers the buffer's and the weights' gradients the same way,
+    so every rank holds the whole gradient, as one process would."""
+
+    @staticmethod
+    def forward(ctx, buf, kind, mesh, names, *weights):
+        lo, hi = _expert_block(mesh, buf.shape[0])
+        out = ffn_apply({n: w[lo:hi] for n, w in zip(names, weights)}, buf[lo:hi], kind)
+        ctx.save_for_backward(buf, *weights)
+        ctx.kind, ctx.mesh, ctx.names = kind, mesh, names
+        return _gather_experts(out, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, *weights = ctx.saved_tensors
+        lo, hi = _expert_block(ctx.mesh, buf.shape[0])
+        with torch.enable_grad():
+            b = buf[lo:hi].detach().requires_grad_()
+            ws = [w[lo:hi].detach().requires_grad_() for w in weights]
+            out = ffn_apply(dict(zip(ctx.names, ws)), b, ctx.kind)
+            grads = torch.autograd.grad(out, [b, *ws], g[lo:hi])
+        whole = [_gather_experts(t, ctx.mesh) for t in grads]
+        return (whole[0], None, None, None, *whole[1:])
+
+
+def run_experts(experts: dict, buf: torch.Tensor, ffn_kind: str) -> torch.Tensor:
+    """The experts' FFN on the dispatched buffer (E, N, D): one batched
+    product over E, or, inside ``dist.comm.bound(mesh)`` with a ``model``
+    axis that divides E, expert parallelism (:class:`_ExpertParallel`).
+    Routing, dispatch and combine do not change, so the result is the
+    one-process result."""
+    mesh = _expert_mesh(buf.shape[0])
+    if mesh is None:
+        return ffn_apply(experts, buf, ffn_kind)
+    names = tuple(experts)
+    return _ExpertParallel.apply(buf, ffn_kind, mesh, names, *(experts[n] for n in names))
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, ffn_kind: str):
     """x: (B, S, D) -> (y (B, S, D), aux (B,): the load-balance loss / B)."""
     b, s, d = x.shape
@@ -132,7 +196,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, ffn_kind: str):
     src = x.repeat_interleave(k, dim=1)  # (B, S*K, D), token-major as the slots
     buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, idx, src)
     buf = buf[:, : e * cap].reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    out = ffn_apply(params["experts"], buf, ffn_kind)  # one batched product over E
+    out = run_experts(params["experts"], buf, ffn_kind)
     out = out.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
     out = torch.cat([out, out.new_zeros((b, 1, d))], dim=1)  # the spare slot reads zeros
 

@@ -31,12 +31,18 @@ def adamw_init(params: dict) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig, lr: float):
+def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig, lr: float,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW step: updates ``params`` in place; returns ``(opt_state,
-    metrics)`` with the gradient's global norm and the clip scale."""
+    metrics)`` with the gradient's global norm and the clip scale.
+    ``grad_norm``: the whole gradient's norm, given where ``grads`` are this
+    rank's blocks of it (a model-sharded mesh, ``dist/model.py``)."""
     step = opt_state["step"] + 1
-    gs = [grads[n].float() for n, p in params.items() if _trainable(p)]
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+    if grad_norm is None:
+        gs = [grads[n].float() for n, p in params.items() if _trainable(p)]
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+    else:
+        gnorm = grad_norm
     scale = (cfg.grad_clip / (gnorm + 1e-9) if cfg.grad_clip > 0 and gnorm > cfg.grad_clip
              else torch.ones_like(gnorm))
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay

@@ -3,36 +3,61 @@
 steps, with a vision model's patches or an encoder-decoder's frames) and
 ``FlowServeEngine`` (batched ``log_prob`` and ``sample`` of a normalizing
 flow, batch-sharded over a mesh's data axes: each rank runs its rows and
-every rank gets the whole batch back).  An LM on a mesh (its parameters
-model-sharded, its caches batch-sharded) waits for the model-sharded meshes
-(ROADMAP.md queue 1, item 7 part 2).  Requests run under
-``torch.inference_mode``; the reference jits prefill and decode, the port
-runs them eagerly.
+every rank gets the whole batch back).  An LM on a mesh stores its
+parameters by the reference's ``params_pspecs`` (``dist/model.py``: each
+rank its blocks, gathered where a request uses them), its caches by
+``cache_pspecs`` (the batch axis over the data axes) and runs its rows of
+the batch.  Requests run under ``torch.inference_mode``; the reference jits
+prefill and decode, the port runs them eagerly.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Mapping
 
 import torch
 
 from repro_torch.core.distributions import derive_key, std_normal_logpdf, std_normal_sample
 from repro_torch.core.types import resolve_device, to_device
-from repro_torch.dist import PART_2
+from repro_torch.dist import comm
 from repro_torch.dist.flow import gather_batch, shard_batch
+from repro_torch.dist.model import ModelSharding
+from repro_torch.dist.sharding import cache_pspecs, data_axis_names, data_size, local_shard, model_size
+
+
+def _local_caches(whole, specs, mesh, device):
+    """Zero caches of this rank's block of each (meta) leaf of ``whole``."""
+    if isinstance(whole, Mapping):
+        return {k: _local_caches(v, specs[k], mesh, device) for k, v in whole.items()}
+    return torch.zeros(local_shard(whole, specs, mesh).shape, dtype=whole.dtype, device=device)
 
 
 class ServeEngine:
     """Serve ``model`` (``models.lm.Model``) on ``device`` (``cuda`` unless
     named; raises without a card) with caches of ``max_len`` positions.
-    ``temperature`` 0 decodes greedily.  A ``mesh`` raises: an LM on a mesh
-    waits for the model-sharded meshes."""
+    ``temperature`` 0 decodes greedily.
+
+    ``mesh`` (one process per rank, each calling with the whole batch): on
+    a ``model`` axis m > 1 every parameter is stored as this rank's block
+    (``params_pspecs``); a request gathers the stacked blocks one
+    superblock at a time where the stack takes them, and the other split
+    leaves whole for the request.  The caches are laid out by
+    ``cache_pspecs`` (batch axis over the data axes) and each rank runs its
+    rows of the batch; the ranks of one ``model`` row compute the same
+    tokens, and the tokens and the last logits are gathered over the data
+    axes, so every rank returns the whole batch.  A model with
+    ``attn_seq_shard`` splits its attention over the ``model`` axis, and an
+    MoE its experts (``nn/attention.py``, ``nn/moe.py``)."""
 
     def __init__(self, model, max_len: int, temperature: float = 0.0, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"ServeEngine on a mesh: {PART_2}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.max_len = max_len
         self.temperature = temperature
+        self.mesh = mesh
+        self.sharding = (ModelSharding(self.model, mesh).shard()
+                         if model_size(mesh) > 1 else None)
 
     def _sample(self, logits, generator):
         if self.temperature == 0.0:
@@ -50,13 +75,17 @@ class ServeEngine:
         max_new, and the last step's logits).  After ``eos_id`` a sequence
         keeps emitting ``eos_id``; decoding stops when every sequence has.
         ``generator`` (on the engine's device; seed 0 by default) feeds
-        temperature sampling."""
+        temperature sampling (on a mesh, each rank's draws for its rows)."""
         gen = generator if generator is not None else torch.Generator(self.device).manual_seed(0)
-        cfg = self.model.cfg
-        with torch.inference_mode():
+        cfg, mesh = self.model.cfg, self.mesh
+        with torch.inference_mode(), comm.bound(mesh) if mesh is not None else contextlib.nullcontext(), \
+                self.sharding.materialized() if self.sharding is not None \
+                else contextlib.nullcontext():
             batch = {k: to_device(v, self.device) for k, v in batch.items()}
+            full = batch["tokens"].shape[0]
+            batch = shard_batch(batch, mesh)
             bsz, prompt_len = batch["tokens"].shape
-            caches = self.model.make_caches(bsz, self.max_len)
+            caches = self._caches(full)
             extra = {"enc": self.model.encode(batch["frames"])} if cfg.is_enc_dec else None
             logits, caches = self.model.prefill(batch, caches, extra)
             n_prefix = (cfg.frontend.n_patches
@@ -70,10 +99,28 @@ class ServeEngine:
                     done = done | (tok == eos_id)
                     tok = torch.where(done, eos_id, tok)
                 out_tokens.append(tok)
-                if eos_id is not None and bool(done.all()):
+                if eos_id is not None and self._all_done(done):
                     break
                 logits, caches = self.model.decode_step(tok[:, None], caches, pos + i, extra)
-            return torch.stack(out_tokens, dim=1), logits
+            toks = torch.stack(out_tokens, dim=1)
+            return gather_batch(toks, mesh, full), gather_batch(logits, mesh, full)
+
+    def _caches(self, full: int) -> dict:
+        """The caches for a batch of ``full`` sequences: whole without a
+        mesh, else this rank's blocks by ``cache_pspecs``."""
+        if self.mesh is None:
+            return self.model.make_caches(full, self.max_len)
+        whole = self.model.make_caches(full, self.max_len, device="meta")
+        return _local_caches(whole, cache_pspecs(whole, self.mesh), self.mesh, self.device)
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Every sequence of the whole batch has emitted ``eos_id`` (the
+        data ranks agree, so they stop at the same step)."""
+        left = (~done).any().to(torch.int32).reshape(1)
+        if self.mesh is not None and data_axis_names(self.mesh) and data_size(self.mesh) > 1:
+            comm.all_reduce(left, comm.mesh_group(self.mesh, data_axis_names(self.mesh)),
+                            op="max")
+        return not bool(left.item())
 
 
 class FlowServeEngine:

@@ -28,8 +28,20 @@ rows of the whole batch ``data.batch_at(step)`` (so prefetch means the same
 on every rank), and the gradient sum is overlapped into the flow's backward
 (``psum_axis``), trailing, or error-feedback compressed before the wire
 (``cfg.grad_compression``).  Without a mesh, compression runs locally
-(``compress_grads``), nothing crossing a wire.  A mesh whose ``model`` axis
-is more than 1 raises (ROADMAP.md queue 1, item 7 part 2).
+(``compress_grads``), nothing crossing a wire.  On a mesh whose ``model``
+axis is more than 1 the step is ``dist/step.py::make_sharded_train_step``:
+each rank stores its block of every parameter by the reference's
+``params_pspecs`` and of every AdamW moment by ``opt_pspecs``
+(``dist/model.py``; 1-D leaves and the step counter replicate), a step
+gathers the leaves where they are used (a GLOW stack's or an LM stack's a
+step's slice at a time, the rest whole for the step), runs the
+single-device computation on its rows, sums its block of the gradient over
+the data axes and updates its blocks.  Compression there raises
+``ValueError``, as in the reference.  Its checkpoints hold each leaf whole
+(every rank gathers, rank 0 writes), so a restart may lay the state out on
+another ``(d, m)``; at the end the module's leaves are gathered whole again
+and ``TrainResult.shard_bytes`` gives this rank's stored bytes beside one
+process's (``opt_state`` holds this rank's blocks).
 
 Fault-tolerance contract (``tests/test_torch_train_loop.py``): a run killed
 at any step and restarted resumes from the latest checkpoint (or, before the
@@ -59,10 +71,17 @@ from repro_torch.config import TrainConfig
 from repro_torch.core.objectives import nll_loss
 from repro_torch.core.types import ParamTree, resolve_device, to_device
 from repro_torch.data.pipeline import Prefetcher
-from repro_torch.dist import PART_2, comm
+from repro_torch.dist import comm
 from repro_torch.dist.flow import shard_batch
-from repro_torch.dist.sharding import MODEL_AXIS, axis_size, data_index
-from repro_torch.dist.step import dp_axis, dp_size, is_pure_dp, make_dp_train_step
+from repro_torch.dist.model import ModelSharding
+from repro_torch.dist.sharding import data_index, model_size
+from repro_torch.dist.step import (
+    dp_axis,
+    dp_size,
+    is_pure_dp,
+    make_dp_train_step,
+    make_sharded_train_step,
+)
 from repro_torch.optim import (
     adamw_init,
     adamw_update,
@@ -85,13 +104,9 @@ class TrainResult:
     flagged_steps: tuple = ()
     preempted: bool = False  # a SIGTERM ended the run before cfg.steps
     err_state: dict = field(default_factory=dict)  # this rank's compression residuals
-
-
-def check_mesh(mesh):
-    """Raise on a mesh this port cannot run yet: a ``model`` axis > 1."""
-    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
-        raise NotImplementedError(f"a mesh with a model axis of {axis_size(mesh, MODEL_AXIS)} "
-                                  f"needs the model-sharded meshes: {PART_2}")
+    # on a model-sharded mesh: this rank's stored parameter and moment bytes
+    # beside one process's ({"params", "params_whole", "moments", "moments_whole"})
+    shard_bytes: dict = field(default_factory=dict)
 
 
 def _dp_fast_path(mesh, cfg: TrainConfig) -> bool:
@@ -122,12 +137,19 @@ def _init_err(params: dict, cfg: TrainConfig) -> dict:
     return {n: e for n, e in compression_init(params).items() if e is not None}
 
 
-def _make_step(objective: Callable, module, cfg: TrainConfig, mesh=None, vjp_psum_axis=None):
+def _make_step(objective: Callable, module, cfg: TrainConfig, mesh=None, vjp_psum_axis=None,
+               sharding=None):
     """``(state, batch, step) -> (state, metrics)``: the data-parallel step
     on a pure data-parallel mesh (:func:`repro_torch.dist.step.
-    make_dp_train_step`), else the one-process step with local compression.
-    ``vjp_psum_axis``: the objective's backward already sums the parameter
-    gradients over that mesh axis (a flow built with ``psum_axis``)."""
+    make_dp_train_step`), the model-sharded step where ``sharding`` lays the
+    module out (:func:`repro_torch.dist.step.make_sharded_train_step`), else
+    the one-process step with local compression.  ``vjp_psum_axis``: the
+    objective's backward already sums the parameter gradients over that
+    mesh axis (a flow built with ``psum_axis``)."""
+    if sharding is not None:
+        return make_sharded_train_step(objective, module, cfg, mesh, sharding,
+                                       grads_reduced_by_vjp=vjp_psum_axis is not None
+                                       and vjp_psum_axis == dp_axis(mesh))
     if _dp_fast_path(mesh, cfg):
         if cfg.grad_compression != "none" and vjp_psum_axis is not None:
             raise ValueError("grad_compression with a psum_axis flow: its backward would "
@@ -160,18 +182,25 @@ def _save_err(err: dict, mesh, cfg: TrainConfig) -> dict:
     rank calls it), else this process's."""
     if _err_shards(mesh, cfg) is None:
         return err
-    group = mesh.get_group(dp_axis(mesh))
+    group = comm.mesh_group(mesh, dp_axis(mesh))
     return {n: comm.all_gather(e, group) for n, e in err.items()}
 
 
-def _restore_state(module, params, cfg: TrainConfig, mesh):
+def _restore_state(module, params, cfg: TrainConfig, mesh, sharding=None):
     """``(module state, opt, err, step)`` of the latest checkpoint.  An
     elastic restart onto another data-parallel width changes the residuals'
-    shapes: they are re-zeroed, with a warning, instead of failing."""
+    shapes: they are re-zeroed, with a warning, instead of failing.  With
+    ``sharding`` the checkpoint's whole leaves are read and the module state
+    is returned whole, the moments as this rank's blocks."""
     shards = _err_shards(mesh, cfg)
     err_like = {}
     if cfg.grad_compression != "none":
         err_like = {n: e for n, e in compression_init(params, shards).items() if e is not None}
+    if sharding is not None:
+        whole = sharding.whole_like(module.state_dict())
+        like = {"params": whole, "opt": adamw_init({n: whole[n] for n in params}), "err": {}}
+        state, step = ckpt.restore(like, cfg.checkpoint_dir, mesh=mesh)
+        return state["params"], sharding.local_opt(state["opt"]), {}, step
     like = {"params": module.state_dict(), "opt": adamw_init(params), "err": err_like}
     try:
         state, step = ckpt.restore(like, cfg.checkpoint_dir, mesh=mesh)
@@ -206,11 +235,14 @@ def _supervised_loop(
     is given; ``data_fn(step)`` is the step's whole batch on the host.
     ``step_fn`` (``train_pipeline``'s) replaces the step :func:`_make_step`
     builds."""
-    check_mesh(mesh)
     params = dict(module.named_parameters())
-    step_fn = step_fn or _make_step(objective, module, cfg, mesh, vjp_psum_axis)
     # the state a restart returns to when no checkpoint was written yet
     initial = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    sharding = None
+    if step_fn is None and model_size(mesh) > 1:
+        _dp_fast_path(mesh, cfg)  # compression on a model-sharded mesh raises
+        sharding = ModelSharding(module, mesh).shard()
+    step_fn = step_fn or _make_step(objective, module, cfg, mesh, vjp_psum_axis, sharding)
     watchdog = StragglerWatchdog(cfg.step_timeout_s) if cfg.step_timeout_s > 0 else None
     restarts = {"n": 0}
 
@@ -231,20 +263,28 @@ def _supervised_loop(
         old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
 
     def load(values: dict):
+        # whole values; a model-sharded module takes its blocks of them
+        if sharding is not None:
+            values = sharding.local_tree(values)
         with torch.no_grad():
             for key, v in module.state_dict(keep_vars=True).items():
                 v.copy_(values[key])
 
     def save(state, step):
         on_mesh = {} if mesh is None else {"mesh": mesh}
-        ckpt.save({"params": module.state_dict(), "opt": state["opt"],
-                   "err": _save_err(state["err"], mesh, cfg)},
-                  cfg.checkpoint_dir, step, cfg.keep_checkpoints, **on_mesh)
+        if sharding is not None:
+            # each leaf whole: every rank gathers, rank 0 writes
+            whole = {"params": sharding.whole_tree(module.state_dict()),
+                     "opt": sharding.whole_opt(state["opt"]), "err": {}}
+        else:
+            whole = {"params": module.state_dict(), "opt": state["opt"],
+                     "err": _save_err(state["err"], mesh, cfg)}
+        ckpt.save(whole, cfg.checkpoint_dir, step, cfg.keep_checkpoints, **on_mesh)
 
     def attempt_run(attempt: int) -> TrainResult:
         start = ckpt.latest_step(cfg.checkpoint_dir)
         if start is not None:
-            values, opt, err, start = _restore_state(module, params, cfg, mesh)
+            values, opt, err, start = _restore_state(module, params, cfg, mesh, sharding)
             load(values)
             state, start_step = {"opt": opt, "err": err}, start + 1
         else:
@@ -296,6 +336,7 @@ def _supervised_loop(
             losses=losses, restarts=restarts["n"],
             flagged_steps=tuple(watchdog.flagged_steps) if watchdog else (),
             preempted=preempted["flag"], err_state=state["err"],
+            shard_bytes={} if sharding is None else sharding.resident_bytes(state["opt"]),
         )
 
     def on_restart(attempt, exc):
@@ -303,8 +344,15 @@ def _supervised_loop(
 
     try:
         # without checkpoints a failure propagates: no attempt is rerun
-        return run_with_restarts(attempt_run, max_restarts=cfg.max_restarts if resumable else 0,
-                                 on_restart=on_restart)
+        result = run_with_restarts(attempt_run,
+                                   max_restarts=cfg.max_restarts if resumable else 0,
+                                   on_restart=on_restart)
+        if sharding is not None:
+            # the module whole again for its caller (a collective: on the
+            # success path only, where every rank gets here)
+            sharding.unshard()
+            result.params = module.state_dict()
+        return result
     finally:
         if old_handler is not None:
             signal.signal(signal.SIGTERM, old_handler)

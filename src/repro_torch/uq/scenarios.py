@@ -18,11 +18,11 @@ Two kinds:
 * **prior** (``operator`` None): an unconditional image flow trained on
   ``SyntheticImages``, served as streamed sample statistics.
 
-Everything runs on ``device`` (``cuda`` unless named).  ``mesh=`` (a
-data-parallel mesh, ``launch/mesh.py``; one process per rank) shards training
-batches and the sampled chunks over the ranks, as the reference's does; a
-mesh whose ``model`` axis is more than 1 raises (ROADMAP.md queue 1, item 7
-part 2).
+Everything runs on ``device`` (``cuda`` unless named).  ``mesh=``
+(``launch/mesh.py``; one process per rank) shards training batches and the
+sampled chunks over the ranks' data axes, as the reference's does; on a
+``model`` axis more than 1 the training stores each parameter as the ranks'
+blocks (``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -162,12 +162,6 @@ def _scenario(name_or_sc) -> UQScenario:
     return get_scenario(name_or_sc) if isinstance(name_or_sc, str) else name_or_sc
 
 
-def _check_mesh(mesh):
-    from repro_torch.train.loop import check_mesh
-
-    check_mesh(mesh)
-
-
 @dataclass
 class ScenarioRun:
     """A trained scenario: what serving and calibration need.  ``params`` is
@@ -190,7 +184,6 @@ def build_conditional_model(sc: UQScenario, *, generator: torch.Generator | None
     ``log_prob`` and sampling run each rank's rows."""
     from repro_torch.core import ConditionalFlow, SummaryMLP, build_chint
 
-    _check_mesh(mesh)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     op, cfg = sc.make_operator(), sc.flow
@@ -216,7 +209,6 @@ def train_scenario(name_or_sc, *, steps: int | None = None, mesh=None,
     the ranks (``train_flow`` / ``train_conditional_flow``)."""
     from repro_torch.train.loop import train_conditional_flow, train_flow
 
-    _check_mesh(mesh)
     sc = _scenario(name_or_sc)
     dev = resolve_device(device)
     n = steps or sc.steps
@@ -244,7 +236,6 @@ def restore_scenario(name_or_sc, ckpt_dir: str, mesh=None, device=None) -> Scena
     from repro_torch.optim import adamw_init
     from repro_torch.train import checkpoint as ckpt
 
-    _check_mesh(mesh)
     sc = _scenario(name_or_sc)
     dev = resolve_device(device)
     if sc.conditional:

@@ -246,10 +246,13 @@ def test_attn_apply_flash_switch(interpret, seq):
 
 
 def test_attn_apply_refuses_sequence_sharding_and_overlong_writes():
+    """``seq_shard=True`` with no mesh bound is the unsharded call (it
+    raised before the model-sharded meshes; ``tests/test_torch_dist_model.py``
+    runs it on a mesh); a cache write past the cache's end raises."""
     _, cfg, _, p = _attn_case(ATTN_CASES["causal"])
-    x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="item 7 part 2"):
-        attn_apply(p, x, cfg, torch.arange(4), seq_shard=True)
+    x = torch.randn(1, 4, 64, generator=torch.Generator().manual_seed(SEED))
+    sharded, _ = attn_apply(p, x, cfg, torch.arange(4), seq_shard=True)
+    assert torch.equal(sharded, attn_apply(p, x, cfg, torch.arange(4))[0])
     with pytest.raises(ValueError, match="past its length"):
         attn_apply(p, x, cfg, torch.arange(4), cache=make_cache(cfg, 1, 6, torch.float32),
                    cache_pos=3)

@@ -4,8 +4,8 @@ reference: the mesh factoring table and the launchers' ``--mesh`` parsing
 error-feedback compression (``optim/compression.py``: exactly-k top-k under
 ties, int8's rounding, the local ``compress_grads``, the residual trees
 carried across by ``bridge.py``), one-process compressed training against
-the reference's loop, and the refusals that wait for the model-sharded
-meshes (ROADMAP.md queue 1, item 7 part 2)."""
+the reference's loop, and the calls that raised while the model-sharded
+meshes waited, which now run."""
 
 import jax
 import jax.numpy as jnp
@@ -50,8 +50,10 @@ def test_production_mesh_and_mesh_args():
     assert multi.shape == (2, 16, 16) and multi.mesh_dim_names == ("pod", "data", "model")
     assert multi.size() == 512
     assert parse_mesh_arg("", "cpu") is None
-    with pytest.raises(ValueError, match="'auto' or 'd,m'"):
-        parse_mesh_arg("1,1,1", "cpu")
+    with pytest.raises(ValueError, match="'auto', 'd,m' or 'p,d,m'"):
+        parse_mesh_arg("1,1,1,1", "cpu")
+    pod = parse_mesh_arg("1,1,1", "cpu")  # the multi-pod shape, a world of one process
+    assert tuple(pod.shape) == (1, 1, 1) and pod.mesh_dim_names == ("pod", "data", "model")
     with pytest.raises(ValueError, match="does not match the world"):
         parse_mesh_arg("2,1", "cpu")  # a world of one process
     mesh = parse_mesh_arg("auto", "cpu")
@@ -171,22 +173,26 @@ def test_one_process_compressed_training_matches_the_reference(tmp_path, method)
             assert float(diff.max()) <= 1e-3 and np.mean(diff > 1e-4) <= 5e-3, key
 
 
-def test_model_sharded_meshes_raise_naming_part_2():
-    """A mesh with a model axis > 1, sequence-parallel attention and the LM
-    ``ServeEngine`` on a mesh wait for the model-sharded meshes."""
-    from repro_torch.data.synthetic import SyntheticImages
+def test_model_sharded_meshes_raise_naming_part_2(tmp_path):
+    """The three calls that raised while the model-sharded meshes waited
+    (ROADMAP.md queue 1, item 7 part 2, now closed) run: ``train_flow`` on a
+    (1, 2) mesh (two ``gloo`` ranks), ``attn_apply(seq_shard=True)`` with no
+    mesh bound (the unsharded result, bit for bit) and ``ServeEngine`` on a
+    mesh (a (1, 1) mesh in this process)."""
     from repro_torch.models import Model
     from repro_torch.nn.attention import attn_apply, attn_init
     from repro_torch.serve.engine import ServeEngine
+    from torch_dist_workers import spawn, train_flow_synthetic
 
-    flow = build_glow_scanned(**SMALL, grad_mode="coupled", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7 part 2"):
-        train_flow(flow, SyntheticImages(8, batch=2), TrainConfig(steps=1), device="cpu",
-                   mesh=MeshSpec((1, 2), ("data", "model")))
+    outs = spawn(train_flow_synthetic, 2, tmp_path / "run", (1, 2),
+                 dict(SMALL, grad_mode="coupled"))
+    assert outs[0]["losses"] == outs[1]["losses"] and np.isfinite(outs[0]["losses"]).all()
     cfg = get_arch("yi-6b").reduced
     p = attn_init(torch.Generator().manual_seed(0), cfg.d_model, cfg.attention)
-    with pytest.raises(NotImplementedError, match="item 7 part 2"):
-        attn_apply(p, torch.zeros(1, 4, cfg.d_model), cfg.attention, torch.arange(4),
-                   seq_shard=True)
-    with pytest.raises(NotImplementedError, match="item 7 part 2"):
-        ServeEngine(Model(cfg, device="cpu"), 8, device="cpu", mesh=make_test_mesh(1, 1))
+    x = torch.randn(1, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    sharded, _ = attn_apply(p, x, cfg.attention, torch.arange(4), seq_shard=True)
+    plain, _ = attn_apply(p, x, cfg.attention, torch.arange(4))
+    assert torch.equal(sharded, plain)
+    engine = ServeEngine(Model(cfg, device="cpu"), 8, device="cpu", mesh=make_test_mesh(1, 1))
+    toks, logits = engine.generate({"tokens": torch.zeros(2, 4, dtype=torch.int32)}, 2)
+    assert toks.shape == (2, 2) and bool(torch.isfinite(logits).all())

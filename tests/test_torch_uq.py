@@ -525,8 +525,9 @@ def test_launchers_train_and_serve_a_scenario_on_the_cpu(tmp_path):
 
 def test_launchers_refuse_what_is_not_ported(tmp_path, capsys):
     """``--mesh auto`` trains ``lg-smoke`` (a world of one process: a (1, 1)
-    mesh); an LM served on a mesh still raises, naming the model-sharded
-    meshes (ROADMAP.md queue 1, item 7 part 2); whisper-small and
+    mesh); an LM served on a mesh, which raised before the model-sharded
+    meshes, now serves (``--mesh 1,1`` in this process; the model-sharded
+    launchers run in ``tests/test_torch_dist_model_lm.py``); whisper-small and
     llava-next-34b, which raised here before they were ported, now train and
     serve through the launchers at ``--reduced`` on the CPU."""
     from repro_torch.launch import serve, train
@@ -538,8 +539,9 @@ def test_launchers_refuse_what_is_not_ported(tmp_path, capsys):
                 "--ckpt", str(tmp_path / "mesh")])
     out = capsys.readouterr().out
     assert "mesh=1x1 backend=gloo rank=0/1" in out and "done at step 1" in out
-    with pytest.raises(NotImplementedError, match="item 7 part 2"):
-        serve.main(["--arch", "yi-6b", "--mesh", "2,1", "--device", "cpu"])
+    serve.main(["--arch", "yi-6b", "--reduced", "--mesh", "1,1", "--batch", "2",
+                "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
+    assert "arch=yi-6b-reduced device=cpu mesh=1x1: generated (2, 4)" in capsys.readouterr().out
     serve.main(["--arch", "llava-next-34b", "--reduced", "--batch", "2", "--prompt-len", "8",
                 "--max-new", "4", "--device", "cpu"])
     assert "arch=llava-next-34b-reduced device=cpu: generated (2, 4)" in capsys.readouterr().out

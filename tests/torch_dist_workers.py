@@ -307,3 +307,196 @@ def scenario_launcher(rank, world, tmp, ckpt):
                     "--chunk", "256", "--mesh", f"{world},1", "--device", "cpu",
                     "--no-calibration"])
     return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# model-sharded meshes
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(shape):
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return make_auto_mesh(tuple(shape), axes, device_type="cpu")
+
+
+def train_flow_mesh(rank, world, tmp, shape, build_kw, tree, batches, cfg_kw, ckpt_dir=None,
+                    psum_axis=None):
+    """``train_flow`` of a scanned GLOW on a ``shape`` mesh (``(d, m)`` or
+    ``(p, d, m)``): the losses, the final parameters (whole), this rank's
+    stored bytes and the wire bytes of the run."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.dist import comm
+    from repro_torch.train.loop import train_flow
+
+    import warnings
+
+    mesh = _mesh_of(shape)
+    flow = _flow("scanned", build_kw, tree, psum_axis)
+    comm.reset_wire_bytes()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = train_flow(flow, _Batches(batches), TrainConfig(**cfg_kw, checkpoint_dir=ckpt_dir),
+                         device="cpu", mesh=mesh)
+    return {"losses": res.losses, "params": _np(dict(flow.named_parameters())),
+            "shard_bytes": res.shard_bytes, "wire": comm.wire_bytes(),
+            "final_step": res.final_step, "warnings": [str(w.message) for w in caught]}
+
+
+def compression_on_model_mesh(rank, world, tmp, shape, build_kw, tree, batches):
+    """``train_flow`` with int8 compression on a model-sharded mesh: the
+    error it raises."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.loop import train_flow
+
+    flow = _flow("scanned", build_kw, tree)
+    try:
+        train_flow(flow, _Batches(batches), TrainConfig(steps=1, grad_compression="int8"),
+                   device="cpu", mesh=_mesh_of(shape))
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+def launchers_mesh(rank, world, tmp, mesh_arg):
+    """Both launchers on ``--mesh mesh_arg``: ``--arch
+    granite-moe-1b-a400m --reduced`` trained then served, and the
+    ``images-prior-scanned`` flow scenario trained."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve, train
+
+    buf = io.StringIO()
+    ck = os.path.join(tmp, "lm")
+    with contextlib.redirect_stdout(buf):
+        train.main(["--arch", "granite-moe-1b-a400m", "--reduced", "--steps", "2", "--seq", "16",
+                    "--batch", "2", "--mesh", mesh_arg, "--device", "cpu", "--ckpt", ck])
+        serve.main(["--arch", "granite-moe-1b-a400m", "--reduced", "--ckpt", ck, "--batch", "2",
+                    "--prompt-len", "8", "--max-new", "4", "--mesh", mesh_arg,
+                    "--device", "cpu"])
+        train.main(["--scenario", "images-prior-scanned", "--steps", "2", "--mesh", mesh_arg,
+                    "--device", "cpu", "--ckpt", os.path.join(tmp, "flow")])
+    return buf.getvalue()
+
+
+def train_lm_mesh(rank, world, tmp, shape, arch_cfg, tree, cfg_kw, batches, grad_mode=None):
+    """``train_lm`` of a ``REDUCED`` LM on a ``shape`` mesh: the losses and
+    the final parameters (whole)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train.loop import train_lm
+
+    model = params_from_numpy(Model(arch_cfg, device="cpu"), tree)
+    res = train_lm(model, _Tokens(batches), TrainConfig(**cfg_kw), grad_mode=grad_mode,
+                   device="cpu", mesh=_mesh_of(shape))
+    return {"losses": res.losses, "params": _np(dict(model.named_parameters())),
+            "shard_bytes": res.shard_bytes}
+
+
+def serve_lm_mesh(rank, world, tmp, shape, arch_cfg, tree, prompt, max_new, max_len):
+    """``ServeEngine(mesh=...)`` greedy generation of a ``REDUCED`` LM:
+    the tokens, the first step's and the last step's logits, and the
+    experts each rank ran."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.nn import moe
+    from repro_torch.serve.engine import ServeEngine
+
+    model = params_from_numpy(Model(arch_cfg, device="cpu"), tree)
+    engine = ServeEngine(model, max_len=max_len, device="cpu", mesh=_mesh_of(shape))
+    ran = []
+    orig = moe.ffn_apply
+
+    def counting(p, x, kind):
+        ran.append(int(x.shape[0]))
+        return orig(p, x, kind)
+
+    moe.ffn_apply = counting
+    try:
+        toks, logits = engine.generate({k: torch.from_numpy(v) for k, v in prompt.items()},
+                                       max_new)
+    finally:
+        moe.ffn_apply = orig
+    first = engine.generate({k: torch.from_numpy(v) for k, v in prompt.items()}, 1)[1]
+    return {"tokens": toks.numpy(), "logits": logits.numpy(), "first_logits": first.numpy(),
+            "experts_run": ran,
+            "stored": sum(p.numel() for p in model.parameters())}
+
+
+def attention_mesh(rank, world, tmp, shape, attn_cfg, params, x, gy, cache_len, pos0,
+                   x_flash):
+    """``attn_apply(seq_shard=True)`` on a ``shape`` mesh: the prefill
+    without a cache and its gradients against the cotangent ``gy``, then a
+    cached prefill and one cached decode step; and ``impl="flash"`` at
+    ``x_flash``'s length (a multiple of 128), with the calls it made to
+    ``flash_sdpa``."""
+    from repro_torch.dist import comm
+    from repro_torch.kernels.attention import ops
+    from repro_torch.nn.attention import attn_apply, make_cache
+
+    mesh = _mesh_of(shape)
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    pos = torch.arange(x.shape[1])
+    with comm.bound(mesh):
+        out, _ = attn_apply(p, xt, attn_cfg, pos, seq_shard=True)
+        grads = torch.autograd.grad(out, [xt, *p.values()], torch.from_numpy(gy))
+        cache = make_cache(attn_cfg, x.shape[0], cache_len, torch.float32)
+        with torch.no_grad():
+            pre, _ = attn_apply(p, xt[:, :pos0], attn_cfg, pos[:pos0], cache=cache, cache_pos=0,
+                                seq_shard=True)
+            dec, _ = attn_apply(p, xt[:, pos0:pos0 + 1], attn_cfg, pos[pos0:pos0 + 1],
+                                cache=cache, cache_pos=pos0, seq_shard=True)
+        calls = []
+        flash = ops.flash_sdpa
+
+        def counting(*args, **kw):
+            calls.append(args[0].shape)
+            return flash(*args, **kw)
+
+        ops.flash_sdpa = counting
+        try:
+            with torch.no_grad():
+                out_flash, _ = attn_apply(p, torch.from_numpy(x_flash), attn_cfg,
+                                          torch.arange(x_flash.shape[1]), impl="flash",
+                                          seq_shard=True)
+        finally:
+            ops.flash_sdpa = flash
+    return {"out": out.detach().numpy(), "grads": [g.numpy() for g in grads],
+            "cached_prefill": pre.numpy(), "decode": dec.numpy(),
+            "flash": out_flash.numpy(), "flash_calls": [tuple(c) for c in calls]}
+
+
+def moe_mesh(rank, world, tmp, shape, moe_cfg, kind, params, x, gy):
+    """``moe_apply`` on a ``shape`` mesh (expert parallelism): the output,
+    aux and the gradients of ``x`` and of every parameter against ``gy``."""
+    from repro_torch.dist import comm
+    from repro_torch.nn.moe import moe_apply
+
+    flat = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    tree = {"router": flat["router"],
+            "experts": {k.split(".", 1)[1]: v for k, v in flat.items()
+                        if k.startswith("experts.")}}
+    xt = torch.from_numpy(x).requires_grad_()
+    with comm.bound(_mesh_of(shape)):
+        y, aux = moe_apply(tree, xt, moe_cfg, kind)
+        grads = torch.autograd.grad(y, [xt, *flat.values()], torch.from_numpy(gy))
+    return {"y": y.detach().numpy(), "aux": aux.detach().numpy(),
+            "grads": dict(zip(["x", *flat], [g.numpy() for g in grads]))}
+
+
+def train_flow_synthetic(rank, world, tmp, shape, build_kw):
+    """One ``train_flow`` step of a freshly built scanned GLOW on
+    ``SyntheticImages`` on a ``shape`` mesh: its losses."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.core import build_glow_scanned
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.train.loop import train_flow
+
+    flow = build_glow_scanned(**build_kw, device="cpu")
+    res = train_flow(flow, SyntheticImages(8, batch=2), TrainConfig(steps=1), device="cpu",
+                     mesh=_mesh_of(shape))
+    return {"losses": res.losses}
