@@ -176,9 +176,9 @@ each:
              prefill and the decode step.
 10. dense and MoE LMs - ``[serve]`` one model at a time, each freed before
              the next: glm4-9b at full width and depth 2 in f32 against the
-             CPU, then at depth 20 of 40 in bf16; granite-34b and
+             CPU, then at depth 10 of 40 in bf16; granite-34b and
              command-r-plus-104b at ``REDUCED`` against the CPU, then at full
-             width and a cut depth (12 and 4, named on the line; the weights
+             width and a cut depth (6 and 2, named on the line; the weights
              the card-against-CPU models hold are drawn on the card and
              copied to the CPU); granite-moe-1b-a400m at full width and
              depth 2 against the CPU, then at full width and depth;
@@ -215,9 +215,9 @@ each:
              the CPU under ``invertible`` and ``autodiff``, bitwise on a
              repeat; (ssm-b) at one superblock (rwkv6-7b 1, zamba2-7b 6),
              bf16, 2 x 512, ``SSM_TRAIN_STEPS`` steps of ``train_lm`` (wall,
-             tokens/s, peak memory), then the same run
-             failed at its last step and restarted from its checkpoint,
-             bitwise; (ssm-c) peak memory of a step at two depths (rwkv6-7b
+             tokens/s, peak memory), then zamba2-7b's run again, failed at
+             its last step and restarted from its checkpoint, bitwise
+             (``SSM_RESTART``); (ssm-c) peak memory of a step at two depths (rwkv6-7b
              1 and 2 at 2 x 1024, zamba2-7b 6 and 12 at 2 x 2048), the
              quarter rule; 0 ``wkv_scan`` / ``ssd_scan`` launches in every
              part, while phase 9's serving counts stay 32 + 32 and 81;
@@ -231,7 +231,7 @@ each:
              decoder tokens with 1500 frames (wall, tokens/s, peak memory).
              llava-next-34b: full width, depth 2, f32, against the CPU
              (prefill, 8 greedy tokens); ``REDUCED`` f32, a train step
-             against the CPU; full width at depth 16 (``LLAVA_WHY``) in
+             against the CPU; full width at depth 8 (``LLAVA_WHY``) in
              bf16, batch 8, 576 patches and 1472 text tokens (2048
              positions), 32 new tokens, with ``[times]``/``[profile]``.  No
              kernel launches on these paths (reported), as in the reference;
@@ -287,6 +287,24 @@ each:
              ``train --scenario images-prior-scanned``, beside the
              one-process references and ended before the ranks start, so
              no other process shares the card while (a) and (b) time.
+  15. dryrun - the dry run (``launch/dryrun.py``) held against the card, in
+             phase 14's two ranks: (a) granite-moe-1b-a400m at full width,
+             ``DRY_TRAIN_DEPTH`` layers, f32, trained on a (2, 1) mesh under
+             ``zero1``, ``fsdp`` and ``zero1-fsdp`` through
+             ``make_train_step``, 3 steps each (zero1-fsdp twice,
+             bitwise), no gradient clip, the losses
+             and every leaf within 1e-5 of scale of the one-process step
+             (accumulating over the ranks' row blocks), a rank's stored
+             bytes beside one process's; (b) zamba2-7b at full width and
+             depth 7 served on the (1, 2) mesh with ``cache_seq_fallback``,
+             batch 2, a 512-token prompt, 8 new tokens, f32 (tokens equal to
+             one process, each step within 5e-6 of its largest) and with
+             ``servefix``'s bf16 weights (within 2e-2), one ``ssd_scan`` a
+             layer a rank a prefill; each cell reckoned by ``dry_cell`` on a
+             ``MeshSpec`` for the rank, its argument bytes and collectives
+             equal to the rank's stored bytes (with its rows and caches) and
+             counted wire; (c) ``[lm-train]`` (b)'s cell reckoned on a (1, 1)
+             mesh, its measured peak over the reckoned peak in 0.8-1.25.
 
 The flash-attention checks of phase 2 (``flash_attention`` against
 ``attention_ref`` at the reference's kernel-test shapes and yi-6b's, f32 and
@@ -2693,12 +2711,13 @@ def ssm_serve_phase(dev, card, arch: str) -> dict:
 #: phase 10's models: (arch, the card-against-CPU model: "reduced" or a depth
 #: at full width, the depth served on the card at full width or None, why)
 LM_FAMILY = (
-    ("glm4-9b", 2, 20, "depth 20 of 40 (21.3 GB of f32 weights; whole, 37.6 GB, fits the "
-                       "card but not the script's time limit)"),
-    ("granite-34b", "reduced", 12, "depth 12 of 88: 20.6 GB of f32 weights (1.52 GB a layer), "
-                                   "for the script's time limit"),
-    ("command-r-plus-104b", "reduced", 4,
-     "depth 4 of 64: 37.7 GB of f32 weights (6.29 GB a layer, 12.58 GB the tied embedding)"),
+    ("glm4-9b", 2, 10, "depth 10 of 40 (12.9 GB of f32 weights; whole, 37.6 GB, fits the "
+                       "card but not the script's time limit; 20 until phase 15)"),
+    ("granite-34b", "reduced", 6, "depth 6 of 88: 11.5 GB of f32 weights (1.52 GB a layer), "
+                                  "for the script's time limit (12 until phase 15)"),
+    ("command-r-plus-104b", "reduced", 2,
+     "depth 2 of 64: 25.2 GB of f32 weights (6.29 GB a layer, 12.58 GB the tied embedding; 4 "
+     "until phase 15)"),
     ("granite-moe-1b-a400m", 2, 24, "full depth: 5.5 GB of f32 weights"),
     ("llama4-maverick-400b-a17b", "reduced", None,
      "REDUCED only: one superblock (two layers) holds about 66 GB of f32 weights; two ranks "
@@ -2996,7 +3015,8 @@ def lm_train_full(dev, card) -> float:
     per step wall, busy, idle share, tokens/s, peak memory; checkpoints after
     the middle step and the last), then a restart from the middle checkpoint
     that reproduces the last step bit for bit.  Returns the
-    ``flash_attention`` launches a step of the first run."""
+    ``flash_attention`` launches a step of the first run and each step's
+    peak memory (``torch.cuda.max_memory_allocated`` over the step)."""
     import shutil
     import tempfile
 
@@ -3080,7 +3100,7 @@ def lm_train_full(dev, card) -> float:
     del model, final
     gc.collect()
     torch.cuda.empty_cache()
-    return flash / LM_TRAIN_STEPS
+    return flash / LM_TRAIN_STEPS, clock.peaks[1:]
 
 
 def lm_train_memory(dev, card) -> None:
@@ -3170,6 +3190,11 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 512, 4   # (b), bf16
 #: read back (a checkpoint holds 12 B a parameter; the embedding and head are
 #: most of rwkv6-7b's)
 SSM_RESTART_DEPTH = {"rwkv6-7b": 1, "zamba2-7b": 6}
+#: the models whose (b) run is repeated with checkpoints, failed and
+#: restarted: zamba2-7b alone since phase 15 (its writes and read took 53.5 s
+#: for rwkv6-7b, 58.6 s for zamba2-7b; the restart is the loop's, the same
+#: code for both)
+SSM_RESTART = ("zamba2-7b",)
 #: (ssm-a) the gate on a leaf is the larger of TOL_GRAD_REL and this many
 #: times the step's own f32 sensitivity: how far the card's gradient moves
 #: when the embedding table moves by one f32 ulp (relative 2^-23, random
@@ -3282,10 +3307,10 @@ def ssm_train_restart(dev, card) -> None:
     """(ssm-b) each of ``SSM_TRAIN`` at ``SSM_RESTART_DEPTH``, bf16 activations, f32
     master weights, AdamW, ``SyntheticTokens`` 2 x 512: ``SSM_TRAIN_STEPS``
     steps of ``train_lm`` under ``invertible`` without checkpoints (per step
-    wall, tokens/s, peak memory, scan launches: 0), then the same run from
-    the same seed with checkpoints, failed at its last step and restarted
-    from the checkpoint before it: the final weights and every loss bitwise
-    the first run's."""
+    wall, tokens/s, peak memory, scan launches: 0), then, for the models of
+    ``SSM_RESTART``, the same run from the same seed with checkpoints,
+    failed at its last step and restarted from the checkpoint before it:
+    the final weights and every loss bitwise the first run's."""
     import shutil
     import tempfile
 
@@ -3313,9 +3338,24 @@ def ssm_train_restart(dev, card) -> None:
         launches = {k.name: k.launches / n for k in kernels}
         final = {k: v.clone() for k, v in model.state_dict().items()}
         walls = [1e3 * (b - a) for a, b in zip(clock.marks, clock.marks[1:])]
+        n_params = sum(p.numel() for p in model.parameters())
         del model
         gc.collect()
         torch.cuda.empty_cache()
+        common = dict(model=arch, depth=depth, dtype=cfg.dtype,
+                      batch=[SSM_TRAIN_BATCH, SSM_TRAIN_SEQ], steps=n, losses=clean.losses,
+                      wall_ms=walls, tokens_per_s=[SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / (w * 1e-3)
+                                                   for w in walls],
+                      peak_memory_bytes=clock.peaks[1:], scan_launches_per_step=launches,
+                      n_params=n_params, card=card)
+        check(len(clean.losses) == n and all(math.isfinite(v) for v in clean.losses)
+              and 0 < clean.losses[0] < 2 * math.log(cfg.vocab_size),
+              f"lm-train (ssm-b) {arch}: losses {clean.losses}")
+        check(not any(launches.values()), f"lm-train (ssm-b) {arch}: scans launched {launches}")
+        if arch not in SSM_RESTART:
+            line("lm-train", part="ssm-b", restart="not run (SSM_RESTART)", **common)
+            del final
+            continue
         scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_"))
         try:
             model = Model(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
@@ -3329,19 +3369,9 @@ def ssm_train_restart(dev, card) -> None:
             same = all(torch.equal(final[k], v) for k, v in model.state_dict().items())
         finally:
             shutil.rmtree(scratch, ignore_errors=True)
-        n_params = sum(p.numel() for p in model.parameters())
-        line("lm-train", part="ssm-b", model=arch, depth=depth,
-             dtype=cfg.dtype, batch=[SSM_TRAIN_BATCH, SSM_TRAIN_SEQ], steps=n, losses=clean.losses,
-             wall_ms=walls, tokens_per_s=[SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / (w * 1e-3)
-                                          for w in walls],
-             peak_memory_bytes=clock.peaks[1:], scan_launches_per_step=launches,
-             restarts=res.restarts, final_bitwise_equal=same,
+        line("lm-train", part="ssm-b", restarts=res.restarts, final_bitwise_equal=same,
              resumed_losses=res.losses, losses_bitwise_equal=res.losses == clean.losses[-1:],
-             restart_run_s_with_saves_and_restore=restart_s, n_params=n_params, card=card)
-        check(len(clean.losses) == n and all(math.isfinite(v) for v in clean.losses)
-              and 0 < clean.losses[0] < 2 * math.log(cfg.vocab_size),
-              f"lm-train (ssm-b) {arch}: losses {clean.losses}")
-        check(not any(launches.values()), f"lm-train (ssm-b) {arch}: scans launched {launches}")
+             restart_run_s_with_saves_and_restore=restart_s, **common)
         check(res.restarts == 1 and same and res.losses == clean.losses[-1:],
               f"lm-train (ssm-b) {arch}: the restart differs")
         del model, final
@@ -3410,9 +3440,9 @@ def ssm_train_memory(dev, card) -> None:
 
 WHISPER_FRAMES = 1500                    # the config's n_frames, whisper's own
 WHISPER_PROMPT, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 64, 448, 4   # 448: its target limit
-LLAVA_DEPTH = 16
-LLAVA_WHY = ("depth 16 of 60: 39.4 GB of f32 weights (2.23 GB a layer, 3.67 GB embedding and "
-             "head), under phase 10's 40 GB rule")
+LLAVA_DEPTH = 8
+LLAVA_WHY = ("depth 8 of 60: 21.5 GB of f32 weights (2.23 GB a layer, 3.67 GB embedding and "
+             "head), for the script's time limit (16 until phase 15)")
 
 
 def frontend_inputs(cfg, batch: int, positions: int, kind: str, generator) -> dict:
@@ -4069,6 +4099,7 @@ def mesh_rank(rank: int, world: int, scratch: str):
         out = {"rank": rank, "backend": backend}
         out.update(_mesh_flow(rank, mesh, payload, scratch))
         out.update(_mesh_serve(rank, mesh, payload))
+        out["dryrun"] = dryrun_rank(rank, world, payload)
         torch.save(out, f"{scratch}/out{rank}.pt")
     except BaseException:
         Path(f"{scratch}/err{rank}.txt").write_text(traceback.format_exc())
@@ -4504,7 +4535,332 @@ def mesh_phase(dev, card) -> dict:
          serve_wire=b[0]["bfloat16"]["wire"],
          note="two ranks share one card: correctness and wire bytes, not scaling", card=card)
     return {"step_per_rank": a[0]["launches_per_step"],
-            "sample_per_rank": a[0]["sample_launches"]}
+            "sample_per_rank": a[0]["sample_launches"],
+            "dryrun": [o["dryrun"] for o in outs]}
+
+
+DRY_TRAIN_ARCH, DRY_TRAIN_DEPTH = "granite-moe-1b-a400m", 2   # (a): 2 of 24 layers, f32
+DRY_TRAIN_ROWS, DRY_TRAIN_SEQ, DRY_STEPS = 2, 512, 3          # a rank's rows, positions
+DRY_VARIANTS = ("zero1", "fsdp", "zero1-fsdp")
+DRY_REPEAT = "zero1-fsdp"               # run twice, bitwise: both options at once
+TOL_DRY = 1e-5                          # of each leaf's (loss's) largest, against one process
+DRY_SERVE_ARCH, DRY_SERVE_DEPTH = "zamba2-7b", 7                # (b): a superblock and its tail
+DRY_SERVE_BATCH, DRY_SERVE_PROMPT, DRY_SERVE_NEW = 2, 512, 8
+DRY_PEAK_BAND = (0.8, 1.25)             # (c): measured over reckoned peak, [lm-train] (b)
+
+
+def wire_kinds(wire: dict) -> dict:
+    """``dist/comm.py``'s counts in the dry run's ``collectives`` layout."""
+    kinds = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter", "send": "collective-permute"}
+    out = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute"), 0)
+    for op, n in wire["by_op"].items():
+        out[kinds[op]] += n
+    out["total"] = sum(wire["by_op"].values())
+    out["count"] = sum(wire["calls"].values())
+    return out
+
+
+def dryrun_rank(rank: int, world: int, payload) -> dict:
+    """Phase 15 ``[dryrun]`` in one of phase 14's ranks (the same gloo world
+    on ``cuda:0``): (a) ``DRY_TRAIN_ARCH`` trained on a (2, 1) mesh and (b)
+    ``DRY_SERVE_ARCH`` served on the (1, 2) mesh, each against the
+    one-process run on the card, and each cell reckoned by the dry run on
+    ``MeshSpec`` for this rank, whose argument and wire bytes must equal
+    what the card stored and counted."""
+    return {"a": _dry_train(rank, payload), "b": _dry_serve(rank, payload)}
+
+
+def _dry_train(rank, payload) -> dict:
+    """(a) ``DRY_STEPS`` steps of ``launch/dryrun.py::make_train_step`` under
+    each of ``DRY_VARIANTS`` (``DRY_REPEAT`` twice), full width,
+    ``DRY_TRAIN_DEPTH`` layers, f32, ``DRY_TRAIN_ROWS`` x ``DRY_TRAIN_SEQ`` a
+    rank, no gradient clip.  Gates: the losses and every parameter within
+    ``TOL_DRY`` of the one-process step's (each leaf's largest), the
+    one-process step accumulating over the ranks' row blocks; bitwise on the
+    repeat; the dry run's argument bytes equal to the rank's stored
+    parameter and moment bytes plus its rows of the batch, and its
+    collectives to the first step's wire, kind by kind."""
+    import torch
+    from repro_torch.config import ShapeSpec, TrainConfig, get_arch
+    from repro_torch.dist import comm
+    from repro_torch.launch.dryrun import dry_cell, make_train_step, parse_variant
+    from repro_torch.launch.mesh import MeshSpec, make_auto_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.registry import batch_like, input_specs
+
+    dev = torch.device("cuda")
+    cfg = get_arch(DRY_TRAIN_ARCH).config.replace(n_layers=DRY_TRAIN_DEPTH, dtype="float32")
+    shape = ShapeSpec("dry-train", DRY_TRAIN_SEQ, 2 * DRY_TRAIN_ROWS, "train")
+    batch = batch_like(input_specs(cfg, shape), torch.Generator().manual_seed(SEED + 110),
+                       cfg.vocab_size)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    mesh = make_auto_mesh((2, 1), device_type="cuda")
+
+    def run(on_mesh, zero1=False, fsdp=False, accum=1):
+        model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 111), device=dev)
+        # no clip: the clip scale is 1 / the global norm, whose last bits
+        # follow the order of its sum (the blocks' under zero1 and fsdp, the
+        # whole leaves' in one process), and AdamW's moments, where a
+        # gradient changes sign between steps, amplify a last-bit change of
+        # the scale; the norms are reported
+        step = make_train_step(model, TrainConfig(lr=1e-3, warmup_steps=1, accum_steps=accum,
+                                                  grad_clip=0.0),
+                               mesh=mesh if on_mesh else None, zero1=zero1, fsdp=fsdp)
+        state = step.init_state()
+        losses, wire, walls, norms = [], None, [], []
+        for _ in range(DRY_STEPS):
+            comm.reset_wire_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            walls.append(1e3 * (time.perf_counter() - t0))
+            wire = wire or comm.wire_bytes()
+        named = {k: v.detach() for k, v in model.named_parameters()}
+        whole = step.sharding.whole_tree(named) if step.sharding is not None else named
+        stored = (step.sharding.resident_bytes(state["opt"]) if step.sharding is not None
+                  else None)
+        out = {"losses": losses, "grad_norms": norms,
+               "params": {k: v.clone() for k, v in whole.items()},
+               "wire": wire, "stored": stored, "stored_bytes": step.stored_bytes(state),
+               "step_ms": walls}
+        del step, model, state
+        torch.cuda.empty_cache()
+        return out
+
+    # the one-process reference accumulates over the two ranks' row blocks,
+    # the order in which the data axis sums: AdamW's first steps are nearly
+    # sign(g), so a gradient element at the level of f32 reordering noise
+    # flips by 2 lr under the plain one-process sum (1.11e-2 of a leaf's
+    # scale in PERF.md's run 3 of this phase)
+    ref = run(False, accum=2)
+    results = {}
+    for variant in DRY_VARIANTS:
+        opts = parse_variant(variant)
+        a = run(True, opts["zero1"], opts["fsdp"])
+        bitwise = None
+        if variant == DRY_REPEAT:
+            b = run(True, opts["zero1"], opts["fsdp"])
+            bitwise = a["losses"] == b["losses"] and all(
+                torch.equal(v, b["params"][k]) for k, v in a["params"].items())
+            a["step_ms"] += b["step_ms"]
+            del b
+        leaf, worst = max_rel_leaf_err(a["params"], ref["params"])
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"]))
+        art = dry_cell(DRY_TRAIN_ARCH, shape, MeshSpec((2, 1), ("data", "model"), backend="gloo",
+                                                       rank=rank), "2x1", variant, cfg=cfg)
+        local = sum(v.numel() * v.element_size() for v in batch.values()) // 2
+        counted = wire_kinds(a["wire"])
+        res = {"variant": variant, "losses": a["losses"], "one_process_losses": ref["losses"],
+               "loss_rel_err": loss_err, "leaf_max_rel_err": leaf, "worst_leaf": worst,
+               "reference": "one process, accum_steps=2 (the ranks' row blocks)",
+               "grad_norm_rel_err": max(abs(x - y) / y for x, y in zip(a["grad_norms"],
+                                                                       ref["grad_norms"])),
+               "bitwise_repeatable": bitwise, "step_ms": a["step_ms"],
+               "stored": a["stored"], "one_process_stored_bytes": ref["stored_bytes"],
+               "stored_bytes": a["stored_bytes"], "local_batch_bytes": local,
+               "reckoned_argument_bytes": art["memory"]["argument_bytes"],
+               "reckoned_peak_bytes": art["memory"]["peak_bytes"], "wire": counted,
+               "reckoned_collectives": art["collectives"]}
+        line("dryrun", part="a", rank=rank, model=DRY_TRAIN_ARCH, depth=DRY_TRAIN_DEPTH,
+             of_depth=24, mesh=[2, 1], **res, card=payload["card"])
+        check(loss_err <= TOL_DRY and leaf <= TOL_DRY,
+              f"dryrun (a) {variant} rank {rank}: loss {loss_err}, leaf {leaf} ({worst}) "
+              "of scale from one process")
+        check(bitwise is not False, f"dryrun (a) {variant} rank {rank}: the repeat differs")
+        check(art["memory"]["argument_bytes"] == a["stored_bytes"] + local,
+              f"dryrun (a) {variant} rank {rank}: reckoned argument bytes "
+              f"{art['memory']['argument_bytes']} vs stored {a['stored_bytes']} + batch {local}")
+        check(art["collectives"] == counted,
+              f"dryrun (a) {variant} rank {rank}: reckoned {art['collectives']} vs counted "
+              f"{counted}")
+        results[variant] = res
+    del ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def _dry_serve(rank, payload) -> dict:
+    """(b) ``ServeEngine(cache_seq_fallback=True)`` of ``DRY_SERVE_ARCH`` at
+    full width and ``DRY_SERVE_DEPTH`` layers on the (1, 2) mesh, batch
+    ``DRY_SERVE_BATCH``, a ``DRY_SERVE_PROMPT``-token prompt and
+    ``DRY_SERVE_NEW`` new tokens, in f32 and, with the servefix bf16 weights,
+    in bf16.  Gates: f32 tokens equal to the one-process engine's and each
+    step's logits within ``TOL_LM_LOGITS``'s 5e-6 of that step's largest;
+    bf16 each step within ``TOL_BF16`` (no MoE: nothing to pin); one
+    ``ssd_scan`` a Mamba2 layer a rank a prefill, as the dry run reckons;
+    the dry run's argument bytes equal to the rank's stored weights, rows
+    and caches, and its collectives to the wire of one prefill and one
+    decode step, each a request, kind by kind (the servefix cells)."""
+    import torch
+    from repro_torch.config import ShapeSpec, get_arch
+    from repro_torch.dist import comm
+    from repro_torch.kernels.ssd import ssd as sk
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import MeshSpec, make_auto_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = torch.device("cuda")
+    mesh = make_auto_mesh((1, 2), device_type="cuda")
+    max_len = DRY_SERVE_PROMPT + DRY_SERVE_NEW
+    vocab = get_arch(DRY_SERVE_ARCH).config.vocab_size
+    prompt = torch.randint(0, vocab, (DRY_SERVE_BATCH, DRY_SERVE_PROMPT), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED + 112)).to(dev)
+    results = {}
+    for dtype, bf16, tol in (("float32", False, 5e-6), ("bfloat16", True, TOL_BF16)):
+        cfg = get_arch(DRY_SERVE_ARCH).config.replace(n_layers=DRY_SERVE_DEPTH, dtype=dtype)
+
+        def engine_of(on_mesh):
+            model = Model(cfg, generator=torch.Generator(dev).manual_seed(SEED + 113),
+                          device=dev)
+            return ServeEngine(model, max_len, device=dev, mesh=mesh if on_mesh else None,
+                               cache_seq_fallback=on_mesh, serve_bf16=bf16)
+
+        def generate(engine):
+            steps, sample = [], engine._sample
+
+            def recording(logits, gen):
+                steps.append(logits.float().cpu())
+                return sample(logits, gen)
+
+            engine._sample = recording
+            try:
+                toks, _ = engine.generate({"tokens": prompt}, DRY_SERVE_NEW)
+            finally:
+                engine._sample = sample
+            return toks.cpu(), steps
+
+        one = engine_of(False)
+        ref_toks, ref_steps = generate(one)
+        del one
+        torch.cuda.empty_cache()
+        engine = engine_of(True)
+        stored = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+        # a generate's prefill launches the scans (its decode steps run the
+        # plain recurrence); its wire is not a sum of calls', since one
+        # request gathers the leaves outside the stacks once for all of them
+        reset(sk.KERNELS)
+        comm.reset_wire_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, steps = generate(engine)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = sk.ssd_scan.launches
+        errs = step_logit_errors(toks, ref_toks, steps, ref_steps)
+        res = {"dtype": dtype, "tokens_equal_one_process": bool(torch.equal(toks, ref_toks)),
+               "step_logits_rel_err_of_largest": errs, "gate": tol,
+               "ssd_scan_per_prefill": launches, "generate_s": gen_s,
+               "stored_param_bytes": stored, "generate_wire": wire_kinds(comm.wire_bytes())}
+        if bf16:  # the servefix cells, reckoned
+            mspec = MeshSpec((1, 2), ("data", "model"), backend="gloo", rank=rank)
+            reck = {kind: dry_cell(DRY_SERVE_ARCH, ShapeSpec(f"dry-{kind}", DRY_SERVE_PROMPT
+                                                             if kind == "prefill" else max_len,
+                                                             DRY_SERVE_BATCH, kind),
+                                   mspec, "1x2", "servefix", cfg=cfg, max_len=max_len)
+                    for kind in ("prefill", "decode")}
+            tok_bytes = {"prefill": prompt.numel() * prompt.element_size(),
+                         "decode": DRY_SERVE_BATCH * 4}
+            res["reckoned"] = {k: {"argument_bytes": a["memory"]["argument_bytes"],
+                                   "peak_bytes": a["memory"]["peak_bytes"],
+                                   "collectives": a["collectives"], "launches": a["launches"]}
+                               for k, a in reck.items()}
+            # one prefill and one decode step, each a request, as the dry run
+            # reckons a cell: their wire, and the caches they are handed
+            caches = engine.caches(DRY_SERVE_BATCH)
+            cache_bytes = sum(v.numel() * v.element_size() for v in _leaves(caches))
+            comm.reset_wire_bytes()
+            logits, caches = engine.prefill({"tokens": prompt}, caches)
+            counted = {"prefill": wire_kinds(comm.wire_bytes())}
+            comm.reset_wire_bytes()
+            engine.decode(logits.argmax(-1).to(torch.int32)[:, None], caches, max_len - 1)
+            counted["decode"] = wire_kinds(comm.wire_bytes())
+            del caches
+            res.update(cache_bytes=cache_bytes, call_wire=counted)
+            for kind, a in reck.items():
+                check(a["memory"]["argument_bytes"] == stored + tok_bytes[kind] + cache_bytes,
+                      f"dryrun (b) {kind} rank {rank}: reckoned argument bytes "
+                      f"{a['memory']['argument_bytes']} vs stored {stored} + rows "
+                      f"{tok_bytes[kind]} + caches {cache_bytes}")
+                check(a["collectives"] == counted[kind],
+                      f"dryrun (b) {kind} rank {rank}: reckoned {a['collectives']} vs counted "
+                      f"{counted[kind]}")
+            check(reck["prefill"]["launches"].get("ssd_scan") == launches,
+                  f"dryrun (b) rank {rank}: {launches} ssd_scan a prefill, reckoned "
+                  f"{reck['prefill']['launches']}")
+        line("dryrun", part="b", rank=rank, model=DRY_SERVE_ARCH, depth=DRY_SERVE_DEPTH,
+             of_depth=81, mesh=[1, 2], batch=DRY_SERVE_BATCH, prompt=DRY_SERVE_PROMPT,
+             new_tokens=DRY_SERVE_NEW, **res, card=payload["card"])
+        check(launches == DRY_SERVE_DEPTH,
+              f"dryrun (b) {dtype} rank {rank}: {launches} ssd_scan a prefill, not one a layer")
+        check(res["tokens_equal_one_process"] or dtype != "float32",
+              f"dryrun (b) rank {rank}: f32 tokens {toks.tolist()} vs {ref_toks.tolist()}")
+        check(errs and max(errs) <= tol,
+              f"dryrun (b) {dtype} rank {rank}: step logits {errs} of each step's largest")
+        results[dtype] = res
+        del engine
+        torch.cuda.empty_cache()
+    return results
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def dryrun_phase(dev, card, ranks: list, peaks: list) -> dict:
+    """Phase 15 ``[dryrun]``: the ranks' parts (a) and (b) (run in phase
+    14's ranks), then (c) the dry run's reckoning of ``[lm-train]`` (b)'s
+    cell (``LM_TRAIN_ARCH`` at ``LM_TRAIN_DEPTH`` layers, ``LM_TRAIN_BATCH``
+    x ``LM_TRAIN_SEQ``, bf16 activations, on a (1, 1) mesh) against the peak
+    memory that phase measured (``torch.cuda.max_memory_allocated`` over
+    each step), with what ``train_lm`` holds beside the step (its copy of the
+    initial state, for a restart before the first checkpoint) counted: the
+    ratio gated to ``DRY_PEAK_BAND``.  Returns the
+    ``ssd_scan`` launches a rank a prefill, counted and reckoned."""
+    from repro_torch.config import ShapeSpec, get_arch
+    from repro_torch.launch.dryrun import dry_cell, meta_model
+    from repro_torch.launch.mesh import MeshSpec
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_TRAIN_ARCH).config.replace(n_layers=LM_TRAIN_DEPTH)
+    art = dry_cell(LM_TRAIN_ARCH, ShapeSpec("lm-train-b", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"),
+                   MeshSpec((1, 1), ("data", "model")), "1x1", cfg=cfg)
+    # what train_lm holds beside the step: the loop's copy of the initial
+    # state, kept for a restart before the first checkpoint (train/loop.py,
+    # ``initial``), one f32 copy of the parameters
+    loop_copy = sum(v.numel() * v.element_size() for v in meta_model(cfg).state_dict().values())
+    reckoned = art["memory"]["peak_bytes"] + loop_copy
+    measured = max(peaks)
+    ratio = measured / reckoned
+    a = {v: {k: ranks[0]["a"][v][k] for k in ("leaf_max_rel_err", "loss_rel_err",
+                                              "bitwise_repeatable", "stored",
+                                              "one_process_stored_bytes")}
+         for v in DRY_VARIANTS}
+    b = {t: {k: ranks[0]["b"][t][k] for k in ("tokens_equal_one_process", "ssd_scan_per_prefill",
+                                              "stored_param_bytes")}
+         | {"step_logits_max": max(r["b"][t]["step_logits_rel_err_of_largest"] for r in ranks)}
+         for t in ("float32", "bfloat16")}
+    line("dryrun", part="c", model=LM_TRAIN_ARCH, depth=LM_TRAIN_DEPTH,
+         batch=[LM_TRAIN_BATCH, LM_TRAIN_SEQ], measured_peak_bytes_by_step=peaks,
+         measured_peak_bytes=measured, reckoned_peak_bytes=reckoned,
+         reckoned_step_peak_bytes=art["memory"]["peak_bytes"], loop_initial_copy_bytes=loop_copy,
+         reckoned_argument_bytes=art["memory"]["argument_bytes"],
+         reckoned_temp_bytes=art["memory"]["temp_bytes"], ratio=ratio, band=DRY_PEAK_BAND,
+         reckoned_flops=art["cost"]["flops"], reckoned_bytes=art["cost"]["bytes_accessed"],
+         seconds_trace=art["seconds_trace"], card=card)
+    line("dryrun", part="summary", a=a, b=b, peak_ratio=ratio,
+         seconds=time.perf_counter() - t0, card=card)
+    check(DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1],
+          f"dryrun (c): measured peak {measured} over reckoned {reckoned} = {ratio}")
+    return {"counted": ranks[0]["b"]["bfloat16"]["ssd_scan_per_prefill"],
+            "reckoned": ranks[0]["b"]["bfloat16"]["reckoned"]["prefill"]["launches"].get(
+                "ssd_scan")}
 
 
 def std_normal_like(z, seed):
@@ -4923,7 +5279,7 @@ def main() -> int:
 
     # 11. LM training: card against CPU, full size, memory, launcher, guard
     lm_train_vs_cpu(dev, card)
-    lm_train_flash_per_step = lm_train_full(dev, card)
+    lm_train_flash_per_step, lm_train_peaks = lm_train_full(dev, card)
     lm_train_memory(dev, card)
     lm_train_launcher(dev, card)
     mark("lm-train")
@@ -4942,9 +5298,14 @@ def main() -> int:
     dist_launches = dist_phase(dev, card)
     mark("dist")
 
-    # 14. model-sharded meshes: two ranks on this card over gloo
+    # 14. model-sharded meshes: two ranks on this card over gloo; their
+    # phase-15 parts run in the same ranks
     mesh_launches = mesh_phase(dev, card)
     mark("mesh")
+
+    # 15. the dry run held against the card
+    dryrun_launches = dryrun_phase(dev, card, mesh_launches["dryrun"], lm_train_peaks)
+    mark("dryrun")
 
     def by_path(*names):
         """Each path's first ``[times]`` row of a kernel (its largest shape,
@@ -5010,6 +5371,10 @@ def main() -> int:
             kernels[-1]["mesh_launches_per_rank"] = {
                 "model_sharded_step": mesh_launches["step_per_rank"].get(name, 0),
                 "model_sharded_sample": mesh_launches["sample_per_rank"].get(name, 0)}
+        if name == "ssd_scan":
+            # phase 15: a rank's launches per prefill of zamba2-7b at depth 7
+            # on a (1, 2) mesh, beside the dry run's reckoning of that cell
+            kernels[-1]["dryrun_prefill_launches_per_rank"] = dryrun_launches
         if name in chint["times"]:
             # the cHINT path: its launches a train step (coupling_bwd) or a
             # draw (coupling_inv), and the half kernel at its M = 1 shapes

@@ -230,6 +230,23 @@ class ShapeSpec:
     kind: str  # "train" | "prefill" | "decode"
 
 
+#: the input-shape cells of the dry run, the reference's
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> bool:
+    """The reference's skip rule: ``long_500k`` needs sub-quadratic
+    attention, so it runs for the ``ssm`` and ``hybrid`` families only."""
+    if shape.name == "long_500k":
+        return cfg.family in ("ssm", "hybrid")
+    return True
+
+
 _REGISTRY: dict[str, "ArchSpec"] = {}
 
 

@@ -16,3 +16,17 @@ from repro_torch.config import get_arch, list_archs  # noqa: F401
 
 #: the reference's architectures that the port does not build: none
 UNPORTED_ARCHS = ()
+
+#: the dry run's architectures, in the reference's order
+ASSIGNED_ARCHS = (
+    "zamba2-7b",
+    "yi-6b",
+    "glm4-9b",
+    "granite-34b",
+    "command-r-plus-104b",
+    "granite-moe-1b-a400m",
+    "llama4-maverick-400b-a17b",
+    "rwkv6-7b",
+    "llava-next-34b",
+    "whisper-small",
+)

@@ -9,7 +9,8 @@
   block on this rank (``local_shard``) and the leaf whole again
   (``gather_shard``);
 * :mod:`repro_torch.dist.model` - a module stored as each rank's blocks on
-  a mesh whose ``model`` axis is more than 1, gathered where it is used;
+  a mesh whose ``model`` axis is more than 1, or with ``fsdp`` storage or
+  ``zero1`` moments, gathered where it is used;
 * :mod:`repro_torch.dist.flow` - data-parallel flow gradients and
   batch-sharded flow serving;
 * :mod:`repro_torch.dist.step` - the data-parallel training step (overlapped
@@ -21,9 +22,10 @@
 One process per rank; a mesh is a ``torch.distributed.device_mesh.
 DeviceMesh`` (``launch/mesh.py``).  Parameters are plain local tensors and
 every gather is explicit, so the hand-written kernels and the MoE dispatch
-see ordinary tensors.  The rules' ``fsdp``, ``zero1``, per-layer-slice and
-sequence-fallback options are ported as functions; their runtime uses come
-with the dry run (``ITEM_8``).
+see ordinary tensors.  The rules' ``fsdp``, ``zero1`` and per-layer-slice
+options are read by the sharded train step, the sequence fallback by
+``serve/engine.py``; ``launch/dryrun.py`` reckons the same code on the meta
+device through ``comm``'s dry route.
 """
 
 from repro_torch.dist import comm, flow, model, pipeline, sharding, step
@@ -32,13 +34,7 @@ from repro_torch.dist.pipeline import pipeline_forward, pipeline_stage_fn
 from repro_torch.dist.sharding import batch_pspecs, batch_sharding, data_axis_names
 from repro_torch.dist.step import dp_axis, dp_size, is_pure_dp, make_dp_train_step
 
-#: the message of what waits for the dry run: the runtime uses of the rules'
-#: fsdp, zero1, layer-slice and sequence-fallback options
-ITEM_8 = "ROADMAP.md queue 1, item 8 (launch/dryrun.py and the runtime uses of fsdp, zero1, " \
-    "layer_slice_pspecs and seq_fallback_model)"
-
 __all__ = [
-    "ITEM_8",
     "batch_pspecs",
     "batch_sharding",
     "comm",

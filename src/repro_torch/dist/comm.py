@@ -4,9 +4,15 @@ The counterpart of the reference's ``utils/hlo.py::collective_bytes``, the
 walk over a compiled program's collectives that the reference's
 ``test_compressed_step_reduces_wire_bytes`` reads: here each call counts,
 as it is made, the bytes of the tensors it hands to ``torch.distributed``,
-by collective and by dtype (:func:`wire_bytes`).  An ``all_reduce`` counts
-its tensor, an ``all_gather`` this rank's input, a ``send`` its tensor and a
+by collective and by dtype (:func:`wire_bytes`), and the calls.  An
+``all_reduce`` counts its tensor, an ``all_gather`` this rank's input, a
+``reduce_scatter`` its whole input (the reference's walker counts a
+reduce-scatter's result times its group), a ``send`` its tensor and a
 ``recv`` nothing (the sender counted it).
+
+``gloo`` has no reduce-scatter: on a ``gloo`` group :func:`reduce_scatter`
+all-reduces its input and keeps this rank's block, and counts what it
+issued, an ``all_reduce`` of the whole input.
 
 ``gloo`` carries card tensors for ``all_reduce`` and ``all_gather`` (checked
 on an H100 with PyTorch 2.11; gloo stages them through the host itself).  Its ``send`` and ``recv`` take host memory only (a
@@ -22,6 +28,15 @@ makes a mesh current for the engines' backward passes and the model-sharded
 layers, and :func:`axis_group` resolves a name, or a tuple of names, against
 it.  A tuple's group is the ranks that differ only along those axes, ranked
 row-major over them (:func:`mesh_group`).
+
+**The dry route.**  Bound to a ``launch.mesh.MeshSpec`` (a layout without
+processes), ``bound`` plays that mesh's rank ``spec.rank`` with no process
+group: a group is a :class:`DryGroup` (its size and the backend the mesh
+would use), every collective returns a tensor of the right shape on its
+input's device (meta tensors in ``launch/dryrun.py``) without computing
+anything, and adds its bytes to the same :func:`wire_bytes` table, under
+the collective that backend would issue.  So a 256- or 512-rank mesh's wire
+is reckoned in one process, by the code that runs on the card.
 """
 
 from __future__ import annotations
@@ -37,33 +52,78 @@ import torch.distributed as dist
 GLOO_DEVICE_COLLECTIVES = ("all_reduce", "all_gather")
 
 _WIRE: Counter = Counter()
+_CALLS: Counter = Counter()
 _STAGED: Counter = Counter()
 _BOUND: list = []
+
+
+class DryGroup:
+    """A group of the dry route: ``size`` ranks over ``backend``, no
+    processes; ``index`` is the playing rank's place in it."""
+
+    def __init__(self, size: int, backend: str, index: int = 0):
+        self.size, self.backend, self.index = int(size), backend, int(index)
+
+
+class _Done:
+    """The work handle of a dry asynchronous collective."""
+
+    def wait(self):
+        return None
+
+
+def _dry(group) -> bool:
+    return isinstance(group, DryGroup)
+
+
+def _size(group) -> int:
+    return group.size if _dry(group) else dist.get_world_size(group)
+
+
+def _backend(group) -> str:
+    return group.backend if _dry(group) else dist.get_backend(group)
 
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+#: functions called with ``(op, tensor)`` at each count (``utils/cost.py``'s
+#: counter)
+_LISTENERS: list = []
+
+
+def add_listener(fn):
+    _LISTENERS.append(fn)
+
+
+def remove_listener(fn):
+    _LISTENERS.remove(fn)
+
+
 def _count(op: str, t: torch.Tensor):
     _WIRE[(op, _dtype_name(t))] += t.numel() * t.element_size()
+    _CALLS[op] += 1
+    for fn in _LISTENERS:
+        fn(op, t)
 
 
 def wire_bytes() -> dict:
     """``{"by_op": {op: bytes}, "by_op_dtype": {"op/dtype": bytes}, "total",
-    "host_staged": {"op/dtype": bytes}, "host_staged_total"}`` since the last
-    :func:`reset_wire_bytes`."""
+    "calls": {op: n}, "host_staged": {"op/dtype": bytes},
+    "host_staged_total"}`` since the last :func:`reset_wire_bytes`."""
     by_op: Counter = Counter()
     for (op, _), n in _WIRE.items():
         by_op[op] += n
     return {"by_op": dict(by_op), "by_op_dtype": {f"{o}/{d}": n for (o, d), n in _WIRE.items()},
-            "total": sum(_WIRE.values()),
+            "total": sum(_WIRE.values()), "calls": dict(_CALLS),
             "host_staged": {f"{o}/{d}": n for (o, d), n in _STAGED.items()},
             "host_staged_total": sum(_STAGED.values())}
 
 
 def reset_wire_bytes():
     _WIRE.clear()
+    _CALLS.clear()
     _STAGED.clear()
 
 
@@ -72,7 +132,7 @@ def _staged(op: str, t: torch.Tensor, group) -> bool:
     tensor on a ``gloo`` group and a collective ``gloo`` takes on the host
     only."""
     return (t.device.type == "cuda" and op not in GLOO_DEVICE_COLLECTIVES
-            and dist.get_backend(group) == "gloo")
+            and _backend(group) == "gloo")
 
 
 def _to_host(op: str, t: torch.Tensor) -> torch.Tensor:
@@ -89,6 +149,8 @@ def all_reduce(t: torch.Tensor, group=None, async_op: bool = False, op: str = "s
     """Reduce ``t`` in place over ``group`` (``op`` ``"sum"`` or ``"max"``);
     returns the work handle when ``async_op``."""
     _count("all_reduce", t)
+    if _dry(group):
+        return _Done() if async_op else None
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     return dist.all_reduce(t, op=red, group=group, async_op=async_op)
 
@@ -97,14 +159,40 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """``(group size, *t.shape)``: every rank's ``t``, in rank order, on
     ``t``'s device."""
     _count("all_gather", t)
+    if _dry(group):
+        return t.new_empty((group.size, *t.shape))
     out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, t.contiguous(), group=group)
     return torch.stack(out)
 
 
+def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``
+    (``t.shape[dim]`` divides by the group's size).  ``nccl`` issues a
+    reduce-scatter; ``gloo``, which has none, an ``all_reduce`` of a copy of
+    ``t``, counted as such."""
+    n = _size(group)
+    rows = t.shape[dim] // n
+    if n * rows != t.shape[dim]:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not divide by {n}")
+    if _backend(group) == "gloo":
+        whole = t.clone()
+        all_reduce(whole, group)
+        idx = group.index if _dry(group) else dist.get_rank(group)
+        return whole.narrow(dim, idx * rows, rows).contiguous()
+    _count("reduce_scatter", t)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((rows, *src.shape[1:]))
+    if not _dry(group):
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
 def send(t: torch.Tensor, dst: int, group=None):
     """``t`` to global rank ``dst`` (blocks until it is handed over)."""
     _count("send", t)
+    if _dry(group):
+        return
     if _staged("send", t, group):
         t = _to_host("send", t.contiguous())
     dist.send(t.contiguous(), dst=dst, group=group)
@@ -112,6 +200,8 @@ def send(t: torch.Tensor, dst: int, group=None):
 
 def recv(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """Receive into ``t`` from global rank ``src``; returns ``t``."""
+    if _dry(group):
+        return t
     if _staged("recv", t, group):
         host = torch.empty(t.shape, dtype=t.dtype)
         dist.recv(host, src=src, group=group)
@@ -137,7 +227,8 @@ def barrier():
 def bound(mesh):
     """Make ``mesh`` current: inside, :func:`axis_group` resolves its axis
     names (the engines' ``psum_axis``).  Not thread-local: the backward of a
-    card tensor runs on autograd's device thread."""
+    card tensor runs on autograd's device thread.  A ``MeshSpec`` takes the
+    dry route (module docstring)."""
     _BOUND.append(mesh)
     try:
         yield mesh
@@ -177,6 +268,12 @@ def mesh_group(mesh, names):
     with ``new_group``, which every rank of the world calls in the same
     order (every rank takes the same code path to it)."""
     names = (names,) if isinstance(names, str) else tuple(names)
+    if getattr(mesh, "is_dry", False):
+        size, index = 1, 0
+        for a in names:
+            ext = mesh.size(mesh.mesh_dim_names.index(a))
+            size, index = size * ext, index * ext + mesh.get_local_rank(a)
+        return DryGroup(size, mesh.backend, index)
     if len(names) == 1:
         return mesh.get_group(names[0])
     key = (id(mesh), names)

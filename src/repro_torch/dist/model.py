@@ -1,11 +1,12 @@
-"""Model-sharded modules: each rank stores its block of every parameter and
-AdamW moment, by the reference's rules (``dist/sharding.py::state_pspecs``:
-``params_pspecs``, ``opt_pspecs``), and gathers a leaf whole only where it
-is used.
+"""Sharded modules: each rank stores its block of every parameter and AdamW
+moment, by the reference's rules (``dist/sharding.py``: ``params_pspecs``,
+``opt_pspecs``), and gathers a leaf whole only where it is used.
 
 :class:`ModelSharding` lays a module out on a mesh whose ``model`` axis is
-more than 1.  Each split parameter's ``.data`` becomes this rank's block,
-described by a :class:`ShardInfo`:
+more than 1, or on any mesh with the reference's ``fsdp`` storage (every
+leaf split a second time over the data axes) or ``zero1`` moments (each
+moment split over the data axes too).  Each split parameter's ``.data``
+becomes this rank's block, described by a :class:`ShardInfo`:
 
 * a leaf of a stack the scan engine walks (one that a module's
   ``scan_stacks()`` names: a ``GlowStepStack``, an LM's ``blocks`` and
@@ -29,6 +30,20 @@ work over the ``model`` axis (the experts of ``nn/moe.py``, the sequence of
 ``nn/attention.py``) gather what they split, in the forward and in the
 backward, so that this holds.
 
+With ``fsdp`` a gather runs over the data axes first, into the per-layer
+spec that ``layer_slice_pspecs`` gives (the reference's ``layer_constraint``
+made explicit), then over ``model``; the ranks of a data axis hold
+different rows, so a gradient goes back to its block by a reduce-scatter
+over the data axes (``reduce_shard``), and the step does not sum such a
+leaf's gradient again.  With ``zero1`` the step reduce-scatters a
+gradient into its moment's block, updates that block of the parameter and
+all-gathers it back (:meth:`ModelSharding.reduce_grads`,
+:meth:`ModelSharding.update_views`, :meth:`ModelSharding.regather`).  A
+leaf ``fsdp`` already split over the data axes keeps its parameter's spec
+for its moments: the reference's rules would name the data axes twice for
+it (a ``DuplicateSpecError`` in ``NamedSharding``), and its moment is
+already a data block.
+
 1-D leaves and leaves with no divisible axis replicate, as in the reference;
 buffers (integer permutations, signs) are never split.
 """
@@ -36,6 +51,7 @@ buffers (integer permutations, signs) are never split.
 from __future__ import annotations
 
 import contextlib
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -45,15 +61,24 @@ from repro_torch.dist import comm
 from repro_torch.dist.sharding import (
     MODEL_AXIS,
     entry_index,
+    entry_names,
     entry_size,
     gather_shard,
+    is_data_entry,
+    layer_slice_pspecs,
     local_shard,
-    state_pspecs,
+    model_part,
+    opt_pspecs,
+    params_pspecs,
+    reduce_shard,
 )
+from repro_torch.optim.adamw import adamw_init
+
 
 class _Gather(torch.autograd.Function):
     """A block gathered whole; its backward keeps this rank's block of the
-    cotangent (which every rank of the split axes holds the same)."""
+    cotangent (which every rank of a ``model`` row holds the same), summed
+    over the data axes where the block splits over them."""
 
     @staticmethod
     def forward(ctx, local, spec, mesh):
@@ -62,7 +87,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return local_shard(g, ctx.spec, ctx.mesh).contiguous(), None, None
+        return reduce_shard(g, ctx.spec, ctx.mesh), None, None
 
 
 @dataclass
@@ -78,6 +103,12 @@ class ShardInfo:
     def is_whole(self, t: torch.Tensor) -> bool:
         return tuple(t.shape) == self.full_shape
 
+    @property
+    def has_data(self) -> bool:
+        """The leaf splits over data axes (``fsdp``): its gradient comes back
+        summed over them."""
+        return any(is_data_entry(e) and entry_size(self.mesh, e) > 1 for e in self.spec)
+
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole tensor of the leaf's shape."""
         return local_shard(t, self.spec, self.mesh)
@@ -85,6 +116,11 @@ class ShardInfo:
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The whole leaf from a block (no gradient)."""
         return gather_shard(t, self.spec, self.mesh)
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a gradient of the whole leaf
+        (``reduce_shard``)."""
+        return reduce_shard(g, self.spec, self.mesh)
 
     def whole(self, p: torch.Tensor) -> torch.Tensor:
         """``p`` whole, differentiable through the gather."""
@@ -102,6 +138,7 @@ class ShardInfo:
         elif self._stack_split():
             v = (self.gather(p.detach()) if detach else self.whole(p))[i]
         elif detach:
+            # the data axes first, into the per-layer spec, then the model axis
             v = gather_shard(p[i].detach(), self.spec[1:], self.mesh)
         else:
             return _Gather.apply(p[i], self.spec[1:], self.mesh)
@@ -109,16 +146,22 @@ class ShardInfo:
 
     def put_row(self, g_stacked: torch.Tensor, i: int, g: torch.Tensor):
         """Write this rank's block of step ``i``'s whole gradient ``g`` into
-        row ``i`` of ``g_stacked`` (shaped like the parameter as stored)."""
+        row ``i`` of ``g_stacked`` (shaped like the parameter as stored),
+        summed over the data axes where the leaf splits over them."""
         if self.is_whole(g_stacked):
             g_stacked[i] = g
         elif self._stack_split():
+            head = self.spec[0]
+            row = reduce_shard(g, self.spec[1:], self.mesh)
+            if is_data_entry(head):
+                # each data rank's g is its rows' part: the row's sum
+                comm.all_reduce(row, comm.mesh_group(self.mesh, entry_names(head)))
             rows = g_stacked.shape[0]
-            lo = entry_index(self.mesh, self.spec[0]) * rows
+            lo = entry_index(self.mesh, head) * rows
             if lo <= i < lo + rows:
-                g_stacked[i - lo] = g
+                g_stacked[i - lo] = row
         else:
-            g_stacked[i] = local_shard(g, self.spec[1:], self.mesh)
+            g_stacked[i] = reduce_shard(g, self.spec[1:], self.mesh)
 
 
 class ShardedStack(StackSlices):
@@ -157,28 +200,39 @@ def _scan_stacks(module) -> dict:
 
 class ModelSharding:
     """``module``'s parameters laid out on ``mesh`` by ``params_pspecs``
-    (see the module docstring).  :meth:`shard` stores the blocks,
-    :meth:`unshard` puts every leaf back whole.  The reference's ``fsdp``
-    storage (a second split over the data axes) is not offered: only its dry
-    run sets it (``dist.ITEM_8``)."""
+    (``fsdp``: split over the data axes too) and its AdamW moments by
+    ``opt_pspecs`` (``zero1``: split over the data axes too); see the module
+    docstring.  :meth:`shard` stores the blocks, :meth:`unshard` puts every
+    leaf back whole."""
 
-    def __init__(self, module: torch.nn.Module, mesh):
-        self.module, self.mesh = module, mesh
+    def __init__(self, module: torch.nn.Module, mesh, fsdp: bool = False, zero1: bool = False):
+        self.module, self.mesh, self.fsdp, self.zero1 = module, mesh, fsdp, zero1
         self.params = dict(module.named_parameters())
         self.stacks = _scan_stacks(module)
         lazy = {f"{prefix}.{n}" if prefix else n for prefix, stack in self.stacks.items()
                 for n, _ in stack.named_parameters()}
         floating = {n: p for n, p in self.params.items() if p.is_floating_point()}
-        specs = state_pspecs({"params": floating,
-                              "opt": {"mu": floating, "nu": floating, "step": 0}}, mesh)
+        p_specs = params_pspecs(floating, mesh, fsdp=fsdp)
+        o_specs = opt_pspecs({"mu": floating, "nu": floating, "step": 0}, p_specs, mesh,
+                             zero1=zero1)["mu"]
         self.infos = {
             n: ShardInfo(spec, tuple(floating[n].shape), mesh, n in lazy)
-            for n, spec in specs["params"].items()
+            for n, spec in p_specs.items()
             if any(entry_size(mesh, e) > 1 for e in spec if e)
         }
-        #: each AdamW moment's spec (``opt_pspecs``: its parameter's)
-        self.moment_specs = specs["opt"]["mu"]
+        #: each AdamW moment's spec: its parameter's, with ``zero1``'s split
+        #: over the data axes where the parameter has none
+        self.moment_specs = {n: p_specs[n] if n in self.infos and self.infos[n].has_data
+                             else o_specs[n] for n in floating}
+        #: the leaves whose moments split over data axes their parameters do
+        #: not: the step reduce-scatters their gradients into the moments'
+        #: blocks and all-gathers the updated blocks back
+        self.zero1_specs = {n: _extra(self.moment_specs[n], p_specs[n], mesh)
+                            for n in floating}
+        self.zero1_specs = {n: e for n, e in self.zero1_specs.items() if e}
         self.model_group = comm.mesh_group(mesh, MODEL_AXIS)
+        for prefix, stack in self.stacks.items():
+            _check_layer_specs(stack, prefix, self.infos, mesh)
 
     def shard(self):
         for n, info in self.infos.items():
@@ -218,16 +272,71 @@ class ModelSharding:
     # -- gradients and state -------------------------------------------------
 
     def local_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a gradient (a lazy leaf's already is)."""
+        """This rank's block of a gradient (a lazy leaf's already is),
+        summed over the data axes where the leaf splits over them."""
         info = self.infos.get(name)
         if info is None or not info.is_whole(g):
             return g
-        return info.local(g).contiguous()
+        return info.reduce(g) if info.has_data else info.local(g).contiguous()
+
+    def zero_grad(self, name: str) -> torch.Tensor:
+        """Zeros of the shape a gradient of ``name`` takes as stored."""
+        p = self.params[name]
+        info = self.infos.get(name)
+        shape = p.shape if info is None else local_shard(
+            torch.empty(info.full_shape, device="meta"), info.spec, self.mesh).shape
+        return torch.zeros(shape, dtype=p.dtype, device=p.device)
+
+    def data_reduced(self, name: str) -> bool:
+        """The leaf's gradient comes back summed over the data axes
+        (``fsdp``'s reduce-scatter)."""
+        info = self.infos.get(name)
+        return info is not None and info.has_data
+
+    def reduce_grads(self, grads: dict, axis) -> dict:
+        """The data-parallel sum of this rank's gradient blocks: a leaf
+        ``fsdp`` split already is one; a ``zero1`` leaf's gradient is
+        reduce-scattered into its moment's block; the rest are all-reduced
+        whole (asynchronously, as they come)."""
+        out, reducer = dict(grads), comm.GradReducer(axis)
+        for n, g in grads.items():
+            if self.data_reduced(n):
+                continue
+            if n in self.zero1_specs:
+                out[n] = reduce_shard(g, self.zero1_specs[n], self.mesh)
+            else:
+                reducer.add([g])
+        reducer.wait()
+        return out
+
+    def update_views(self) -> dict:
+        """``{name: the parameter, or its block in its moment's layout}``: a
+        ``zero1`` leaf's view of the block its moments cover (AdamW updates
+        it in place)."""
+        return {n: local_shard(p, self.zero1_specs[n], self.mesh) if n in self.zero1_specs
+                else p for n, p in self.params.items()}
+
+    def regather(self):
+        """All-gather each ``zero1`` leaf's updated block back into the
+        parameter as stored (a collective on the data axes)."""
+        with torch.no_grad():
+            for n, spec in self.zero1_specs.items():
+                p = self.params[n]
+                p.copy_(gather_shard(local_shard(p, spec, self.mesh).contiguous(), spec,
+                                     self.mesh))
+
+    def init_opt(self) -> dict:
+        """Zero AdamW moments in their blocks, and step 0."""
+        return adamw_init({n: local_shard(p.detach(), self.zero1_specs[n], self.mesh)
+                           if n in self.zero1_specs else p for n, p in self.params.items()})
 
     def grad_norm(self, grads: dict) -> torch.Tensor:
         """The whole gradient's global norm from the blocks: the split
         leaves' squares summed over the ``model`` axis, the replicated
-        leaves' counted once."""
+        leaves' counted once (with ``fsdp`` or ``zero1``: each block's
+        squares over the ranks holding it, summed over the mesh)."""
+        if self.fsdp or self.zero1:
+            return self._grad_norm_blocks(grads)
         split = [torch.sum(torch.square(grads[n].float())) for n in self.params
                  if n in self.infos and self.params[n].is_floating_point()]
         rep = [torch.sum(torch.square(grads[n].float())) for n, p in self.params.items()
@@ -236,6 +345,22 @@ class ModelSharding:
         sq = torch.stack(split).sum() if split else torch.zeros((), device=dev)
         comm.all_reduce(sq, self.model_group)
         return torch.sqrt(sq + (torch.stack(rep).sum() if rep else 0.0))
+
+    def _grad_norm_blocks(self, grads: dict) -> torch.Tensor:
+        """Each block's squares divided by the number of ranks holding it,
+        summed over the whole mesh."""
+        names = tuple(self.mesh.mesh_dim_names)
+        n_ranks = self.mesh.size()
+        terms = []
+        for n, p in self.params.items():
+            if not p.is_floating_point():
+                continue
+            holders = n_ranks // math.prod(entry_size(self.mesh, e)
+                                           for e in self.moment_specs[n] if e)
+            terms.append(torch.sum(torch.square(grads[n].float())) / holders)
+        sq = torch.stack(terms).sum()
+        comm.all_reduce(sq, comm.mesh_group(self.mesh, names))
+        return torch.sqrt(sq)
 
     def whole_tree(self, tree: dict) -> dict:
         """``{name: tensor}`` with every split leaf's block gathered whole (a
@@ -269,6 +394,11 @@ class ModelSharding:
 
         return {"mu": local(opt["mu"]), "nu": local(opt["nu"]), "step": opt["step"]}
 
+    def stored_bytes(self, opt: dict) -> int:
+        """This rank's parameter and AdamW moment bytes as stored."""
+        ts = [*self.params.values(), *opt["mu"].values(), *opt["nu"].values()]
+        return sum(t.numel() * t.element_size() for t in ts)
+
     def resident_bytes(self, opt: dict | None = None) -> dict:
         """This rank's parameter (and AdamW moment) bytes as stored, beside
         one process's."""
@@ -286,3 +416,31 @@ class ModelSharding:
                 (torch.Size(self.infos[n].full_shape).numel() if n in self.infos
                  else p.numel()) * 4 for n, p in self.params.items() if p.is_floating_point())
         return out
+
+
+def _extra(moment_spec, param_spec, mesh) -> tuple:
+    """The data-axis entries of ``moment_spec`` that ``param_spec`` lacks,
+    as a spec (``()`` when there are none)."""
+    entries = list(moment_spec) + [None] * max(0, len(param_spec) - len(moment_spec))
+    ps = list(param_spec) + [None] * (len(entries) - len(param_spec))
+    out = [e if e is not None and p is None and is_data_entry(e) and entry_size(mesh, e) > 1
+           else None for e, p in zip(entries, ps)]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _check_layer_specs(stack, prefix: str, infos: dict, mesh):
+    """A stacked leaf's slice, once its data axes are gathered, is in the
+    spec ``layer_slice_pspecs`` gives (where the stack axis is not split;
+    a 1-D slice, which the rule keeps whole, is gathered whole)."""
+    head = f"{prefix}." if prefix else ""
+    params = dict(stack.named_parameters())
+    layer = layer_slice_pspecs(params, mesh)
+    for n, p in params.items():
+        info = infos.get(head + n)
+        if info is None or info._stack_split() or p.dim() < 3:
+            continue
+        if model_part(info.spec[1:]) != layer[n]:
+            raise AssertionError(f"{head + n}: slice spec {model_part(info.spec[1:])} is not "
+                                 f"layer_slice_pspecs' {layer[n]}")

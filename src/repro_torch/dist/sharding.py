@@ -33,9 +33,12 @@ and walk dicts, tuples and lists.
 
 :func:`local_shard` cuts this rank's block of a leaf by its spec and
 :func:`gather_shard` puts the leaf back whole from every rank's block through
-``dist/comm.py`` (the bytes are counted).  The runtime reads ``fsdp``,
-``zero1``, :func:`layer_slice_pspecs` and ``seq_fallback_model`` nowhere: in
-the reference only the dry run sets them (ROADMAP.md queue 1, item 8).
+``dist/comm.py`` (the bytes are counted), the data axes first, so that a
+stacked leaf's slice passes through the spec :func:`layer_slice_pspecs`
+gives; :func:`reduce_shard` takes a gradient of the whole leaf back to this
+rank's block, summed over the data axes (a reduce-scatter) where the spec
+splits over them.  ``fsdp`` and ``zero1`` are read by ``dist/model.py`` and
+``dist/step.py``, ``seq_fallback_model`` by ``serve/engine.py``.
 """
 
 from __future__ import annotations
@@ -302,19 +305,48 @@ def local_shard(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out
 
 
+def is_data_entry(entry) -> bool:
+    """True when a spec entry splits over data axes (``fsdp``'s, ``zero1``'s)."""
+    names = entry_names(entry)
+    return bool(names) and all(a in DATA_AXIS_NAMES for a in names)
+
+
+def model_part(spec) -> tuple:
+    """``spec`` with its data-axis entries dropped."""
+    return _spec(None if is_data_entry(e) else e for e in spec or ())
+
+
 def gather_shard(local: torch.Tensor, spec, mesh) -> torch.Tensor:
     """The whole leaf from every rank's block (:func:`local_shard`'s
     inverse): one ``all_gather`` over each split dimension's axes, counted by
-    ``dist/comm.py``.  A collective: every rank of those axes calls it."""
+    ``dist/comm.py``, the data axes first.  A collective: every rank of
+    those axes calls it."""
     from repro_torch.dist import comm
 
     out = local
-    for d, entry in enumerate(spec or ()):
+    order = sorted(enumerate(spec or ()), key=lambda de: not is_data_entry(de[1]))
+    for d, entry in order:
         if entry_size(mesh, entry) <= 1:
             continue
         stacked = comm.all_gather(out.contiguous(), comm.mesh_group(mesh, entry_names(entry)))
         out = torch.cat(stacked.unbind(0), dim=d)
     return out
+
+
+def reduce_shard(g: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of a gradient ``g`` of the whole leaf, summed over
+    the data axes where ``spec`` splits over them: the model-axis dimensions
+    cut (every rank of a ``model`` row holds the same ``g``), then one
+    ``reduce_scatter`` over each data entry's axes (each data rank's ``g``
+    is its rows' part).  A collective on the data axes."""
+    from repro_torch.dist import comm
+
+    out = local_shard(g, model_part(spec), mesh)
+    for d, entry in enumerate(spec or ()):
+        if is_data_entry(entry) and entry_size(mesh, entry) > 1:
+            out = comm.reduce_scatter(out.contiguous(), comm.mesh_group(mesh, entry_names(entry)),
+                                      dim=d)
+    return out.contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,14 @@ its rows of the batch, and the reduction over the ranks is explicit:
 Gradient accumulation (``cfg.accum_steps`` microbatches per rank) and the
 replicated AdamW update (the same bits on every rank) run in the same step.
 
-On a mesh whose ``model`` axis is more than 1, :func:`make_sharded_train_step`
-is the step: the parameters and moments are stored as each rank's blocks
+On a mesh whose ``model`` axis is more than 1, or with the reference's
+``fsdp`` storage or ``zero1`` moments, :func:`make_sharded_train_step` is
+the step: the parameters and moments are stored as each rank's blocks
 (``dist/model.py``), gathered where the step uses them, and each rank
-updates its blocks.
+updates its blocks.  Under ``zero1`` the gradient's sum over the data axes
+is a reduce-scatter into the moments' blocks, AdamW updates that block of
+each parameter, and the updated block is all-gathered back, as the
+reference's dry run constrains its gradients to the moments' sharding.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def _mean_aux(auxes: list, n_ranks: int, group) -> dict:
 
 
 def make_dp_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainConfig, mesh,
-                       *, grads_reduced_by_vjp: bool = False) -> Callable:
+                       *, grads_reduced_by_vjp: bool = False, zero1: bool = False) -> Callable:
     """The data-parallel ``(state, local_batch, step) -> (state, metrics)``
     update of ``module``'s parameters (in place) on a pure data-parallel
     mesh.
@@ -95,11 +99,24 @@ def make_dp_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainC
     ``state`` is ``{"opt": AdamW state, "err": residuals}``; the residuals
     (``compression_init(params)``, this rank's own) never cross the wire.
     Metrics: the summed loss, the learning rate, AdamW's global norm and
-    clip scale, and the objective's float aux averaged over the ranks."""
+    clip scale, and the objective's float aux averaged over the ranks.
+
+    ``zero1``: the moments are stored as each rank's blocks by
+    ``opt_pspecs(zero1=True)`` and the step is :func:`make_sharded_train_step`
+    over a ``ModelSharding(module, mesh, zero1=True)``, which the returned
+    function carries as ``.sharding`` (its ``init_opt()`` makes the
+    moments); compression raises, as on any mesh where no compressed
+    payload would cross the wire alone."""
     axis = dp_axis(mesh)
     n = dp_size(mesh)
     if axis is None or n <= 1:
         raise ValueError("make_dp_train_step needs a mesh with data axes")
+    if zero1:
+        from repro_torch.dist.model import ModelSharding
+
+        sharding = ModelSharding(module, mesh, zero1=True).shard()
+        return make_sharded_train_step(objective, module, cfg, mesh, sharding,
+                                       grads_reduced_by_vjp=grads_reduced_by_vjp)
     compression = cfg.grad_compression
     if compression != "none":
         # the backward's dense reduction would put full-precision bytes on
@@ -146,8 +163,8 @@ def make_dp_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainC
 def make_sharded_train_step(objective: Callable, module: torch.nn.Module, cfg: TrainConfig, mesh,
                             sharding, *, grads_reduced_by_vjp: bool = False) -> Callable:
     """The ``(state, local_batch, step) -> (state, metrics)`` update of a
-    module laid out on a model-sharded mesh by ``sharding`` (a
-    ``dist.model.ModelSharding``, already sharded).
+    module laid out on a mesh by ``sharding`` (a ``dist.model.ModelSharding``,
+    already sharded; its ``fsdp`` and ``zero1`` options hold).
 
     Every rank runs the single-device step on its rows (the data axes split
     the batch; the ranks of one ``model`` row hold the same rows): the
@@ -156,11 +173,19 @@ def make_sharded_train_step(objective: Callable, module: torch.nn.Module, cfg: T
     block of the gradient, sums it over the data axes (unless the flow's
     backward did, ``grads_reduced_by_vjp``), and updates its blocks of the
     parameters and AdamW moments, the clip taken on the whole gradient's
-    norm.  Compression raises, as in the reference: on a model-sharded mesh
+    norm.  A leaf ``fsdp`` splits over the data axes comes back from the
+    backward already summed over them; a ``zero1`` leaf's gradient is
+    reduce-scattered into its moment's block, and its updated block
+    all-gathered back (``sharding.reduce_grads``, ``update_views``,
+    ``regather``).  Compression raises, as in the reference: on such a mesh
     no compressed payload would cross the wire alone."""
     if cfg.grad_compression != "none":
-        raise ValueError("grad_compression requires a pure data-parallel mesh (or none): "
-                         "on any other mesh no compressed payload would cross the wire")
+        raise ValueError("grad_compression requires a pure data-parallel mesh (or none) without "
+                         "zero1 or fsdp: on any other mesh no compressed payload would cross the "
+                         "wire")
+    if (sharding.zero1 or sharding.fsdp) and grads_reduced_by_vjp:
+        raise ValueError("zero1 and fsdp sum the gradients themselves: a psum_axis objective's "
+                         "backward would sum them first")
     axis, n = dp_axis(mesh), dp_size(mesh)
     group = comm.mesh_group(mesh, axis) if axis is not None and n > 1 else None
     n_micro = max(int(cfg.accum_steps), 1)
@@ -174,8 +199,8 @@ def make_sharded_train_step(objective: Callable, module: torch.nn.Module, cfg: T
             auxes.append(aux)
             grads = torch.autograd.grad(loss / n, list(params.values()), allow_unused=True)
             return (loss / n).detach(), {
-                k: sharding.local_grad(k, g) if g is not None else torch.zeros_like(
-                    sharding.local_grad(k, p.detach())) for (k, p), g in zip(params.items(), grads)}
+                k: sharding.local_grad(k, g) if g is not None else sharding.zero_grad(k)
+                for k, g in zip(params, grads)}
 
         with comm.bound(mesh):
             with sharding.materialized():
@@ -183,15 +208,18 @@ def make_sharded_train_step(objective: Callable, module: torch.nn.Module, cfg: T
             aux = {}  # as the one-process step: no aux without data axes
             if group is not None:
                 if not grads_reduced_by_vjp:
-                    reducer = comm.GradReducer(axis)
-                    reducer.add(grads.values())
-                    reducer.wait()
+                    grads = sharding.reduce_grads(grads, axis)
                 loss = loss.clone()
                 comm.all_reduce(loss, group)
                 aux = _mean_aux(auxes, n, group)
             gnorm = sharding.grad_norm(grads)
         lr = cosine_warmup(step, cfg.lr, cfg.warmup_steps, cfg.steps)
-        opt, om = adamw_update(params, grads, state["opt"], cfg, lr, grad_norm=gnorm)
+        opt, om = adamw_update(sharding.update_views(), grads, state["opt"], cfg, lr,
+                               grad_norm=gnorm)
+        if sharding.zero1_specs:
+            with comm.bound(mesh):
+                sharding.regather()
         return {"opt": opt, "err": state["err"]}, {"loss": loss, "lr": lr, **om, **aux}
 
+    step_fn.sharding = sharding
     return step_fn

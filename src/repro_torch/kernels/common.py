@@ -140,6 +140,13 @@ def product_3xtf32(a: torch.Tensor, b: torch.Tensor, split_b: bool = True) -> to
     return (out + d(ah, bh)).float()
 
 
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the meta device: a wrapper then takes
+    its kernel's meta route (the outputs' shapes and dtypes, one launch
+    recorded in ``utils/cost.py``, nothing computed)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def use_plain(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (run the plain version), False
     when every tensor lies on one CUDA device (launch the kernel); raises on

@@ -37,13 +37,29 @@ DEFAULT_TIMEOUT_S = 120.0
 @dataclass(frozen=True)
 class MeshSpec:
     """A mesh's layout without processes: ``shape`` and ``mesh_dim_names``
-    (the attribute names of a ``DeviceMesh``)."""
+    (the attribute names of a ``DeviceMesh``), the ``backend`` its
+    collectives would take and the ``rank`` that plays it.  Bound with
+    ``dist.comm.bound``, it takes the dry route: collectives count their
+    bytes and compute nothing (``dist/comm.py``)."""
 
     shape: tuple
     mesh_dim_names: tuple
+    backend: str = "nccl"
+    rank: int = 0
+
+    #: read by ``dist/comm.py``: a mesh without processes
+    is_dry = True
 
     def size(self, dim: int | None = None) -> int:
         return math.prod(self.shape) if dim is None else self.shape[dim]
+
+    def get_local_rank(self, name: str) -> int:
+        """``rank``'s coordinate along the axis ``name`` (row-major)."""
+        coords, r = [], self.rank
+        for ext in reversed(self.shape):
+            coords.append(r % ext)
+            r //= ext
+        return coords[::-1][self.mesh_dim_names.index(name)]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:

@@ -127,10 +127,18 @@ class Model(ParamTree):
             caches["tail"] = self.layout.tail.make_caches(batch, max_len, dev)
         return caches
 
-    def _stack_cache(self, sb: SuperBlock, params_at, caches, h, pos0: int, extra):
-        """Run one stack with its caches (prefill / decode), writing them in
-        place; ``params_at(i)`` is superblock i's parameters.  Returns the
-        stack's output in the activation dtype."""
+    #: how the caches are laid out across ranks, set by ``serve/engine.py``
+    #: for a request on a mesh whose caches split by position: ``take(key,
+    #: cache)`` gives a superblock's cache with every split leaf a mixer
+    #: needs whole gathered, ``put(key, cache, taken)`` writes this rank's
+    #: blocks back; None: the caches as they are
+    cache_layout = None
+
+    def _stack_cache(self, sb: SuperBlock, params_at, caches, h, pos0: int, extra,
+                     key: str = "blocks"):
+        """Run one stack with its caches (``caches[key]``; prefill / decode),
+        writing them in place; ``params_at(i)`` is superblock i's parameters.
+        Returns the stack's output in the activation dtype."""
         cfg = self.cfg
         ctx = Ctx(torch.arange(pos0, pos0 + h.shape[1], device=h.device), pos0, extra)
         if cfg.reversible:
@@ -139,8 +147,13 @@ class Model(ParamTree):
         else:
             state = h.to(getattr(torch, cfg.dtype))
         step = sb.fwd_pair if cfg.reversible else sb.fwd_std
+        layout = self.cache_layout
         for i in range(sb.n_super):
-            state, _aux = step(params_at(i), state, tree_map(lambda v: v[i], caches), ctx)
+            cache = tree_map(lambda v: v[i], caches)
+            taken = cache if layout is None else layout.take(key, cache)
+            state, _aux = step(params_at(i), state, taken, ctx)
+            if layout is not None:
+                layout.put(key, cache, taken)
         if cfg.reversible:
             x1, x2 = state
             return ((x1 + x2) * 0.5).to(getattr(torch, cfg.dtype))
@@ -197,7 +210,7 @@ class Model(ParamTree):
         if self.layout.tail is not None:
             # the tail is a second stack: h splits into two streams again
             h = self._stack_cache(self.layout.tail, lambda i: self.tail_blocks, caches["tail"], h,
-                                  pos0, extra)
+                                  pos0, extra, key="tail")
         return rmsnorm(h, self.final_norm, self.cfg.norm_eps), caches
 
     # ------------------------------------------------------------------

@@ -25,10 +25,18 @@ Sequence-parallel attention (``seq_shard``) splits the work over a
 model-sharded mesh's ``model`` axis where the reference places sharding
 constraints: the query rows of a prefill without a cache, the cache's
 positions of a cached call (``attn_apply``).
+
+Caches split by position (the reference's ``cache_pspecs(seq_fallback_model
+=True)``, which ``serve/engine.py`` lays out under ``cache_seq_fallback``):
+inside :func:`position_split_caches`, a cache ``attn_apply`` is given holds
+model rank r's block ``[r L, (r + 1) L)`` of the cache's ``m L`` positions.
+A call writes the part of its K/V that falls in the block and attends by
+``seq_shard``'s max-and-sum combine over the ranks' blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -146,17 +154,25 @@ class _SeqShardPrefill(torch.autograd.Function):
 
 def _seq_shard_cached(q, k, v, cfg: AttentionConfig, q_positions, kv_positions, mesh):
     """Attention over a cache whose positions split over the ``model``
-    axis (flash-decode): rank r scores its block of cache positions; the
-    softmax is combined across the ranks by the max of the block maxima,
-    then by the sum of the exponentials, and only then is each block's
-    weighted V summed over the ranks.  The rounding follows ``_sdpa``: the
-    scores in the inputs' dtype widened to f32, the probabilities cast to
-    V's dtype; the weighted sums run in f32 and are cast to V's dtype at the
-    end.  No gradient (a cache is a serving path)."""
-    b, sq, hq, dh = q.shape
-    hkv = k.shape[2]
+    axis (flash-decode): rank r scores its block of cache positions
+    (:func:`_combine_blocks`)."""
     lo, hi = _block(mesh, k.shape[1])
-    kl, vl, kvp = k[:, lo:hi], v[:, lo:hi], kv_positions[lo:hi]
+    return _combine_blocks(q, k[:, lo:hi], v[:, lo:hi], cfg, q_positions, kv_positions[lo:hi],
+                           mesh)
+
+
+def _combine_blocks(q, kl, vl, cfg: AttentionConfig, q_positions, kvp, mesh):
+    """Attention of ``q`` over every model rank's block of K/V positions
+    (this rank's ``kl``, ``vl`` at positions ``kvp``): the softmax is
+    combined across the ranks by the max of the block maxima, then by the
+    sum of the exponentials, and only then is each block's weighted V
+    summed over the ranks.  The rounding follows ``_sdpa``: the scores in
+    the inputs' dtype widened to f32, the probabilities cast to V's dtype;
+    the weighted sums run in f32 and are cast to V's dtype at the end.  No
+    gradient (a cache is a serving path)."""
+    b, sq, hq, dh = q.shape
+    hkv = kl.shape[2]
+    v = vl
     group = comm.mesh_group(mesh, MODEL_AXIS)
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kl).float().mul_(dh**-0.5)
@@ -179,6 +195,41 @@ def _seq_shard_cached(q, k, v, cfg: AttentionConfig, q_positions, kv_positions, 
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vl.float()).contiguous()
     comm.all_reduce(out, group)
     return out.to(v.dtype).reshape(b, sq, hq, dh)
+
+
+#: the mesh whose ``model`` axis splits the caches' positions, inside
+#: :func:`position_split_caches`; None otherwise
+_POSITION_SPLIT: list = []
+
+
+@contextlib.contextmanager
+def position_split_caches(mesh):
+    """Inside, every cache ``attn_apply`` is given holds this model rank's
+    block of positions (see the module docstring)."""
+    _POSITION_SPLIT.append(mesh)
+    try:
+        yield
+    finally:
+        _POSITION_SPLIT.pop()
+
+
+def _split_cache_attend(q, k, v, cache: dict, cache_pos: int, cfg: AttentionConfig, pos1d,
+                        mesh):
+    """Write the part of this call's K/V (positions ``[cache_pos, cache_pos
+    + S)``) that falls in this rank's block of the cache, then attend over
+    every rank's block."""
+    block = cache["k"].shape[1]
+    lo = mesh.get_local_rank(MODEL_AXIS) * block
+    end = cache_pos + k.shape[1]
+    if end > block * model_size(mesh):
+        raise ValueError(f"cache write [{cache_pos}, {end}) runs past its length "
+                         f"{block * model_size(mesh)}")
+    a, b = max(cache_pos, lo), min(end, lo + block)
+    if a < b:
+        cache["k"][:, a - lo:b - lo] = k[:, a - cache_pos:b - cache_pos].to(cache["k"].dtype)
+        cache["v"][:, a - lo:b - lo] = v[:, a - cache_pos:b - cache_pos].to(cache["v"].dtype)
+    kvp = torch.arange(lo, lo + block, device=q.device)
+    return _combine_blocks(q, cache["k"], cache["v"], cfg, pos1d, kvp, mesh)
 
 
 def attn_apply(
@@ -236,6 +287,8 @@ def attn_apply(
             out = _SeqShardPrefill.apply(q, k, v, cfg, pos1d, mesh)
         else:
             out = _sdpa(q, k, v, cfg, pos1d, pos1d)
+    elif _POSITION_SPLIT:
+        out = _split_cache_attend(q, k, v, cache, cache_pos, cfg, pos1d, _POSITION_SPLIT[-1])
     else:
         end = cache_pos + s
         if end > cache["k"].shape[1]:

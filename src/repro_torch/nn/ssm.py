@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SSMConfig
+from repro_torch.utils.cost import full_cat, full_stack, trip_range
 
 
 def _sigmoid(x):
@@ -99,9 +100,11 @@ def _causal_conv(x, w, b, state=None):
 
 def scan_on_kernel(state, device: torch.device) -> bool:
     """The scans' route: True (launch the CUDA kernel) for a mixer that
-    carries a recurrent ``state`` on a CUDA ``device``; False (the plain
-    scan) for a mixer without one, or on any other device."""
-    return state is not None and device.type == "cuda"
+    carries a recurrent ``state`` on a CUDA ``device``, or on the meta
+    device (the dry run reckons what the card runs: the kernels' meta
+    routes); False (the plain scan) for a mixer without one, or on the
+    CPU."""
+    return state is not None and device.type in ("cuda", "meta")
 
 
 def _ssd_chunk_scan(xh, da, dt, b_in, c_in, state0, chunk: int, kernel: bool = False):
@@ -127,7 +130,7 @@ def _ssd_chunk_scan(xh, da, dt, b_in, c_in, state0, chunk: int, kernel: bool = F
 
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
     state, ys = state0, []
-    for i in range(nc):
+    for i in trip_range(nc, xh.device):  # meta: a body traced for nc (utils/cost.py)
         sl = slice(i * chunk, (i + 1) * chunk)
         xck, dack, dtck, bck, cck = xh[:, sl], da[:, sl], dt[:, sl], b_in[:, sl], c_in[:, sl]
         cum = torch.cumsum(dack, dim=1)  # (B, c, H)
@@ -145,7 +148,7 @@ def _ssd_chunk_scan(xh, da, dt, b_in, c_in, state0, chunk: int, kernel: bool = F
         state = state * torch.exp(cum[:, -1])[..., None, None]
         state = state + torch.einsum("bsh,bsn,bshp->bhpn", tail, bck, xdt)
         ys.append(y_state + y_intra)
-    return torch.cat(ys, dim=1), state
+    return full_cat(ys, 1, nc), state
 
 
 def mamba2_apply(params, x, cfg: SSMConfig, state: Optional[dict] = None):
@@ -270,12 +273,12 @@ def _wkv_scan(r, k, v, w, u, state0, kernel: bool = False):
     runs."""
     if kernel:
         return _wkv_kernel(r, k, v, w, u, state0)
-    state, ys = state0, []
-    for t in range(r.shape[1]):
+    state, ys, n = state0, [], r.shape[1]
+    for t in trip_range(n, r.device):  # meta: a body traced for n (utils/cost.py)
         kv = k[:, t, ..., :, None] * v[:, t, ..., None, :]  # (B, H, K, K)
         ys.append(torch.einsum("bhk,bhkj->bhj", r[:, t], state + u[None, :, :, None] * kv))
         state = w[:, t, ..., :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    return full_stack(ys, 1, n), state
 
 
 def _wkv_scan_chunked(r, k, v, w, u, state0, chunk: int = 16, kernel: bool = False):
@@ -292,12 +295,12 @@ def _wkv_scan_chunked(r, k, v, w, u, state0, chunk: int = 16, kernel: bool = Fal
         r, k, v = zf(r), zf(k), zf(v)
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
     state, ys = state0, []
-    for c0 in range(0, s + pad, chunk):
-        for t in range(c0, c0 + chunk):
-            kv = k[:, t, ..., :, None] * v[:, t, ..., None, :]
-            ys.append(torch.einsum("bhk,bhkj->bhj", r[:, t], state + u[None, :, :, None] * kv))
-            state = w[:, t, ..., :, None] * state + kv
-    return torch.stack(ys, dim=1)[:, :s], state
+    # the chunks' tokens in order, one loop (meta: a body traced for s + pad)
+    for t in trip_range(s + pad, r.device):
+        kv = k[:, t, ..., :, None] * v[:, t, ..., None, :]
+        ys.append(torch.einsum("bhk,bhkj->bhj", r[:, t], state + u[None, :, :, None] * kv))
+        state = w[:, t, ..., :, None] * state + kv
+    return full_stack(ys, 1, s + pad)[:, :s], state
 
 
 def rwkv6_time_mix(params, x, cfg: SSMConfig, state: Optional[dict] = None):

@@ -43,8 +43,10 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, cfg: TrainConfig, l
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
     else:
         gnorm = grad_norm
-    scale = (cfg.grad_clip / (gnorm + 1e-9) if cfg.grad_clip > 0 and gnorm > cfg.grad_clip
-             else torch.ones_like(gnorm))
+    # a select, not a branch on the norm's value: no host sync, and a meta
+    # norm (the dry run) has no value
+    scale = (torch.where(gnorm > cfg.grad_clip, cfg.grad_clip / (gnorm + 1e-9),
+                         torch.ones_like(gnorm)) if cfg.grad_clip > 0 else torch.ones_like(gnorm))
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
     steps = torch.tensor(float(step), dtype=torch.float32)
     c1 = (1.0 - torch.tensor(b1, dtype=torch.float32) ** steps).item()

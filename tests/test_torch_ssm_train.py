@@ -50,11 +50,13 @@ SCAN = {"rwkv6-7b": (rwkv_ops, "rwkv6_wkv"), "zamba2-7b": (ssd_ops, "mamba2_ssd"
     (None, "cuda", False),
     ({"wkv": 0}, "cpu", False),
     (None, "cpu", False),
-    ({}, "meta", False),
+    ({}, "meta", True),
+    (None, "meta", False),
 ])
 def test_scan_route_is_a_pure_function(state, device, kernel):
-    """A state on CUDA: the kernel; no state, or another device: the plain
-    scan.  Whether a gradient is asked for does not enter."""
+    """A state on CUDA or on the meta device (the dry run reckons the card's
+    route): the kernel; no state, or the CPU: the plain scan.  Whether a
+    gradient is asked for does not enter."""
     assert ssm.scan_on_kernel(state, torch.device(device)) is kernel
     with torch.no_grad():
         assert ssm.scan_on_kernel(state, torch.device(device)) is kernel

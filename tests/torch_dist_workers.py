@@ -500,3 +500,91 @@ def train_flow_synthetic(rank, world, tmp, shape, build_kw):
     res = train_flow(flow, SyntheticImages(8, batch=2), TrainConfig(steps=1), device="cpu",
                      mesh=_mesh_of(shape))
     return {"losses": res.losses}
+
+
+def sharded_lm_steps(rank, world, tmp, shape, arch_cfg, tree, batch, cfg_kw, variants, steps):
+    """For each dry-run variant (``zero1``, ``fsdp``, ...): ``steps`` steps of
+    ``launch/dryrun.py::make_train_step`` of a ``REDUCED`` LM on a ``shape``
+    mesh from ``tree`` on the whole ``batch``: the losses, the final
+    parameters whole, this rank's stored bytes, the wire bytes of the first
+    step, the whole-leaf round trip of the blocks (a checkpoint's), and the
+    dry run's reckoning of the same cell on this rank (``MeshSpec`` over
+    gloo)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.config import ShapeSpec, TrainConfig
+    from repro_torch.dist import comm
+    from repro_torch.launch.dryrun import dry_cell, make_train_step, parse_variant
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import Model
+
+    mesh = _mesh_of(shape)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for variant in variants:
+        opts = parse_variant(variant)
+        model = params_from_numpy(Model(arch_cfg, device="cpu"), tree)
+        step = make_train_step(model, TrainConfig(**cfg_kw), mesh=mesh, zero1=opts["zero1"],
+                               fsdp=opts["fsdp"])
+        state = step.init_state()
+        sharding = step.sharding  # None: the replicated data-parallel step
+        stored = sharding.resident_bytes(state["opt"]) if sharding is not None else {}
+        losses, wire = [], None
+        for i in range(steps):
+            comm.reset_wire_bytes()
+            state, metrics = step(state, tb)
+            losses.append(float(metrics["loss"]))
+            wire = wire or comm.wire_bytes()
+        named = {k: v.detach() for k, v in model.named_parameters()}
+        whole, round_trip = named, True
+        if sharding is not None:
+            whole = sharding.whole_tree(named)
+            whole_opt = sharding.whole_opt(state["opt"])
+            round_trip = (all(torch.equal(v, named[k]) for k, v in
+                              sharding.local_tree(whole).items())
+                          and all(torch.equal(v, state["opt"][m][k])
+                                  for m in ("mu", "nu")
+                                  for k, v in sharding.local_opt(whole_opt)[m].items()))
+        rows = batch["tokens"].shape[0] // (shape[0] if len(shape) == 2 else shape[0] * shape[1])
+        cell = ShapeSpec("cell", batch["tokens"].shape[1], batch["tokens"].shape[0], "train")
+        art = dry_cell(arch_cfg.name, cell, MeshSpec(tuple(shape), ("data", "model"),
+                                                     backend="gloo", rank=rank),
+                       "mesh", variant, cfg=arch_cfg)
+        out[variant] = {"losses": losses, "params": _np(whole), "stored": stored,
+                        "stored_bytes": step.stored_bytes(state), "wire": wire,
+                        "round_trip": round_trip, "dry": art, "rows": rows}
+    return out
+
+
+def fallback_decode(rank, world, tmp, shape, runs, tree, prompt, max_new, max_len):
+    """For each ``(arch_cfg, serve_bf16)`` of ``runs``:
+    ``ServeEngine(cache_seq_fallback=True)`` greedy generation of a
+    ``REDUCED`` LM on a ``shape`` mesh: the tokens and the last logits, and
+    the wire bytes of one decode step, beside the dry run's reckoning of the
+    ``servefix`` cell when the weights are bf16."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.config import ShapeSpec
+    from repro_torch.dist import comm
+    from repro_torch.launch.dryrun import dry_cell
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    mesh = _mesh_of(shape)
+    out = []
+    for arch_cfg, serve_bf16 in runs:
+        model = params_from_numpy(Model(arch_cfg, device="cpu"), tree)
+        engine = ServeEngine(model, max_len=max_len, device="cpu", mesh=mesh,
+                             cache_seq_fallback=True, serve_bf16=serve_bf16)
+        toks, logits = engine.generate({"tokens": torch.from_numpy(prompt)}, max_new)
+        caches = engine.caches(prompt.shape[0])
+        comm.reset_wire_bytes()
+        engine.decode(torch.from_numpy(prompt[:, :1]), caches, max_len - 1)
+        wire = comm.wire_bytes()
+        art = None
+        if serve_bf16:  # the dry run's servefix: bf16 weights and the fallback
+            art = dry_cell(arch_cfg.name, ShapeSpec("cell", max_len, prompt.shape[0], "decode"),
+                           MeshSpec(tuple(shape), ("data", "model"), backend="gloo", rank=rank),
+                           "mesh", "servefix", cfg=arch_cfg)
+        out.append({"tokens": toks.numpy(), "logits": logits.float().numpy(), "wire": wire,
+                    "dry": art})
+    return out

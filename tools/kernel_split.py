@@ -53,6 +53,11 @@ of a ``torch.cuda._sleep`` spin on the same stream over its events' span.
 The line gives each reading with its two clocks, and the median, least and
 greatest reading of each.
 
+``conv1x1_mm`` times the kernel at ``chip_smoke.py``'s three (B, M, C),
+f32 and bf16, beside ``torch.matmul`` of the same x and W (W cast to x's
+dtype, as ``[times]`` calls it), each warm and after the 64 MB flush, by the
+summed device time of their kernels.
+
 With ``--chint`` it times instead the cHINT path's cross couplings (HINT's
 half contract, h = (raw | t) twice the half's width, M = 1; the tile path):
 ``coupling_bwd`` at a train step's (256, 1, 16) and (256, 1, 8) and
@@ -84,7 +89,7 @@ import chip_smoke as cs  # noqa: E402  (timing, inputs and tolerances as the smo
 
 SPINE_SHAPES = cs.SHAPES[:3]
 KERNELS = ("flowstep_fwd", "flowstep_inv", "spine_bwd", "coupling_fwd", "coupling_inv",
-           "coupling_bwd", "wkv_scan", "flash_attention")
+           "coupling_bwd", "conv1x1_mm", "wkv_scan", "flash_attention")
 COUPLING_KERNELS = ("coupling_fwd", "coupling_inv", "coupling_bwd")
 #: bytes read before each call of a "flushed" reading: more than the L2;
 #: and the names of the kernels the flush's sum launches (its reduction and
@@ -233,6 +238,35 @@ def coupling_points(label, names, dev) -> None:
                     "path": path[0] if len(path) == 1 else None,
                     "bound_us": 1e3 * cs.bound_ms(f"{name}_rows", shape, dtype),
                     **readings}), flush=True)
+
+
+def conv1x1_points(label, dev) -> None:
+    """``conv1x1_mm`` beside ``torch.matmul`` (module docstring)."""
+    import torch
+
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+
+    flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def flush():
+        return flush_buf.sum()
+
+    for shape in cs.CONV1X1_SHAPES[:3]:
+        for dtype in (torch.float32, torch.bfloat16):
+            xm, _gm, wm = cs.conv1x1_inputs(shape, dtype, dev, cs.SEED + 14)
+            wd = wm.to(dtype)
+            readings = {}
+            for reading, fl in (("warm", None), ("flushed", flush)):
+                kernel, split = summed_us(lambda: c1k.conv1x1_mm(xm, wm), fl)
+                library, lib_split = summed_us(lambda: torch.matmul(xm, wd), fl)
+                readings[reading] = {"summed_us": kernel, "summed_us_by_kernel": split,
+                                     "matmul_summed_us": library,
+                                     "matmul_summed_us_by_kernel": lib_split}
+            print(json.dumps({
+                "label": label, "kernel": "conv1x1_mm", "shape": list(shape),
+                "dtype": str(dtype).removeprefix("torch."), "path": c1k.mm_path(xm),
+                "bound_us": 1e3 * cs.bound_ms("conv1x1_mm", shape, dtype), **readings}),
+                flush=True)
 
 
 def chint_points(label, dev) -> None:
@@ -431,6 +465,8 @@ def main() -> int:
         coupling_points(args.label, coupling, dev)
     if "flash_attention" in args.only:
         attention_point(args.label, dev, args.flash_readings)
+    if "conv1x1_mm" in args.only:
+        conv1x1_points(args.label, dev)
     for shape in SPINE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).removeprefix("torch.")
