@@ -99,13 +99,27 @@ each:
              trip; (c) ``train_conditional_flow`` for 12 steps, checkpoints
              every 4, a failure at step 6 and no prefetch, bitwise equal to
              an uninterrupted run with ``prefetch=2``, the final step saved
-             once; (d) the ``lg-posterior`` scenario (d_theta 8, d_y 16,
-             sigma 0.5, depth 3, hidden 64, 600 steps) through
-             ``train_scenario`` on the card, then 20,000 draws streamed by
-             ``posterior_report`` against the analytic posterior (mean
-             within 0.35, std ratio in (0.5, 2)); wall and device-busy ms
-             of a train step and of the draws, and both kernels at this
-             path's M = 1 shapes (``[chint]`` lines);
+             once; wall and device-busy ms of a train step and of the
+             draws, and both kernels at this path's M = 1 shapes
+             (``[chint]`` lines);
+5d. examples - the port's five entry points, ``examples/torch_*.py``,
+             through their ``main`` on the card, each example's own gates
+             (an ``assert`` that fails the run), launches by kernel and
+             seconds on one ``[examples]`` line each: quickstart (RealNVP
+             on two-moons, 400 steps, the couplings on the fused kernels:
+             final NLL below 1.2); train_glow at its defaults (32x32, batch
+             8, 150 steps, checkpoints every 50), scanned (``invertible``)
+             and unrolled (``--grad-mode coupled``, the coupling row ops):
+             the loss falls, held-out bits/dim finite, samples by
+             inversion; reversible_lm at revlm-100m's full width (12 x
+             768, seq 512, batch 16) for ``EXAMPLE_LM_STEPS`` steps: the
+             last loss below the first, then ``ServeEngine.generate``;
+             amortized_inference (``lg-posterior``, 600 steps, 20,000
+             draws: the posterior mean within 0.35 of the analytic one, the
+             std ratio in (0.5, 2)); seismic_uq (``seismic-uq`` at
+             ``EXAMPLE_SEISMIC_STEPS`` steps, 12 ``coupling_bwd`` a step: a
+             finite posterior mean), whose trained run and checkpoints
+             phase 5c takes over;
 5c. uq      - (a) RealNVP: ``REALNVP_2D`` (the ``invertible`` engine, no
              kernel) at D = 2 and the kernel path (depth 8, hidden 128,
              ``coupled``, ``kernel_training``) at D = 32, batch 4096: a
@@ -118,8 +132,8 @@ each:
              layers, ``coupled``) on the pair state of 8 x 256x256x3
              images: a train step against the CPU and against
              ``autodiff`` on the card, the round trip, peak memory at
-             depth 16 and 32; (c) ``seismic-uq`` trained for
-             400 of its 1000 steps (12 ``coupling_bwd`` a step), restored bitwise,
+             depth 16 and 32; (c) ``seismic-uq`` as phase 5d's
+             seismic_uq trained it (12 ``coupling_bwd`` a step), restored bitwise,
              ``posterior_report`` (20,000 draws in chunks of 2048, SBC and
              coverage at 128 x 64: 12 ``coupling_inv`` a sampler call, the
              streamed moments within 1e-6 of the chunks concatenated, every
@@ -256,9 +270,16 @@ each:
              ``sample`` at batch 8 against the one-process engine (1e-4;
              whether bitwise is reported), 24 launches a rank a call; (d) a
              2-stage ``pipeline_forward`` and its gradient against the same
-             blocks in sequence on the card; (e) ``repro_torch.launch.train
+             blocks in sequence on the card (1e-5 relative), and
+             ``train_pipeline`` 4 steps on the ``("pipe",)`` mesh; (e) four
+             more ranks, a gloo world of their own started beside the two,
+             on a (data 2, pipe 2) mesh: the same forward and gradient
+             (1e-5), each stage's two data replicas bitwise equal, and
+             ``train_pipeline`` 4 steps, its losses and parameters within
+             1e-5 of (d)'s one-axis run and bitwise equal across the ranks,
+             with each rank's wire bytes; (f) ``repro_torch.launch.train
              --scenario lg-smoke --mesh auto`` (a world of 1: a (1, 1) mesh).
-             Two ranks on one card measure correctness and wire bytes, not
+             Ranks sharing one card measure correctness and wire bytes, not
              scaling.  Phases 11's depths were cut to pay for this one.
 14. mesh    - two ranks share the card over ``gloo`` on a (1, 2) mesh, the
              ``model`` axis 2: (a) ``GLOW_SCANNED`` at 256x256x3, batch 8,
@@ -617,9 +638,10 @@ def bound_by(name, shape, dtype) -> str:
         else "operations"
 
 
-def call_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Wall time of one call, launches back to back between CUDA events: the
-    caller's view, which includes the host work of each call."""
+    caller's view, which includes the host work of each call (20 calls; 50
+    until the examples needed the time)."""
     import torch
 
     for _ in range(warmup):
@@ -1314,9 +1336,6 @@ CHINT_BATCH, CHINT_DRAW, CHINT_SAMPLE = 256, 2048, 20_000
 # and 12 coupling_inv a draw
 CHINT_CROSS_NODES = 12
 TOL_CHINT_LOSS_REL = 1e-4  # the train loss on the card against the CPU
-# the bounds of examples/amortized_inference.py:49-50 on the lg-posterior
-# scenario (src/repro/uq/scenarios.py:100)
-LG_MEAN_ERR, LG_STD_RATIO = 0.35, (0.5, 2.0)
 
 
 def build_chint_model(device, seed=SEED + 40):
@@ -1349,10 +1368,11 @@ def chint_phase(dev, card) -> dict:
     cond, the same bits for the same seed, the round trip; (c) 12 steps
     through ``train_conditional_flow`` with checkpoints every 4, a failure
     at step 6 and no prefetch, bitwise against an uninterrupted run with
-    ``prefetch=2``, one save of the final step each; (d) the
-    ``lg-posterior`` recipe, 600 steps on the card, then 20,000 draws held
-    against the analytic posterior.  Then wall and device-busy ms of a train
-    step and a draw, and the two kernels at this path's shapes."""
+    ``prefetch=2``, one save of the final step each (the ``lg-posterior``
+    recipe against the analytic posterior runs in ``[examples]``, as
+    ``examples/torch_amortized_inference.py``).  Then wall and device-busy
+    ms of a train step and a draw, and the two kernels at this path's
+    shapes."""
     import shutil
     import tempfile
 
@@ -1485,31 +1505,6 @@ def chint_phase(dev, card) -> dict:
              restarts=b.restarts, final_state_bitwise_equal=same, saves=by_run,
              uninterrupted_prefetch=2, restarted_prefetch=0, losses=a.losses, card=card)
 
-        # (d) the lg-posterior scenario against the analytic posterior -------
-        from repro_torch.uq import get_scenario, posterior_report, train_scenario
-
-        lg = get_scenario("lg-posterior")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run = train_scenario(lg, ckpt_dir=str(scratch / "lg"), device=dev)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        y_lg = run.problem.batch_at(10_000)["y"][:1]
-        mu, cov = run.problem.posterior(y_lg[0])
-        stats, report = posterior_report(run, y_obs=y_lg, n_samples=CHINT_SAMPLE)
-        mean_err = float(abs(stats.mean - mu).max())
-        ratio = (stats.std / cov.diagonal() ** 0.5).tolist()
-        res = run.result
-        check(all(math.isfinite(v) for v in res.losses), "lg-posterior losses not finite")
-        check(mean_err < LG_MEAN_ERR, f"lg-posterior mean error {mean_err}")
-        check(all(LG_STD_RATIO[0] < r < LG_STD_RATIO[1] for r in ratio),
-              f"lg-posterior std ratio {ratio}")
-        line("chint", part="lg_posterior", scenario=lg.name, steps=lg.steps, train_s=train_s,
-             train_step_wall_ms=1e3 * train_s / lg.steps, first_loss=res.losses[0],
-             last_loss=res.losses[-1], posterior_mean_max_abs_err=mean_err,
-             posterior_std_ratio=ratio, draws=stats.n, chunk=lg.chunk,
-             sbc_pvalue_min=float(report.pvalues.min()), coverage=report.coverage, card=card)
-
         # wall and device-busy ms of a train step and of the draws -----------
         params = dict(model.named_parameters())
         opt = adamw_init(params)
@@ -1571,6 +1566,112 @@ def chint_phase(dev, card) -> dict:
     return out
 
 
+# The examples (phase 5d): the port's five entry points through their main.
+#: reversible_lm at revlm-100m's full width, steps cut from the example's 300
+#: for the script's time limit; its gate (the last loss below the first)
+#: reads the first and the last step only
+EXAMPLE_LM_STEPS = 20
+#: seismic_uq's steps, cut from the recipe's 1000 (80.4 s on an H100 with
+#: its report) for the script's time limit: its gate, a finite posterior mean,
+#: holds at any count (20 steps on the CPU); phase 5c takes the run over
+EXAMPLE_SEISMIC_STEPS = 100
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def all_kernels() -> tuple:
+    """Every kernel wrapper of the port (each with its launch count)."""
+    from repro_torch.kernels.attention import attention as ak
+    from repro_torch.kernels.conv1x1 import conv1x1 as c1k
+    from repro_torch.kernels.coupling import coupling as ck
+    from repro_torch.kernels.flowstep import flowstep as fk
+    from repro_torch.kernels.rwkv import rwkv as rk
+    from repro_torch.kernels.ssd import ssd as sk
+
+    return (*fk.KERNELS, *ck.KERNELS, *c1k.KERNELS, *ak.KERNELS, *rk.KERNELS, *sk.KERNELS)
+
+
+def _example_gates(name: str, res: dict) -> dict:
+    """The numbers each example's own gates read."""
+    if name == "quickstart":
+        return {"nll": res["nll"], "nll_gate": 1.2, "round_trip_max_err": res["round_trip_max_err"]}
+    if name == "train_glow":
+        return {k: res[k] for k in ("final_step", "first_loss", "last_loss", "bits_per_dim",
+                                    "sample_shape", "sample_range")}
+    if name == "reversible_lm":
+        return {"n_params": res["n_params"], "steps": res["steps"], "first_loss":
+                res["first_loss"], "last_loss": res["last_loss"],
+                "generated_shape": list(res["tokens"].shape)}
+    if name == "amortized_inference":
+        return {"steps": res["steps"], "mu_err": res["mu_err"], "mu_err_gate": 0.35,
+                "sd_ratio_min_max": [min(res["sd_ratio"]), max(res["sd_ratio"])],
+                "sd_ratio_gate": [0.5, 2.0], "draws": res["draws"],
+                "sbc_pvalue_min": res["sbc_pvalue_min"], "first_loss": res["losses"][0],
+                "last_loss": res["losses"][-1]}
+    stats = res["stats"]
+    return {"steps": res["steps"], "posterior_mean_finite": bool(all(
+        math.isfinite(v) for v in stats.mean.tolist())), "draws": stats.n,
+            "width_vs_analytic_std_corr": res["width_vs_analytic_std_corr"],
+            "first_loss": res["run"].result.losses[0], "last_loss": res["run"].result.losses[-1]}
+
+
+def examples_phase(dev, card, scratch) -> dict:
+    """Phase 5d ``[examples]``: each of ``examples/torch_*.py`` through its
+    ``main`` on the card (docstring above), its launches counted from 0 just
+    before and read just after.  Returns the launches by example and the
+    seismic run for phase 5c."""
+    import torch
+
+    seismic_ck = str(scratch / "seismic-uq")
+    runs = (
+        ("quickstart", "quickstart", {}, ("coupling_fwd",)),
+        ("train_glow", "train_glow --scanned", {"scanned": True, "ckpt": str(scratch / "glow_s")},
+         ("flowstep_fwd", "flowstep_inv")),
+        ("train_glow", "train_glow --grad-mode coupled",
+         {"grad_mode": "coupled", "ckpt": str(scratch / "glow_u")},
+         ("coupling_fwd", "coupling_bwd")),
+        ("reversible_lm", f"reversible_lm --steps {EXAMPLE_LM_STEPS}",
+         {"steps": EXAMPLE_LM_STEPS, "ckpt": str(scratch / "revlm")}, ()),
+        ("amortized_inference", "amortized_inference", {}, ("coupling_bwd", "coupling_inv")),
+        ("seismic_uq", "seismic_uq", {"steps": EXAMPLE_SEISMIC_STEPS, "ckpt_dir": seismic_ck},
+         ("coupling_bwd", "coupling_inv")),
+    )
+    kernels = all_kernels()
+    launches, seismic = {}, None
+    for name, what, kwargs, needs in runs:
+        module = load_example(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = module.main(device=dev, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels if k.launches}
+        by_path = {k.name: {p: n for p, n in k.launches_by_path.items() if n}
+                   for k in kernels if k.launches and hasattr(k, "launches_by_path")}
+        launches[what] = counts
+        line("examples", example=f"examples/torch_{name}.py", run=what, gates=_example_gates(
+            name, res), launches=counts, launches_by_path=by_path, seconds=seconds, card=card)
+        check(all(counts.get(k, 0) > 0 for k in needs),
+              f"examples: {what} did not launch {needs}: {counts}")
+        if name == "seismic_uq":
+            seismic = {"run": res["run"], "steps": res["steps"], "ckpt_dir": seismic_ck,
+                       "launches_by_path": by_path, "seconds": seconds}
+        del res, module
+    return {"launches": launches, "seismic": seismic}
+
+
 # UQ (phase 5c).  (a) RealNVP: REALNVP_2D as the reference builds it (the
 # invertible engine, no kernel) at D = 2, and the kernel path (depth 8,
 # hidden 128, coupled, kernel_training) at D = 32, the tabular shape of
@@ -1584,11 +1685,6 @@ UQ_BATCH = 4096
 REALNVP_KERNEL = dict(d=32, depth=8, hidden=128)
 REALNVP_MEM_DEPTHS = (2, 8, 24)
 HYPER_MEM_DEPTHS = (16, 32)
-# cut from the seismic-uq recipe's 1000 for the script's time limit (with
-# phase 14 it ran 1163 s on a slow host): its gates (finite losses, the
-# restore bitwise, 12 coupling_bwd a step, the report's sampler calls) do not
-# read how far it trained
-UQ_SCENARIO_STEPS = 400
 # cut from the recipes' 300: the cut shrinks the warmup to 2 steps (a 20th
 # of the steps, at least 2), and at the full learning rate from step 2 on
 # both the reference and the port diverge (loss ~1e21 at step 3 at 16x16)
@@ -1767,12 +1863,14 @@ def count_calls(obj, attr):
     return calls
 
 
-def uq_seismic(dev, card, scratch, out):
-    """(c), the conditional scenario: ``seismic-uq`` trained on the card,
-    restored bitwise, and its ``posterior_report`` (20,000 draws in chunks
-    of 2048, SBC and coverage at 128 x 64), the streamed moments against the
-    chunks concatenated, ``coupling_inv`` launches against the sampler
-    calls; wall and busy of a train step, a chunk and the report."""
+def uq_seismic(dev, card, out, trained):
+    """(c), the conditional scenario: ``seismic-uq`` as phase 5d's
+    seismic_uq example trained it (``trained``: its run, checkpoint
+    directory and launches), restored bitwise, and its ``posterior_report``
+    (20,000 draws in chunks of 2048, SBC and coverage at 128 x 64), the
+    streamed moments against the chunks concatenated, ``coupling_inv``
+    launches against the sampler calls; wall and busy of a train step, a
+    chunk and the report."""
     import numpy as np
     import torch
     from repro_torch.config import TrainConfig
@@ -1781,34 +1879,26 @@ def uq_seismic(dev, card, scratch, out):
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.train.loop import objective_value_and_grad
     from repro_torch.uq import PosteriorEngine, get_scenario, posterior_report, restore_scenario
-    from repro_torch.uq import train_scenario
 
     sc = get_scenario("seismic-uq")
-    steps = UQ_SCENARIO_STEPS
-    ckpt_dir = str(scratch / "seismic-uq")
-    reset(ck.KERNELS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run = train_scenario(sc, steps=steps, ckpt_dir=ckpt_dir, device=dev)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    paths = {k.name: dict(k.launches_by_path) for k in ck.KERNELS}
-    check(paths == {"coupling_fwd": {"rows": 0, "tile": 0}, "coupling_inv": {"rows": 0, "tile": 0},
-                    "coupling_bwd": {"rows": 0, "tile": CHINT_CROSS_NODES * steps}},
-          f"seismic-uq training launches: {paths}")
+    run, steps = trained["run"], trained["steps"]
+    bwd = trained["launches_by_path"].get("coupling_bwd", {})
+    fwd = trained["launches_by_path"].get("coupling_fwd", {})
+    check(bwd == {"tile": CHINT_CROSS_NODES * steps} and not fwd,
+          f"seismic-uq training launches: coupling_bwd {bwd}, coupling_fwd {fwd}")
     losses = run.result.losses
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           "seismic-uq losses not finite")
-    restored = restore_scenario(sc, ckpt_dir, device=dev)
+    restored = restore_scenario(sc, trained["ckpt_dir"], device=dev)
     unequal = [k for k, v in run.params.items() if not torch.equal(v, restored.params[k])]
     check(not unequal and set(run.params) == set(restored.params),
           f"restored parameters differ from the trained ones: {unequal[:5]}")
     out["launches"]["seismic_train_step"] = {"coupling_bwd": CHINT_CROSS_NODES}
     line("uq", part="seismic_train", scenario=sc.name, steps=steps, recipe_steps=sc.steps,
-         steps_cut=steps != sc.steps, train_s=train_s, train_step_wall_ms=1e3 * train_s / steps,
-         first_loss=losses[0], last_loss=losses[-1], launches_by_path=paths,
-         restored_bitwise_equal=True, n_params=sum(p.numel() for p in run.model.parameters()),
-         card=card)
+         steps_cut=steps != sc.steps, trained_by="examples/torch_seismic_uq.py (phase 5d)",
+         example_s_with_report=trained["seconds"], first_loss=losses[0], last_loss=losses[-1],
+         coupling_bwd_launches_by_path=bwd, restored_bitwise_equal=True,
+         n_params=sum(p.numel() for p in run.model.parameters()), card=card)
 
     model = restored.model
     y_obs = restored.problem.batch_at(10_000)["y"][:1]
@@ -1942,7 +2032,9 @@ def uq_launchers(card, scratch):
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     ckpt_dir = str(scratch / "lg-smoke")
-    chains = ([["repro_torch.launch.train", "--scenario", "lg-smoke", "--ckpt", ckpt_dir],
+    # 8 of lg-smoke's 50 steps (all 50 until the examples needed the time)
+    chains = ([["repro_torch.launch.train", "--scenario", "lg-smoke", "--steps", "8",
+                "--ckpt", ckpt_dir],
                ["repro_torch.launch.serve", "--scenario", "lg-smoke", "--ckpt", ckpt_dir,
                 "--samples", "4096"]],
               [["repro_torch.launch.serve", "--arch", "yi-6b", "--reduced"]])
@@ -2054,21 +2146,25 @@ def uq_times(dev, card) -> dict:
     return times
 
 
-def uq_phase(dev, card) -> dict:
+def uq_phase(dev, card, seismic) -> dict:
     """Phase 5c: the zoo and the UQ layer on the card, (a) to (d) above, then
-    the kernels at the new paths' shapes."""
+    the kernels at the new paths' shapes; ``seismic``: phase 5d's trained
+    ``seismic-uq`` run."""
     import shutil
     import tempfile
 
     out: dict = {"launches": {}}
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_uq_"))
     try:
-        uq_realnvp(dev, card, out)
-        uq_hyperbolic(dev, card)
-        uq_seismic(dev, card, scratch, out)
-        uq_priors(dev, card, scratch, out)
-        uq_launchers(card, scratch)
-        out["times"] = uq_times(dev, card)
+        for part, run in (("realnvp", lambda: uq_realnvp(dev, card, out)),
+                          ("hyperbolic", lambda: uq_hyperbolic(dev, card)),
+                          ("seismic", lambda: uq_seismic(dev, card, out, seismic)),
+                          ("priors", lambda: uq_priors(dev, card, scratch, out)),
+                          ("launchers", lambda: uq_launchers(card, scratch)),
+                          ("times", lambda: out.update(times=uq_times(dev, card)))):
+            t0 = time.perf_counter()
+            run()
+            line("seconds-part", of=f"uq: {part}", seconds=round(time.perf_counter() - t0, 3))
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     return out
@@ -2396,7 +2492,8 @@ def lm_times(served, card, wall_ms, name: str = "yi-6b") -> None:
     caches = model.make_caches(prompt.shape[0], pos + LM_NEW)
     tok = prompt[:, -1:]
     extra = served.get("extra")
-    calls = {"prefill": (lambda: model.prefill(batch, caches), 5,
+    # prefill over 3 calls (5 until the examples needed the time)
+    calls = {"prefill": (lambda: model.prefill(batch, caches), 3,
                          served.get("positions", prompt.numel())),
              "decode_step": (lambda: model.decode_step(tok, caches, pos, extra), 20,
                              prompt.shape[0])}
@@ -2563,7 +2660,8 @@ def time_scans(dev) -> dict:
     """``[times]`` of ``wkv_scan`` at rwkv6-7b's prefill and decode step and
     of ``ssd_scan`` at zamba2-7b's prefill, f32 with an initial state, as the
     models call them; the plain versions (Python loops over 2,048 steps)
-    over two calls.  The decode step cycles through one input set and
+    over one call (two until the examples needed the time).  The decode
+    step cycles through one input set and
     state per layer (32, 268 MB of states), so that each call reads its
     state cold from HBM as a decode step does, not from the 50 MB L2.  No
     single PyTorch call computes either function."""
@@ -2581,7 +2679,7 @@ def time_scans(dev) -> dict:
     r, k, v, w, u, s0 = wkv_inputs(WKV_SHAPES[-1], torch.float32, dev, SEED + 25, model_like=True)
     rows["wkv_scan"].append(time_kernel(
         "wkv_scan", WKV_SHAPES[-1], torch.float32, lambda: rk.wkv_scan(r, k, v, w, u, state0=s0),
-        lambda: wkv_ref(r, k, v, w, u, s0), plain_reps=2, kernels_per_call=1))
+        lambda: wkv_ref(r, k, v, w, u, s0), plain_reps=1, kernels_per_call=1))
     del r, k, v, w, u, s0
     layers = [wkv_inputs(WKV_DECODE_SHAPE, torch.float32, dev, SEED + 60 + i, model_like=True)
               for i in range(WKV_DECODE_LAYERS)]
@@ -2596,7 +2694,7 @@ def time_scans(dev) -> dict:
     rows["ssd_scan"] = [time_kernel(
         "ssd_scan", shape, torch.float32,
         lambda: sk.ssd_scan(x, da, dt, b_in, c_in, chunk=shape[-1], state0=s0),
-        lambda: ssd_ref(x, da, dt, b_in, c_in, s0), plain_reps=2,
+        lambda: ssd_ref(x, da, dt, b_in, c_in, s0), plain_reps=1,
         kernels_per_call=sk.KERNELS_PER_CALL,
         bound_ms_at_f32_cuda_cores=1e3 * flops / H100_F32_FLOPS)]
     del x, da, dt, b_in, c_in
@@ -3663,8 +3761,12 @@ DIST_WORLD = 2
 #: phase fails when its ranks have not finished by the join's limit
 DIST_PG_TIMEOUT_S, DIST_JOIN_TIMEOUT_S = 60.0, 240.0
 DIST_LOOP_STEPS = 3                    # (b): int8-compressed train_flow steps
-DIST_PIPE = (2, 2, 512, 4, 8)          # (d): stages, blocks a stage, width, M, microbatch
+DIST_PIPE = (2, 2, 512, 4, 8)          # (d), (e): stages, blocks a stage, width, M, microbatch
+DIST_PIPE_STEPS = 4                    # (d), (e): train_pipeline steps
+#: (e): four ranks on a (data 2, pipe 2) mesh, a gloo world of their own
+DIST_PIPE_WORLD, DIST_PIPE_MESH = 4, (2, 2)
 TOL_DIST = 1e-4                        # of each leaf's (output's) largest entry
+TOL_DIST_PIPE = 1e-5                   # (e): against the one-axis run, relative
 
 
 def _dist_flow(dev, state, psum_axis=None):
@@ -3684,12 +3786,13 @@ def dist_rank(rank: int, world: int, scratch: str):
     """One rank of phase 13 (a process of its own on ``cuda:0``, the gloo
     world of ``world`` ranks over a file store in ``scratch``): (a) the
     data-parallel gradient and step, (b) the supervised loop with a restart,
-    (c) sharded serving, (d) GPipe.  Writes its results to
+    (c) sharded serving, (d) GPipe on a ``("pipe",)`` mesh.  Writes its results to
     ``scratch/out<rank>.pt``, or its traceback to ``scratch/err<rank>.txt``."""
     import traceback
 
     import torch
 
+    entered = time.time()
     sys.path.insert(0, str(ROOT / "src"))
     try:
         torch.set_num_threads(2)
@@ -3702,14 +3805,19 @@ def dist_rank(rank: int, world: int, scratch: str):
 
         backend = init_world("cuda", init_method=f"file://{scratch}/store", rank=rank,
                              world_size=world, timeout_s=DIST_PG_TIMEOUT_S)
+        in_world = time.time()
         check(backend == "gloo", f"rank {rank}: ranks sharing one card took {backend}")
         mesh = make_auto_mesh((world, 1), device_type="cuda")
         payload = torch.load(f"{scratch}/payload.pt", weights_only=False)
-        out = {"rank": rank, "backend": backend}
-        out.update(_dist_dp(rank, mesh, payload))
-        out.update(_dist_loop(rank, mesh, payload, scratch))
-        out.update(_dist_serve(rank, mesh, payload))
-        out.update(_dist_pipeline(rank, world))
+        out = {"rank": rank, "backend": backend, "seconds": {}}
+        for part, run in (("a", lambda: _dist_dp(rank, mesh, payload)),
+                          ("b", lambda: _dist_loop(rank, mesh, payload, scratch)),
+                          ("c", lambda: _dist_serve(rank, mesh, payload)),
+                          ("d", lambda: _dist_pipeline(rank, world))):
+            t0 = time.perf_counter()
+            out.update(run())
+            out["seconds"][part] = time.perf_counter() - t0
+        out["clock"] = {"entered": entered, "in_world": in_world, "done": time.time()}
         torch.save(out, f"{scratch}/out{rank}.pt")
     except BaseException:
         Path(f"{scratch}/err{rank}.txt").write_text(traceback.format_exc())
@@ -3891,14 +3999,16 @@ def _dist_serve(rank, mesh, payload) -> dict:
     return {"c": result}
 
 
-def _dist_pipeline(rank, world) -> dict:
-    """(d) a 2-stage ``pipeline_forward`` of tanh blocks on the card and its
-    gradient against the same blocks in sequence on the card."""
+def _pipe_forward(rank, mesh, part: str) -> dict:
+    """A 2-stage ``pipeline_forward`` of tanh blocks on the card over the
+    mesh's ``pipe`` axis and its gradient against the same blocks in
+    sequence on the card (part (d) on a ``("pipe",)`` mesh, (e) on a (data,
+    pipe) one); the output comes back for the replicas' bitwise check."""
     import torch
     from repro_torch.dist import comm, pipeline_forward, pipeline_stage_fn
-    from repro_torch.launch.mesh import make_auto_mesh
 
     stages, l_per, d, m, mb = DIST_PIPE
+    s = mesh.get_local_rank("pipe")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(SEED + 93)
     w = (torch.randn(stages, l_per, d, d, generator=g) / math.sqrt(d)).to(dev)
@@ -3909,37 +4019,169 @@ def _dist_pipeline(rank, world) -> dict:
     def block(p, h):
         return torch.tanh(h @ p["w"] + p["b"])
 
-    mesh = make_auto_mesh((world,), ("pipe",), device_type="cuda")
-    wl, bl = w[rank].clone().requires_grad_(), b[rank].clone().requires_grad_()
+    wl, bl = w[s].clone().requires_grad_(), b[s].clone().requires_grad_()
     comm.reset_wire_bytes()
     out = pipeline_forward(pipeline_stage_fn(block, l_per), {"w": wl, "b": bl}, x, mesh)
     gw, gb = torch.autograd.grad(out, [wl, bl], gy)
+    wire = comm.wire_bytes()
     ws, bs = w.clone().requires_grad_(), b.clone().requires_grad_()
     h = x
-    for s in range(stages):
+    for i_s in range(stages):
         for i in range(l_per):
-            h = block({"w": ws[s, i], "b": bs[s, i]}, h)
+            h = block({"w": ws[i_s, i], "b": bs[i_s, i]}, h)
     rw, rb = torch.autograd.grad(h, [ws, bs], gy)
     errs = {"out": (out - h).abs().max().item() / h.abs().max().item(),
-            "gw": (gw - rw[rank]).abs().max().item() / rw[rank].abs().max().item(),
-            "gb": (gb - rb[rank]).abs().max().item() / rb[rank].abs().max().item()}
-    check(max(errs.values()) <= 1e-5, f"rank {rank}: pipeline vs sequence {errs}")
-    result = {"stages": stages, "blocks_per_stage": l_per, "width": d, "microbatches": m,
-              "max_rel_err": errs, "out_bitwise": bool(torch.equal(out, h)),
-              "wire": comm.wire_bytes()}
-    line("dist", part="d", rank=rank, **result)
+            "gw": (gw - rw[s]).abs().max().item() / rw[s].abs().max().item(),
+            "gb": (gb - rb[s]).abs().max().item() / rb[s].abs().max().item()}
+    check(max(errs.values()) <= 1e-5, f"rank {rank} ({part}): pipeline vs sequence {errs}")
+    result = {"stage": s, "stages": stages, "blocks_per_stage": l_per, "width": d,
+              "microbatches": m, "max_rel_err": errs, "out_bitwise": bool(torch.equal(out, h)),
+              "wire": wire}
+    line("dist", part=part, rank=rank, mesh=list(mesh.mesh_dim_names), **result)
+    return {**result, "out": out.detach().cpu(), "gw": gw.cpu(), "gb": gb.cpu()}
+
+
+def _pipe_train(mesh) -> dict:
+    """``train_pipeline`` of the same tanh blocks with a linear head,
+    ``DIST_PIPE_STEPS`` steps at batch M x microbatch on the card: the
+    losses, the final parameters (on the CPU) and the wire bytes."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.dist import comm
+    from repro_torch.train.loop import train_pipeline
+
+    stages, l_per, d, m, mb = DIST_PIPE
+    g = torch.Generator().manual_seed(SEED + 94)
+    init = {"stages": {"w": torch.randn(stages, l_per, d, d, generator=g) / math.sqrt(d),
+                       "b": 0.1 * torch.randn(stages, l_per, d, generator=g)},
+            "head": 0.1 * torch.randn(d, 1, generator=g)}
+
+    class Data:
+        def batch_at(self, step):
+            x = torch.randn(m * mb, d, generator=torch.Generator().manual_seed(SEED + 95 + step))
+            return {"x": x, "y": torch.sin(x.sum(-1, keepdim=True) / math.sqrt(d))}
+
+    comm.reset_wire_bytes()
+    res = train_pipeline(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                         lambda: {"stages": {k: v.clone() for k, v in init["stages"].items()},
+                                  "head": init["head"].clone()}, Data(),
+                         TrainConfig(steps=DIST_PIPE_STEPS, lr=1e-4, warmup_steps=1,
+                                     pipeline_microbatches=m),
+                         mesh=mesh, n_layers_per_stage=l_per, device="cuda",
+                         loss_head=lambda p, h, batch: torch.mean(
+                             (h @ p["head"] - batch["y"]) ** 2))
+    check(len(res.losses) == DIST_PIPE_STEPS and all(math.isfinite(v) for v in res.losses),
+          f"train_pipeline on {mesh.mesh_dim_names}: losses {res.losses}")
+    return {"losses": res.losses, "params": {k: v.cpu() for k, v in res.params.items()},
+            "wire": comm.wire_bytes()}
+
+
+def _dist_pipeline(rank, world) -> dict:
+    """(d) the 2-stage pipeline on a ``("pipe",)`` mesh: the forward and
+    gradient against the blocks in sequence, and ``train_pipeline``, the
+    one-axis run that part (e) is held to."""
+    from repro_torch.launch.mesh import make_auto_mesh
+
+    mesh = make_auto_mesh((world,), ("pipe",), device_type="cuda")
+    result = _pipe_forward(rank, mesh, "d")
+    result["train"] = _pipe_train(mesh)
     return {"d": result}
+
+
+def pipe_mesh_rank(rank: int, world: int, scratch: str):
+    """One rank of phase 13's part (e): ``DIST_PIPE_WORLD`` processes on
+    ``cuda:0`` in a gloo world of their own (a file store in ``scratch``), a
+    ``(data 2, pipe 2)`` mesh: the pipeline's forward and gradient against
+    the blocks in sequence, and ``train_pipeline``.  Writes its results to
+    ``scratch/pipe_out<rank>.pt``, or its traceback to
+    ``scratch/pipe_err<rank>.txt``."""
+    import traceback
+
+    import torch
+
+    entered = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        torch.set_num_threads(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.launch.mesh import init_world, make_auto_mesh
+
+        backend = init_world("cuda", init_method=f"file://{scratch}/pipe_store", rank=rank,
+                             world_size=world, timeout_s=DIST_PG_TIMEOUT_S)
+        in_world = time.time()
+        check(backend == "gloo", f"rank {rank}: ranks sharing one card took {backend}")
+        mesh = make_auto_mesh(DIST_PIPE_MESH, ("data", "pipe"), device_type="cuda")
+        out = {"rank": rank, "coord": {a: mesh.get_local_rank(a) for a in ("data", "pipe")},
+               "backend": backend}
+        t0 = time.perf_counter()
+        out["e"] = _pipe_forward(rank, mesh, "e")
+        t1 = time.perf_counter()
+        out["e"]["train"] = _pipe_train(mesh)
+        out["seconds"] = {"forward": t1 - t0, "train": time.perf_counter() - t1}
+        out["clock"] = {"entered": entered, "in_world": in_world, "done": time.time()}
+        torch.save(out, f"{scratch}/pipe_out{rank}.pt")
+    except BaseException:
+        Path(f"{scratch}/pipe_err{rank}.txt").write_text(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as tdist
+
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def pipe_mesh_check(outs: list, one_axis: dict, card) -> dict:
+    """Part (e) held together: each stage's two data replicas bitwise equal
+    (outputs, gradients, losses, parameters), the losses within
+    ``TOL_DIST_PIPE`` of the one-axis run's and the parameters within it of
+    their scale."""
+    import torch
+
+    by_stage: dict = {}
+    for o in outs:
+        by_stage.setdefault(o["coord"]["pipe"], []).append(o)
+    check(sorted(by_stage) == [0, 1] and all(len(v) == 2 for v in by_stage.values()),
+          f"dist (e): ranks by stage {[o['coord'] for o in outs]}")
+    replicas_bitwise = all(
+        torch.equal(a["e"][k], b["e"][k])
+        for a, b in by_stage.values() for k in ("out", "gw", "gb"))
+    first = outs[0]["e"]["train"]
+    params_bitwise = all(o["e"]["train"]["losses"] == first["losses"] and all(
+        torch.equal(v, o["e"]["train"]["params"][k]) for k, v in first["params"].items())
+        for o in outs[1:])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(first["losses"], one_axis["losses"]))
+    param_rel, worst = max_rel_leaf_err(first["params"], one_axis["params"])
+    vs_one_axis_bitwise = first["losses"] == one_axis["losses"] and all(
+        torch.equal(v, one_axis["params"][k]) for k, v in first["params"].items())
+    check(replicas_bitwise, "dist (e): the data replicas' pipeline outputs differ")
+    check(params_bitwise, "dist (e): train_pipeline's losses or parameters differ across ranks")
+    check(loss_rel <= TOL_DIST_PIPE and param_rel <= TOL_DIST_PIPE,
+          f"dist (e): vs the one-axis run: losses {loss_rel}, parameters {param_rel} at {worst}")
+    result = {"mesh": list(DIST_PIPE_MESH), "axes": ["data", "pipe"],
+              "max_rel_err_vs_sequence": {k: max(o["e"]["max_rel_err"][k] for o in outs)
+                                          for k in ("out", "gw", "gb")},
+              "replicas_bitwise": replicas_bitwise, "losses": first["losses"],
+              "one_axis_losses": one_axis["losses"], "loss_max_rel_err_vs_one_axis": loss_rel,
+              "param_max_rel_err_vs_one_axis": param_rel, "params_bitwise_across_ranks":
+              params_bitwise, "bitwise_vs_one_axis": vs_one_axis_bitwise,
+              "rank_seconds": {o["rank"]: o["seconds"] for o in outs},
+              "forward_wire_per_rank": {o["rank"]: o["e"]["wire"] for o in outs},
+              "train_wire_per_rank": {o["rank"]: o["e"]["train"]["wire"] for o in outs}}
+    line("dist", part="e-summary", **result, card=card)
+    return result
 
 
 def dist_phase(dev, card) -> dict:
     """Phase 13 ``[dist]``: ``DIST_WORLD`` ranks share ``cuda:0`` over
     ``gloo`` (NCCL refuses two ranks on one device), each a process started
-    here with the kernels this process built; they check correctness and
-    count wire bytes, and measure no scaling.  Then, here: (b) the elastic
-    restore of the ranks' int8 checkpoint onto one process (the residuals
-    re-zeroed, with a warning) and (e) ``--mesh auto`` through the train
-    launcher (a world of 1: a (1, 1) mesh).  Returns the per-rank launches of
-    the DP step and of sharded serving."""
+    here with the kernels this process built, and beside them the
+    ``DIST_PIPE_WORLD`` ranks of part (e) in a world of their own; they
+    check correctness and count wire bytes, and measure no scaling.  Then,
+    here: (e)'s ranks held to each other and to (d)'s one-axis run, (b) the
+    elastic restore of the ranks' int8 checkpoint onto one process (the
+    residuals re-zeroed, with a warning) and (f) ``--mesh auto`` through the
+    train launcher (a world of 1: a (1, 1) mesh).  Returns the per-rank
+    launches of the DP step and of sharded serving."""
     import multiprocessing
     import os
     import shutil
@@ -3975,7 +4217,7 @@ def dist_phase(dev, card) -> dict:
                    f"{scratch}/payload.pt")
         del flow, grads, engine
 
-        # (e) the train launcher with --mesh auto (a world of 1, a (1, 1)
+        # (f) the train launcher with --mesh auto (a world of 1, a (1, 1)
         # mesh), run beside the ranks: it trains lg-smoke, a small model
         argv = ["repro_torch.launch.train", "--scenario", "lg-smoke", "--mesh", "auto",
                 "--steps", "8", "--ckpt", f"{scratch}/launcher"]
@@ -3983,26 +4225,36 @@ def dist_phase(dev, card) -> dict:
         with open(f"{scratch}/launcher.out", "w") as out, open(f"{scratch}/launcher.err", "w") as err:
             launcher = subprocess.Popen([sys.executable, "-m", *argv], stdout=out, stderr=err,
                                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        # (a)-(d): DIST_WORLD ranks; (e): DIST_PIPE_WORLD ranks in a world of
+        # their own, started beside them
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=dist_rank, args=(r, DIST_WORLD, scratch))
-                 for r in range(DIST_WORLD)]
-        for p in procs:
+        worlds = {"": (dist_rank, DIST_WORLD), "pipe_": (pipe_mesh_rank, DIST_PIPE_WORLD)}
+        procs = {(tag, r): ctx.Process(target=fn, args=(r, world, scratch))
+                 for tag, (fn, world) in worlds.items() for r in range(world)}
+        spawned = time.time()
+        for p in procs.values():
             p.start()
         deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
-        for p in procs:
+        for p in procs.values():
             p.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
+        hung = [key for key, p in procs.items() if p.is_alive()]
+        for p in procs.values():
             if p.is_alive():
                 p.kill()
                 p.join()
-        errs = {r: Path(f"{scratch}/err{r}.txt").read_text()[-3000:] for r in range(DIST_WORLD)
-                if Path(f"{scratch}/err{r}.txt").exists()}
+        errs = {key: Path(f"{scratch}/{key[0]}err{key[1]}.txt").read_text()[-3000:]
+                for key in procs if Path(f"{scratch}/{key[0]}err{key[1]}.txt").exists()}
         check(not hung, f"dist: ranks {hung} still running after {DIST_JOIN_TIMEOUT_S} s: {errs}")
-        check(not errs and all(p.exitcode == 0 for p in procs),
-              f"dist: exit codes {[p.exitcode for p in procs]}: {errs}")
+        check(not errs and all(p.exitcode == 0 for p in procs.values()),
+              f"dist: exit codes {[p.exitcode for p in procs.values()]}: {errs}")
         outs = [torch.load(f"{scratch}/out{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+        pipe_outs = [torch.load(f"{scratch}/pipe_out{r}.pt", weights_only=False)
+                     for r in range(DIST_PIPE_WORLD)]
         ranks_s = time.perf_counter() - t0
+        # each rank's clock from the spawn: entered, in its world, done
+        clocks = {f"{tag}{o['rank']}": {k: round(v - spawned, 3) for k, v in o["clock"].items()}
+                  for tag, group in (("", outs), ("pipe_", pipe_outs)) for o in group}
+        pipe_mesh = pipe_mesh_check(pipe_outs, outs[0]["d"]["train"], card)
 
         # (b) elastic restore: the 2-rank int8 checkpoint onto one process
         ckdir = outs[0]["b"]["checkpoint"]
@@ -4031,12 +4283,12 @@ def dist_phase(dev, card) -> dict:
         stdout = Path(f"{scratch}/launcher.out").read_text()
         stderr = Path(f"{scratch}/launcher.err").read_text()
         out_lines = stdout.strip().splitlines()
-        line("dist", part="e", argv=argv, returncode=launcher.returncode,
+        line("dist", part="f", argv=argv, returncode=launcher.returncode,
              seconds_since_start=time.perf_counter() - t0, stdout=out_lines[-4:],
              stderr_tail=stderr.strip().splitlines()[-5:], card=card)
         check(launcher.returncode == 0 and any("mesh=1x1 backend=" in ln for ln in out_lines)
               and any("done at step 7" in ln for ln in out_lines),
-              f"dist (e): --mesh auto launcher: {stdout[-2000:]} {stderr[-2000:]}")
+              f"dist (f): --mesh auto launcher: {stdout[-2000:]} {stderr[-2000:]}")
     finally:
         if launcher is not None and launcher.poll() is None:
             launcher.kill()
@@ -4044,15 +4296,19 @@ def dist_phase(dev, card) -> dict:
         shutil.rmtree(scratch, ignore_errors=True)
     a = [o["a"] for o in outs]
     line("dist", part="summary", world=DIST_WORLD, backend=outs[0]["backend"],
-         ranks_s=ranks_s, grad_max_rel_err_vs_one_process=max(r["grad_max_rel_err_vs_one_process"]
-                                                              for r in a),
+         ranks_s=ranks_s, rank_seconds={o["rank"]: o["seconds"] for o in outs},
+         rank_clocks_from_spawn=clocks,
+         grad_max_rel_err_vs_one_process=max(r["grad_max_rel_err_vs_one_process"] for r in a),
          overlapped_vs_trailing=max(r["overlapped_vs_trailing_max_rel_err"] for r in a),
          bitwise_repeatable=all(r["bitwise_repeatable"] for r in a),
          wire_bytes={m: a[0]["wire"][m] for m in a[0]["wire"]},
          sharded_serving={k: outs[0]["c"][k] for k in ("log_prob_bitwise", "sample_bitwise",
                                                        "log_prob_max_rel_err",
                                                        "sample_max_err_of_scale")},
-         note="two ranks share one card: correctness and wire bytes, not scaling", card=card)
+         pipeline_mesh={k: pipe_mesh[k] for k in (
+             "replicas_bitwise", "loss_max_rel_err_vs_one_axis", "param_max_rel_err_vs_one_axis",
+             "bitwise_vs_one_axis")},
+         note="ranks share one card: correctness and wire bytes, not scaling", card=card)
     return {"dp_step_per_rank": a[0]["dp_step_launches"],
             "sharded_log_prob_per_rank": outs[0]["c"]["log_prob_launches"],
             "sharded_sample_per_rank": outs[0]["c"]["sample_launches"]}
@@ -4083,6 +4339,7 @@ def mesh_rank(rank: int, world: int, scratch: str):
 
     import torch
 
+    entered = time.time()
     sys.path.insert(0, str(ROOT / "src"))
     try:
         torch.set_num_threads(2)
@@ -4974,6 +5231,9 @@ def time_flow_kernels(dev) -> dict:
 
 
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5003,7 +5263,16 @@ def main() -> int:
     def mark(phase: str):
         """Print the seconds the phase took since the previous mark."""
         marks.append(time.perf_counter())
+        laps.append(marks[-1])
         line("seconds", of=phase, seconds=round(marks[-1] - marks[-2], 3))
+
+    laps = [marks[0]]
+
+    def lap(part: str):
+        """Print the seconds a part of a phase took since the previous lap or
+        mark (``[seconds-part]``; the phase's ``[seconds]`` line holds it)."""
+        laps.append(time.perf_counter())
+        line("seconds-part", of=part, seconds=round(laps[-1] - laps[-2], 3))
 
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -5127,13 +5396,18 @@ def main() -> int:
         check(err_ld <= TOL_LD_REL, f"tile path ld {dtype}: {err_ld}")
         line("kernels", shape=list(SHAPES[-1]), dtype=str(dtype).removeprefix("torch."),
              path="tile", fwd_max_abs_err=err_y, inv_max_abs_err=err_x, ld_max_rel_err=err_ld)
+    lap("kernels: flowstep")
     max_err.update(check_bwd_kernels(dev))
     max_err.update(check_unrolled_kernels(dev))
+    lap("kernels: backward and unrolled")
     attn_errs = check_attention_kernel(dev)
     max_err["flash_attention"] = attn_errs[(ATTN_SHAPES[3], "bfloat16")]
+    lap("kernels: attention checks")
     attn_times = time_attention(dev)
+    lap("kernels: attention times")
     max_err.update(check_scan_kernels(dev))
     check_kernel_guards(dev)
+    lap("kernels: scan checks and guards")
     scan_times = time_scans(dev)
     mark("kernels")
 
@@ -5206,14 +5480,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("chint")
 
-    # 5c. the zoo and the UQ layer: RealNVP, hyperbolic, scenarios, launchers
-    uq = uq_phase(dev, card)
+    # 5d. the examples, the port's entry points; then 5c. the zoo and the UQ
+    # layer (RealNVP, hyperbolic, scenarios, launchers), on 5d's seismic run
+    ex_scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    try:
+        examples = examples_phase(dev, card, ex_scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("examples")
+        uq = uq_phase(dev, card, examples["seismic"])
+    finally:
+        shutil.rmtree(ex_scratch, ignore_errors=True)
+    del examples["seismic"]
     gc.collect()
     torch.cuda.empty_cache()
     mark("uq")
 
     # 7. times -----------------------------------------------------------------
     per_shape = time_flow_kernels(dev)
+    lap("times: flow kernels")
 
     gen = torch.Generator().manual_seed(SEED + 4)
 
@@ -5236,7 +5521,8 @@ def main() -> int:
             ("GLOW_COUPLED", "log_prob", lambda: c_engine.log_prob(coupled["x"])),
             ("GLOW_COUPLED", "sample", lambda: c_engine.sample(gen, coupled["like"])),
             ("GLOW_COUPLED", "train_step", train_step_of(coupled_train))):
-        median, runs_ms = e2e_wall_ms(fn)
+        # 9 calls each (15 until the examples needed the time)
+        median, runs_ms = e2e_wall_ms(fn, reps=9)
         q = sorted(runs_ms)
         line("times", model=model, e2e=what, batch=BATCH, median_ms=median, q1_ms=q[len(q) // 4],
              q3_ms=q[(3 * len(q)) // 4], runs_ms=runs_ms,
@@ -5279,14 +5565,19 @@ def main() -> int:
 
     # 11. LM training: card against CPU, full size, memory, launcher, guard
     lm_train_vs_cpu(dev, card)
+    lap("lm-train (a)")
     lm_train_flash_per_step, lm_train_peaks = lm_train_full(dev, card)
+    lap("lm-train (b)")
     lm_train_memory(dev, card)
+    lap("lm-train (c)")
     lm_train_launcher(dev, card)
     mark("lm-train")
 
     # 11, continued: rwkv6-7b and zamba2-7b trained through their plain scans
     ssm_train_vs_cpu(dev, card)
+    lap("ssm-train (ssm-a)")
     ssm_train_restart(dev, card)
+    lap("ssm-train (ssm-b)")
     ssm_train_memory(dev, card)
     mark("ssm-train")
 
@@ -5354,6 +5645,9 @@ def main() -> int:
             "ms_from": main["ms_from"]["ms"], "path": main.get("path"),
             "by_path": by_path(name, timed_as.get(name, name)),
         })
+        # phase 5d: the launches of each example's main on the card
+        kernels[-1]["examples_launches"] = {what: n[name] for what, n in
+                                            examples["launches"].items() if n.get(name)}
         if name == "flash_attention":
             # the LM serving paths of phase 10 and LM training (phase 11)
             # attend through the einsum path, as the reference's model does

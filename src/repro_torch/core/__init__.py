@@ -1,5 +1,10 @@
 from repro_torch.core.actnorm import ActNorm
-from repro_torch.core.autodiff import make_chain_apply, make_scan_apply, value_and_grad_nll
+from repro_torch.core.autodiff import (
+    GRAD_MODES,
+    make_chain_apply,
+    make_scan_apply,
+    value_and_grad_nll,
+)
 from repro_torch.core.chain import InvertibleChain, OnFirst, Pack, Split
 from repro_torch.core.conditional import ConditionalFlow, SummaryMLP, build_chint
 from repro_torch.core.conv1x1 import Conv1x1
@@ -20,9 +25,9 @@ from repro_torch.core.realnvp import build_realnvp
 from repro_torch.core.types import Invertible, share_parameters
 
 __all__ = [
-    "ActNorm", "AffineCoupling", "ConditionalFlow", "Conv1x1", "GlowStepStack", "HINTCoupling",
-    "HaarSqueeze", "HyperbolicLayer", "Invertible", "InvertibleChain", "OnFirst", "Pack",
-    "Split", "Squeeze", "SummaryMLP", "amortized_vi_loss", "build_chint", "build_glow",
+    "ActNorm", "AffineCoupling", "ConditionalFlow", "Conv1x1", "GRAD_MODES", "GlowStepStack",
+    "HINTCoupling", "HaarSqueeze", "HyperbolicLayer", "Invertible", "InvertibleChain", "OnFirst",
+    "Pack", "Split", "Squeeze", "SummaryMLP", "amortized_vi_loss", "build_chint", "build_glow",
     "build_glow_scanned", "build_hyperbolic", "build_realnvp", "derive_key", "flatten_state",
     "make_chain_apply", "make_scan_apply", "nll_bits_per_dim", "nll_loss", "resolve_coupled_bwd",
     "share_parameters", "std_normal_logpdf", "std_normal_sample", "value_and_grad_nll",

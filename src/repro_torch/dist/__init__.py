@@ -16,8 +16,8 @@
 * :mod:`repro_torch.dist.step` - the data-parallel training step (overlapped
   or trailing reduction, or error-feedback compression before the wire) and
   the model-sharded step;
-* :mod:`repro_torch.dist.pipeline` - the GPipe schedule over a ``("pipe",)``
-  mesh.
+* :mod:`repro_torch.dist.pipeline` - the GPipe schedule over the ``pipe``
+  axis of a mesh, replicated over its other axes.
 
 One process per rank; a mesh is a ``torch.distributed.device_mesh.
 DeviceMesh`` (``launch/mesh.py``).  Parameters are plain local tensors and
@@ -31,12 +31,21 @@ device through ``comm``'s dry route.
 from repro_torch.dist import comm, flow, model, pipeline, sharding, step
 from repro_torch.dist.flow import dp_value_and_grad_nll, gather_batch, shard_batch
 from repro_torch.dist.pipeline import pipeline_forward, pipeline_stage_fn
-from repro_torch.dist.sharding import batch_pspecs, batch_sharding, data_axis_names
+from repro_torch.dist.sharding import (
+    batch_pspecs,
+    batch_sharding,
+    cache_pspecs,
+    data_axis_names,
+    layer_slice_pspecs,
+    opt_pspecs,
+    params_pspecs,
+)
 from repro_torch.dist.step import dp_axis, dp_size, is_pure_dp, make_dp_train_step
 
 __all__ = [
     "batch_pspecs",
     "batch_sharding",
+    "cache_pspecs",
     "comm",
     "data_axis_names",
     "dp_axis",
@@ -45,8 +54,11 @@ __all__ = [
     "flow",
     "gather_batch",
     "is_pure_dp",
+    "layer_slice_pspecs",
     "make_dp_train_step",
     "model",
+    "opt_pspecs",
+    "params_pspecs",
     "pipeline",
     "pipeline_forward",
     "pipeline_stage_fn",

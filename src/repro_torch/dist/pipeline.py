@@ -1,13 +1,19 @@
 """Microbatched pipeline parallelism (GPipe) over stage-stacked parameters,
 the port of the reference's ``dist/pipeline.py``.
 
-The mesh has one axis (``("pipe",)``) of ``S`` ranks, one process each;
-rank ``s`` holds stage ``s``'s slice of the stage-stacked parameters.  With
-``M`` microbatches the schedule runs ``M + S - 1`` ticks: at tick ``t``
-stage ``s`` works on microbatch ``t - s`` when there is one, taking it from
-the input (stage 0) or from stage ``s - 1``, and handing its output to
-stage ``s + 1``; the first and last ticks of each stage are the bubble.  The
-forward equals all ``S * L`` blocks applied in sequence on one device.
+The schedule runs along one axis of the mesh (``"pipe"``, of ``S`` ranks,
+one process each); rank ``s`` along it holds stage ``s``'s slice of the
+stage-stacked parameters.  On a mesh with other axes (``("pipe", "data")``,
+``("data", "pipe")``, ...) each rank runs the schedule with the ranks of its
+own pipe group, those that share its coordinates on the other axes, and
+every such group computes the same outputs: the schedule is replicated over
+the other axes, as the reference's ``shard_map`` with ``in_specs=(P(axis),
+P())`` replicates it.  With ``M`` microbatches the schedule runs ``M + S -
+1`` ticks: at tick ``t`` stage ``s`` works on microbatch ``t - s`` when there
+is one, taking it from the input (stage 0) or from stage ``s - 1``, and
+handing its output to stage ``s + 1``; the first and last ticks of each
+stage are the bubble.  The forward equals all ``S * L`` blocks applied in
+sequence on one device.
 
 It is differentiable.  The hand-off is an ``autograd.Function`` pair: the
 receiving side's backward sends the gradient upstream and the sending
@@ -79,8 +85,9 @@ class _Send(torch.autograd.Function):
 
 
 class _Replicate(torch.autograd.Function):
-    """Sum over the axis (every rank gets the last stage's outputs); the
-    backward passes the gradient through (see the module docstring)."""
+    """Sum over the pipe group (each of its ranks gets the last stage's
+    outputs); the backward passes the gradient through (see the module
+    docstring)."""
 
     @staticmethod
     def forward(ctx, outs, group):
@@ -93,9 +100,20 @@ class _Replicate(torch.autograd.Function):
         return g, None
 
 
+def pipe_ranks(mesh, axis: str = "pipe") -> list[int]:
+    """The global ranks of this rank's group along ``axis``, in the order of
+    their coordinate on it: the ranks that share this rank's coordinates on
+    every other axis of the mesh."""
+    dim = mesh.mesh_dim_names.index(axis)
+    index = list(mesh.get_coordinate())
+    index[dim] = slice(None)
+    return mesh.mesh.cpu()[tuple(index)].tolist()
+
+
 def pipeline_forward(stage_fn: Callable, stage_params: dict, x: torch.Tensor, mesh,
                      axis: str = "pipe") -> torch.Tensor:
-    """Run ``x`` through ``S`` pipeline stages over ``mesh[axis]``.
+    """Run ``x`` through ``S`` pipeline stages over ``mesh[axis]``, on the
+    pipe group of this rank's coordinates on the mesh's other axes.
 
     ``stage_params``: this rank's stage slice (``stage_fn``'s parameters;
     the reference hands the whole stage-stacked tree to ``shard_map``, which
@@ -103,13 +121,9 @@ def pipeline_forward(stage_fn: Callable, stage_params: dict, x: torch.Tensor, me
     on every rank.  Returns the ``(M, microbatch, ...)`` outputs after all
     stages, replicated on every rank; the output's shape and dtype are the
     input's, as in the reference's schedule."""
-    names = mesh.mesh_dim_names
-    n_stages = mesh.size(names.index(axis))
-    idx = mesh.get_local_rank(axis)
+    ranks = pipe_ranks(mesh, axis)
+    n_stages, idx = len(ranks), mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
-    ranks = mesh.mesh.reshape(-1).tolist() if len(names) == 1 else None
-    if ranks is None:
-        raise NotImplementedError("pipeline_forward takes a one-axis ('pipe',) mesh")
     n_micro = x.shape[0]
     anchor = torch.zeros((), device=x.device, requires_grad=True)
     trained = [v for v in stage_params.values() if v.requires_grad]

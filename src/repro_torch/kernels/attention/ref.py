@@ -30,8 +30,11 @@ def attention_ref(q, k, v, causal: bool = True):
         pos_q = torch.arange(sq, device=q.device)
         pos_k = torch.arange(skv, device=q.device)
         s = torch.where(pos_q[:, None] >= pos_k[None, :], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    # one softmax kernel, each row whole: on an x86 CPU an elementwise
+    # torch.exp split over worker threads can come out up to 1.5e-4 off in
+    # one thread's chunk on its first call (MKL's exp), so the result moved
+    # with the threads' timing
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
 

@@ -8,8 +8,8 @@ asynchronous input pipeline, under four front-ends:
 * ``train_flow(flow, ...)`` - flow NLL training (the paper's native path);
 * ``train_conditional_flow(model, ...)`` - amortized posterior training of a
   ``ConditionalFlow``;
-* ``train_pipeline(...)`` - opt-in GPipe depth parallelism over a
-  ``("pipe",)`` mesh.
+* ``train_pipeline(...)`` - opt-in GPipe depth parallelism over a mesh's
+  ``pipe`` axis, replicated over its other axes.
 
 Each step takes ``data.batch_at(step)``, the loss and its gradient (through
 the flow's ``grad_mode`` engine; averaged over ``cfg.accum_steps``
@@ -229,10 +229,13 @@ def _supervised_loop(
     injector: Optional[FailureInjector] = None,
     vjp_psum_axis: str | None = None,
     step_fn: Callable | None = None,
+    shard_rows: bool = True,
 ) -> TrainResult:
     """Train ``module``'s parameters in place for ``cfg.steps`` steps.
     ``objective(batch) -> (loss, aux)`` is the mean loss over the batch it
-    is given; ``data_fn(step)`` is the step's whole batch on the host.
+    is given; ``data_fn(step)`` is the step's whole batch on the host, of
+    which each rank takes its rows over the mesh's data axes unless
+    ``shard_rows`` is off (every rank then takes the whole batch).
     ``step_fn`` (``train_pipeline``'s) replaces the step :func:`_make_step`
     builds."""
     params = dict(module.named_parameters())
@@ -249,7 +252,7 @@ def _supervised_loop(
     def batch_fn(step: int):
         # the whole batch, then this rank's rows: built in the prefetch
         # thread, the same on every rank
-        return shard_batch(data_fn(step), mesh)
+        return shard_batch(data_fn(step), mesh) if shard_rows else data_fn(step)
 
     # cooperative preemption: checkpoint on SIGTERM, then stop cleanly
     preempted = {"flag": False}
@@ -434,8 +437,13 @@ def train_pipeline(block_apply: Callable, init_fn: Callable, data, cfg: TrainCon
     Every rank holds the whole tree (replicated, so the loop's AdamW and
     checkpoints are the one-process ones); stage ``s`` reads only its slice
     ``stages[s]``, so its gradient has only that row, and the rows are
-    summed over the axis before the update.  Returns the rank's
-    ``TrainResult``, the same on every rank."""
+    summed over the pipe group before the update.  On a mesh with other
+    axes (a ``data`` axis beside ``pipe``) every pipe group takes the whole
+    batch, as the reference's ``shard_map`` hands it to each with ``P()``:
+    the groups compute the same loss, gradients and update, so the
+    parameters stay bitwise equal across them with no collective over the
+    other axes.  Returns the rank's ``TrainResult``, the same on every
+    rank."""
     from repro_torch.dist.pipeline import pipeline_forward, pipeline_stage_fn
 
     dev = resolve_device(device)
@@ -444,7 +452,9 @@ def train_pipeline(block_apply: Callable, init_fn: Callable, data, cfg: TrainCon
         raise ValueError("train_pipeline needs cfg.pipeline_microbatches > 0")
     if mesh is None or cfg.pipeline_axis not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"train_pipeline needs a mesh with a {cfg.pipeline_axis!r} axis")
-    _dp_fast_path(mesh, cfg)  # compression needs a pure data-parallel mesh: raises
+    if cfg.grad_compression != "none":
+        raise ValueError("grad_compression requires a pure data-parallel mesh (or none): "
+                         "train_pipeline sums its stage gradients uncompressed")
     module = ParamTree(init_fn()).to(dev).train()
     stage = pipeline_stage_fn(block_apply, n_layers_per_stage)
     idx = mesh.get_local_rank(cfg.pipeline_axis)
@@ -471,8 +481,8 @@ def train_pipeline(block_apply: Callable, init_fn: Callable, data, cfg: TrainCon
 
     def step_fn(state, batch, step: int):
         loss, grads = accumulate_grads(value_and_grad, batch, n_acc)
-        # each stage's gradient lives in its own row: the sum over the axis
-        # is the whole stage-stacked gradient on every rank
+        # each stage's gradient lives in its own row: the sum over the pipe
+        # group is the whole stage-stacked gradient on every rank
         for name, g in grads.items():
             if name.startswith("stages."):
                 comm.all_reduce(g, group)
@@ -481,7 +491,7 @@ def train_pipeline(block_apply: Callable, init_fn: Callable, data, cfg: TrainCon
         return {"opt": opt, "err": state["err"]}, {"loss": loss, "lr": lr, **om}
 
     return _supervised_loop(objective, module, data.batch_at, cfg, device=dev, mesh=mesh,
-                            injector=injector, step_fn=step_fn)
+                            injector=injector, step_fn=step_fn, shard_rows=False)
 
 
 def objective_value_and_grad(module, objective: Callable) -> Callable:

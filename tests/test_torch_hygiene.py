@@ -22,7 +22,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 torch.set_num_threads(2)
 
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def test_port_runs_without_loading_jax():

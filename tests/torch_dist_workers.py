@@ -246,6 +246,53 @@ def train_pipeline_run(rank, world, tmp, init, xs, ys, cfg_kw, n_layers):
             "params": {k: v.numpy() for k, v in res.params.items()}}
 
 
+def pipeline_on_mesh(rank, world, tmp, shape, axes, w, b, x, gy, init, xs, ys, cfg_kw,
+                     n_layers):
+    """On a mesh of ``shape`` over ``axes`` (one of them ``"pipe"``):
+    ``pipeline_forward`` of tanh blocks and its gradient against ``gy`` (this
+    stage's ``w``, ``b`` and, on stage 0, ``x`` gradients), ``train_pipeline``
+    with a linear head, and the error ``train_pipeline`` raises on a
+    ``("data", "model")`` mesh of the same ranks."""
+    from repro_torch.bridge import torch_tree
+    from repro_torch.config import TrainConfig
+    from repro_torch.dist import pipeline_forward, pipeline_stage_fn
+    from repro_torch.launch.mesh import make_auto_mesh
+    from repro_torch.train.loop import train_pipeline
+
+    def block(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = make_auto_mesh(tuple(shape), tuple(axes), device_type="cpu")
+    s = mesh.get_local_rank("pipe")
+    wl = torch.from_numpy(w[s]).requires_grad_()
+    bl = torch.from_numpy(b[s]).requires_grad_()
+    xt = torch.from_numpy(x).requires_grad_()
+    out = pipeline_forward(pipeline_stage_fn(block, n_layers), {"w": wl, "b": bl}, xt, mesh)
+    gw, gb, gx = torch.autograd.grad(out, [wl, bl, xt], torch.from_numpy(gy),
+                                     allow_unused=True)
+
+    cfg = TrainConfig(**cfg_kw, checkpoint_dir=os.path.join(tmp, "ck"))
+    res = train_pipeline(block, lambda: torch_tree(init), _RegressionData(xs, ys), cfg,
+                         mesh=mesh, loss_head=lambda p, h, batch: torch.mean(
+                             (h @ p["head"] - batch["y"]) ** 2),
+                         n_layers_per_stage=n_layers, device="cpu")
+    no_pipe = make_auto_mesh((world // 2, 2), ("data", "model"), device_type="cpu")
+    try:
+        train_pipeline(block, lambda: torch_tree(init), _RegressionData(xs, ys), cfg,
+                       mesh=no_pipe, loss_head=lambda p, h, batch: h.sum(),
+                       n_layers_per_stage=n_layers, device="cpu")
+        no_pipe_error = None
+    except ValueError as e:
+        no_pipe_error = str(e)
+    return {"coord": {a: mesh.get_local_rank(a) for a in axes}, "stage": s,
+            "out": out.detach().numpy(), "gw": gw.numpy(), "gb": gb.numpy(),
+            "gx": None if gx is None else gx.numpy(), "losses": res.losses,
+            "final_step": res.final_step,
+            "params": {k: v.numpy() for k, v in res.params.items()},
+            "checkpoints": sorted(os.listdir(os.path.join(tmp, "ck"))),
+            "no_pipe_error": no_pipe_error}
+
+
 def serve_flow(rank, world, tmp, build_kw, tree, x, seed):
     """``FlowServeEngine(mesh=...)``'s ``log_prob`` of ``x`` and ``sample``
     from a generator seeded ``seed``."""
